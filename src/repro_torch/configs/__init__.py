@@ -1,0 +1,13 @@
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ArchConfig,
+    AttnConfig,
+    FrontendConfig,
+    MoEConfig,
+    QuantConfig,
+    SSMConfig,
+    ShapeSpec,
+    StackConfig,
+    applicable_shapes,
+)
+from repro_torch.configs.registry import ARCH_NAMES, get_arch, reduced  # noqa: F401

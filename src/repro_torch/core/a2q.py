@@ -1,0 +1,117 @@
+"""A2Q: accumulator-aware quantization (paper Section 4, Eq. 16-23).
+
+The weight quantizer is reparameterized with l1 weight normalization::
+
+    w_i = g_i * v_i / ||v_i||_1        (per output channel i, Eq. 17)
+
+with exponential parameterizations ``s = 2**d`` (scale) and ``g = 2**min(T, t)``
+(norm), where ``d`` and ``t`` are learned log-scale parameters and
+
+    T = 1_signed(x) + log2(2**(P-1) - 1) + d - N                      (Eq. 23)
+
+caps the learned norm so the *integer* weights provably satisfy the per-channel
+l1 budget (Eq. 15)::
+
+    ||w_int||_1 <= (2**(P-1) - 1) * 2**(1_signed(x) - N)
+
+Rounding is toward zero, so rounding never pushes the integer l1 norm past the
+budget and every partial sum against N-bit inputs fits a P-bit accumulator.
+
+Weights are stored ``(K, C_out)``: each output channel (each accumulator) is a
+column, as in ``repro.core.a2q``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bounds import int_range
+from repro_torch.core.quantizers import clip, ste_round_to_zero
+
+__all__ = [
+    "a2q_norm_cap",
+    "init_a2q",
+    "apply_a2q",
+    "a2q_int_weights",
+    "a2q_penalty",
+    "a2q_channel_l1",
+]
+
+_EPS = 1e-12
+
+
+def a2q_norm_cap(d: torch.Tensor, acc_bits: int, input_bits: int, input_signed: bool) -> torch.Tensor:
+    """Eq. 23: ``T = 1_signed(x) + log2(2**(P-1) - 1) + d - N`` (per channel)."""
+    log2_amax = torch.log2(torch.tensor(2.0 ** (acc_bits - 1) - 1.0, dtype=d.dtype, device=d.device))
+    return int(input_signed) + log2_amax + d - input_bits
+
+
+def _channel_sum(w: torch.Tensor) -> torch.Tensor:
+    return w.reshape(-1, w.shape[-1]).sum(0)
+
+
+def init_a2q(w: torch.Tensor, bits: int, acc_bits: int, input_bits: int, input_signed: bool) -> dict:
+    """Initialize (v, t, d) from a float weight tensor (last axis = output
+    channel): ``v`` starts at the weights, ``d`` at the max-abs scale,
+    ``t = log2 ||w||_1`` clamped to the cap ``T``.  When the Eq. 15 budget
+    ``B`` is below the fan-in, only the top-``floor(B)`` magnitudes of each
+    channel are kept (they are all an integer channel can hold), so the
+    layer is not born with every weight truncated to zero."""
+    pmax = float(2 ** (bits - 1) - 1)
+    K = w[..., 0].numel()
+    budget = (2.0 ** (acc_bits - 1) - 1.0) * 2.0 ** (int(input_signed) - input_bits)
+    m = int(budget)
+    if 0 < m < K:
+        flat = w.reshape(K, w.shape[-1]).abs()
+        kth = torch.topk(flat, m, dim=0).values[m - 1]  # m-th largest |w| per channel
+        keep = flat >= torch.clamp_min(kth, 1e-12)[None, :]
+        w = (w.reshape(K, -1) * keep).reshape(w.shape)
+    absmax = torch.clamp_min(w.reshape(-1, w.shape[-1]).abs().amax(0), 1e-8)
+    l1 = torch.clamp_min(_channel_sum(w.abs()), 1e-8)
+    d = torch.log2(absmax / pmax).to(torch.float32)
+    T = a2q_norm_cap(d, acc_bits, input_bits, input_signed)
+    t = torch.minimum(torch.log2(l1).to(torch.float32), T)
+    return {"v": w.to(torch.float32), "t": t, "d": d}
+
+
+def _effective_gs(params: dict, acc_bits: int, input_bits: int, input_signed: bool):
+    """(g/s ratio, s) with the norm cap applied — shared by train + int paths."""
+    d, t = params["d"], params["t"]
+    T = a2q_norm_cap(d, acc_bits, input_bits, input_signed)
+    t_eff = torch.minimum(t, T)  # g = 2**min(t, T)   (Eq. 22)
+    return torch.exp2(t_eff - d), torch.exp2(d)
+
+
+def apply_a2q(params: dict, bits: int, acc_bits: int, input_bits: int, input_signed: bool,
+              dtype=torch.float32) -> torch.Tensor:
+    """Eq. 20: ``q(w; s) = clip(rtz(g/s * v/||v||_1); n, p) * s`` (fake-quant).
+    STE through rtz, clipped-STE through clip; gradients reach v, t and d."""
+    v = params["v"]
+    n, p = int_range(bits, signed=True)
+    g_over_s, s = _effective_gs(params, acc_bits, input_bits, input_signed)
+    l1_v = torch.clamp_min(_channel_sum(v.abs()), _EPS)
+    q = clip(ste_round_to_zero(g_over_s * v / l1_v), n, p)
+    return (q * s).to(dtype)
+
+
+def a2q_int_weights(params: dict, bits: int, acc_bits: int, input_bits: int, input_signed: bool):
+    """(integer weights as floats, per-channel scale) — the deployable
+    artifacts; ``||w_int||_1 <= g/s <= (2**(P-1)-1) * 2**(1_signed - N)``."""
+    v = params["v"]
+    n, p = int_range(bits, signed=True)
+    g_over_s, s = _effective_gs(params, acc_bits, input_bits, input_signed)
+    l1_v = torch.clamp_min(_channel_sum(v.abs()), _EPS)
+    q = clip(torch.trunc(g_over_s * v / l1_v), n, p)
+    return q, s
+
+
+def a2q_penalty(params: dict, acc_bits: int, input_bits: int, input_signed: bool) -> torch.Tensor:
+    """Per-layer regularizer ``R_l = sum_i max(t_i - T_i, 0)`` (Sec. 4.1)."""
+    T = a2q_norm_cap(params["d"], acc_bits, input_bits, input_signed)
+    return torch.clamp_min(params["t"] - T, 0.0).sum()
+
+
+def a2q_channel_l1(params: dict, bits: int, acc_bits: int, input_bits: int, input_signed: bool):
+    """Per-channel l1 norm of the *integer* weights."""
+    q, _ = a2q_int_weights(params, bits, acc_bits, input_bits, input_signed)
+    return _channel_sum(q.abs())

@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/``), their plain PyTorch
+versions, public wrappers (ops.py) and PyTorch oracles (ref.py).  Layers
+import from ops."""
+
+from repro_torch.kernels.ops import int_matmul, paged_attention  # noqa: F401

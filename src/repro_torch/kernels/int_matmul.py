@@ -1,0 +1,116 @@
+"""int8 x int8 -> int32 matmul with P-bit accumulator emulation and the fused
+W8A8 epilogue: the CUDA kernel (``csrc/int_matmul.cu``) and its plain PyTorch
+version.
+
+Port of the Pallas kernel ``repro.kernels.int_matmul`` (``int_matmul_kernel``
+/ ``int_matmul_pallas``): the core GEMM with ``exact`` / ``wrap`` /
+``saturate`` carry per reference K-tile, the optional int16 carry that the
+A2Q bound makes lossless for ``acc_bits <= 16``, and the fused epilogue
+``(acc + offset) * scale (+ bias)``.  The requantizing epilogue and the
+quantizing prologue (int8-out chaining) are not ported yet.
+
+Both versions replay the carry at the reference's K-tile boundaries
+``block_k`` (the public wrapper passes ``min(512, round_up(K, 128))``), so
+they agree bit for bit with each other and with ``repro.kernels.ref``.
+``kernels/ops.int_matmul`` picks one by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.ref import exact_product, saturate_bits, wrap_bits
+
+__all__ = ["MODES", "int_matmul_plain", "int_matmul_cuda"]
+
+MODES = {"exact": 0, "wrap": 1, "saturate": 2}
+
+
+def int_matmul_plain(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
+                     mode: str = "exact", block_k: int, spill_int16: bool = False):
+    """The kernel's arithmetic in PyTorch, on any device: one exact int64
+    partial per ``block_k`` K-tile, folded into the carry in tile order as
+    the Pallas body does (``carried + tile``, the mode's wrap or clip, then
+    the int16 store when ``spill_int16``), then the epilogue."""
+    K = x.shape[1]
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int64, device=x.device)
+    for lo in range(0, K, block_k):
+        acc = wrap_bits(acc + exact_product(x[:, lo:lo + block_k], w[lo:lo + block_k]), 32)
+        if mode == "wrap":
+            acc = wrap_bits(acc, acc_bits)
+        elif mode == "saturate":
+            acc = saturate_bits(acc, acc_bits)
+        if spill_int16:
+            acc = wrap_bits(acc, 16)
+    if scale is None:
+        return acc.to(torch.int32)
+    if offset is not None:
+        acc = wrap_bits(acc + offset.to(torch.int64)[None, :], 32)
+    out = acc.to(torch.float32) * scale[None, :]
+    if bias is not None:
+        out = out + bias[None, :]
+    return out
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+@functools.cache
+def _bind():
+    from repro_torch.kernels._build import load
+
+    fn = load("int_matmul").int_matmul_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 6
+    return fn
+
+
+def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
+                    mode: str = "exact", block_k: int, spill_int16: bool = False):
+    """Launch the CUDA kernel on the current stream.  ``x (M, K)`` and
+    ``w (K, N)`` are contiguous int8 on one CUDA device; ``scale``/``bias``
+    fp32 and ``offset`` int32 are ``(N,)``; ``block_k`` is a positive multiple
+    of 64.  Returns fp32 ``(M, N)`` with ``scale``, else int32.  Every launch
+    adds one to ``int_matmul_cuda.launches``."""
+    M, K = x.shape
+    N = w.shape[1]
+    dev = x.device
+    for name, t, dt, shape in (("x", x, torch.int8, (M, K)), ("w", w, torch.int8, (K, N)),
+                               ("scale", scale, torch.float32, (N,)),
+                               ("bias", bias, torch.float32, (N,)),
+                               ("offset", offset, torch.int32, (N,))):
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"int_matmul_cuda: {name} must be a contiguous {dt} {shape} "
+                             f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"int_matmul_cuda needs CUDA tensors, got {dev}")
+    if block_k <= 0 or block_k % 64:
+        raise ValueError(f"int_matmul_cuda: block_k must be a positive multiple of 64, got {block_k}")
+    if (bias is not None or offset is not None) and scale is None:
+        raise ValueError("int_matmul_cuda: bias/offset need an epilogue scale")
+    out = torch.empty((M, N), dtype=torch.float32 if scale is not None else torch.int32, device=dev)
+    if M == 0 or N == 0:
+        return out
+    launch = _bind()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(
+            _ptr(x), _ptr(w), M, N, K, block_k, MODES[mode], acc_bits, int(spill_int16),
+            _ptr(scale), _ptr(bias), _ptr(offset),
+            _ptr(out) if scale is not None else None, None if scale is not None else _ptr(out),
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"int_matmul kernel launch failed: cudaError {err}")
+    int_matmul_cuda.launches += 1
+    return out
+
+
+int_matmul_cuda.launches = 0

@@ -1,0 +1,135 @@
+"""Public wrappers around the port's kernels.
+
+Each op checks its arguments, derives the reference tile schedule, and runs
+the CUDA kernel for CUDA tensors or the plain PyTorch version for CPU
+tensors.  There is no fallback: a CUDA call launches its kernel or raises.
+Layers call these, never a kernel module directly; each op has an oracle in
+``ref.py`` that the tests hold it against.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
+from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+
+__all__ = ["int_matmul", "paged_attention", "int_matmul_block_k"]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def int_matmul_block_k(K: int, block_k: int = 512) -> int:
+    """The reference's K-tile for a ``K``-deep product (``repro.kernels.ops``
+    pads K to ``min(block_k, round_up(K, 128))`` multiples): the boundaries
+    at which ``saturate`` clips and the int16 carry is stored."""
+    return min(block_k, _round_up(max(K, 1), 128))
+
+
+def _vec(v, n: int, dtype, device) -> torch.Tensor:
+    """A scalar or ``(n,)`` epilogue operand as a contiguous ``(n,)`` tensor."""
+    return torch.as_tensor(v, dtype=dtype, device=device).broadcast_to((n,)).contiguous()
+
+
+def int_matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    acc_bits: int = 32,
+    mode: str = "exact",
+    scale=None,
+    bias=None,
+    offset=None,
+    out_scale=None,
+    aq_scale=None,
+    in_bits: int = 8,
+    in_signed: bool = True,
+    block_k: int = 512,
+    spill_int16: bool = False,
+) -> torch.Tensor:
+    """int8 x int8 -> int32 matmul ``(M, K) @ (K, N)`` with P-bit accumulator
+    emulation (``exact`` / ``wrap`` / ``saturate`` per K-tile of
+    ``min(block_k, round_up(K, 128))``, as ``repro.kernels.ops.int_matmul``
+    tiles it; zero padding to those tiles changes no result, so none is
+    materialised).
+
+    ``scale`` (scalar or ``(N,)`` fp32) engages the fused epilogue and the op
+    returns fp32 ``acc * scale (+ bias)``; without it the raw int32
+    accumulator.  ``in_signed=False, in_bits=8`` declares symmetrized
+    unsigned codes (``true_code - 128``): the flush adds ``128 * colsum(w)``.
+    ``spill_int16`` stores the carry as int16 between K-tiles, sound only
+    for ``acc_bits <= 16`` (the A2Q bound).  The requantizing epilogue
+    (``out_scale``) and quantizing prologue (``aq_scale``) are not ported
+    yet."""
+    if out_scale is not None or aq_scale is not None:
+        raise NotImplementedError("int_matmul: requant epilogue / quantizing prologue not ported yet")
+    if mode not in ("exact", "wrap", "saturate"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if spill_int16 and acc_bits > 16:
+        raise ValueError("int16 partial-sum spill is only sound when acc_bits <= 16 (A2Q bound)")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"int_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)} do not chain")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise ValueError(f"int_matmul: int8 operands expected, got {x.dtype}, {w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"int_matmul: x on {x.device}, w on {w.device}")
+    if bias is not None and scale is None:
+        raise ValueError("int_matmul: bias requires an epilogue scale")
+    K, N = w.shape
+    dev = x.device
+    if not in_signed and in_bits == 8:
+        # symmetrized unsigned operand: acc_true = acc_sym + 128 * colsum(w)
+        sym = 128 * w.to(torch.int32).sum(0, dtype=torch.int32)
+        offset = sym if offset is None else _vec(offset, N, torch.int32, dev) + sym
+    if offset is not None and scale is None:
+        raise ValueError("int_matmul: offset requires an epilogue scale")
+    if scale is not None:
+        scale = _vec(scale, N, torch.float32, dev)
+    if bias is not None:
+        bias = _vec(bias, N, torch.float32, dev)
+    if offset is not None:
+        offset = _vec(offset, N, torch.int32, dev)
+    kw = dict(acc_bits=acc_bits, mode=mode, block_k=int_matmul_block_k(K, block_k),
+              spill_int16=spill_int16)
+    if dev.type == "cpu":
+        return int_matmul_plain(x, w, scale, bias, offset, **kw)
+    return int_matmul_cuda(x.contiguous(), w.contiguous(), scale, bias, offset, **kw)
+
+
+def paged_attention(
+    q: torch.Tensor,
+    kp: torch.Tensor,
+    vp: torch.Tensor,
+    bt: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    kps: Optional[torch.Tensor] = None,
+    vps: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Paged-attention decode: one query token per row against block-table
+    K/V pools.  ``q (B, H, Dh)``, pools ``(NB, bs, KV, Dh)``, table
+    ``bt (B, MB)``, ``lengths (B,)`` counting valid tokens (including this
+    step's write).  Returns ``(B, H, Dh)`` in ``q``'s dtype.  Oracle:
+    ``ref.ref_paged_attention``.  ``window`` keeps keys at
+    ``kpos >= length - window``.  Integer pools (``kps``/``vps``) are not
+    ported yet."""
+    if (kps is None) != (vps is None):
+        raise ValueError("paged_attention: kps and vps must be given together")
+    if kps is not None or kp.dtype in (torch.int8, torch.uint8):
+        raise NotImplementedError("paged_attention: int8/int4 pools not ported yet")
+    if window is not None and window < 1:
+        raise ValueError("paged_attention: window must be >= 1")
+    if q.ndim != 3 or kp.ndim != 4 or q.shape[1] % kp.shape[2]:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} does not fit pools {tuple(kp.shape)}")
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, kp, vp, bt, lengths, scale=scale, window=window)
+    return paged_attention_cuda(
+        q.contiguous(), kp, vp, bt.to(torch.int32).contiguous(),
+        lengths.to(torch.int32).contiguous(), scale=scale, window=window,
+    )

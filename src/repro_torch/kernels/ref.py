@@ -1,0 +1,110 @@
+"""Plain PyTorch oracles for the port's kernels, twins of ``repro.kernels.ref``.
+
+Each ``ref_*`` function defines the semantics its CUDA kernel must match: bit
+for bit for the integer kernel, to float tolerance for attention.  They run on
+any device.  Integer products are taken in float64, which is exact here
+(``|x @ w| <= K * 2**14 < 2**53`` for any K below 2**39), because PyTorch has
+no general integer matmul on CUDA; the accumulator arithmetic then runs in
+int64.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "exact_product",
+    "wrap_bits",
+    "saturate_bits",
+    "ref_int_matmul",
+    "ref_int_matmul_fused",
+    "ref_paged_attention",
+]
+
+
+def wrap_bits(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """Two's-complement wrap of integer values into a ``bits``-wide register."""
+    if bits >= 64:
+        return v
+    half = 1 << (bits - 1)
+    return torch.remainder(v.to(torch.int64) + half, 1 << bits) - half
+
+
+def saturate_bits(v: torch.Tensor, bits: int) -> torch.Tensor:
+    if bits >= 32:
+        return v
+    return torch.clamp(v, -(1 << (bits - 1)), (1 << (bits - 1)) - 1)
+
+
+def exact_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(torch.int64)
+
+
+def ref_int_matmul(x: torch.Tensor, w: torch.Tensor, acc_bits: int = 32, mode: str = "exact",
+                   block_k: Optional[int] = None) -> torch.Tensor:
+    """Integer matmul ``(M, K) @ (K, N) -> int32`` with accumulator emulation:
+    ``exact`` (int32), ``wrap`` (P-bit two's complement; associative, so one
+    wrap of the exact result) or ``saturate`` (P-bit clip after each K-tile
+    of ``block_k``, in tile order)."""
+    if mode == "exact":
+        return wrap_bits(exact_product(x, w), 32).to(torch.int32)
+    if mode == "wrap":
+        return wrap_bits(exact_product(x, w), min(acc_bits, 32)).to(torch.int32)
+    if mode == "saturate":
+        K = x.shape[-1]
+        bk = block_k or K
+        acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int64, device=x.device)
+        for lo in range(0, K, bk):
+            hi = min(lo + bk, K)
+            acc = saturate_bits(acc + exact_product(x[:, lo:hi], w[lo:hi]), acc_bits)
+        return wrap_bits(acc, 32).to(torch.int32)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def ref_int_matmul_fused(x, w, scale, bias=None, acc_bits: int = 32, mode: str = "exact",
+                         block_k: Optional[int] = None, offset=None) -> torch.Tensor:
+    """The integer matmul, then ``(acc + offset) * scale (+ bias)`` in fp32:
+    one multiply and one add, each rounded, in that order."""
+    acc = ref_int_matmul(x, w, acc_bits=acc_bits, mode=mode, block_k=block_k)
+    if offset is not None:
+        acc = acc + torch.as_tensor(offset, dtype=torch.int32, device=acc.device).reshape(1, -1)
+    out = acc.to(torch.float32) * torch.as_tensor(scale, dtype=torch.float32, device=acc.device).reshape(1, -1)
+    if bias is not None:
+        out = out + torch.as_tensor(bias, dtype=torch.float32, device=acc.device).reshape(1, -1)
+    return out
+
+
+def ref_paged_attention(q, kp, vp, bt, lengths, scale: Optional[float] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Paged-attention decode oracle: gather each row's contiguous K/V view
+    through the block table, then dense fp32 softmax over the valid prefix.
+
+    ``q (B, H, Dh)``, pools ``(NB, bs, KV, Dh)``, ``bt (B, MB)``, ``lengths
+    (B,)`` counting this step's token.  Rows of length 0 give zeros; a
+    ``window`` keeps keys at ``kpos >= length - window``."""
+    B, H, Dh = q.shape
+    NB, bs, KV, _ = kp.shape
+    MB = bt.shape[1]
+    G = H // KV
+    if scale is None:
+        scale = Dh**-0.5
+    btl = bt.long()
+    k = kp[btl].reshape(B, MB * bs, KV, Dh).to(torch.float32)
+    v = vp[btl].reshape(B, MB * bs, KV, Dh).to(torch.float32)
+    qg = q.reshape(B, KV, G, Dh).to(torch.float32) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k)
+    kpos = torch.arange(MB * bs, device=q.device)[None, :]
+    lens = lengths.to(torch.int64)[:, None]
+    valid = kpos < lens
+    if window is not None:
+        valid &= kpos >= lens - window
+    vm = valid[:, None, None, :]
+    s = torch.where(vm, s, torch.full_like(s, -1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(vm, torch.exp(s - m), torch.zeros_like(s))
+    denom = p.sum(-1, keepdim=True)
+    p = torch.where(denom > 0.0, p / torch.clamp_min(denom, 1e-30), torch.zeros_like(p))
+    out = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return out.reshape(B, H, Dh).to(q.dtype)

@@ -1,0 +1,122 @@
+"""Serving launcher: the paged engine on random A2Q weights.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --paged --int-forward --decode-kernel --requests 8 --prompt-len 64 \\
+        --max-new 32 --batch 8 [--reduced] [--device cpu]
+
+Port of ``repro.launch.serve`` for the paged engine: ``--deploy-int8`` swaps
+the A2Q params for int8 weights + scales, ``--int-forward`` (implies it)
+runs the deployed linears through the fused W8A8 kernel, ``--decode-kernel``
+reads the paged KV pools through the paged-attention kernel.  ``--device``
+defaults to ``cuda``.  Throughput is reported split into prefill and decode.
+The reference's other flags are refused as not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch, reduced
+from repro_torch.models.lm import Runtime, init_lm
+from repro_torch.serve.engine import PagedServeEngine, deploy_params
+
+NOT_PORTED = (
+    "--int-chain", "--kv-int8", "--kv-bits", "--prefix-share", "--shared-prefix",
+    "--pin-prompt", "--spec-k", "--spec-draft", "--decode-steps", "--eos-id",
+    "--eos-auto", "--sample", "--temperature", "--top-k", "--parity-check",
+    "--parity-eps", "--trace", "--metrics-json",
+)
+
+
+def _report(tag: str, engine) -> dict:
+    tp = engine.throughput()
+    print(
+        f"[{tag}] prefill: {tp['prefill_tokens']} tok in {tp['prefill_s']:.2f}s "
+        f"({tp['prefill_tok_s']:.1f} tok/s) | decode: {tp['decode_tokens']} tok in "
+        f"{tp['decode_s']:.2f}s ({tp['decode_tok_s']:.1f} tok/s, "
+        f"{tp['decode_dispatches']} dispatches = "
+        f"{tp['dispatches_per_token']:.3f}/tok) | overall {tp['tok_s']:.1f} tok/s"
+    )
+    if "int_chain_requant_dispatches" in tp:
+        print(f"[{tag}] int-forward calls in the last forward: "
+              f"{tp['int_chain_requant_dispatches']} fused (own act-quant), "
+              f"{tp['int_chain_fallback']} fallback")
+    return tp
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--paged", action="store_true", help="serve via PagedServeEngine")
+    ap.add_argument("--deploy-int8", action="store_true")
+    ap.add_argument("--int-forward", action="store_true",
+                    help="fused W8A8 integer matmuls for deployed layers (implies --deploy-int8)")
+    ap.add_argument("--decode-kernel", action="store_true",
+                    help="route paged decode through the paged-attention kernel")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--block-size", type=int, default=16, help="paged KV tokens per block")
+    ap.add_argument("--prefill-chunk", type=int, default=32, help="prompt tokens per prefill call")
+    ap.add_argument("--num-blocks", type=int, default=None, help="paged KV pool size (blocks)")
+    ap.add_argument("--json", default=None, help="write the stats report to this path")
+    ap.add_argument("--seed", type=int, default=0)
+    given = list(sys.argv[1:] if argv is None else argv)
+    for flag in NOT_PORTED:
+        if any(a == flag or a.startswith(flag + "=") for a in given):
+            ap.error(f"{flag} is not ported yet")
+    args = ap.parse_args(given)
+    if not args.paged:
+        ap.error("the contiguous ServeEngine is not ported yet; add --paged")
+
+    arch = get_arch(args.arch)
+    if args.reduced:
+        arch = reduced(arch)
+    gen = torch.Generator().manual_seed(args.seed)
+    params = init_lm(gen, arch, device=args.device)
+    if args.int_forward:
+        args.deploy_int8 = True  # the W8A8 path consumes the deployed artifact
+    if args.deploy_int8:
+        params = deploy_params(params, arch.quant)
+        print("serving deployed int8 weights (A2Q-guaranteed accumulator safety)")
+    if args.int_forward:
+        print("int-forward: deployed linears run the fused W8A8 integer kernel")
+
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, arch.vocab, (args.prompt_len,)).astype(np.int32)
+               for _ in range(args.requests)]
+    engine = PagedServeEngine(
+        arch, params, batch=args.batch, max_seq=args.max_seq, block_size=args.block_size,
+        prefill_chunk=args.prefill_chunk, num_blocks=args.num_blocks, device=args.device,
+        rt=Runtime(decode_kernel=args.decode_kernel, int_forward=args.int_forward),
+    )
+    outs = engine.generate(prompts, max_new=args.max_new)
+    report = {"arch": args.arch, "paged": True, "int_forward": args.int_forward,
+              "decode_kernel": args.decode_kernel, "device": args.device,
+              "paged_engine": _report("paged", engine)}
+    cache = engine.cache
+    print(f"paged KV: peak {cache.peak_blocks} blocks "
+          f"({cache.peak_blocks * cache.block_size} tokens) of {cache.num_blocks - 1} "
+          f"(block_size={cache.block_size}); {cache.kv_bytes_per_token()} KV bytes/token")
+    report["paged_peak_blocks"] = cache.peak_blocks
+    report["kv_bytes_per_token"] = cache.kv_bytes_per_token()
+    for i, o in enumerate(outs):
+        print(f"req {i}: {o}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"wrote {args.json}")
+    return outs
+
+
+if __name__ == "__main__":
+    main()

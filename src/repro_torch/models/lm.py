@@ -1,0 +1,115 @@
+"""Decoder LM assembly: embeddings -> stacks -> final norm -> head.
+
+Port of ``repro.models.lm`` for token decoders (``family="lm"``) whose stacks
+are ``attn_mlp`` blocks.  The reference's sharding constraints have no
+counterpart on one device and are dropped; training losses, the other
+families and multi-token prediction are not ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn.embedding import apply_embedding, init_embedding
+from repro_torch.nn.linear import apply_linear, chain_report_scope, init_linear
+from repro_torch.nn.module import tree_to
+from repro_torch.nn.norms import apply_norm, init_norm
+from repro_torch.nn.transformer import COMPUTE_DTYPES, apply_stack, init_stack
+
+__all__ = ["Runtime", "init_lm", "apply_lm"]
+
+
+class Runtime:
+    """Execution switches threaded through the model.
+
+    ``decode_kernel`` routes paged-attention decode reads through the
+    paged-attention kernel instead of the gathered-view ``_sdpa``.
+    ``int_forward`` routes deployed (``q8``/``s8``) linears through the fused
+    W8A8 integer kernel instead of dequant + a ``compute_dtype`` matmul.
+    ``chain_report`` holds the per-call dispositions of the last forward (see
+    ``nn.linear.chain_report_scope``).  ``int_chain`` is not ported yet."""
+
+    def __init__(self, decode_kernel: bool = False, int_forward: bool = False,
+                 int_chain: bool = False):
+        if int_chain:
+            raise NotImplementedError("int8-out chaining (int_chain) is not ported yet")
+        self.decode_kernel = decode_kernel
+        self.int_forward = int_forward
+        self.chain_report: dict = {}
+
+
+def init_lm(gen: torch.Generator, arch: ArchConfig, device="cuda") -> dict:
+    """Parameters of ``arch`` drawn from ``gen`` (on the generator's device)
+    and placed on ``device`` — the reference's tree: ``embed``, ``stacks``
+    (leaves stacked ``(count, ...)``), ``final_norm`` and, untied, ``head``."""
+    if arch.family != "lm":
+        raise NotImplementedError(f"model family {arch.family!r} is not ported yet")
+    if arch.mtp_depth > 0:
+        raise NotImplementedError("multi-token prediction heads are not ported yet")
+    dev = resolve_device(device)
+    params: dict = {"embed": init_embedding(gen, arch.vocab, arch.d_model)}
+    params["stacks"] = {str(i): init_stack(gen, arch, s) for i, s in enumerate(arch.stacks)}
+    params["final_norm"] = init_norm(arch.d_model, arch.norm, device=gen.device)
+    if not arch.tie_embeddings:
+        params["head"] = init_linear(gen, arch.d_model, arch.vocab, arch.quant, boundary=True)
+    return tree_to(params, dev)
+
+
+def _head_logits(params, arch: ArchConfig, h: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    cd = COMPUTE_DTYPES[arch.compute_dtype]
+    if arch.tie_embeddings:
+        return torch.matmul(h.to(cd), params["embed"]["table"].to(cd).T)
+    return apply_linear(params["head"], h, arch.quant, boundary=True, compute_dtype=cd,
+                        int_forward=rt.int_forward, site="head")
+
+
+def apply_lm(
+    params: dict,
+    arch: ArchConfig,
+    *,
+    tokens: torch.Tensor,
+    cache: Optional[dict] = None,
+    start_pos=None,
+    rt: Optional[Runtime] = None,
+):
+    """Forward pass over ``tokens (B, T)``.  ``cache`` given => a cached step
+    over paged pools (``T == 1`` decode or ``T > 1`` chunked prefill), written
+    at each row's ``start_pos`` (an int or a ``(B,)`` tensor); the cache
+    carries its block-table view under the reserved key ``"_paged"``.  The
+    pools are updated in place; the returned cache holds the per-stack pools
+    without the view.
+
+    Returns ``(logits, new_cache)``; the reference's third output, the A2Q
+    training penalty, belongs to the training path, which is not ported."""
+    rt = rt or Runtime()
+    cd = COMPUTE_DTYPES[arch.compute_dtype]
+    x = apply_embedding(params["embed"], tokens, dtype=cd)
+    B, S, _ = x.shape
+    dev = x.device
+    steps = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    if cache is not None:
+        if start_pos is None:
+            raise ValueError("a cached step needs start_pos")
+        sp = torch.as_tensor(start_pos, dtype=torch.int32, device=dev).reshape(-1)
+        base = sp[:, None] if sp.shape[0] == B else sp.reshape(1, 1)
+        positions = (base + steps).expand(B, S)
+    else:
+        positions = steps.expand(B, S)
+    view = cache.get("_paged") if cache is not None else None
+    with contextlib.ExitStack() as scope:
+        if rt.int_forward:
+            scope.enter_context(chain_report_scope(rt.chain_report))
+        for i, s in enumerate(arch.stacks):
+            sc = cache.get(str(i)) if cache is not None else None
+            x = apply_stack(params["stacks"][str(i)], x, arch, s, positions, sc, view=view,
+                            decode_kernel=rt.decode_kernel, int_forward=rt.int_forward)
+        h = apply_norm(params["final_norm"], x, kind=arch.norm, eps=arch.norm_eps)
+        logits = _head_logits(params, arch, h, rt)
+    if cache is None:
+        return logits, None
+    return logits, {k: v for k, v in cache.items() if k != "_paged"}

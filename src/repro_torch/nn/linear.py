@@ -1,0 +1,239 @@
+"""QuantLinear — every matmul-bearing layer of the port's models.
+
+The paper's technique is a first-class mode of this layer, as in
+``repro.nn.linear``:
+
+* ``mode='none'`` — float weights,
+* ``mode='qat'``  — baseline quantization-aware training (paper Sec. 2.1),
+* ``mode='a2q'``  — accumulator-aware quantization (paper Sec. 4): l1
+  weight-normalized ``(v, t, d)``, norm cap from the accumulator width P,
+  round-toward-zero.
+
+Hidden layers use (M, N, P) from :class:`QuantConfig`; ``boundary=True``
+layers stay at 8 bits.  Weights are ``(d_in, d_out)``: output channels
+(accumulators) on the last axis.
+
+Deployment: ``deploy_linear`` turns a trained layer into ``{q8, s8}`` —
+int8 weights whose l1 norm provably fits the P-bit accumulator.  With
+``int_forward=True`` a deployed layer runs ``act_quant(x) -> int8 @ int8 ->
+int32 -> scaled output`` through the fused W8A8 kernel
+(``kernels/ops.int_matmul``), with the int16 carry when ``acc_bits <= 16``.
+Int8-out chaining (``int_chain``, ``IntAct``, requant epilogues) and the
+accumulator-headroom probe are not ported yet.
+
+Every ``int_forward`` call records its disposition (``standalone`` for the
+fused path with its own act-quant, ``fallback`` for the dequant path) into
+the active ``chain_report_scope``.  The port runs eagerly, so the report
+lists every call of the last forward (one entry per layer per site), where
+the reference lists the call sites of a compiled program.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import warnings
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core.a2q import a2q_int_weights, apply_a2q, init_a2q
+from repro_torch.core.quantizers import (
+    act_quant_int,
+    apply_act_quant,
+    apply_weight_qat,
+    init_act_quant,
+    init_weight_qat,
+    weight_qat_int,
+)
+from repro_torch.nn.module import kaiming
+
+__all__ = [
+    "init_linear",
+    "apply_linear",
+    "deploy_linear",
+    "chain_report_scope",
+]
+
+_ACTIVE_REPORT: list = []
+_WARNED: set = set()
+
+
+@contextlib.contextmanager
+def chain_report_scope(report: dict):
+    """Collect ``int_forward`` dispositions into ``report`` (cleared on
+    entry): ``standalone`` — a deployed layer ran the fused kernel after its
+    own act-quant; ``fallback`` — the fused path was unavailable and the
+    layer took the dequant path.  (``folded``/``chained`` stay empty until
+    chaining is ported.)"""
+    report.clear()
+    report.update({"folded": [], "chained": [], "standalone": [], "fallback": []})
+    _ACTIVE_REPORT.append(report)
+    try:
+        yield report
+    finally:
+        _ACTIVE_REPORT.pop()
+
+
+def _record(kind: str, site: str):
+    if _ACTIVE_REPORT:
+        _ACTIVE_REPORT[-1][kind].append(site)
+
+
+def _warn_fallback_once(site: str, reason: str):
+    key = (site, reason)
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(
+            f"int_forward fallback at {site or '<unlabeled linear>'}: {reason} "
+            "(dequant path; counted in the chain report)",
+            stacklevel=3,
+        )
+
+
+def _bits(cfg: QuantConfig, boundary: bool) -> tuple[int, int]:
+    if boundary:
+        return cfg.boundary_bits, cfg.boundary_bits
+    return cfg.weight_bits, cfg.act_bits
+
+
+def init_linear(
+    gen: torch.Generator,
+    d_in: int,
+    d_out: int,
+    cfg: QuantConfig,
+    *,
+    use_bias: bool = False,
+    boundary: bool = False,
+    input_signed: bool = True,
+    w_std: Optional[float] = None,
+    act_absmax: float = 6.0,
+) -> dict:
+    """Weights are stored ``(d_in, d_out)``; tensors land on ``gen.device``."""
+    if w_std is None:
+        w = kaiming(gen, (d_in, d_out), fan_in=d_in)
+    else:
+        w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * w_std
+    M, N = _bits(cfg, boundary)
+    p: dict = {}
+    if cfg.mode == "none":
+        p["w"] = w
+    elif cfg.mode == "qat":
+        p["w"] = w
+        p["wq"] = init_weight_qat(w, M)
+        p["aq"] = init_act_quant(N, input_signed, init_absmax=act_absmax, device=w.device)
+    elif cfg.mode == "a2q":
+        p.update(init_a2q(w, M, cfg.acc_bits, N, input_signed))
+        p["aq"] = init_act_quant(N, input_signed, init_absmax=act_absmax, device=w.device)
+    else:
+        raise ValueError(cfg.mode)
+    if use_bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=w.device)
+    return p
+
+
+def _quant_weights(params: dict, cfg: QuantConfig, boundary: bool, input_signed: bool):
+    M, N = _bits(cfg, boundary)
+    if "q8" in params:  # deployed int8 storage; s8 is per output channel
+        return params["q8"].to(torch.float32) * params["s8"][..., None, :]
+    if cfg.mode == "none":
+        return params["w"]
+    if cfg.mode == "qat":
+        return apply_weight_qat({"log2_scale": params["wq"]["log2_scale"]}, params["w"], M)
+    if cfg.mode == "a2q":
+        return apply_a2q({"v": params["v"], "t": params["t"], "d": params["d"]},
+                         M, cfg.acc_bits, N, input_signed)
+    raise ValueError(cfg.mode)
+
+
+def _apply_linear_int8(params: dict, x: torch.Tensor, cfg: QuantConfig, *, boundary: bool,
+                       input_signed: bool, compute_dtype, site: str = ""):
+    """Fused W8A8 forward, unchained: the act-quant runs on its own ahead of
+    the kernel (unsigned 8-bit codes symmetrized into the int8 operand), the
+    activation scale folds into the per-channel weight scale, and the kernel's
+    epilogue is one per-column fp32 rescale (+ bias).  The int16 carry engages
+    when A2Q guarantees ``acc_bits <= 16``."""
+    from repro_torch.kernels import ops
+
+    M, N = _bits(cfg, boundary)
+    a2q = cfg.mode == "a2q"
+    _record("standalone", site)
+    xq, x_scale = act_quant_int({"log2_scale": params["aq"]["log2_scale"]},
+                                x.to(torch.float32), N, signed=input_signed)
+    if not input_signed and N == 8:
+        xq = xq - 128.0
+    K = x.shape[-1]
+    lead = x.shape[:-1]
+    y = ops.int_matmul(
+        xq.to(torch.int8).reshape(-1, K), params["q8"],
+        scale=x_scale * params["s8"].to(torch.float32),
+        bias=params.get("b"),
+        acc_bits=cfg.acc_bits if a2q else 32,
+        mode="exact",
+        spill_int16=a2q and cfg.acc_bits <= 16,
+        in_bits=N, in_signed=input_signed,
+    )
+    return y.reshape(*lead, y.shape[-1]).to(compute_dtype)
+
+
+def apply_linear(
+    params: dict,
+    x: torch.Tensor,
+    cfg: QuantConfig,
+    *,
+    boundary: bool = False,
+    input_signed: bool = True,
+    compute_dtype=torch.bfloat16,
+    int_forward: bool = False,
+    int_chain: bool = False,
+    out_aq: Optional[dict] = None,
+    site: str = "",
+) -> torch.Tensor:
+    """``y = act_quant(x) @ quant(w) (+ b)`` in ``compute_dtype``.
+
+    ``int_forward=True`` on a deployed layer (``q8``/``s8`` and an activation
+    quantizer, ``N <= 8``, 2-D weights) runs the fused W8A8 integer path
+    instead of dequant + ``compute_dtype`` matmul."""
+    if int_chain or out_aq is not None:
+        raise NotImplementedError("int8-out chaining (int_chain / out_aq) is not ported yet")
+    M, N = _bits(cfg, boundary)
+    if int_forward and "q8" in params:
+        if "aq" in params and N <= 8 and params["q8"].ndim == 2:
+            return _apply_linear_int8(params, x, cfg, boundary=boundary,
+                                      input_signed=input_signed,
+                                      compute_dtype=compute_dtype, site=site)
+        if "aq" not in params:
+            reason = "no activation quantizer in the deployed params"
+        elif N > 8:
+            reason = f"act bits N={N} > 8"
+        else:
+            reason = f"stacked weight leaves (rank {params['q8'].ndim})"
+        _warn_fallback_once(site, reason)
+        _record("fallback", site)
+    if cfg.mode != "none" and "aq" in params:
+        x = apply_act_quant({"log2_scale": params["aq"]["log2_scale"]}, x, N, signed=input_signed)
+    w = _quant_weights(params, cfg, boundary, input_signed).to(compute_dtype)
+    y = torch.matmul(x.to(compute_dtype), w)
+    if "b" in params:
+        y = y + params["b"].to(compute_dtype)
+    return y
+
+
+def deploy_linear(params: dict, cfg: QuantConfig, *, boundary: bool = False,
+                  input_signed: bool = True) -> dict:
+    """A2Q/QAT layer -> inference artifacts ``{q8 int8, s8 scale [, b, aq]}``
+    (2-D weights; ``serve.engine.deploy_params`` walks stacked leaves)."""
+    M, N = _bits(cfg, boundary)
+    if cfg.mode == "a2q":
+        q, s = a2q_int_weights({"v": params["v"], "t": params["t"], "d": params["d"]},
+                               M, cfg.acc_bits, N, input_signed)
+    elif cfg.mode == "qat":
+        q, s = weight_qat_int({"log2_scale": params["wq"]["log2_scale"]}, params["w"], M)
+    else:
+        raise ValueError("deploy requires a quantized mode")
+    out = {"q8": q.to(torch.int8), "s8": s.to(torch.float32)}
+    if "b" in params:
+        out["b"] = params["b"]
+    if "aq" in params:
+        out["aq"] = params["aq"]
+    return out

@@ -1,0 +1,117 @@
+"""Blocks and layer stacks.
+
+A model is a sequence of *stacks*; each stack is ``count`` identical blocks
+whose parameters are stacked along a leading ``count`` axis, as in
+``repro.nn.transformer`` (which scans them); here a Python loop applies
+them in order.  Only ``attn_mlp`` blocks (pre-norm GQA + gated or plain MLP,
+optionally command-r's parallel attention+FFN) are ported; the other kinds
+raise.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, QuantConfig, StackConfig
+from repro_torch.nn.attention import apply_attention, init_attention
+from repro_torch.nn.linear import apply_linear, init_linear
+from repro_torch.nn.norms import apply_norm, init_norm
+
+__all__ = ["init_stack", "apply_stack", "COMPUTE_DTYPES"]
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _init_mlp(gen, d: int, ff: int, q: QuantConfig, gated: bool, use_bias: bool) -> dict:
+    p = {
+        "w_in": init_linear(gen, d, ff, q, use_bias=use_bias),
+        "w_out": init_linear(gen, ff, d, q, use_bias=use_bias),
+    }
+    if gated:
+        p["w_gate"] = init_linear(gen, d, ff, q, use_bias=use_bias)
+    return p
+
+
+def _apply_mlp(p: dict, x: torch.Tensor, q: QuantConfig, compute_dtype,
+               int_forward: bool = False) -> torch.Tensor:
+    lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
+                            int_forward=int_forward)
+    if "w_gate" in p:
+        h = lin(p["w_in"], x=x, site="mlp.w_in")
+        gate = lin(p["w_gate"], x=x, site="mlp.w_gate")
+        h = F.silu(gate.to(torch.float32)).to(compute_dtype) * h
+        return lin(p["w_out"], x=h, site="mlp.w_out")
+    h = lin(p["w_in"], x=x, site="mlp.w_in")
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(compute_dtype)  # jax.nn.gelu's default
+    return lin(p["w_out"], x=h, site="mlp.w_out")
+
+
+def _init_block(gen, arch: ArchConfig, s: StackConfig) -> dict:
+    if s.kind != "attn_mlp":
+        raise NotImplementedError(f"block kind {s.kind!r} is not ported yet")
+    d, q = arch.d_model, arch.quant
+    p = {"ln1": init_norm(d, arch.norm, device=gen.device),
+         "attn": init_attention(gen, d, s.attn, q, arch.use_bias)}
+    if not s.parallel_block:
+        p["ln2"] = init_norm(d, arch.norm, device=gen.device)
+    p["mlp"] = _init_mlp(gen, d, s.d_ff, q, s.mlp_gated, arch.use_bias)
+    return p
+
+
+def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
+                 positions: torch.Tensor, cache: Optional[dict], *,
+                 view: Optional[dict] = None, decode_kernel: bool = False,
+                 int_forward: bool = False):
+    q = arch.quant
+    cd = COMPUTE_DTYPES[arch.compute_dtype]
+    norm = functools.partial(apply_norm, kind=arch.norm, eps=arch.norm_eps)
+    h = norm(p["ln1"], x)
+    attn_out, _ = apply_attention(  # a paged cache is written in place
+        p["attn"], h, s.attn, q, positions, (cache or {}).get("attn"),
+        q_chunk=arch.attn_q_chunk, compute_dtype=cd, view=view,
+        decode_kernel=decode_kernel, int_forward=int_forward,
+    )
+    if s.parallel_block:
+        return x + attn_out + _apply_mlp(p["mlp"], h, q, cd, int_forward)
+    x = x + attn_out
+    return x + _apply_mlp(p["mlp"], norm(p["ln2"], x), q, cd, int_forward)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree of stacked ``(count, ...)`` leaves (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_stack(gen: torch.Generator, arch: ArchConfig, s: StackConfig) -> dict:
+    """Stacked (leading ``count`` axis) params for one stack."""
+    layers = [_init_block(gen, arch, s) for _ in range(s.count)]
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+        return torch.stack(leaves)
+
+    return stack(*layers)
+
+
+def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
+                positions: torch.Tensor, cache: Optional[dict] = None, *,
+                view: Optional[dict] = None, decode_kernel: bool = False,
+                int_forward: bool = False):
+    """Apply ``s.count`` blocks in order and return ``x``; a paged cache's
+    pools (leaves ``(count, ...)``) are updated in place."""
+    if s.kind != "attn_mlp":
+        raise NotImplementedError(f"block kind {s.kind!r} is not ported yet")
+    for i in range(s.count):
+        x = _apply_block(
+            _layer(params, i), x, arch, s, positions,
+            _layer(cache, i) if cache is not None else None,
+            view=view, decode_kernel=decode_kernel, int_forward=int_forward,
+        )
+    return x

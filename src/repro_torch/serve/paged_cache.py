@@ -1,0 +1,142 @@
+"""Paged KV cache: fixed-size token blocks + per-sequence block tables.
+
+Port of ``repro.serve.paged_cache`` for full-attention GQA stacks with float
+pools.  Seq-indexed K/V lives in pools of ``block_size``-token blocks shared
+by all slots, per stack ``kp``/``vp`` of shape ``(count, NB, bs, KV, Dh)``.
+A host-side free-list allocator hands each sequence the blocks its tokens
+need, recorded in a per-slot block table; releasing a finished sequence
+returns its blocks at once, so cache memory scales with live tokens.
+
+Block 0 of every pool is the reserved **trash block**: the tables of dead
+slots point at it, so a full-batch decode step can include dead rows (they
+write into trash and attend to garbage that is never read).  All layers
+share one block table.  The device-facing view is attached to the cache tree
+under the reserved key ``"_paged"``; the layers write the pools in place.
+
+Invariants: a sequence's blocks appear in its table row in logical order
+(so the gathered view equals the contiguous layout); unowned table entries
+stay 0 (trash); the trash block is never freed; ``lens[slot]`` counts tokens
+written for the slot.  Not ported yet: refcounts and copy-on-write, the
+radix prompt cache, rollback/truncate, KV-block export/import, int8/int4
+pools, and ring / recurrent per-slot leaves.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, AttnConfig
+
+__all__ = ["PagedKVCache", "init_paged_attn_cache", "TRASH_BLOCK"]
+
+TRASH_BLOCK = 0
+
+
+def init_paged_attn_cache(a: AttnConfig, num_blocks: int, block_size: int, dtype,
+                          device, count: int = 1) -> dict:
+    """Float paged pools for ``count`` stacked GQA layers."""
+    if a.kind != "gqa":
+        raise NotImplementedError(f"paged {a.kind!r} caches are not ported yet")
+    if (a.window or a.chunk) is not None:
+        raise NotImplementedError("ring (sliding-window / chunked-local) caches are not ported yet")
+    shape = (count, num_blocks, block_size, a.kv_heads, a.head_dim)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class PagedKVCache:
+    """Device pools + host-side block-table allocator for ``slots`` sequences."""
+
+    def __init__(
+        self,
+        arch: ArchConfig,
+        slots: int,
+        *,
+        block_size: int = 16,
+        num_blocks: Optional[int] = None,
+        max_seq: int = 512,
+        dtype=torch.bfloat16,
+        device="cpu",
+    ):
+        self.arch = arch
+        self.slots = slots
+        self.block_size = block_size
+        self.max_seq = max_seq
+        self.device = torch.device(device)
+        self.max_blocks_per_seq = -(-max_seq // block_size)
+        if num_blocks is None:
+            # worst case every slot runs to max_seq, plus the trash block
+            num_blocks = slots * self.max_blocks_per_seq + 1
+        if num_blocks < 2:
+            raise ValueError("need at least one non-trash block")
+        self.num_blocks = num_blocks
+        for s in arch.stacks:
+            if s.kind != "attn_mlp":
+                raise NotImplementedError(f"paged cache for {s.kind!r} stacks is not ported yet")
+        self.pools = {
+            str(i): {"attn": init_paged_attn_cache(s.attn, num_blocks, block_size, dtype,
+                                                   self.device, count=s.count)}
+            for i, s in enumerate(arch.stacks)
+        }
+        # LIFO free list; low ids handed out first so fresh tables are ordered
+        self.free = list(range(num_blocks - 1, TRASH_BLOCK, -1))
+        self.tables = np.zeros((slots, self.max_blocks_per_seq), np.int32)
+        self.lens = np.zeros((slots,), np.int32)
+        self._owned: list[list[int]] = [[] for _ in range(slots)]
+        self.peak_blocks = 0  # high-water mark of simultaneously owned blocks
+
+    def reset_counters(self) -> None:
+        self.peak_blocks = 0
+
+    # -- allocator ----------------------------------------------------------
+
+    def blocks_needed(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.block_size)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self.free)
+
+    def allocated_blocks(self) -> int:
+        return self.num_blocks - 1 - len(self.free)
+
+    def allocate(self, slot: int, n_tokens: int) -> None:
+        """Grow ``slot``'s table to cover ``n_tokens`` total tokens."""
+        need = self.blocks_needed(n_tokens)
+        if need > self.max_blocks_per_seq:
+            raise ValueError(f"sequence of {n_tokens} tokens exceeds max_seq={self.max_seq}")
+        owned = self._owned[slot]
+        while len(owned) < need:
+            if not self.free:
+                raise RuntimeError("paged KV cache out of blocks")
+            b = self.free.pop()
+            self.tables[slot, len(owned)] = b
+            owned.append(b)
+        self.peak_blocks = max(self.peak_blocks, self.allocated_blocks())
+
+    def release(self, slot: int) -> None:
+        self.free.extend(reversed(self._owned[slot]))
+        self._owned[slot] = []
+        self.tables[slot] = TRASH_BLOCK
+        self.lens[slot] = 0
+
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one cached token costs across every pool (all layers)."""
+        total = 0
+        for stack in self.pools.values():
+            for leaf in stack["attn"].values():
+                total += leaf[0, 0, 0].numel() * leaf.element_size() * leaf.shape[0]
+        return total
+
+    # -- device view --------------------------------------------------------
+
+    def bt(self) -> torch.Tensor:
+        """Full block table ``(slots, MB)`` as a device tensor."""
+        return torch.tensor(self.tables, device=self.device)
+
+    def bt_row(self, slot: int) -> torch.Tensor:
+        """Single-row block-table view ``(1, MB)`` for an isolated prefill."""
+        return torch.tensor(self.tables[slot : slot + 1], device=self.device)

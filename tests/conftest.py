@@ -33,6 +33,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device subprocess test (run with --runslow)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel; skips without a CUDA card"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
