@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100 for the numbers in
 PERF.md): builds the kernels, holds each against its plain PyTorch version at
-the main path's shapes, serves full-width smollm-135m through the paged
-engine on the kernels, and checks the result.
+the main paths' shapes, serves full-width smollm-135m and full-width
+deepseek-v3 (depth cut) through the paged engine on the kernels, and checks
+the results.
 
     python3 chip_smoke.py
 
@@ -13,11 +14,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. hold each kernel against its plain version on the card: ``int_matmul`` at
    M in {1, 8, 64} for the four (K, N) pairs of a smollm-135m layer with the
    int16 carry and the fused scale (A2Q-deployed weights), plus raw int32,
-   ``wrap`` and ``saturate`` on full-range weights; ``paged_attention`` at
-   B=8, H=9, KV=3, Dh=64, bs=16 with ragged lengths including 0, fp32 and
-   bf16 pools.  Times come from CUDA graphs of back-to-back calls timed with
-   CUDA events; the int_matmul weights rotate over 30 layer copies so each
-   call streams its weights from HBM as the 30-layer model does;
+   ``wrap`` and ``saturate`` on full-range weights, and at deepseek-v3's
+   largest K (18432) and largest N (129280) at M in {8, 32};
+   ``paged_attention`` at B=8, H=9, KV=3, Dh=64, bs=16 with ragged lengths
+   including 0, fp32 and bf16 pools; ``paged_mla_attention`` at deepseek-v3's
+   B=8, H=128, R=512, P=64, bs=16 with ragged lengths including 0, 1 and
+   lengths that end mid-block, a table entry past a row's length pointing at
+   a block of NaN, fp32 and bf16 pools, with and without the activation
+   fake-quant replay.  Times come from CUDA graphs of back-to-back calls
+   timed with CUDA events (at deepseek's int_matmul shapes, where one call
+   takes milliseconds, from CUDA events around back-to-back calls); the
+   smollm int_matmul weights rotate over 30 layer copies so each call
+   streams its weights from HBM as the 30-layer model does;
 4. serve full-width smollm-135m (30 layers, random A2Q weights from seed 0,
    deployed to int8): 8 requests, prompt 64, 32 new tokens, batch 8, through
    ``PagedServeEngine`` with ``Runtime(int_forward=True, decode_kernel=True)``;
@@ -30,16 +38,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    path's under ``parity_up_to_ties`` at that ``eps``; then a reduced model
    on the card against the same model on the CPU (plain versions), token for
    token and margin for margin;
+4b. serve full-width deepseek-v3 with its depth cut to the 3 dense MLA layers
+   and 1 MoE layer (256 routed experts top-8 + 1 shared), no MTP head
+   (serving never reads it), random A2Q weights from seed 0 built and
+   deployed to int8 stack by stack and leaf by leaf (no whole fp32 tree
+   exists): 8 requests, prompt 64, 32 new tokens, batch 8, through
+   ``PagedServeEngine`` with ``Runtime(int_forward=True, decode_kernel=True,
+   mla_absorb=True)``; print peak device memory, prefill and decode tok/s,
+   and check the launch counts (29 int_matmul per forward, 4
+   paged_mla_attention per decode tick);
+5b. compare with ``Runtime(mla_absorb=True)`` (dequant bf16 matmuls,
+   gathered-view latent attention) on the same weights, as in phase 5; then
+   reduced deepseek-v3 on the card against the same model on the CPU;
 6. print the ``kernels`` line, then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every ported kernel with its launches on the main path, its error against the
-plain version, and its time beside the plain version's, a PyTorch library
-call's and the card's bound.
+every ported kernel with its launches on the main paths (counted from zero
+just before each path's run and read just after; int_matmul's is the sum of
+both paths'), its error against the plain version, and its time beside the
+plain version's, a PyTorch library call's and the card's bound.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -63,8 +85,14 @@ SMOLLM_SITES = {  # (K, N) of the seven linears of one smollm-135m layer -> coun
 LAYERS = 30
 # plain vs kernel tolerances: int_matmul is bit-exact; paged attention is fp32
 # softmax summed in another order (fp32 pools), plus one bf16 rounding of the
-# output (bf16 pools: one ulp at |o| < 2)
+# output (bf16 pools: one ulp at |o| < 2).  The MLA kernel's output is fp32
+# whatever the pools, and bf16 pools convert to fp32 exactly, so both take
+# the fp32 tolerance.
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-6}
+MLA_TOL = 2e-5
+# deepseek-v3's largest int_matmul shapes on the served path: (K, N) -> site
+DEEPSEEK_SITES = {(18432, 7168): "dense mlp.w_out, largest K",
+                  (7168, 129280): "head, largest N"}
 
 
 def phase(title: str) -> None:
@@ -91,6 +119,20 @@ def graph_ms(fn, reps: int) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def events_ms(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` over ``reps`` back-to-back calls timed
+    with CUDA events (for calls long enough that launch gaps do not count)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -239,6 +281,141 @@ def check_paged_attention(dev) -> dict:
     return entry
 
 
+def check_int_matmul_deepseek(dev) -> dict:
+    """int_matmul at deepseek-v3's largest K and largest N (A2Q-bounded
+    weights, int16 carry, fused scale), against the plain version bit for
+    bit; times at M=8 (decode) and M=32 (a prefill chunk)."""
+    from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
+    from repro_torch.kernels.ops import int_matmul_block_k
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for (K, N), site in DEEPSEEK_SITES.items():
+        w = a2q_bounded_weights(gen, K, N, dev)
+        w_cm = w.t().contiguous().t()  # column-major copy for cuBLASLt
+        scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+        kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
+        for M in (8, 32):
+            x = torch.randint(-128, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
+            got = int_matmul_cuda(x, w, scale, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, int_matmul_plain(x, w, scale, **kw)):
+                raise AssertionError(f"int_matmul M={M} K={K} N={N}: kernel != plain")
+            ms = events_ms(lambda: int_matmul_cuda(x, w, scale, **kw), 5)
+            plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, **kw), 2)
+            lib_ms = events_ms(lambda: torch._int_mm(x, w_cm), 5) if M > 16 else None
+            b_ms, b_by = bound_ms(M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N,
+                                  INT8_OPS_PER_S)
+            print(f"int_matmul deepseek {site} M={M} K={K} N={N}: equal, kernel_ms {ms:.4f} "
+                  f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by}) library_ms(_int_mm) "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}", flush=True)
+            out[f"M={M} K={K} N={N}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                         "bound_by": b_by, "library_ms": lib_ms}
+        del w, w_cm
+    return out
+
+
+def mla_case(dev, dtype, B=8, H=128, R=512, P=64, bs=16, max_seq=96):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    MB = max_seq // bs
+    NB = B * MB + 2
+    lengths = torch.tensor([0, 1, 17, 33, 64, 65, 80, 96], dtype=torch.int32, device=dev)[:B]
+    perm = torch.randperm(NB - 2, generator=gen, device=dev).to(torch.int32) + 1
+    bt = perm[: B * MB].reshape(B, MB).clone()
+    used = (lengths[:, None] + bs - 1) // bs
+    bt[torch.arange(MB, device=dev)[None, :] >= used] = 0  # entries past the length: trash
+    q_lat = torch.randn((B, H, R), generator=gen, device=dev)
+    q_pe = torch.randn((B, H, P), generator=gen, device=dev)
+    ckvp = torch.randn((NB, bs, R), generator=gen, device=dev).to(dtype)
+    kpep = torch.randn((NB, bs, P), generator=gen, device=dev).to(dtype)
+    return q_lat, q_pe, ckvp, kpep, bt, lengths
+
+
+def check_paged_mla_attention(dev) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_mla_attention import (
+        paged_mla_attention_cuda,
+        paged_mla_attention_plain,
+    )
+
+    scale = (128 + 64) ** -0.5  # (qk_nope_dim + qk_rope_dim) ** -0.5
+    aq = torch.tensor([0.02], device=dev)  # |ckv| > 2.54 clips at 127
+    entry = None
+    for dtype in (torch.float32, torch.bfloat16):
+        q_lat, q_pe, ckvp, kpep, bt, lengths = mla_case(dev, dtype)
+        B, H, R = q_lat.shape
+        P, bs = q_pe.shape[-1], ckvp.shape[1]
+        poisoned = ckvp.clone()
+        poisoned[-1] = float("nan")  # a block no live entry reaches...
+        bt_past = bt.clone()
+        bt_past[2, -1] = ckvp.shape[0] - 1  # ...but an entry past row 2's length
+        worst = 0.0
+        for kw in ({}, {"aq_scale": aq, "act_bits": 8}):
+            got = paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths, scale=scale, **kw)
+            torch.cuda.synchronize()
+            want = paged_mla_attention_plain(q_lat, q_pe, ckvp, kpep, bt, lengths, scale=scale, **kw)
+            err = (got - want).abs().max().item()
+            if not err <= MLA_TOL:
+                raise AssertionError(f"paged_mla_attention {dtype} {kw}: max err {err}")
+            if not torch.isfinite(got).all() or got[0].abs().max().item() != 0.0:
+                raise AssertionError("paged_mla_attention: non-finite output or nonzero empty row")
+            # row 1 has one key: its output is the staged latent itself, so the
+            # replay's codes (out / s_aq) must equal the plain version's exactly
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"paged_mla_attention {dtype} {kw}: length-1 row differs")
+            past = paged_mla_attention_cuda(q_lat, q_pe, poisoned, kpep, bt_past, lengths,
+                                            scale=scale, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(past, got):
+                raise AssertionError("paged_mla_attention read a table entry past the length")
+            note = ""
+            if kw:
+                codes = torch.round(got[1] / aq)
+                if not torch.equal(codes * aq, got[1]):
+                    raise AssertionError("paged_mla_attention: replayed latent is off the grid")
+                note = (f" replay codes in [{codes.min().item():.0f}, {codes.max().item():.0f}], "
+                        f"{int((codes.abs() >= 127).sum().item())} of {codes.numel()} clipped")
+            print(f"paged_mla_attention {str(dtype).replace('torch.', '')} act_bits="
+                  f"{kw.get('act_bits')}: max_abs_err {err:.3g}, length-1 row exact, entry "
+                  f"past the length unread{note}", flush=True)
+            worst = max(worst, err)
+        kw = {"aq_scale": aq, "act_bits": 8}
+        ms = graph_ms(lambda: paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths,
+                                                       scale=scale, **kw), LAYERS)
+        plain_ms = graph_ms(lambda: paged_mla_attention_plain(q_lat, q_pe, ckvp, kpep, bt, lengths,
+                                                              scale=scale, **kw), LAYERS)
+        # yardstick: SDPA on the already-gathered view, one KV head shared by
+        # every query head, the same function without the replay
+        S = bt.shape[1] * bs
+        ckv_g = ckvp[bt.long()].reshape(B, 1, S, R)
+        kpe_g = kpep[bt.long()].reshape(B, 1, S, P)
+        qs = torch.cat([q_lat, q_pe], dim=-1)[:, :, None, :].to(dtype)
+        kg = torch.cat([ckv_g, kpe_g], dim=-1).contiguous()
+        vg = ckv_g.contiguous()
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), LAYERS)
+        toks = lengths.sum().item()
+        n_bytes = (q_lat.numel() * 4 + q_pe.numel() * 4 + toks * (R + P) * ckvp.element_size()
+                   + bt.numel() * 4 + B * 4 + B * H * R * 4 + 4)
+        n_ops = 2 * H * toks * (R + P + R)  # scores over R + P, PV over R
+        b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
+        print(f"paged_mla_attention {str(dtype).replace('torch.', '')} B={B} H={H} R={R} P={P} "
+              f"bs={bs} lengths={lengths.tolist()} act_bits=8: max_abs_err {worst:.3g} "
+              f"kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by}) "
+              f"library_ms(sdpa, gathered, gqa) {lib_ms:.5f}", flush=True)
+        if dtype == torch.bfloat16:  # the main path's pools
+            entry = {"name": "paged_mla_attention", "route": "cuda",
+                     "source": "src/repro_torch/csrc/paged_mla_attention.cu",
+                     "replaces": "src/repro/kernels/paged_attention.py:373",
+                     "at": "B=8 H=128 R=512 P=64 bs=16 bf16 pools, act_bits=8 replay, "
+                           "ragged lengths incl. 0 and 1",
+                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms}
+    return entry
+
+
 def serve(dev):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels.int_matmul import int_matmul_cuda
@@ -334,6 +511,247 @@ def serve(dev):
     return launches
 
 
+DEEPSEEK_INT_MATMUL_PER_FORWARD = 29  # see deepseek_int_matmul_per_forward
+
+
+def deepseek_arch():
+    """deepseek-v3 at full width with its depth cut to the first 3 dense MLA
+    layers and 1 MoE layer, without the MTP head (serving never reads it)."""
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("deepseek-v3-671b")
+    dense, moe = arch.stacks
+    return dataclasses.replace(arch, mtp_depth=0, stacks=(
+        dataclasses.replace(dense, count=3), dataclasses.replace(moe, count=1)))
+
+
+def deepseek_int_matmul_per_forward(arch) -> int:
+    """Deployed 2-D linears one cached forward with ``mla_absorb`` runs on
+    int_matmul: per MLA layer wq_a, wq_b, wkv_a and wo (wkv_b is folded into
+    the query and output, not applied as a linear); per dense layer the
+    gated MLP's w_in, w_gate and w_out; per MoE layer the shared expert's
+    three linears (the routed experts run on the dequantized view); and the
+    untied head."""
+    n = 1
+    for s in arch.stacks:
+        ffn = 3 if s.kind == "attn_mlp" else 3 * (s.moe.n_shared > 0)
+        n += s.count * (4 + ffn)
+    return n
+
+
+def build_deepseek(dev, arch) -> dict:
+    """Full-width random A2Q params of ``arch``, deployed to int8 stack by
+    stack and leaf by leaf with the package's own initializers and
+    ``deploy_params`` on sub-trees, so no whole fp32 tree exists: the
+    largest fp32 leaf alive at once is one routed expert weight (256 x 7168
+    x 2048, 15 GB)."""
+    from repro_torch.core.quantizers import init_act_quant
+    from repro_torch.nn.attention import init_attention
+    from repro_torch.nn.embedding import init_embedding
+    from repro_torch.nn.linear import init_linear
+    from repro_torch.nn.module import kaiming
+    from repro_torch.nn.moe import _init_expert_weight
+    from repro_torch.nn.norms import init_norm
+    from repro_torch.nn.transformer import _init_block
+    from repro_torch.serve.engine import deploy_params
+
+    q, d = arch.quant, arch.d_model
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def moe_layer(s):
+        m = s.moe
+        ff = m.shared_d_ff or m.d_ff * m.n_shared
+        moe = {"router": kaiming(gen, (d, m.n_experts), fan_in=d)}
+        for name, (din, dout) in (("w_in", (d, m.d_ff)), ("w_gate", (d, m.d_ff)),
+                                  ("w_out", (m.d_ff, d))):
+            moe[name] = deploy_params(_init_expert_weight(gen, m.n_experts, din, dout, q), q)
+            torch.cuda.empty_cache()
+        moe["aq"] = init_act_quant(q.act_bits, True, device=dev)
+        moe.update(deploy_params({"shared_in": init_linear(gen, d, ff, q),
+                                  "shared_gate": init_linear(gen, d, ff, q),
+                                  "shared_out": init_linear(gen, ff, d, q)}, q))
+        return {"ln1": init_norm(d, arch.norm, device=dev),
+                "attn": deploy_params(init_attention(gen, d, s.attn, q), q),
+                "ln2": init_norm(d, arch.norm, device=dev), "moe": moe}
+
+    def stack(*layers):  # the (count, ...) leaves of init_stack
+        if isinstance(layers[0], dict):
+            return {k: stack(*(layer[k] for layer in layers)) for k in layers[0]}
+        return layers[0].unsqueeze(0) if len(layers) == 1 else torch.stack(layers)
+
+    params = {"embed": init_embedding(gen, arch.vocab, d), "stacks": {}}
+    for i, s in enumerate(arch.stacks):
+        layers = []
+        for _ in range(s.count):
+            layers.append(deploy_params(_init_block(gen, arch, s), q) if s.kind == "attn_mlp"
+                          else moe_layer(s))
+            torch.cuda.empty_cache()
+        params["stacks"][str(i)] = stack(*layers)
+    params["final_norm"] = init_norm(d, arch.norm, device=dev)
+    params["head"] = deploy_params(init_linear(gen, d, arch.vocab, q, boundary=True), q)
+    return params
+
+
+def profile_decode(engine, prompts, ticks: int = 4) -> None:
+    """Device time of ``ticks`` decode ticks by kernel, from a torch.profiler
+    trace (CUPTI): every request is admitted and prefilled first, then only
+    the decode ticks run under the profiler.  Prints the device time a tick
+    spends in each kernel and in all of them together."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=1000 + i, prompt=p, max_new=ticks + 2))
+    engine.step()  # admits and prefills every request, then one tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            engine.tick()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    while not engine.sched.idle():
+        engine.step()
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:  # an op's entry repeats its kernels' time
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
+        dev[e.key] = dev.get(e.key, 0.0) + t / 1e3 / ticks
+    total = sum(dev.values())
+    print(f"profiled decode: {ticks} ticks, kernels' device time {total:.3f} ms a tick, "
+          f"{wall_ms:.1f} ms a tick of wall time under the profiler ({len(dev)} kernels)",
+          flush=True)
+    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:8.4f} ms/tick  {ms / max(total, 1e-9):6.1%}  {name[:110]}", flush=True)
+
+
+def serve_deepseek(dev):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.kernels.paged_mla_attention import paged_mla_attention_cuda
+    from repro_torch.models.lm import Runtime, apply_lm, init_lm
+    from repro_torch.nn.module import tree_to
+    from repro_torch.serve.engine import PagedServeEngine, deploy_params, parity_up_to_ties
+
+    phase("4b: serve full-width deepseek-v3 (3 dense MLA + 1 MoE layer) on the kernels")
+    arch = deepseek_arch()
+    per_forward = deepseek_int_matmul_per_forward(arch)
+    if per_forward != DEEPSEEK_INT_MATMUL_PER_FORWARD:
+        raise AssertionError(f"{per_forward} int_matmul per forward, expected 29")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_deepseek(dev, arch)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"init + deploy of {arch.name} cut to {arch.n_layers} layers (d_model {arch.d_model}, "
+          f"{arch.stacks[1].moe.n_experts} experts): {time.perf_counter() - t0:.1f}s, "
+          f"{n_params / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB on the card, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(8)]
+    kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev)
+    rt = Runtime(int_forward=True, decode_kernel=True, mla_absorb=True)
+    engine = PagedServeEngine(arch, params, rt=rt, **kw)
+    engine.generate(prompts[:1], max_new=2)  # warm-up: first-call library set-up
+    engine.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    int_matmul_cuda.launches = 0
+    paged_mla_attention_cuda.launches = 0
+    outs = engine.generate(prompts, max_new=32)
+    torch.cuda.synchronize()
+    launches = {"int_matmul": int_matmul_cuda.launches,
+                "paged_mla_attention": paged_mla_attention_cuda.launches}
+    tp = engine.throughput()
+    ticks = tp["decode_dispatches"]
+    chunks = sum(-(-len(p) // 32) for p in prompts)
+    print(f"prefill: {tp['prefill_tokens']} tok in {tp['prefill_s']:.3f}s "
+          f"({tp['prefill_tok_s']:.2f} tok/s) | decode: {tp['decode_tokens']} tok in "
+          f"{tp['decode_s']:.3f}s ({tp['decode_tok_s']:.2f} tok/s, {ticks} ticks); peak "
+          f"allocated while serving {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(f"launches on the main path: {launches} over {ticks} decode ticks and {chunks} "
+          f"prefill chunks; chain report fallbacks {tp['int_chain_fallback']} per forward "
+          f"(routed experts)", flush=True)
+    n_mla = sum(s.count for s in arch.stacks)
+    if launches["int_matmul"] != per_forward * (ticks + chunks) or \
+            launches["paged_mla_attention"] != n_mla * ticks or ticks < 31:
+        raise AssertionError(f"launch counts {launches} do not show {per_forward} int_matmul "
+                             f"per forward and {n_mla} paged_mla_attention per decode tick")
+    for r, o in zip(engine.last_requests, outs):
+        if len(o) != 32 or not all(0 <= t < arch.vocab for t in o) or \
+                not np.isfinite(r.margins).all():
+            raise AssertionError(f"bad output: {o} margins {r.margins}")
+    print(f"req 0 tokens: {outs[0]}", flush=True)
+    profile_decode(engine, prompts)
+
+    phase("5b: deepseek-v3 on the dequant path (absorbed, gathered view); reduced card vs CPU")
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    l_int = apply_lm(params, arch, tokens=toks,
+                     rt=Runtime(int_forward=True, mla_absorb=True))[0].float()
+    l_deq = apply_lm(params, arch, tokens=toks, rt=Runtime(mla_absorb=True))[0].float()
+    scale = l_deq.abs().max().item()
+    diff = (l_int - l_deq).abs().max().item()
+    eps = 2.0**-6 * scale  # two bf16 ulps at the top of the logit range
+    print(f"prompt logits, int path vs dequant path: max |diff| {diff:.4g}, max |logit| "
+          f"{scale:.4g}, bound {eps:.4g}; argmax agreement "
+          f"{(l_int.argmax(-1) == l_deq.argmax(-1)).float().mean().item():.4f}", flush=True)
+    if not (np.isfinite(diff) and diff <= eps):
+        raise AssertionError(f"int path logits off the dequant path by {diff} > {eps}")
+    del l_int, l_deq
+    ref = PagedServeEngine(arch, params, rt=Runtime(mla_absorb=True), **kw)
+    ref.generate(prompts[:1], max_new=2)
+    ref.reset_stats()
+    ref_outs = ref.generate(prompts, max_new=32)
+    rtp = ref.throughput()
+    print(f"dequant path: prefill {rtp['prefill_tok_s']:.2f} tok/s | decode "
+          f"{rtp['decode_tok_s']:.2f} tok/s ({rtp['decode_dispatches']} ticks)", flush=True)
+    ok, ties, detail = parity_up_to_ties(ref.last_requests, outs, eps)
+    same = sum(a == b for a, b in zip(ref_outs, outs))
+    marg = max(abs(a - b) for r, g in zip(ref.last_requests, engine.last_requests)
+               for a, b in zip(r.margins, g.margins))
+    print(f"served tokens, int path vs dequant path: parity_up_to_ties eps={eps:.4g}: ok={ok} "
+          f"ties={ties} identical_requests={same}/{len(outs)}; max greedy-margin diff "
+          f"{marg:.4g}", flush=True)
+    if not ok:
+        raise AssertionError(f"parity failed: {detail}")
+    del params, engine, ref
+    torch.cuda.empty_cache()
+    small = reduced(get_arch("deepseek-v3-671b"))
+    sp = deploy_params(init_lm(torch.Generator().manual_seed(0), small, device="cpu"), small.quant)
+    small_prompts = [p[: 5 + 3 * i] % small.vocab for i, p in enumerate(prompts[:3])]
+    skw = dict(batch=2, max_seq=32, block_size=4, prefill_chunk=4)
+    cpu_e = PagedServeEngine(small, sp, device="cpu", rt=Runtime(
+        int_forward=True, decode_kernel=True, mla_absorb=True), **skw)
+    cpu_outs = cpu_e.generate(small_prompts, max_new=5)
+    paged_mla_attention_cuda.launches = 0
+    gpu_e = PagedServeEngine(small, tree_to(sp, dev), device=dev, rt=Runtime(
+        int_forward=True, decode_kernel=True, mla_absorb=True), **skw)
+    gpu_outs = gpu_e.generate(small_prompts, max_new=5)
+    ok, ties, detail = parity_up_to_ties(cpu_e.last_requests, gpu_outs, 1e-4)
+    marg = max(abs(a - b) for r, g in zip(cpu_e.last_requests, gpu_e.last_requests)
+               for a, b in zip(r.margins, g.margins))
+    print(f"reduced deepseek-v3 card vs CPU: tokens {gpu_outs} vs {cpu_outs}, ties {ties}, "
+          f"max margin diff {marg:.3g}, {paged_mla_attention_cuda.launches} MLA kernel "
+          f"launches on the card", flush=True)
+    if not ok or ties or marg > 1e-4 or paged_mla_attention_cuda.launches == 0:
+        raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     phase("1: device")
     if not torch.cuda.is_available():
@@ -361,10 +779,15 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     phase("3: kernels against their plain versions")
-    entries = [check_int_matmul(dev), check_paged_attention(dev)]
-    launches = serve(dev)
+    entries = [check_int_matmul(dev), check_paged_attention(dev), check_paged_mla_attention(dev)]
+    entries[0]["at_deepseek"] = check_int_matmul_deepseek(dev)
+    by_path = {"smollm-135m": serve(dev)}
+    torch.cuda.empty_cache()
+    by_path["deepseek-v3"] = serve_deepseek(dev)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        counts = {path: n[e["name"]] for path, n in by_path.items() if e["name"] in n}
+        e["launches"] = sum(counts.values())
+        e["launches_by_path"] = counts
 
     phase("6: result")
     print(smi, flush=True)

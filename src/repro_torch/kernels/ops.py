@@ -15,8 +15,12 @@ import torch
 
 from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+from repro_torch.kernels.paged_mla_attention import (
+    paged_mla_attention_cuda,
+    paged_mla_attention_plain,
+)
 
-__all__ = ["int_matmul", "paged_attention", "int_matmul_block_k"]
+__all__ = ["int_matmul", "paged_attention", "paged_mla_attention", "int_matmul_block_k"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -132,4 +136,61 @@ def paged_attention(
     return paged_attention_cuda(
         q.contiguous(), kp, vp, bt.to(torch.int32).contiguous(),
         lengths.to(torch.int32).contiguous(), scale=scale, window=window,
+    )
+
+
+def paged_mla_attention(
+    q_lat: torch.Tensor,
+    q_pe: torch.Tensor,
+    ckvp: torch.Tensor,
+    kpep: torch.Tensor,
+    bt: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    ckvs: Optional[torch.Tensor] = None,
+    kpes: Optional[torch.Tensor] = None,
+    scale: float,
+    aq_scale=None,
+    act_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """MLA absorbed-decode latent attention over paged compressed pools.
+
+    ``q_lat (B, H, R)`` is the query absorbed through the up-projection's key
+    half, ``q_pe (B, H, P)`` the rope half; pools ``ckvp (NB, bs, R)`` /
+    ``kpep (NB, bs, P)`` hold the shared latent and rope key per token, table
+    ``bt (B, MB)``, ``lengths (B,)`` counting valid tokens including this
+    step's write.  Returns the latent output ``o_lat (B, H, R)`` fp32; the
+    caller up-projects it through ``w_v``.  ``scale`` is the absorbed score
+    scale ``(qk_nope_dim + qk_rope_dim) ** -0.5``.  ``aq_scale``/``act_bits``
+    replay the absorb path's activation fake-quant on the latent.  Oracle:
+    ``ref.ref_paged_mla_attention``.
+
+    ``ckvs``/``kpes`` (``(NB, bs)`` fp32) declare integer pools: int8 codes,
+    or packed int4 at half width when uint8.  Only the plain version reads
+    them; on CUDA tensors they raise, as the kernel does not take them."""
+    if (ckvs is None) != (kpes is None):
+        raise ValueError("paged_mla_attention: ckvs and kpes must be given together")
+    if ckvp.dtype == torch.uint8 and ckvs is None:
+        raise ValueError("packed int4 latent pools need ckvs/kpes scale pools")
+    if (act_bits is None) != (aq_scale is None):
+        raise ValueError("aq_scale and act_bits must be given together")
+    if q_lat.ndim != 3 or q_pe.ndim != 3 or ckvp.ndim != 3 or kpep.ndim != 3 or \
+            q_lat.shape[:2] != q_pe.shape[:2] or ckvp.shape[:2] != kpep.shape[:2]:
+        raise ValueError(f"paged_mla_attention: q_lat {tuple(q_lat.shape)}, q_pe "
+                         f"{tuple(q_pe.shape)} do not fit pools {tuple(ckvp.shape)}, "
+                         f"{tuple(kpep.shape)}")
+    if q_lat.device.type == "cpu":
+        return paged_mla_attention_plain(q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs, kpes,
+                                         scale=scale, aq_scale=aq_scale, act_bits=act_bits)
+    if ckvs is not None or ckvp.dtype in (torch.int8, torch.uint8):
+        raise NotImplementedError("paged_mla_attention: int8/int4 latent pools are not "
+                                  "ported to the CUDA kernel yet")
+    if aq_scale is not None:
+        aq_scale = torch.as_tensor(aq_scale, dtype=torch.float32,
+                                   device=q_lat.device).reshape(1).contiguous()
+    return paged_mla_attention_cuda(
+        q_lat.to(torch.float32).contiguous(), q_pe.to(torch.float32).contiguous(),
+        ckvp.contiguous(), kpep.contiguous(), bt.to(torch.int32).contiguous(),
+        lengths.to(torch.int32).contiguous(), scale=scale, aq_scale=aq_scale,
+        act_bits=act_bits,
     )

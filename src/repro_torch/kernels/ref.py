@@ -21,6 +21,7 @@ __all__ = [
     "ref_int_matmul",
     "ref_int_matmul_fused",
     "ref_paged_attention",
+    "ref_paged_mla_attention",
 ]
 
 
@@ -108,3 +109,59 @@ def ref_paged_attention(q, kp, vp, bt, lengths, scale: Optional[float] = None,
     p = torch.where(denom > 0.0, p / torch.clamp_min(denom, 1e-30), torch.zeros_like(p))
     out = torch.einsum("bkgs,bskd->bkgd", p, v)
     return out.reshape(B, H, Dh).to(q.dtype)
+
+
+def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """Packed uint8 ``(..., D // 2)`` -> sign-extended int32 ``(..., D)``:
+    element 2i from the low nibble, 2i+1 from the high, ``(x ^ 8) - 8``."""
+    lo = (packed & 0xF).to(torch.int32)
+    hi = (packed >> 4).to(torch.int32)
+    out = torch.stack([(lo ^ 8) - 8, (hi ^ 8) - 8], dim=-1)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def ref_paged_mla_attention(q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs=None, kpes=None, *,
+                            scale: float, aq_scale=None,
+                            act_bits: Optional[int] = None) -> torch.Tensor:
+    """MLA absorbed-decode oracle: gather the latent / rope-key pools through
+    the block table (dequantizing int8 or packed-int4 codes against their
+    per-token scales), optionally replay the activation fake-quant on the
+    latent (``clip(round(ckv / aq_scale)) * aq_scale``, dividing, rounding
+    half to even), then latent-space scores and PV in fp32:
+
+        s = (q_lat @ ckv^T + q_pe @ kpe^T) * scale
+        o_lat = softmax(s) @ ckv                         (B, H, R)
+
+    ``q_lat (B, H, R)``, ``q_pe (B, H, P)``, pools ``(NB, bs, R)`` and
+    ``(NB, bs, P)``, ``bt (B, MB)``, ``lengths (B,)`` counting this step's
+    token.  Keys are valid iff ``kpos < length``; rows of length 0 give
+    zeros."""
+    B, H, R = q_lat.shape
+    bs = ckvp.shape[1]
+    MB = bt.shape[1]
+    btl = bt.long()
+    ckv = ckvp[btl].reshape(B, MB * bs, ckvp.shape[-1])
+    kpe = kpep[btl].reshape(B, MB * bs, kpep.shape[-1])
+    if ckvp.dtype == torch.uint8:
+        ckv = _unpack_nibbles(ckv)
+        kpe = _unpack_nibbles(kpe)
+    ckv = ckv.to(torch.float32)
+    kpe = kpe.to(torch.float32)
+    if ckvs is not None:
+        ckv = ckv * ckvs[btl].reshape(B, MB * bs).to(torch.float32)[..., None]
+        kpe = kpe * kpes[btl].reshape(B, MB * bs).to(torch.float32)[..., None]
+    if act_bits is not None:
+        n, p_max = -(1 << (act_bits - 1)), (1 << (act_bits - 1)) - 1
+        s_aq = torch.as_tensor(aq_scale, dtype=torch.float32, device=ckv.device)
+        ckv = torch.clamp(torch.round(ckv / s_aq), n, p_max) * s_aq
+    s = torch.einsum("bhr,bsr->bhs", q_lat.to(torch.float32), ckv)
+    s = s + torch.einsum("bhp,bsp->bhs", q_pe.to(torch.float32), kpe)
+    s = s * scale
+    kpos = torch.arange(MB * bs, device=q_lat.device)[None, :]
+    vm = (kpos < lengths.to(torch.int64)[:, None])[:, None, :]
+    s = torch.where(vm, s, torch.full_like(s, -1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(vm, torch.exp(s - m), torch.zeros_like(s))
+    denom = p.sum(-1, keepdim=True)
+    p = torch.where(denom > 0.0, p / torch.clamp_min(denom, 1e-30), torch.zeros_like(p))
+    return torch.einsum("bhs,bsr->bhr", p, ckv)

@@ -1,9 +1,10 @@
 """Decoder LM assembly: embeddings -> stacks -> final norm -> head.
 
 Port of ``repro.models.lm`` for token decoders (``family="lm"``) whose stacks
-are ``attn_mlp`` blocks.  The reference's sharding constraints have no
-counterpart on one device and are dropped; training losses, the other
-families and multi-token prediction are not ported yet.
+are ``attn_mlp`` (GQA or MLA) or ``moe`` blocks.  The reference's sharding
+constraints have no counterpart on one device and are dropped; training
+losses (and with them the multi-token-prediction head's forward, which only
+the loss reads) and the other families are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, StackConfig
 from repro_torch.nn.embedding import apply_embedding, init_embedding
 from repro_torch.nn.linear import apply_linear, chain_report_scope, init_linear
 from repro_torch.nn.module import tree_to
@@ -28,16 +29,20 @@ class Runtime:
     """Execution switches threaded through the model.
 
     ``decode_kernel`` routes paged-attention decode reads through the
-    paged-attention kernel instead of the gathered-view ``_sdpa``.
+    paged-attention kernels instead of the gathered-view ``_sdpa``.
+    ``mla_absorb`` folds MLA's up-projection into the query and output of
+    every cached step, so attention runs in latent space (and, with
+    ``decode_kernel``, a decode read goes through the MLA latent kernel).
     ``int_forward`` routes deployed (``q8``/``s8``) linears through the fused
     W8A8 integer kernel instead of dequant + a ``compute_dtype`` matmul.
     ``chain_report`` holds the per-call dispositions of the last forward (see
     ``nn.linear.chain_report_scope``).  ``int_chain`` is not ported yet."""
 
     def __init__(self, decode_kernel: bool = False, int_forward: bool = False,
-                 int_chain: bool = False):
+                 int_chain: bool = False, mla_absorb: bool = False):
         if int_chain:
             raise NotImplementedError("int8-out chaining (int_chain) is not ported yet")
+        self.mla_absorb = mla_absorb
         self.decode_kernel = decode_kernel
         self.int_forward = int_forward
         self.chain_report: dict = {}
@@ -46,17 +51,27 @@ class Runtime:
 def init_lm(gen: torch.Generator, arch: ArchConfig, device="cuda") -> dict:
     """Parameters of ``arch`` drawn from ``gen`` (on the generator's device)
     and placed on ``device`` — the reference's tree: ``embed``, ``stacks``
-    (leaves stacked ``(count, ...)``), ``final_norm`` and, untied, ``head``."""
+    (leaves stacked ``(count, ...)``), ``final_norm``, ``head`` when untied,
+    and ``mtp`` when ``arch.mtp_depth > 0`` (the multi-token-prediction head
+    of the training loss; serving never reads it)."""
     if arch.family != "lm":
         raise NotImplementedError(f"model family {arch.family!r} is not ported yet")
-    if arch.mtp_depth > 0:
-        raise NotImplementedError("multi-token prediction heads are not ported yet")
     dev = resolve_device(device)
     params: dict = {"embed": init_embedding(gen, arch.vocab, arch.d_model)}
     params["stacks"] = {str(i): init_stack(gen, arch, s) for i, s in enumerate(arch.stacks)}
     params["final_norm"] = init_norm(arch.d_model, arch.norm, device=gen.device)
     if not arch.tie_embeddings:
         params["head"] = init_linear(gen, arch.d_model, arch.vocab, arch.quant, boundary=True)
+    if arch.mtp_depth > 0:
+        last = arch.stacks[-1]
+        params["mtp"] = {
+            "proj": init_linear(gen, 2 * arch.d_model, arch.d_model, arch.quant),
+            "block": init_stack(gen, arch, StackConfig(
+                kind="attn_mlp", count=1, attn=last.attn, d_ff=last.d_ff or arch.d_model * 4,
+                mlp_gated=True)),
+            "norm_h": init_norm(arch.d_model, arch.norm, device=gen.device),
+            "norm_e": init_norm(arch.d_model, arch.norm, device=gen.device),
+        }
     return tree_to(params, dev)
 
 
@@ -106,7 +121,8 @@ def apply_lm(
             scope.enter_context(chain_report_scope(rt.chain_report))
         for i, s in enumerate(arch.stacks):
             sc = cache.get(str(i)) if cache is not None else None
-            x = apply_stack(params["stacks"][str(i)], x, arch, s, positions, sc, view=view,
+            x = apply_stack(params["stacks"][str(i)], x, arch, s, positions, sc,
+                            mla_absorb=rt.mla_absorb, view=view,
                             decode_kernel=rt.decode_kernel, int_forward=rt.int_forward)
         h = apply_norm(params["final_norm"], x, kind=arch.norm, eps=arch.norm_eps)
         logits = _head_logits(params, arch, h, rt)

@@ -1,7 +1,8 @@
-"""GQA attention with RoPE over paged KV caches.
+"""Attention layers over paged KV caches: GQA (+RoPE) and MLA.
 
-All projections are quantized linears, so A2Q attaches to q/k/v/o as to any
-other matmul.  Ported from ``repro.nn.attention`` for the GQA branch:
+All projections are quantized linears, so A2Q attaches to q/k/v/o (and the
+MLA down/up projections) as to any other matmul.  Ported from
+``repro.nn.attention``:
 
 * ``_sdpa`` — scaled dot-product with absolute-position masking (causal,
   sliding window, chunked-local), grouped KV heads and query chunking;
@@ -10,11 +11,19 @@ other matmul.  Ported from ``repro.nn.attention`` for the GQA branch:
   scatters, ``_paged_gather`` materialises the contiguous view;
 * the decode-kernel dispatch: with ``decode_kernel=True`` the paged
   ``T == 1`` read goes through ``kernels/ops.paged_attention`` instead of the
-  gathered-view ``_sdpa``.
+  gathered-view ``_sdpa``;
+* MLA (deepseek-v3): low-rank compressed q and kv with a shared rope key,
+  cached as the latent ``ckvp (NB, bs, kv_lora_rank)`` and rope-key ``kpep
+  (NB, bs, qk_rope_dim)`` pools.  The materialized path up-projects the
+  latent through ``wkv_b`` and runs ``_sdpa``; the absorbed path
+  (``mla_absorb=True``, every cached step) folds ``wkv_b`` into the query and
+  the output and attends in latent space, through
+  ``kernels/ops.paged_mla_attention`` for a ``T == 1`` decode read with
+  ``decode_kernel=True``.
 
 Writes update the pools in place (the reference returns new arrays); the
-returned cache holds the same tensors.  MLA, contiguous and ring caches, and
-int8/int4 pools are not ported yet.
+returned cache holds the same tensors.  Contiguous and ring caches, and
+int8/int4 pools (GQA and MLA), are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +34,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import AttnConfig, QuantConfig
+from repro_torch.core.quantizers import apply_act_quant
 from repro_torch.nn.embedding import apply_rope
-from repro_torch.nn.linear import apply_linear, init_linear
+from repro_torch.nn.linear import _quant_weights, apply_linear, init_linear
+from repro_torch.nn.norms import apply_norm, init_norm
 
 __all__ = ["init_attention", "apply_attention"]
 
@@ -89,10 +100,23 @@ def _init_gqa(gen, d_model: int, a: AttnConfig, q: QuantConfig, use_bias: bool) 
     }
 
 
+def _init_mla(gen, d_model: int, a: AttnConfig, q: QuantConfig) -> dict:
+    qh = a.qk_nope_dim + a.qk_rope_dim
+    return {
+        "wq_a": init_linear(gen, d_model, a.q_lora_rank, q),
+        "q_norm": init_norm(a.q_lora_rank, "rmsnorm", device=gen.device),
+        "wq_b": init_linear(gen, a.q_lora_rank, a.heads * qh, q),
+        "wkv_a": init_linear(gen, d_model, a.kv_lora_rank + a.qk_rope_dim, q),
+        "kv_norm": init_norm(a.kv_lora_rank, "rmsnorm", device=gen.device),
+        "wkv_b": init_linear(gen, a.kv_lora_rank, a.heads * (a.qk_nope_dim + a.v_head_dim), q),
+        "wo": init_linear(gen, a.heads * a.v_head_dim, d_model, q),
+    }
+
+
 def init_attention(gen: torch.Generator, d_model: int, a: AttnConfig, q: QuantConfig,
                    use_bias: bool = False) -> dict:
-    if a.kind != "gqa":
-        raise NotImplementedError(f"attention kind {a.kind!r} is not ported yet")
+    if a.kind == "mla":
+        return _init_mla(gen, d_model, a, q)
     return _init_gqa(gen, d_model, a, q, use_bias)
 
 
@@ -140,17 +164,21 @@ def apply_attention(
     *,
     q_chunk: int = 256,
     compute_dtype=torch.bfloat16,
+    mla_absorb: bool = False,
     view: Optional[dict] = None,
     decode_kernel: bool = False,
     int_forward: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (output, updated cache).  ``cache`` given => a paged step over
     ``T >= 1`` new tokens (decode or chunked prefill) through the block-table
-    ``view``; ``decode_kernel=True`` routes the ``T == 1`` read through the
-    paged-attention kernel.  ``int_forward`` routes deployed projections
-    through the fused W8A8 path."""
-    if a.kind != "gqa":
-        raise NotImplementedError(f"attention kind {a.kind!r} is not ported yet")
+    ``view`` (pools ``kp``/``vp``, or ``ckvp``/``kpep`` for MLA);
+    ``decode_kernel=True`` routes the ``T == 1`` read through the paged
+    attention kernel (for MLA only on the absorbed path, ``mla_absorb``).
+    ``int_forward`` routes deployed projections through the fused W8A8 path."""
+    if a.kind == "mla":
+        return _apply_mla(params, x, a, q, positions, cache, q_chunk=q_chunk,
+                          compute_dtype=compute_dtype, absorb=mla_absorb, view=view,
+                          decode_kernel=decode_kernel, int_forward=int_forward)
     B, T, D = x.shape
     H, KV, Dh = a.heads, a.kv_heads, a.head_dim
     lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
@@ -194,3 +222,112 @@ def apply_attention(
     out = out.reshape(B, T, H * Dh)
     return lin(params["wo"], x=out, site="attn.wo"), new_cache
 
+
+def _apply_mla(
+    params: dict,
+    x: torch.Tensor,
+    a: AttnConfig,
+    q: QuantConfig,
+    positions: torch.Tensor,
+    cache: Optional[dict],
+    *,
+    q_chunk: int,
+    compute_dtype,
+    absorb: bool,
+    view: Optional[dict] = None,
+    decode_kernel: bool = False,
+    int_forward: bool = False,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    B, T, D = x.shape
+    H = a.heads
+    nope, rope, vd = a.qk_nope_dim, a.qk_rope_dim, a.v_head_dim
+    theta = a.rope_theta or 10000.0
+    lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
+                            int_forward=int_forward)
+
+    cq = apply_norm(params["q_norm"], lin(params["wq_a"], x=x, site="mla.wq_a"))
+    qh = lin(params["wq_b"], x=cq, site="mla.wq_b").reshape(B, T, H, nope + rope)
+    q_nope, q_pe = qh[..., :nope], apply_rope(qh[..., nope:], positions, theta)
+
+    kv_a = lin(params["wkv_a"], x=x, site="mla.wkv_a")
+    ckv = apply_norm(params["kv_norm"], kv_a[..., : a.kv_lora_rank])
+    kpe = apply_rope(kv_a[..., a.kv_lora_rank:].reshape(B, T, 1, rope), positions,
+                     theta).reshape(B, T, rope)
+
+    # the absorbed single-token decode over a paged latent cache reads the
+    # pools through the kernel: the gathered (B, S, R) view is never built
+    use_kernel = decode_kernel and absorb and T == 1 and a.causal and \
+        cache is not None and "ckvp" in cache
+    if cache is None:
+        ckv_all, kpe_all, kpos = ckv, kpe, positions
+    elif "ckvp" in cache:
+        if view is None:
+            raise ValueError("paged MLA cache needs a block-table view")
+        if "ckvs" in cache:
+            raise NotImplementedError("int8/int4 latent pools are not ported yet")
+        bt = view["bt"]
+        cache = {"ckvp": _paged_write(cache["ckvp"], ckv, bt, positions),
+                 "kpep": _paged_write(cache["kpep"], kpe, bt, positions)}
+        if not use_kernel:
+            ckv_all = _paged_gather(cache["ckvp"], bt)
+            kpe_all = _paged_gather(cache["kpep"], bt)
+            kpos = _paged_kpos(positions, ckv_all.shape[1])
+    else:
+        raise NotImplementedError("contiguous MLA caches are not ported yet")
+
+    wkv_b = params["wkv_b"]
+    if absorb and cache is not None:
+        # fold wkv_b into the query and the output: scores are taken against
+        # the latent itself, with the up-projection's activation quantizer
+        # replayed on the latent as lin(wkv_b, .) would apply it
+        w_full = _mla_up_matrix(wkv_b, a, q)  # (kv_lora, H, nope + vd)
+        has_aq = q.mode != "none" and "aq" in wkv_b
+        w_k, w_v = w_full[..., :nope], w_full[..., nope:]
+        q_lat = torch.einsum("bthn,lhn->bthl", q_nope.to(torch.float32),
+                             w_k.to(torch.float32))
+        scale = (nope + rope) ** -0.5
+        if use_kernel:
+            from repro_torch.kernels import ops
+
+            aq_scale = None
+            if has_aq:
+                aq_scale = torch.exp2(wkv_b["aq"]["log2_scale"].to(torch.float32))
+            o_lat = ops.paged_mla_attention(
+                q_lat[:, 0], q_pe[:, 0].to(torch.float32), cache["ckvp"], cache["kpep"],
+                view["bt"], positions[:, 0] + 1, scale=scale, aq_scale=aq_scale,
+                act_bits=q.act_bits if aq_scale is not None else None,
+            )[:, None]
+        else:
+            if has_aq:
+                ckv_all = apply_act_quant({"log2_scale": wkv_b["aq"]["log2_scale"]}, ckv_all,
+                                          q.act_bits, signed=True)
+            ckv_f = ckv_all.to(torch.float32)
+            s = torch.einsum("bthl,bsl->bths", q_lat, ckv_f)
+            s = s + torch.einsum("bthr,bsr->bths", q_pe.to(torch.float32),
+                                 kpe_all.to(torch.float32))
+            s = s * scale
+            kp = kpos[:, None, :]
+            mask = ((kp >= 0) & (kp <= positions[:, :, None]))[:, :, None, :]
+            s = torch.where(mask, s, torch.full_like(s, _NEG))
+            o_lat = torch.einsum("bths,bsl->bthl", torch.softmax(s, dim=-1), ckv_f)
+        out = torch.einsum("bthl,lhv->bthv", o_lat, w_v.to(torch.float32))
+        out = out.to(compute_dtype).reshape(B, T, H * vd)
+        return lin(params["wo"], x=out, site="mla.wo"), cache
+
+    # materialized path: expand per-head K/V from the latent
+    S = ckv_all.shape[1]
+    kv = lin(wkv_b, x=ckv_all, site="mla.wkv_b").reshape(B, S, H, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, kpe_all[:, :, None, :].expand(B, S, H, rope).to(k_nope.dtype)],
+                  dim=-1)
+    qfull = torch.cat([q_nope, q_pe], dim=-1)
+    out = _sdpa(qfull, k, v, positions, kpos, causal=a.causal, window=None, chunk=None,
+                q_chunk=q_chunk)
+    out = out.reshape(B, T, H * vd)
+    return lin(params["wo"], x=out, site="mla.wo"), cache
+
+
+def _mla_up_matrix(wkv_b_params: dict, a: AttnConfig, q: QuantConfig) -> torch.Tensor:
+    """The quantized view of the up-projection, ``(kv_lora, H, nope + vd)``."""
+    w = _quant_weights(wkv_b_params, q, boundary=False, input_signed=True)
+    return w.reshape(w.shape[0], a.heads, a.qk_nope_dim + a.v_head_dim)

@@ -1,0 +1,193 @@
+"""Mixture-of-experts FFN: top-k routing, capacity-bounded dispatch, and
+shared experts.
+
+Port of ``repro.nn.moe`` for one device (the reference's ``ep_axis=None``
+path; its expert-parallel ``shard_map`` branches are not ported).  No
+``(T, E, C)`` one-hot dispatch tensor is built:
+
+1. the router's fp32 softmax picks each token's top-k experts, whose
+   probabilities are renormalised to sum to one;
+2. the (token, expert) assignments are sorted by expert with a stable sort,
+   so within an expert they keep token order;
+3. each expert keeps its first ``capacity = max(int(T * k * cf / E), 1)``
+   assignments, packed into one buffer; the rest are dropped (standard
+   token-dropping semantics, in the reference's order);
+4. each expert's FFN (SiLU-gated, in the compute dtype) runs on its packed
+   rows — the reference's ``ragged_dot``;
+5. gate-weighted outputs are summed back per token, over its k slots in a
+   fixed order (no atomics, so a run on the card repeats itself).
+
+Expert weights are ``(E, d_in, d_out)`` with per-(expert, channel) A2Q
+``t``/``d``, so each expert output channel is its own accumulator (float
+``mode="none"`` experts too; baseline-QAT experts are not ported yet).  The
+quantized (or deployed ``q8 * s8``) view of an expert weight is built one
+expert at a time, never for all experts at once: at deepseek-v3's width one
+expert leaf is 3.8 G values.  The routed experts have no fused integer path
+(as in the reference): under ``int_forward`` they run on the dequantized
+view and are booked as a ``fallback`` in the chain report, while the shared
+experts are plain linears and take the fused W8A8 kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig, QuantConfig
+from repro_torch.core.a2q import apply_a2q, init_a2q
+from repro_torch.core.quantizers import apply_act_quant, init_act_quant
+from repro_torch.nn.linear import _record, _warn_fallback_once, apply_linear, init_linear
+from repro_torch.nn.module import kaiming
+
+__all__ = ["init_moe", "apply_moe"]
+
+
+def _init_expert_weight(gen, e: int, d_in: int, d_out: int, q: QuantConfig) -> dict:
+    """``(e, d_in, d_out)`` expert weights drawn one expert at a time (so an
+    A2Q init never holds more than one expert's float temporaries)."""
+    dev = gen.device
+    if q.mode == "qat":
+        raise NotImplementedError("QAT expert weights are not ported yet")
+    if q.mode == "none":
+        w = torch.empty((e, d_in, d_out), dtype=torch.float32, device=dev)
+        for i in range(e):
+            w[i] = kaiming(gen, (d_in, d_out), fan_in=d_in)
+        return {"w": w}
+    v = torch.empty((e, d_in, d_out), dtype=torch.float32, device=dev)
+    t = torch.empty((e, d_out), dtype=torch.float32, device=dev)
+    d = torch.empty((e, d_out), dtype=torch.float32, device=dev)
+    for i in range(e):
+        a = init_a2q(kaiming(gen, (d_in, d_out), fan_in=d_in), q.weight_bits, q.acc_bits,
+                     q.act_bits, True)
+        v[i], t[i], d[i] = a["v"], a["t"], a["d"]
+    return {"v": v, "t": t, "d": d}
+
+
+def _expert_weight_view(p: dict, q: QuantConfig, e: int, dtype) -> torch.Tensor:
+    """Quantized (fake-quant) view ``(d_in, d_out)`` of expert ``e`` of an
+    ``(E, d_in, d_out)`` expert weight in ``dtype`` — the reference's fp32
+    whole-leaf view, sliced at ``e`` and cast."""
+    if "q8" in p:  # deployed int8 storage
+        # one kernel: q8 * s8 in fp32, rounded once into `dtype`, the same
+        # values as (q8.float() * s8).to(dtype) without the fp32 round trip
+        # through device memory
+        q8 = p["q8"][e]
+        return torch.mul(q8, p["s8"][e][None, :],
+                         out=torch.empty(q8.shape, dtype=dtype, device=q8.device))
+    if q.mode == "none":
+        return p["w"][e].to(dtype)
+    if q.mode == "qat":
+        raise NotImplementedError("QAT expert weights are not ported yet")
+    return apply_a2q({"v": p["v"][e], "t": p["t"][e], "d": p["d"][e]}, q.weight_bits,
+                     q.acc_bits, q.act_bits, True).to(dtype)
+
+
+def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig, q: QuantConfig) -> dict:
+    p = {
+        "router": kaiming(gen, (d_model, cfg.n_experts), fan_in=d_model),
+        "w_in": _init_expert_weight(gen, cfg.n_experts, d_model, cfg.d_ff, q),
+        "w_gate": _init_expert_weight(gen, cfg.n_experts, d_model, cfg.d_ff, q),
+        "w_out": _init_expert_weight(gen, cfg.n_experts, cfg.d_ff, d_model, q),
+    }
+    if q.mode != "none":
+        p["aq"] = init_act_quant(q.act_bits, True, device=gen.device)
+    if cfg.n_shared:
+        ff = cfg.shared_d_ff or cfg.d_ff * cfg.n_shared
+        p["shared_in"] = init_linear(gen, d_model, ff, q)
+        p["shared_gate"] = init_linear(gen, d_model, ff, q)
+        p["shared_out"] = init_linear(gen, ff, d_model, q)
+    return p
+
+
+def _local_expert_ffn(x_buf: torch.Tensor, params: dict, group_sizes: list, q: QuantConfig,
+                      compute_dtype) -> torch.Tensor:
+    """Packed ragged FFN: rows ``[off_e, off_e + group_sizes[e])`` of
+    ``x_buf (L, d)`` go through expert ``e``; rows past the last group give
+    zeros, as ``ragged_dot`` leaves them."""
+    cd = compute_dtype
+    y = torch.zeros(x_buf.shape, dtype=cd, device=x_buf.device)  # w_out maps back to d
+    off = 0
+    for e, n in enumerate(group_sizes):
+        if n == 0:
+            continue
+        xe = x_buf[off:off + n].to(cd)
+        h_in = xe @ _expert_weight_view(params["w_in"], q, e, cd)
+        h_gate = xe @ _expert_weight_view(params["w_gate"], q, e, cd)
+        h = F.silu(h_gate.to(torch.float32)).to(cd) * h_in
+        y[off:off + n] = h @ _expert_weight_view(params["w_out"], q, e, cd)
+        off += n
+    return y
+
+
+def _dispatch_compute_combine(x2d: torch.Tensor, probs: torch.Tensor, params: dict,
+                              cfg: MoEConfig, q: QuantConfig, compute_dtype) -> torch.Tensor:
+    T, d = x2d.shape
+    E = cfg.n_experts
+    k = cfg.top_k
+    capacity = max(int(T * k * cfg.capacity_factor / E), 1)
+    L = E * capacity
+    dev = x2d.device
+
+    top_p, top_e = torch.topk(probs, k, dim=-1)  # (T, k), descending
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    flat_e = top_e.reshape(-1)
+    flat_p = top_p.reshape(-1)
+    flat_tok = torch.arange(T, device=dev).repeat_interleave(k)
+
+    order = torch.argsort(flat_e, stable=True)  # by expert, token order within
+    se, st, sp = flat_e[order], flat_tok[order], flat_p[order]
+
+    counts = torch.bincount(se, minlength=E)[:E]
+    capped = torch.clamp_max(counts, capacity)
+    zero = torch.zeros((1,), dtype=counts.dtype, device=dev)
+    offsets = torch.cat([zero, torch.cumsum(capped, 0)[:-1]])
+    seg_start = torch.cat([zero, torch.cumsum(counts, 0)])
+    pos_in_group = torch.arange(se.shape[0], device=dev) - seg_start[se]
+    keep = pos_in_group < capacity
+    dest = torch.where(keep, offsets[se] + pos_in_group, torch.full_like(se, L))
+
+    x_buf = torch.zeros((L + 1, d), dtype=x2d.dtype, device=dev)
+    x_buf[dest] = x2d[st]  # dropped rows all land in row L, which is cut off
+    # the group sizes drive a per-expert loop on the host: one sync per layer
+    y_buf = _local_expert_ffn(x_buf[:L], params, capped.tolist(), q, compute_dtype)
+    y_buf = torch.cat([y_buf, torch.zeros((1, d), dtype=y_buf.dtype, device=dev)])
+    contrib = y_buf[dest] * sp[:, None].to(y_buf.dtype)  # dropped rows read zeros
+    contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
+    # the segment sum over each token's k slots, in a fixed order (no atomics):
+    # back from expert order to (token, slot) order, then sum the slots
+    by_token = torch.zeros_like(contrib).index_copy_(0, order, contrib)
+    return by_token.reshape(T, k, d).sum(1).to(x2d.dtype)
+
+
+def apply_moe(
+    params: dict,
+    x: torch.Tensor,  # (B, T, d)
+    cfg: MoEConfig,
+    q: QuantConfig,
+    *,
+    compute_dtype=torch.bfloat16,
+    int_forward: bool = False,
+) -> torch.Tensor:
+    B, T, d = x.shape
+    if int_forward and "q8" in params.get("w_in", {}):
+        # routed experts run on the dequantized view: no fused integer path,
+        # so the entry act-quant is booked as a fallback, never "standalone"
+        _record("fallback", "moe.experts")
+        _warn_fallback_once("moe.experts",
+                            "ragged expert dispatch keeps the dequantized weight view")
+    if q.mode != "none" and "aq" in params:
+        x = apply_act_quant({"log2_scale": params["aq"]["log2_scale"]}, x, q.act_bits,
+                            signed=True)
+    x2d = x.reshape(B * T, d)
+    logits = x2d.to(torch.float32) @ params["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    out = _dispatch_compute_combine(x2d, probs, params, cfg, q, compute_dtype).reshape(B, T, d)
+    if "shared_in" in params:
+        lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
+                                int_forward=int_forward)
+        h = F.silu(lin(params["shared_gate"], x=x, site="moe.shared_gate").to(torch.float32))
+        h = h.to(compute_dtype) * lin(params["shared_in"], x=x, site="moe.shared_in")
+        out = out + lin(params["shared_out"], x=h, site="moe.shared_out")
+    return out

@@ -3,9 +3,9 @@
 A model is a sequence of *stacks*; each stack is ``count`` identical blocks
 whose parameters are stacked along a leading ``count`` axis, as in
 ``repro.nn.transformer`` (which scans them); here a Python loop applies
-them in order.  Only ``attn_mlp`` blocks (pre-norm GQA + gated or plain MLP,
-optionally command-r's parallel attention+FFN) are ported; the other kinds
-raise.
+them in order.  Ported block kinds: ``attn_mlp`` (pre-norm GQA or MLA + gated
+or plain MLP, optionally command-r's parallel attention+FFN) and ``moe``
+(the same attention + the mixture-of-experts FFN); the other kinds raise.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, QuantConfig, StackConfig
 from repro_torch.nn.attention import apply_attention, init_attention
 from repro_torch.nn.linear import apply_linear, init_linear
+from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.norms import apply_norm, init_norm
 
 __all__ = ["init_stack", "apply_stack", "COMPUTE_DTYPES"]
@@ -50,35 +51,48 @@ def _apply_mlp(p: dict, x: torch.Tensor, q: QuantConfig, compute_dtype,
     return lin(p["w_out"], x=h, site="mlp.w_out")
 
 
-def _init_block(gen, arch: ArchConfig, s: StackConfig) -> dict:
-    if s.kind != "attn_mlp":
+def _check_kind(s: StackConfig) -> None:
+    if s.kind not in ("attn_mlp", "moe"):
         raise NotImplementedError(f"block kind {s.kind!r} is not ported yet")
+
+
+def _init_block(gen, arch: ArchConfig, s: StackConfig) -> dict:
+    _check_kind(s)
     d, q = arch.d_model, arch.quant
     p = {"ln1": init_norm(d, arch.norm, device=gen.device),
          "attn": init_attention(gen, d, s.attn, q, arch.use_bias)}
     if not s.parallel_block:
         p["ln2"] = init_norm(d, arch.norm, device=gen.device)
-    p["mlp"] = _init_mlp(gen, d, s.d_ff, q, s.mlp_gated, arch.use_bias)
+    if s.kind == "attn_mlp":
+        p["mlp"] = _init_mlp(gen, d, s.d_ff, q, s.mlp_gated, arch.use_bias)
+    else:
+        p["moe"] = init_moe(gen, d, s.moe, q)
     return p
 
 
 def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                  positions: torch.Tensor, cache: Optional[dict], *,
-                 view: Optional[dict] = None, decode_kernel: bool = False,
-                 int_forward: bool = False):
+                 mla_absorb: bool = False, view: Optional[dict] = None,
+                 decode_kernel: bool = False, int_forward: bool = False):
     q = arch.quant
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     norm = functools.partial(apply_norm, kind=arch.norm, eps=arch.norm_eps)
+
+    def ffn(h):
+        if s.kind == "moe":
+            return apply_moe(p["moe"], h, s.moe, q, compute_dtype=cd, int_forward=int_forward)
+        return _apply_mlp(p["mlp"], h, q, cd, int_forward)
+
     h = norm(p["ln1"], x)
     attn_out, _ = apply_attention(  # a paged cache is written in place
         p["attn"], h, s.attn, q, positions, (cache or {}).get("attn"),
-        q_chunk=arch.attn_q_chunk, compute_dtype=cd, view=view,
+        q_chunk=arch.attn_q_chunk, compute_dtype=cd, mla_absorb=mla_absorb, view=view,
         decode_kernel=decode_kernel, int_forward=int_forward,
     )
     if s.parallel_block:
-        return x + attn_out + _apply_mlp(p["mlp"], h, q, cd, int_forward)
+        return x + attn_out + ffn(h)
     x = x + attn_out
-    return x + _apply_mlp(p["mlp"], norm(p["ln2"], x), q, cd, int_forward)
+    return x + ffn(norm(p["ln2"], x))
 
 
 def _layer(tree, i: int):
@@ -102,16 +116,16 @@ def init_stack(gen: torch.Generator, arch: ArchConfig, s: StackConfig) -> dict:
 
 def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                 positions: torch.Tensor, cache: Optional[dict] = None, *,
-                view: Optional[dict] = None, decode_kernel: bool = False,
-                int_forward: bool = False):
+                mla_absorb: bool = False, view: Optional[dict] = None,
+                decode_kernel: bool = False, int_forward: bool = False):
     """Apply ``s.count`` blocks in order and return ``x``; a paged cache's
     pools (leaves ``(count, ...)``) are updated in place."""
-    if s.kind != "attn_mlp":
-        raise NotImplementedError(f"block kind {s.kind!r} is not ported yet")
+    _check_kind(s)
     for i in range(s.count):
         x = _apply_block(
             _layer(params, i), x, arch, s, positions,
             _layer(cache, i) if cache is not None else None,
-            view=view, decode_kernel=decode_kernel, int_forward=int_forward,
+            mla_absorb=mla_absorb, view=view, decode_kernel=decode_kernel,
+            int_forward=int_forward,
         )
     return x

@@ -9,7 +9,8 @@ trash block.  The forward runs eagerly; the pools are updated in place.
 ``deploy_params`` swaps trained A2Q params for int8 weights + per-channel
 scales — the artifact whose l1 norms provably fit the target accumulator —
 and ``Runtime(int_forward=True, decode_kernel=True)`` serves it through the
-fused W8A8 kernel and the paged-attention kernel.
+fused W8A8 kernel and the paged-attention kernel (for MLA models with
+``mla_absorb=True`` too, through the MLA latent-attention kernel).
 
 The engine keeps the reference's ``stats`` = {prefill_tokens, decode_tokens,
 prefill_s, decode_s, decode_dispatches} and ``throughput()`` contract (first
@@ -43,9 +44,10 @@ Request = ServeRequest
 
 def deploy_params(params: dict, q: QuantConfig) -> dict:
     """Convert every quantized linear's ``(v, t, d)`` / ``(w, wq)`` into
-    ``{q8, s8}`` (stacked leaves layer by layer), passing ``aq``/``b``
-    through.  Sound because A2Q guarantees the P-bit accumulator for the
-    resulting integer weights."""
+    ``{q8, s8}`` (stacked leaves — layers, and experts ``(count, E, K, N)`` —
+    one 2-D weight at a time), passing ``aq``/``b`` through.  Sound because
+    A2Q guarantees the P-bit accumulator for the resulting integer
+    weights."""
 
     def one(node, signed):
         keys = ("v", "t", "d") if "v" in node else ("w", "wq")

@@ -1,8 +1,11 @@
 """Paged KV cache: fixed-size token blocks + per-sequence block tables.
 
-Port of ``repro.serve.paged_cache`` for full-attention GQA stacks with float
-pools.  Seq-indexed K/V lives in pools of ``block_size``-token blocks shared
-by all slots, per stack ``kp``/``vp`` of shape ``(count, NB, bs, KV, Dh)``.
+Port of ``repro.serve.paged_cache`` for full-attention GQA and MLA stacks
+(``attn_mlp`` and ``moe`` blocks) with float pools.  Seq-indexed K/V lives
+in pools of ``block_size``-token blocks shared by all slots, per stack
+``kp``/``vp`` of shape ``(count, NB, bs, KV, Dh)``, or for MLA the latent
+``ckvp (count, NB, bs, kv_lora_rank)`` and rope key ``kpep (count, NB, bs,
+qk_rope_dim)``.
 A host-side free-list allocator hands each sequence the blocks its tokens
 need, recorded in a per-slot block table; releasing a finished sequence
 returns its blocks at once, so cache memory scales with live tokens.
@@ -37,9 +40,14 @@ TRASH_BLOCK = 0
 
 def init_paged_attn_cache(a: AttnConfig, num_blocks: int, block_size: int, dtype,
                           device, count: int = 1) -> dict:
-    """Float paged pools for ``count`` stacked GQA layers."""
-    if a.kind != "gqa":
-        raise NotImplementedError(f"paged {a.kind!r} caches are not ported yet")
+    """Float paged pools for ``count`` stacked GQA or MLA layers."""
+    if a.kind == "mla":
+        return {
+            "ckvp": torch.zeros((count, num_blocks, block_size, a.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "kpep": torch.zeros((count, num_blocks, block_size, a.qk_rope_dim), dtype=dtype,
+                                device=device),
+        }
     if (a.window or a.chunk) is not None:
         raise NotImplementedError("ring (sliding-window / chunked-local) caches are not ported yet")
     shape = (count, num_blocks, block_size, a.kv_heads, a.head_dim)
@@ -74,7 +82,7 @@ class PagedKVCache:
             raise ValueError("need at least one non-trash block")
         self.num_blocks = num_blocks
         for s in arch.stacks:
-            if s.kind != "attn_mlp":
+            if s.kind not in ("attn_mlp", "moe"):
                 raise NotImplementedError(f"paged cache for {s.kind!r} stacks is not ported yet")
         self.pools = {
             str(i): {"attn": init_paged_attn_cache(s.attn, num_blocks, block_size, dtype,

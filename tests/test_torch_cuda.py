@@ -9,7 +9,11 @@ so it also runs where only PyTorch is installed:
 Tolerances: int_matmul — exact (integer carry, and the fused epilogue rounds
 the multiply and the add once each, as the plain version does); paged
 attention — 1e-5 with fp32 pools (fp32 softmax summed in another order), one
-bf16 rounding of the output (2^-6, one ulp at |o| < 2) with bf16 pools.
+bf16 rounding of the output (2^-6, one ulp at |o| < 2) with bf16 pools; MLA
+latent attention — 2e-5 (fp32 output; bf16 pools convert to fp32 exactly, so
+only the summation order differs), and exactly on a row of length 1, whose
+output is the staged latent itself (the activation fake-quant replay's
+codes times its scale).
 """
 
 import numpy as np
@@ -18,7 +22,12 @@ import torch
 
 from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
 from repro_torch.kernels.ops import int_matmul_block_k
+from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+from repro_torch.kernels.paged_mla_attention import (
+    paged_mla_attention_cuda,
+    paged_mla_attention_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +81,54 @@ def test_paged_attention_cuda_matches_plain(dev, dtype, window):
     tol = 1e-5 if dtype == torch.float32 else 2.0**-6
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     assert (got[2] == 0).all()
+
+
+def _mla_case(dev, dtype, B, H, R, P, bs, lens):
+    rng = np.random.default_rng(9)
+    MB = -(-max(lens) // bs) + 1
+    NB = B * MB + 2
+    bt = np.zeros((B, MB), np.int32)
+    ids = iter(rng.permutation(np.arange(1, NB - 1)))
+    for b, ln in enumerate(lens):
+        for j in range(-(-ln // bs)):
+            bt[b, j] = next(ids)
+    bt[0, -1] = NB - 1  # past row 0's length: a block that must never be read
+    q_lat = torch.from_numpy(rng.normal(size=(B, H, R)).astype(np.float32)).to(dev)
+    q_pe = torch.from_numpy(rng.normal(size=(B, H, P)).astype(np.float32)).to(dev)
+    ckvp = torch.from_numpy(rng.normal(size=(NB, bs, R)).astype(np.float32)).to(dev, dtype)
+    kpep = torch.from_numpy(rng.normal(size=(NB, bs, P)).astype(np.float32)).to(dev, dtype)
+    return (q_lat, q_pe, ckvp, kpep, torch.from_numpy(bt).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("shape", [(5, 12, 32, 8, 4), (8, 128, 512, 64, 16)],
+                         ids=["small", "deepseek"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act_quant", [False, True], ids=["plain", "act_quant"])
+def test_paged_mla_attention_cuda_matches_plain(dev, shape, dtype, act_quant):
+    B, H, R, P, bs = shape
+    lens = [7, 1, 0, 2 * bs + 3, 3 * bs, bs - 1, 1, 4 * bs][:B]
+    args = _mla_case(dev, dtype, B, H, R, P, bs, lens)
+    kw = dict(scale=192**-0.5)
+    if act_quant:
+        kw.update(aq_scale=torch.tensor([0.02], device=dev), act_bits=8)
+    got = paged_mla_attention_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = paged_mla_attention_plain(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    assert (got[2] == 0).all()  # length 0
+    assert torch.equal(got[1], want[1])  # length 1: the (replayed) latent, exactly
+    ckvp = args[2].clone()
+    ckvp[-1] = float("nan")  # the block past row 0's length
+    again = paged_mla_attention_cuda(*args[:2], ckvp, *args[3:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+def test_paged_mla_attention_cuda_refuses_quantized_pools(dev):
+    args = list(_mla_case(dev, torch.float32, 2, 8, 32, 8, 4, [5, 3]))
+    codes = [a.to(torch.int8) for a in args[2:4]]
+    scales = torch.full(args[2].shape[:2], 0.01, device=dev)
+    with pytest.raises(NotImplementedError):
+        ops.paged_mla_attention(*args[:2], *codes, *args[4:], ckvs=scales, kpes=scales,
+                                scale=0.1)
