@@ -25,7 +25,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    timed with CUDA events (at deepseek's int_matmul shapes, where one call
    takes milliseconds, from CUDA events around back-to-back calls); the
    smollm int_matmul weights rotate over 30 layer copies so each call
-   streams its weights from HBM as the 30-layer model does;
+   streams its weights from HBM as the 30-layer model does.  The
+   ``--int-chain`` variants too: ``int_matmul`` with the quantizing prologue
+   (fp32 x) at smollm's layer shapes, M=8, signed and unsigned 8-bit, and at
+   deepseek's K=18432, M in {8, 32} (both sides of the kernel's choice of
+   quantization layout), bit for bit the plain version and the same kernel
+   on the standalone act-quant's codes; ``paged_attention`` on int8 and
+   packed-int4 pools with a bf16 query and ``paged_mla_attention`` on int8
+   and packed-int4 latent pools with the replay, each against its plain
+   version with a NaN scale block behind a table entry past a length, and
+   SDPA on the dequantized gathered view as the library time;
 4. serve full-width smollm-135m (30 layers, random A2Q weights from seed 0,
    deployed to int8): 8 requests, prompt 64, 32 new tokens, batch 8, through
    ``PagedServeEngine`` with ``Runtime(int_forward=True, decode_kernel=True)``;
@@ -50,7 +59,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5b. compare with ``Runtime(mla_absorb=True)`` (dequant bf16 matmuls,
    gathered-view latent attention) on the same weights, as in phase 5; then
    reduced deepseek-v3 on the card against the same model on the CPU;
-6. print the ``kernels`` line, then the result line.
+4c. on phase 4's smollm-135m, the ``--int-chain --kv-int8 [--kv-bits 4]
+   --decode-kernel`` path: ``Runtime(int_chain=True, decode_kernel=True)``
+   on int8, then int4 KV pools; launch counts (210 int_matmul per forward, 30
+   paged_attention per tick) and the chain report (210 folded, 0
+   standalone); the unchained int-forward run on the same pools gives
+   bitwise-equal prompt logits and identical tokens and margins; the
+   gathered dequantized read gives the same tokens; against bf16 KV,
+   ``parity_up_to_ties`` at an eps measured from the prompt logits (the
+   largest rise of any logit over the bf16 top-1), at most a quarter of the
+   logits' spread; decode and prefill tok/s, peak memory and host ops per
+   decode tick of every run;
+4d. the same on phase 4b's deepseek-v3 params (no second model is built),
+   with ``mla_absorb=True``: 29 int_matmul per forward (29 folded), 4
+   paged_mla_attention per tick;
+6. print the ``kernels`` line (every kernel and its int-chain variants:
+   ``int_matmul[prologue]``, ``paged_attention[int8|int4]``,
+   ``paged_mla_attention[int8|int4]``, each with its launches on its main
+   path), then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its launches on the main paths (counted from zero
@@ -416,6 +442,251 @@ def check_paged_mla_attention(dev) -> dict:
     return entry
 
 
+def check_int_matmul_prologue(dev) -> dict:
+    """int_matmul with the quantizing prologue (fp32 activations quantized
+    in the kernel, the ``--int-chain`` path) at smollm-135m's seven layer
+    shapes (M=8, signed and unsigned 8-bit inputs) and at deepseek-v3's
+    K=18432 shape (M=8, where all the threads quantize the few live rows,
+    and M=32, a prefill chunk, where each thread quantizes its own segment):
+    bit for bit the plain version, and the kernel's codes the standalone
+    act-quant's (the same kernel on those int8 codes gives the same output).
+    Times of one smollm layer's seven calls (signed inputs, the main path's)
+    and of the deepseek shape."""
+    from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain, prologue_codes
+    from repro_torch.kernels.ops import int_matmul_block_k
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    s_aq = torch.tensor([6.0 / 127], device=dev)  # the A2Q init's act scale
+    worst = 0.0
+
+    def check(x, w, scale, kw, pro, what):
+        nonlocal worst
+        got = int_matmul_cuda(x, w, scale, **kw, **pro)
+        torch.cuda.synchronize()
+        want = int_matmul_plain(x, w, scale, **kw, **pro)
+        err = (got - want).abs().max().item()
+        standalone = int_matmul_cuda(prologue_codes(x, s_aq, pro["q_lo"], pro["q_hi"],
+                                                    pro["q_shift"]), w, scale, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not torch.equal(got, standalone):
+            raise AssertionError(f"int_matmul prologue {what}: kernel != plain (max err {err}) "
+                                 "or != the kernel on the standalone codes")
+        worst = max(worst, err)
+
+    entry = None
+    for signed in (True, False):
+        lo, hi, shift = (-128, 127, 0) if signed else (0, 255, 128)
+        pro = dict(aq_scale=s_aq, q_lo=lo, q_hi=hi, q_shift=shift)
+        acc = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+        for (K, N), count in SMOLLM_SITES.items():
+            ws = [a2q_bounded_weights(gen, K, N, dev) for _ in range(LAYERS)]
+            scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+            kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
+            x = torch.randn((8, K), generator=gen, device=dev) * 3
+            x = x if signed else x.abs()
+            check(x, ws[0], scale, kw, pro, f"signed={signed} M=8 K={K} N={N}")
+            it = iter(range(10**9))
+            ms = graph_ms(lambda: int_matmul_cuda(x, ws[next(it) % LAYERS], scale, **kw, **pro),
+                          LAYERS)
+            it = iter(range(10**9))
+            plain_ms = graph_ms(lambda: int_matmul_plain(x, ws[next(it) % LAYERS], scale, **kw,
+                                                         **pro), LAYERS)
+            n_bytes = 4 * 8 * K + K * N + 4 * N + 4 * 8 * N
+            b_ms, b_by = bound_ms(n_bytes, 2 * 8 * K * N, INT8_OPS_PER_S)
+            print(f"int_matmul prologue {'s8' if signed else 'u8'} M=8 K={K} N={N}: equal to plain "
+                  f"and to the standalone codes, kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} "
+                  f"bound_ms {b_ms:.6f} ({b_by})", flush=True)
+            acc["ms"] += count * ms
+            acc["plain_ms"] += count * plain_ms
+            acc["bytes"] += count * n_bytes
+            acc["ops"] += count * 2 * 8 * K * N
+        b_ms, b_by = bound_ms(acc["bytes"], acc["ops"], INT8_OPS_PER_S)
+        print(f"int_matmul prologue {'s8' if signed else 'u8'}, one smollm layer's 7 calls at M=8: "
+              f"kernel_ms {acc['ms']:.5f} plain_ms {acc['plain_ms']:.5f} bound_ms {b_ms:.6f} "
+              f"({b_by})", flush=True)
+        if signed:  # the main path's activations
+            entry = {"name": "int_matmul[prologue]", "route": "cuda",
+                     "source": "src/repro_torch/csrc/int_matmul.cu",
+                     "replaces": "src/repro/kernels/int_matmul.py:300",
+                     "at": "one smollm-135m layer's 7 decode calls, M=8, fp32 x quantized in the "
+                           "prologue (signed 8-bit), int16 carry, fused scale",
+                     "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, "at_deepseek": {}}
+    K, N = 18432, 7168  # deepseek's dense mlp.w_out, the largest K
+    w = a2q_bounded_weights(gen, K, N, dev)
+    scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+    kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
+    pro = dict(aq_scale=s_aq, q_lo=-128, q_hi=127, q_shift=0)
+    for M in (8, 32):
+        x = torch.randn((M, K), generator=gen, device=dev) * 3
+        check(x, w, scale, kw, pro, f"M={M} K={K} N={N}")
+        ms = events_ms(lambda: int_matmul_cuda(x, w, scale, **kw, **pro), 5)
+        plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, **kw, **pro), 2)
+        b_ms, b_by = bound_ms(4 * M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N,
+                              INT8_OPS_PER_S)
+        print(f"int_matmul prologue deepseek M={M} K={K} N={N}: equal to plain and to the "
+              f"standalone codes, kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} "
+              f"({b_by})", flush=True)
+        entry["at_deepseek"][f"M={M} K={K} N={N}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def _quantize(pool, bits):
+    """Integer pool of ``pool``'s values: codes (packed for int4) and fp32
+    per-token scales, by the layers' own quantize-on-write."""
+    from repro_torch.nn.attention import _kv_quantize, _pack_nibbles
+
+    codes, scales = _kv_quantize(pool, bits=bits)
+    return (_pack_nibbles(codes) if bits == 4 else codes), scales
+
+
+def check_paged_attention_int(dev) -> list:
+    """paged_attention on int8 and packed-int4 pools at smollm-135m's decode
+    shape, with the main path's bf16 query: against the plain version, with
+    a NaN scale block behind a table entry past a row's length."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+    from repro_torch.nn.attention import _unpack_nibbles
+
+    q, kp, vp, bt, lengths = paged_case(dev, torch.float32)
+    q = q.to(torch.bfloat16)
+    B, H, Dh = q.shape
+    NB, bs, KV, _ = kp.shape
+    entries = []
+    for bits in (8, 4):
+        kq, ks = _quantize(kp, bits)
+        vq, vs = _quantize(vp, bits)
+        worst = 0.0
+        for window in (None, 20):
+            got = paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs, window=window)
+            torch.cuda.synchronize()
+            want = paged_attention_plain(q, kq, vq, bt, lengths, ks, vs, window=window)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= ATTN_TOL[torch.bfloat16]:
+                raise AssertionError(f"paged_attention int{bits} window={window}: max err {err}")
+            if not torch.isfinite(got).all() or got[0].abs().max().item() != 0.0:
+                raise AssertionError("paged_attention: non-finite output or nonzero empty row")
+            worst = max(worst, err)
+        spare = sorted(set(range(1, NB)) - set(bt.flatten().tolist()))[0]
+        ks_nan, vs_nan, bt_past = ks.clone(), vs.clone(), bt.clone()
+        ks_nan[spare] = vs_nan[spare] = float("nan")  # a block no live entry reaches...
+        bt_past[2, -1] = spare  # ...but an entry past row 2's length
+        past = paged_attention_cuda(q, kq, vq, bt_past, lengths, ks_nan, vs_nan)
+        torch.cuda.synchronize()
+        if not torch.equal(past, paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs)):
+            raise AssertionError(f"paged_attention int{bits} read a table entry past the length")
+        ms = graph_ms(lambda: paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs), LAYERS)
+        plain_ms = graph_ms(lambda: paged_attention_plain(q, kq, vq, bt, lengths, ks, vs), LAYERS)
+        # yardstick: SDPA on the dequantized gathered view (gather and dequant not timed)
+        S = bt.shape[1] * bs
+        deq = [(_unpack_nibbles(c) if bits == 4 else c).float() * sc[..., None]
+               for c, sc in ((kq, ks), (vq, vs))]
+        G = H // KV
+        kg, vg = (d[bt.long()].reshape(B, S, KV, Dh).transpose(1, 2).to(torch.bfloat16)
+                  .repeat_interleave(G, dim=1).contiguous() for d in deq)
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask), LAYERS)
+        toks = lengths.sum().item()
+        n_bytes = (2 * q.numel() * 2 + toks * KV * 2 * kq.shape[-1] + toks * KV * 2 * 4
+                   + bt.numel() * 4 + B * 4)
+        n_ops = 4 * toks * H * Dh
+        b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
+        print(f"paged_attention int{bits} pools, bf16 q, B={B} H={H} KV={KV} Dh={Dh} bs={bs} "
+              f"lengths={lengths.tolist()}: max_abs_err {worst:.3g} (tol {ATTN_TOL[torch.bfloat16]:.3g}), "
+              f"entry past the length unread, kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} "
+              f"bound_ms {b_ms:.6f} ({b_by}) library_ms(sdpa, dequantized gathered) {lib_ms:.5f}",
+              flush=True)
+        entries.append({"name": f"paged_attention[int{bits}]", "route": "cuda",
+                        "source": "src/repro_torch/csrc/paged_attention.cu",
+                        "replaces": "src/repro/kernels/paged_attention.py:212",
+                        "at": f"B=8 H=9 KV=3 Dh=64 bs=16 int{bits} pools, bf16 q, ragged lengths "
+                              "incl. 0",
+                        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms})
+    return entries
+
+
+def check_paged_mla_attention_int(dev) -> list:
+    """paged_mla_attention on int8 and packed-int4 latent pools at
+    deepseek-v3's decode shape with the act-quant replay on: against the
+    plain version (the length-1 row exactly), with a NaN scale block behind
+    a table entry past a row's length."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_mla_attention import (
+        paged_mla_attention_cuda,
+        paged_mla_attention_plain,
+    )
+    from repro_torch.nn.attention import _unpack_nibbles
+
+    scale = (128 + 64) ** -0.5
+    kw = {"aq_scale": torch.tensor([0.02], device=dev), "act_bits": 8}
+    q_lat, q_pe, ckvp, kpep, bt, lengths = mla_case(dev, torch.float32)
+    B, H, R = q_lat.shape
+    P, bs = q_pe.shape[-1], ckvp.shape[1]
+    entries = []
+    for bits in (8, 4):
+        ckvq, ckvs = _quantize(ckvp, bits)
+        kpeq, kpes = _quantize(kpep, bits)
+        args = (q_lat, q_pe, ckvq, kpeq, bt, lengths, ckvs, kpes)
+        worst = 0.0
+        for kwi in ({}, kw):
+            got = paged_mla_attention_cuda(*args, scale=scale, **kwi)
+            torch.cuda.synchronize()
+            want = paged_mla_attention_plain(*args, scale=scale, **kwi)
+            err = (got - want).abs().max().item()
+            if not err <= MLA_TOL:
+                raise AssertionError(f"paged_mla_attention int{bits} {kwi}: max err {err}")
+            if not torch.isfinite(got).all() or got[0].abs().max().item() != 0.0 or \
+                    not torch.equal(got[1], want[1]):
+                raise AssertionError(f"paged_mla_attention int{bits}: non-finite output, nonzero "
+                                     "empty row, or a length-1 row off the dequantized latent")
+            worst = max(worst, err)
+        ckvs_nan, bt_past = ckvs.clone(), bt.clone()
+        ckvs_nan[-1] = float("nan")
+        bt_past[2, -1] = ckvq.shape[0] - 1
+        past = paged_mla_attention_cuda(q_lat, q_pe, ckvq, kpeq, bt_past, lengths, ckvs_nan, kpes,
+                                        scale=scale, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(past, paged_mla_attention_cuda(*args, scale=scale, **kw)):
+            raise AssertionError(f"paged_mla_attention int{bits} read a table entry past the length")
+        ms = graph_ms(lambda: paged_mla_attention_cuda(*args, scale=scale, **kw), LAYERS)
+        plain_ms = graph_ms(lambda: paged_mla_attention_plain(*args, scale=scale, **kw), LAYERS)
+        S = bt.shape[1] * bs
+        ckv_d, kpe_d = ((_unpack_nibbles(c) if bits == 4 else c).float() * sc[..., None]
+                        for c, sc in ((ckvq, ckvs), (kpeq, kpes)))
+        ckv_g = ckv_d[bt.long()].reshape(B, 1, S, R)
+        kpe_g = kpe_d[bt.long()].reshape(B, 1, S, P)
+        qs = torch.cat([q_lat, q_pe], dim=-1)[:, :, None, :]
+        kg = torch.cat([ckv_g, kpe_g], dim=-1).contiguous()
+        vg = ckv_g.contiguous()
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), LAYERS)
+        toks = lengths.sum().item()
+        n_bytes = (q_lat.numel() * 4 + q_pe.numel() * 4 + toks * (ckvq.shape[-1] + kpeq.shape[-1])
+                   + toks * 2 * 4 + bt.numel() * 4 + B * 4 + B * H * R * 4 + 4)
+        n_ops = 2 * H * toks * (R + P + R)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
+        print(f"paged_mla_attention int{bits} pools B={B} H={H} R={R} P={P} bs={bs} act_bits=8: "
+              f"max_abs_err {worst:.3g} (tol {MLA_TOL:.3g}), length-1 row exact, entry past the "
+              f"length unread, kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} "
+              f"({b_by}) library_ms(sdpa, dequantized gathered, gqa) {lib_ms:.5f}", flush=True)
+        entries.append({"name": f"paged_mla_attention[int{bits}]", "route": "cuda",
+                        "source": "src/repro_torch/csrc/paged_mla_attention.cu",
+                        "replaces": "src/repro/kernels/paged_attention.py:373",
+                        "at": f"B=8 H=128 R=512 P=64 bs=16 int{bits} latent pools, act_bits=8 "
+                              "replay, ragged lengths incl. 0 and 1",
+                        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms})
+    return entries
+
+
 def serve(dev):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels.int_matmul import int_matmul_cuda
@@ -453,6 +724,8 @@ def serve(dev):
           f"{tp['decode_s']:.3f}s ({tp['decode_tok_s']:.1f} tok/s, {ticks} ticks)", flush=True)
     print(f"launches on the main path: {launches} over {ticks} decode ticks and "
           f"{chunks} prefill chunks", flush=True)
+    print(f"host ops per decode tick (int-forward, bf16 KV): {tick_ops(engine, prompts)}",
+          flush=True)
     per_forward = 7 * arch.n_layers
     if launches["int_matmul"] != per_forward * (ticks + chunks) or \
             launches["paged_attention"] != arch.n_layers * ticks or ticks < 31:
@@ -508,7 +781,181 @@ def serve(dev):
           f"max margin diff {marg:.3g}", flush=True)
     if not ok or ties or marg > 1e-4:
         raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
-    return launches
+    del engine, ref
+    phase("4c: smollm-135m full size on --int-chain --kv-int8 [--kv-bits 4] --decode-kernel")
+    return {"smollm-135m": launches,
+            "smollm-135m int-chain": serve_int(dev, arch, params, prompts,
+                                               per_forward=7 * arch.n_layers, mla=False)}
+
+
+def tick_ops(engine, prompts) -> int:
+    """Host-dispatched PyTorch operators in one decode tick of ``engine``
+    (every request admitted and prefilled first): the host work a tick
+    issues, each a kernel launch unless it is a view.  The CUDA kernels'
+    own launches go through ctypes and are not among them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.serve.engine import Request
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=2000 + i, prompt=p, max_new=3))
+    engine.step()
+    with Count():
+        engine.tick()
+    while not engine.sched.idle():
+        engine.step()
+    return Count.n
+
+
+def _prompt_logits(params, arch, toks, rt, dev, kv_bits=None):
+    """Logits of the prompts ``toks (B, T)`` prefilled in one step into fresh
+    paged pools: bf16 pools, or integer ones at ``kv_bits``."""
+    from repro_torch.models.lm import apply_lm
+    from repro_torch.nn.transformer import COMPUTE_DTYPES
+    from repro_torch.serve.paged_cache import PagedKVCache
+
+    B, T = toks.shape
+    cache = PagedKVCache(arch, B, block_size=16, max_seq=T, dtype=COMPUTE_DTYPES[arch.compute_dtype],
+                         device=dev, kv_quant=kv_bits is not None, kv_bits=kv_bits or 8)
+    for b in range(B):
+        cache.allocate(b, T)
+    logits, _ = apply_lm(params, arch, tokens=toks, rt=rt, start_pos=0,
+                         cache={**cache.pools, "_paged": {"bt": cache.bt()}})
+    return logits.float()
+
+
+def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dict:
+    """The ``--int-chain --kv-int8 [--kv-bits 4] --decode-kernel`` path on
+    ``params``: for int8, then int4 KV, the main-path run (every deployed
+    linear's act-quant in the int_matmul prologue, the decode read through
+    the int-pool attention kernel) with its launch counts and chain report,
+    held against the unchained int-forward run on the same pools (bitwise
+    prompt logits, identical tokens and margins), the gathered dequantized
+    read (same tokens), and bf16 KV (``parity_up_to_ties`` at an eps derived
+    from the prompt logits' quantization error, at most a quarter of the
+    logits' spread).  Returns the main-path runs' launch counts by kernel
+    variant."""
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_mla_attention import paged_mla_attention_cuda
+    from repro_torch.models.lm import Runtime, apply_lm
+    from repro_torch.serve.engine import PagedServeEngine, parity_up_to_ties
+
+    attn = paged_mla_attention_cuda if mla else paged_attention_cuda
+    name = "paged_mla_attention" if mla else "paged_attention"
+    n_attn = sum(s.count for s in arch.stacks)
+    kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev)
+    chunks = sum(-(-len(p) // 32) for p in prompts)
+
+    def run(tag, kv_bits, **rt):
+        engine = PagedServeEngine(arch, params, rt=Runtime(mla_absorb=mla, **rt),
+                                  kv_quant=kv_bits is not None, kv_bits=kv_bits or 8, **kw)
+        engine.generate(prompts[:1], max_new=2)  # warm-up
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        int_matmul_cuda.launches = 0
+        attn.launches = 0
+        outs = engine.generate(prompts, max_new=32)
+        torch.cuda.synchronize()
+        launches = {"int_matmul": int_matmul_cuda.launches, name: attn.launches}
+        tp = engine.throughput()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[{tag}] prefill {tp['prefill_tok_s']:.2f} tok/s | decode {tp['decode_tok_s']:.2f} "
+              f"tok/s ({tp['decode_dispatches']} ticks) | peak allocated {peak:.2f} GB | "
+              f"{engine.cache.kv_bytes_per_token()} KV bytes/token | chain report: "
+              f"{tp['int_chain_folded']} folded, {tp['int_chain_requant_dispatches']} standalone, "
+              f"{tp['int_chain_fallback']} fallback | launches {launches} | host ops per decode "
+              f"tick {tick_ops(engine, prompts)}", flush=True)
+        for r, o in zip(engine.last_requests, outs):
+            if len(o) != 32 or not all(0 <= t < arch.vocab for t in o) or \
+                    not np.isfinite(r.margins).all():
+                raise AssertionError(f"[{tag}] bad output: {o} margins {r.margins}")
+        return engine, outs, launches, tp
+
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    chained = Runtime(int_chain=True, mla_absorb=mla)
+    bf16, bf16_outs, _, _ = run("bf16 KV, int-chain, kernel", None, int_chain=True,
+                                decode_kernel=True)
+    l_bf16 = _prompt_logits(params, arch, toks, chained, dev)
+    counts = {"int_matmul[prologue]": 0}
+    for bits in (8, 4):
+        main, outs, launches, tp = run(f"int{bits} KV, int-chain, kernel (main path)", bits,
+                                       int_chain=True, decode_kernel=True)
+        ticks = tp["decode_dispatches"]
+        if launches["int_matmul"] != per_forward * (ticks + chunks) or \
+                launches[name] != n_attn * ticks or ticks < 31 or \
+                tp["int_chain_requant_dispatches"] != 0 or tp["int_chain_folded"] != per_forward:
+            raise AssertionError(f"int{bits} KV: launches {launches}, chain report {tp} do not "
+                                 f"show {per_forward} folded int_matmul per forward and {n_attn} "
+                                 f"{name} per decode tick")
+        counts["int_matmul[prologue]"] += launches["int_matmul"]
+        counts[f"{name}[int{bits}]"] = launches[name]
+        # chaining is a pure dispatch fusion: the unchained run on the same pools
+        l_q = _prompt_logits(params, arch, toks, chained, dev, bits)
+        l_u = _prompt_logits(params, arch, toks, Runtime(int_forward=True, mla_absorb=mla), dev, bits)
+        unchained, outs_u, _, _ = run(f"int{bits} KV, unchained int-forward, kernel", bits,
+                                      int_forward=True, decode_kernel=True)
+        same_margins = [r.margins for r in unchained.last_requests] == \
+            [r.margins for r in main.last_requests]
+        print(f"int{bits} KV chained vs unchained: prompt logits bitwise equal "
+              f"{torch.equal(l_q, l_u)}, tokens identical {outs_u == outs}, margins identical "
+              f"{same_margins}", flush=True)
+        if not torch.equal(l_q, l_u) or outs_u != outs or not same_margins:
+            raise AssertionError(f"int{bits} KV: chained and unchained runs differ")
+        # the kernel read against the gathered dequantized view of the same pools
+        gathered, outs_g, _, _ = run(f"int{bits} KV, int-chain, gathered view", bits,
+                                     int_chain=True)
+        ulps = 2.0**-6 * l_q.abs().max().item()  # two bf16 ulps at the top of the logit range
+        ok, ties, detail = parity_up_to_ties(gathered.last_requests, outs, ulps)
+        same = sum(a == b for a, b in zip(outs_g, outs))
+        print(f"int{bits} KV kernel read vs gathered view: identical_requests {same}/{len(outs)}, "
+              f"parity_up_to_ties eps={ulps:.4g} ok={ok} ties={ties}", flush=True)
+        if not ok:
+            raise AssertionError(f"int{bits} KV kernel read vs gathered view: {detail}")
+        # against bf16 KV, at the eps the quantization error sets: on the prompt
+        # positions, the largest rise of any logit over the bf16 top-1 token
+        # (a greedy token can flip only where its margin is below that)
+        d = l_q - l_bf16
+        top = l_bf16.argmax(-1, keepdim=True)
+        eps = (d - d.gather(-1, top)).amax(-1).max().item()
+        spread = (l_bf16.amax(-1) - l_bf16.amin(-1)).median().item()
+        margins = np.concatenate([r.margins for r in bf16.last_requests])
+        ok, ties, detail = parity_up_to_ties(bf16.last_requests, outs, eps)
+        same = sum(a == b for a, b in zip(bf16_outs, outs))
+        agree = (l_q.argmax(-1) == l_bf16.argmax(-1)).float().mean().item()
+        print(f"int{bits} KV vs bf16 KV: prompt logits max |diff| {d.abs().max().item():.4g}, "
+              f"eps (largest rise over the bf16 top-1) {eps:.4g} = {eps / spread:.1%} of the "
+              f"median logit spread {spread:.4g}; {float((margins > eps).mean()):.1%} of the bf16 "
+              f"greedy steps have a margin above eps (median margin {np.median(margins):.4g}); "
+              f"prompt argmax agreement {agree:.4f}; parity_up_to_ties ok={ok} ties={ties} "
+              f"identical_requests {same}/{len(outs)}", flush=True)
+        if not ok or not eps <= 0.25 * spread:
+            raise AssertionError(f"int{bits} KV vs bf16 KV: parity {detail}, or eps {eps} above a "
+                                 f"quarter of the logit spread {spread} (vacuous)")
+        if bits == 8:  # chained vs unchained decode tok/s in turns: A B (above), B A, A B
+            profile_decode(main, prompts)
+            tps = {"int-chain": [tp["decode_tok_s"]],
+                   "int-forward": [unchained.throughput()["decode_tok_s"]]}
+            for order in (("int-forward", "int-chain"), ("int-chain", "int-forward")):
+                for which in order:
+                    chain = which == "int-chain"
+                    tps[which].append(run(f"int{bits} KV, {which}, kernel (timing)", bits,
+                                          int_chain=chain, int_forward=not chain,
+                                          decode_kernel=True)[3]["decode_tok_s"])
+            print(f"int{bits} KV decode tok/s in turns (A B B A A B): " + "; ".join(
+                f"{k} {[round(v, 2) for v in vs]} median {np.median(vs):.2f}"
+                for k, vs in tps.items()), flush=True)
+        del main, unchained, gathered, l_q, l_u
+        torch.cuda.empty_cache()
+    return counts
 
 
 DEEPSEEK_INT_MATMUL_PER_FORWARD = 29  # see deepseek_int_matmul_per_forward
@@ -688,6 +1135,8 @@ def serve_deepseek(dev):
                 not np.isfinite(r.margins).all():
             raise AssertionError(f"bad output: {o} margins {r.margins}")
     print(f"req 0 tokens: {outs[0]}", flush=True)
+    print(f"host ops per decode tick (int-forward, bf16 KV): {tick_ops(engine, prompts)}",
+          flush=True)
     profile_decode(engine, prompts)
 
     phase("5b: deepseek-v3 on the dequant path (absorbed, gathered view); reduced card vs CPU")
@@ -720,7 +1169,12 @@ def serve_deepseek(dev):
           f"{marg:.4g}", flush=True)
     if not ok:
         raise AssertionError(f"parity failed: {detail}")
-    del params, engine, ref
+    del engine, ref
+    torch.cuda.empty_cache()
+    phase("4d: deepseek-v3 (phase 4b's params) on --int-chain --kv-int8 [--kv-bits 4] "
+          "--decode-kernel, mla_absorb")
+    int_counts = serve_int(dev, arch, params, prompts, per_forward=per_forward, mla=True)
+    del params
     torch.cuda.empty_cache()
     small = reduced(get_arch("deepseek-v3-671b"))
     sp = deploy_params(init_lm(torch.Generator().manual_seed(0), small, device="cpu"), small.quant)
@@ -741,7 +1195,7 @@ def serve_deepseek(dev):
           f"launches on the card", flush=True)
     if not ok or ties or marg > 1e-4 or paged_mla_attention_cuda.launches == 0:
         raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
-    return launches
+    return {"deepseek-v3": launches, "deepseek-v3 int-chain": int_counts}
 
 
 def _leaves(tree):
@@ -779,15 +1233,20 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     phase("3: kernels against their plain versions")
-    entries = [check_int_matmul(dev), check_paged_attention(dev), check_paged_mla_attention(dev)]
+    entries = [check_int_matmul(dev), check_int_matmul_prologue(dev), check_paged_attention(dev),
+               *check_paged_attention_int(dev), check_paged_mla_attention(dev),
+               *check_paged_mla_attention_int(dev)]
     entries[0]["at_deepseek"] = check_int_matmul_deepseek(dev)
-    by_path = {"smollm-135m": serve(dev)}
     torch.cuda.empty_cache()
-    by_path["deepseek-v3"] = serve_deepseek(dev)
+    by_path = serve(dev)
+    torch.cuda.empty_cache()
+    by_path.update(serve_deepseek(dev))
     for e in entries:
         counts = {path: n[e["name"]] for path, n in by_path.items() if e["name"] in n}
         e["launches"] = sum(counts.values())
         e["launches_by_path"] = counts
+        if e["launches"] == 0:
+            raise AssertionError(f"{e['name']} was never launched on the main paths")
 
     phase("6: result")
     print(smi, flush=True)

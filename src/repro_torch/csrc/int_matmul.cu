@@ -1,5 +1,5 @@
-// int8 x int8 -> int32 matmul with P-bit accumulator emulation and the fused
-// W8A8 epilogue, for Hopper (sm_90a).
+// int8 x int8 -> int32 matmul with P-bit accumulator emulation, the fused
+// W8A8 epilogue and the quantizing prologue, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `int_matmul_kernel` / `int_matmul_pallas`
 // (repro/kernels/int_matmul.py).  It computes, for x (M, K) int8 row-major
@@ -14,6 +14,12 @@
 //          with `spill16` the carry is stored as int16 after every tile
 //          (wraps exactly like `astype(int16)`; lossless when the A2Q bound
 //          holds for acc_bits <= 16);
+//   x    is either int8 codes, or (prologue, `aq` given) fp32 activations
+//          quantized while they are staged: clip(rint(x / aq), lo, hi) - shift,
+//          with `shift` 128 for unsigned 8-bit codes (symmetrized into the int8
+//          operand; the wrapper's offset adds 128 * colsum(w) back).  The
+//          division is IEEE (__fdiv_rn, never a reciprocal) and rint rounds
+//          half to even, so the codes equal the standalone act-quant's;
 //   out  = (acc + offset[n]) * scale[n] (+ bias[n]) in fp32 when `scale` is
 //          given (one rounded multiply, then one rounded add: __fmul_rn /
 //          __fadd_rn keep nvcc from contracting them into an FMA, so the
@@ -36,12 +42,24 @@
 // depend on this kernel's own step size.  Rows past M are skipped, which
 // makes a 1-row decode call cost one row of arithmetic; the next step's
 // global loads are issued into registers before the current step is
-// multiplied, so the weight stream overlaps the arithmetic.  Not yet done:
+// multiplied, so the weight stream overlaps the arithmetic.  With the
+// prologue a thread's x segment is 16 fp32 values (four 16-byte loads),
+// issued with the weight loads a step ahead and divided only when the next
+// step is staged (an IEEE division is a branch to a slow path behind a
+// convergence barrier, so dividing between loads would serialise them).  With
+// at most 16 live rows (decode) the step goes through fp32 shared memory and
+// all the threads quantize it together after the next step's loads are
+// issued: the one warp holding 8 rows' segments would otherwise divide 16
+// values a thread alone and set the step's time.  Past 16 rows each thread
+// quantizes its own segment.  Rows past M are neither staged nor divided.
+// Not yet done:
 // tensor-core (mma/wgmma) products and split-K for the few-column decode
 // shapes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -51,6 +69,7 @@ constexpr int BKC = 64;                  // K elements per shared-memory step
 constexpr int THREADS = 256;
 constexpr int ROW_GROUPS = THREADS / BN; // 4: thread t owns column t % 64
 constexpr int RPT = BM / ROW_GROUPS;     // 16 rows per thread: t / 64 + 4 i
+constexpr int SPREAD_ROWS = 16;          // prologue: all threads quantize up to 16 rows
 constexpr int PITCH = BKC + 16;          // bytes per staged row: 16-byte aligned,
                                          // 20 words -> conflict-free 16-byte reads
 
@@ -93,14 +112,48 @@ __device__ __forceinline__ int4 load16(const int8_t* p, int valid) {
   return make_int4(v[0], v[1], v[2], v[3]);
 }
 
+// 16 fp32 values from `p`, zero past `valid` values; four 16-byte loads when
+// aligned.
+struct F16 {
+  float4 v[4];
+};
+
+__device__ __forceinline__ F16 load16(const float* p, int valid) {
+  F16 r;
+  if (valid >= 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) r.v[q] = __ldg(reinterpret_cast<const float4*>(p) + q);
+    return r;
+  }
+  float f[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) f[j] = j < valid ? p[j] : 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) r.v[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+  return r;
+}
+
+// The prologue's code of one fp32 activation: clip(rint(x / aq), lo, hi) -
+// shift, dividing (never multiplying by a reciprocal) and rounding half to
+// even, as the standalone act-quant computes it.
+__device__ __forceinline__ int8_t act_code(float x, float aq, float lo, float hi, int shift) {
+  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(x, aq)), lo), hi)) -
+                             shift);
+}
+
+// TX is int8_t (codes) or float (the prologue quantizes while staging).
+template <typename TX>
 __global__ void __launch_bounds__(THREADS)
-int_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
                   int M, int N, int K, int bk_ref, int mode, int acc_bits,
                   int spill16, const float* __restrict__ scale,
                   const float* __restrict__ bias, const int* __restrict__ offset,
+                  const float* __restrict__ aq, int q_lo, int q_hi, int q_shift,
                   float* __restrict__ out_f, int* __restrict__ out_i) {
+  constexpr bool kPrologue = std::is_same<TX, float>::value;
   __shared__ __align__(16) int8_t xs[BM * PITCH];  // xs[r][k]
   __shared__ __align__(16) int8_t ws[BN * PITCH];  // ws[n][k] (transposed)
+  __shared__ __align__(16) float xf[kPrologue ? BM * BKC : 4];  // the prologue's fp32 step
 
   const int tid = threadIdx.x;
   const int col = tid % BN;
@@ -109,7 +162,8 @@ int_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int m0 = blockIdx.y * BM;
   const int rows = min(BM, M - m0);
 
-  // staging roles: one 16-byte segment of x and one of w per thread per step
+  // staging roles: one 16-byte segment of x (16 int8 codes, or 16 fp32
+  // values for the prologue) and one of w per thread per step
   const int xr = tid / (BKC / 16);        // x row 0..63
   const int xk = (tid % (BKC / 16)) * 16; // x column offset within the step
   const int wk = tid / (BN / 16);         // w row (k) 0..63
@@ -119,6 +173,13 @@ int_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int valid = xr < rows ? K - (k0 + xk) : 0;
     return load16(x + static_cast<size_t>(m0 + xr) * K + k0 + xk, valid);
   };
+  // the prologue's quantizer (unused for int8 codes); with at most 16 live
+  // rows the step is quantized by all the threads from shared memory, else
+  // each thread quantizes its own segment (measured faster past ~16 rows)
+  const float s_aq = aq != nullptr ? *aq : 1.0f;
+  const bool spread = rows <= SPREAD_ROWS;
+  const float lo = static_cast<float>(q_lo);
+  const float hi = static_cast<float>(q_hi);
   auto load_w = [&](int k0) {
     const int valid = k0 + wk < K ? N - (n0 + wn) : 0;
     return load16(w + static_cast<size_t>(k0 + wk) * N + n0 + wn, valid);
@@ -132,11 +193,31 @@ int_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     part[i] = 0;
   }
 
-  int4 xv = load_x(0);
+  auto xv = load_x(0);
   int4 wv = load_w(0);
   for (int k0 = 0; k0 < K; k0 += BKC) {
     {
-      *reinterpret_cast<int4*>(xs + xr * PITCH + xk) = xv;
+      if constexpr (kPrologue) {
+        if (xr < rows && spread) {  // the fp32 step, quantized below by every thread
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            *reinterpret_cast<float4*>(xf + xr * BKC + xk + 4 * q) = xv.v[q];
+        } else if (xr < rows) {  // many rows: each thread quantizes its own segment
+          const float f[16] = {xv.v[0].x, xv.v[0].y, xv.v[0].z, xv.v[0].w,
+                               xv.v[1].x, xv.v[1].y, xv.v[1].z, xv.v[1].w,
+                               xv.v[2].x, xv.v[2].y, xv.v[2].z, xv.v[2].w,
+                               xv.v[3].x, xv.v[3].y, xv.v[3].z, xv.v[3].w};
+          int v[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const unsigned c = static_cast<uint8_t>(act_code(f[j], s_aq, lo, hi, q_shift));
+            v[j >> 2] |= static_cast<int>(c << (8 * (j & 3)));
+          }
+          *reinterpret_cast<int4*>(xs + xr * PITCH + xk) = make_int4(v[0], v[1], v[2], v[3]);
+        }
+      } else {
+        *reinterpret_cast<int4*>(xs + xr * PITCH + xk) = xr < rows ? xv : make_int4(0, 0, 0, 0);
+      }
       const int words[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -148,6 +229,17 @@ int_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     if (k0 + BKC < K) {  // next step's loads fly while this one multiplies
       xv = load_x(k0 + BKC);
       wv = load_w(k0 + BKC);
+    }
+    if constexpr (kPrologue) {
+      if (spread) {  // block-uniform: every thread reaches the barrier or none
+        // the few live rows' values spread over all the threads (2 a thread
+        // at a decode M of 8): each IEEE division is a branch behind a
+        // convergence barrier, so the one warp holding 8 rows' segments,
+        // dividing 16 values a thread alone, would set the step's time
+        for (int e = tid; e < rows * BKC; e += THREADS)
+          xs[(e / BKC) * PITCH + e % BKC] = act_code(xf[e], s_aq, lo, hi, q_shift);
+        __syncthreads();
+      }
     }
     // this thread's column of the step: 64 int8 weights in 16 registers
     const int4* wrow = reinterpret_cast<const int4*>(ws + col * PITCH);
@@ -213,17 +305,29 @@ int_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 // Launches on `stream`; returns cudaGetLastError() (0 on success).  Shapes
 // and pointers are validated by the Python wrapper; `bk_ref` must be a
 // positive multiple of 64.  `out_f` is written when `scale` is given, else
-// `out_i`.
+// `out_i`.  With `aq` (one fp32 value on the device) `x` is fp32 and the
+// prologue quantizes it to [q_lo, q_hi] minus `q_shift`; else `x` is int8.
 extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
                                  int K, int bk_ref, int mode, int acc_bits,
                                  int spill16, const void* scale,
                                  const void* bias, const void* offset,
+                                 const void* aq, int q_lo, int q_hi, int q_shift,
                                  void* out_f, void* out_i, void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), M, N, K,
-      bk_ref, mode, acc_bits, spill16, static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<const int*>(offset),
-      static_cast<float*>(out_f), static_cast<int*>(out_i));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* wp = static_cast<const int8_t*>(w);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* bi = static_cast<const float*>(bias);
+  const auto* of = static_cast<const int*>(offset);
+  const auto* a = static_cast<const float*>(aq);
+  if (aq != nullptr) {
+    int_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, sc, bi,
+        of, a, q_lo, q_hi, q_shift, static_cast<float*>(out_f), static_cast<int*>(out_i));
+  } else {
+    int_matmul_kernel<int8_t><<<grid, THREADS, 0, s>>>(
+        static_cast<const int8_t*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, sc, bi,
+        of, nullptr, 0, 0, 0, static_cast<float*>(out_f), static_cast<int*>(out_i));
+  }
   return static_cast<int>(cudaGetLastError());
 }

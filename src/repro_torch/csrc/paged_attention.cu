@@ -2,8 +2,14 @@
 // against K/V pools read through a block table.
 //
 // Replaces the Pallas TPU kernel `paged_attention_kernel` /
-// `paged_attention_pallas` (repro/kernels/paged_attention.py), fp32 and bf16
-// pools.  Inputs: q (B, H, Dh); pools kp/vp (NB, bs, KV, Dh); block table
+// `paged_attention_pallas` (repro/kernels/paged_attention.py): fp32 and bf16
+// pools, int8 code pools, and packed int4 pools (uint8, two codes a byte at
+// Dh / 2: element 2i in the low nibble, 2i + 1 in the high, each
+// sign-extended as (x ^ 8) - 8).  Integer pools come with fp32 per-slot scale
+// pools ks/vs (NB, bs, KV) and are dequantized in registers while a block is
+// staged, in the reference's order: code times the slot's scale, in fp32
+// (__fmul_rn), then the dot with q * scale.  Inputs: q (B, H, Dh); pools
+// kp/vp (NB, bs, KV, Dh) (Dh / 2 bytes a row for int4); block table
 // bt (B, MB) int32; lengths (B,) int32 counting valid keys (this step's
 // included).  Key position p of row b lives at pool block bt[b, p / bs],
 // slot p % bs, and is valid iff p < length (and p >= length - window when a
@@ -13,8 +19,9 @@
 //   `l > 0 ? 1 / max(l, 1e-30) : 0`), never NaN.
 //
 // What bounds it on the H100: the K/V bytes each row reads, length x KV x
-// Dh x 2 (K and V) x the pool's element size, over the 3.35 TB/s of HBM; the
-// arithmetic (2 x G flops per K/V element) is negligible.
+// Dh x 2 (K and V) x the pool's element size (1 byte for int8, half a byte
+// for int4, plus 4 bytes of scale a slot and KV head), over the 3.35 TB/s of
+// HBM; the arithmetic (2 x G flops per K/V element) is negligible.
 //
 // Design: one block per (KV head, row).  The TPU grid walks (row, KV head,
 // table entry) with the table entry innermost and sequential, carrying the
@@ -49,6 +56,28 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
   *out = __float2bfloat16(v);
 }
 
+// One pool element as fp32: `slot` indexes (NB, bs, KV) rows of Dh elements,
+// `sc` the matching per-slot scales (unused for float pools).
+__device__ __forceinline__ float pool_elem(const float* p, size_t slot, int d, int Dh,
+                                           const float*) {
+  return p[slot * Dh + d];
+}
+__device__ __forceinline__ float pool_elem(const __nv_bfloat16* p, size_t slot, int d, int Dh,
+                                           const float*) {
+  return __bfloat162float(p[slot * Dh + d]);
+}
+__device__ __forceinline__ float pool_elem(const int8_t* p, size_t slot, int d, int Dh,
+                                           const float* sc) {
+  return __fmul_rn(static_cast<float>(p[slot * Dh + d]), sc[slot]);
+}
+// uint8 pools are packed int4: row `slot` holds Dh / 2 bytes
+__device__ __forceinline__ float pool_elem(const uint8_t* p, size_t slot, int d, int Dh,
+                                           const float* sc) {
+  const int byte = p[slot * (Dh / 2) + d / 2];
+  const int nib = (d & 1) ? (byte >> 4) : (byte & 0xF);
+  return __fmul_rn(static_cast<float>((nib ^ 8) - 8), sc[slot]);
+}
+
 __device__ __forceinline__ bool key_valid(int kpos, int len, int window) {
   return kpos < len && (window <= 0 || kpos >= len - window);
 }
@@ -56,7 +85,8 @@ __device__ __forceinline__ bool key_valid(int kpos, int len, int window) {
 template <typename TQ, typename TP>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
-                       const TP* __restrict__ vp, const int* __restrict__ bt,
+                       const TP* __restrict__ vp, const float* __restrict__ ksc,
+                       const float* __restrict__ vsc, const int* __restrict__ bt,
                        const int* __restrict__ lengths, TQ* __restrict__ out,
                        int H, int KV, int Dh, int bs, int MB, float scale,
                        int window) {
@@ -97,9 +127,9 @@ paged_attention_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
     for (int i = tid; i < bs * Dh; i += THREADS) {
       const int o = i / Dh;
       const int d = i % Dh;
-      const size_t src = ((blk * bs + o) * KV + h) * Dh + d;
-      ks[i] = to_f32(kp[src]);
-      vs[i] = to_f32(vp[src]);
+      const size_t slot = (blk * bs + o) * KV + h;
+      ks[i] = pool_elem(kp, slot, d, Dh, ksc);
+      vs[i] = pool_elem(vp, slot, d, Dh, vsc);
     }
     __syncthreads();
     for (int i = tid; i < G * bs; i += THREADS) {
@@ -149,9 +179,9 @@ paged_attention_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
 }
 
 template <typename TQ, typename TP>
-int launch(const void* q, const void* kp, const void* vp, const void* bt,
-           const void* lengths, void* out, int B, int H, int KV, int Dh, int bs,
-           int MB, float scale, int window, cudaStream_t stream) {
+int launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
+           const void* bt, const void* lengths, void* out, int B, int H, int KV, int Dh,
+           int bs, int MB, float scale, int window, cudaStream_t stream) {
   const int G = H / KV;
   const size_t smem = sizeof(float) * (2 * G * Dh + 2 * bs * Dh + G * bs + 3 * G);
   auto kernel = paged_attention_kernel<TQ, TP>;
@@ -163,30 +193,49 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
   const dim3 grid(KV, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TP*>(kp),
-      static_cast<const TP*>(vp), static_cast<const int*>(bt),
+      static_cast<const TP*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(bt),
       static_cast<const int*>(lengths), static_cast<TQ*>(out), H, KV, Dh, bs, MB,
       scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TQ>
+int launch_pools(const void* q, const void* kp, const void* vp, const void* ks,
+                 const void* vs, const void* bt, const void* lengths, void* out, int B,
+                 int H, int KV, int Dh, int bs, int MB, float scale, int window,
+                 int pool_kind, cudaStream_t s) {
+  switch (pool_kind) {
+    case 0:
+      return launch<TQ, float>(q, kp, vp, ks, vs, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, s);
+    case 1:
+      return launch<TQ, __nv_bfloat16>(q, kp, vp, ks, vs, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, s);
+    case 2:
+      return launch<TQ, int8_t>(q, kp, vp, ks, vs, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, s);
+    case 3:
+      return launch<TQ, uint8_t>(q, kp, vp, ks, vs, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).  q and
-// out share one dtype and the two pools another, each fp32 (flag 0) or bf16
-// (flag 1); shapes are validated by the Python wrapper.  `window` <= 0 means
-// no sliding window.
+// out are fp32 (q_bf16 = 0) or bf16 (1); the two pools share one kind:
+// 0 fp32, 1 bf16, 2 int8 codes, 3 packed int4 (uint8, Dh / 2 bytes a row),
+// the integer kinds with fp32 scale pools ks/vs (NB, bs, KV), else null.
+// Shapes are validated by the Python wrapper.  `window` <= 0 means no
+// sliding window.
 extern "C" int paged_attention_launch(const void* q, const void* kp,
-                                      const void* vp, const void* bt,
+                                      const void* vp, const void* ks,
+                                      const void* vs, const void* bt,
                                       const void* lengths, void* out, int B,
                                       int H, int KV, int Dh, int bs, int MB,
                                       float scale, int window, int q_bf16,
-                                      int pool_bf16, void* stream) {
+                                      int pool_kind, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && pool_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, kp, vp, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, s);
   if (q_bf16)
-    return launch<__nv_bfloat16, float>(q, kp, vp, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, s);
-  if (pool_bf16)
-    return launch<float, __nv_bfloat16>(q, kp, vp, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, s);
-  return launch<float, float>(q, kp, vp, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, s);
+    return launch_pools<__nv_bfloat16>(q, kp, vp, ks, vs, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, pool_kind, s);
+  return launch_pools<float>(q, kp, vp, ks, vs, bt, lengths, out, B, H, KV, Dh, bs, MB, scale, window, pool_kind, s);
 }

@@ -1,13 +1,16 @@
-"""int8 x int8 -> int32 matmul with P-bit accumulator emulation and the fused
-W8A8 epilogue: the CUDA kernel (``csrc/int_matmul.cu``) and its plain PyTorch
-version.
+"""int8 x int8 -> int32 matmul with P-bit accumulator emulation, the fused
+W8A8 epilogue and the quantizing prologue: the CUDA kernel
+(``csrc/int_matmul.cu``) and its plain PyTorch version.
 
 Port of the Pallas kernel ``repro.kernels.int_matmul`` (``int_matmul_kernel``
 / ``int_matmul_pallas``): the core GEMM with ``exact`` / ``wrap`` /
 ``saturate`` carry per reference K-tile, the optional int16 carry that the
-A2Q bound makes lossless for ``acc_bits <= 16``, and the fused epilogue
-``(acc + offset) * scale (+ bias)``.  The requantizing epilogue and the
-quantizing prologue (int8-out chaining) are not ported yet.
+A2Q bound makes lossless for ``acc_bits <= 16``, the fused epilogue
+``(acc + offset) * scale (+ bias)``, and the prologue that quantizes an fp32
+``x`` with ``aq_scale`` as it is staged (``clip(round(x / aq_scale), lo,
+hi)``, minus 128 for unsigned 8-bit codes), the chain-break entry of
+``--int-chain``.  The requantizing epilogue (int8 codes out) is not ported
+yet: no gated model reaches it.
 
 Both versions replay the carry at the reference's K-tile boundaries
 ``block_k`` (the public wrapper passes ``min(512, round_up(K, 128))``), so
@@ -25,17 +28,29 @@ import torch
 
 from repro_torch.kernels.ref import exact_product, saturate_bits, wrap_bits
 
-__all__ = ["MODES", "int_matmul_plain", "int_matmul_cuda"]
+__all__ = ["MODES", "int_matmul_plain", "int_matmul_cuda", "prologue_codes"]
 
 MODES = {"exact": 0, "wrap": 1, "saturate": 2}
 
 
+def prologue_codes(x: torch.Tensor, aq_scale: torch.Tensor, lo: int, hi: int,
+                   shift: int) -> torch.Tensor:
+    """The prologue's int8 operand: ``clip(round(x / aq_scale), lo, hi) -
+    shift`` (dividing, rounding half to even), as ``act_quant_int`` and the
+    symmetrization compute it on their own."""
+    return (torch.clamp(torch.round(x / aq_scale), lo, hi) - shift).to(torch.int8)
+
+
 def int_matmul_plain(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
-                     mode: str = "exact", block_k: int, spill_int16: bool = False):
-    """The kernel's arithmetic in PyTorch, on any device: one exact int64
-    partial per ``block_k`` K-tile, folded into the carry in tile order as
-    the Pallas body does (``carried + tile``, the mode's wrap or clip, then
-    the int16 store when ``spill_int16``), then the epilogue."""
+                     mode: str = "exact", block_k: int, spill_int16: bool = False,
+                     aq_scale=None, q_lo: int = 0, q_hi: int = 0, q_shift: int = 0):
+    """The kernel's arithmetic in PyTorch, on any device: with ``aq_scale``
+    the prologue's codes of the fp32 ``x`` (``prologue_codes``), then one
+    exact int64 partial per ``block_k`` K-tile, folded into the carry in tile
+    order as the Pallas body does (``carried + tile``, the mode's wrap or
+    clip, then the int16 store when ``spill_int16``), then the epilogue."""
+    if aq_scale is not None:
+        x = prologue_codes(x, aq_scale, q_lo, q_hi, q_shift)
     K = x.shape[1]
     acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int64, device=x.device)
     for lo in range(0, K, block_k):
@@ -66,24 +81,31 @@ def _bind():
 
     fn = load("int_matmul").int_matmul_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 6
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
     return fn
 
 
 def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
-                    mode: str = "exact", block_k: int, spill_int16: bool = False):
+                    mode: str = "exact", block_k: int, spill_int16: bool = False,
+                    aq_scale=None, q_lo: int = 0, q_hi: int = 0, q_shift: int = 0):
     """Launch the CUDA kernel on the current stream.  ``x (M, K)`` and
     ``w (K, N)`` are contiguous int8 on one CUDA device; ``scale``/``bias``
     fp32 and ``offset`` int32 are ``(N,)``; ``block_k`` is a positive multiple
-    of 64.  Returns fp32 ``(M, N)`` with ``scale``, else int32.  Every launch
-    adds one to ``int_matmul_cuda.launches``."""
+    of 64.  With ``aq_scale`` (a one-element fp32 tensor on the device, read
+    by the kernel, never by the host) ``x`` is fp32 and the prologue
+    quantizes it to ``[q_lo, q_hi]`` minus ``q_shift``.  Returns fp32
+    ``(M, N)`` with ``scale``, else int32.  Every launch adds one to
+    ``int_matmul_cuda.launches``."""
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
-    for name, t, dt, shape in (("x", x, torch.int8, (M, K)), ("w", w, torch.int8, (K, N)),
+    x_dtype = torch.int8 if aq_scale is None else torch.float32
+    for name, t, dt, shape in (("x", x, x_dtype, (M, K)), ("w", w, torch.int8, (K, N)),
                                ("scale", scale, torch.float32, (N,)),
                                ("bias", bias, torch.float32, (N,)),
-                               ("offset", offset, torch.int32, (N,))):
+                               ("offset", offset, torch.int32, (N,)),
+                               ("aq_scale", aq_scale, torch.float32, (1,))):
         if t is None:
             continue
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
@@ -95,6 +117,9 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
         raise ValueError(f"int_matmul_cuda: block_k must be a positive multiple of 64, got {block_k}")
     if (bias is not None or offset is not None) and scale is None:
         raise ValueError("int_matmul_cuda: bias/offset need an epilogue scale")
+    if aq_scale is not None and not -128 <= q_lo - q_shift <= q_hi - q_shift <= 127:
+        raise ValueError(f"int_matmul_cuda: prologue codes [{q_lo}, {q_hi}] - {q_shift} "
+                         "do not fit int8")
     out = torch.empty((M, N), dtype=torch.float32 if scale is not None else torch.int32, device=dev)
     if M == 0 or N == 0:
         return out
@@ -103,7 +128,7 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             _ptr(x), _ptr(w), M, N, K, block_k, MODES[mode], acc_bits, int(spill_int16),
-            _ptr(scale), _ptr(bias), _ptr(offset),
+            _ptr(scale), _ptr(bias), _ptr(offset), _ptr(aq_scale), q_lo, q_hi, q_shift,
             _ptr(out) if scale is not None else None, None if scale is not None else _ptr(out),
             ctypes.c_void_p(stream),
         )

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.bounds import int_range
 from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
 from repro_torch.kernels.paged_mla_attention import (
@@ -66,23 +67,31 @@ def int_matmul(
     accumulator.  ``in_signed=False, in_bits=8`` declares symmetrized
     unsigned codes (``true_code - 128``): the flush adds ``128 * colsum(w)``.
     ``spill_int16`` stores the carry as int16 between K-tiles, sound only
-    for ``acc_bits <= 16`` (the A2Q bound).  The requantizing epilogue
-    (``out_scale``) and quantizing prologue (``aq_scale``) are not ported
-    yet."""
-    if out_scale is not None or aq_scale is not None:
-        raise NotImplementedError("int_matmul: requant epilogue / quantizing prologue not ported yet")
+    for ``acc_bits <= 16`` (the A2Q bound).
+
+    ``aq_scale`` (one fp32 value) engages the quantizing prologue: ``x``
+    arrives fp32 and is quantized to ``in_bits``/``in_signed`` codes
+    (``clip(round(x / aq_scale))``, unsigned 8-bit symmetrized) inside the
+    kernel, bit for bit the standalone ``act_quant_int``'s codes.  The
+    requantizing epilogue (``out_scale``) is not ported yet; it raises."""
+    if out_scale is not None:
+        raise NotImplementedError("int_matmul: the requant epilogue (out_scale) is not ported "
+                                  "yet; it goes with the rwkv6 slice")
     if mode not in ("exact", "wrap", "saturate"):
         raise ValueError(f"unknown mode {mode!r}")
     if spill_int16 and acc_bits > 16:
         raise ValueError("int16 partial-sum spill is only sound when acc_bits <= 16 (A2Q bound)")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"int_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)} do not chain")
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise ValueError(f"int_matmul: int8 operands expected, got {x.dtype}, {w.dtype}")
+    x_dtype = torch.int8 if aq_scale is None else torch.float32
+    if x.dtype != x_dtype or w.dtype != torch.int8:
+        raise ValueError(f"int_matmul: {x_dtype} x and int8 w expected, got {x.dtype}, {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"int_matmul: x on {x.device}, w on {w.device}")
     if bias is not None and scale is None:
         raise ValueError("int_matmul: bias requires an epilogue scale")
+    if aq_scale is not None and scale is None:
+        raise ValueError("int_matmul: aq_scale requires an epilogue scale")
     K, N = w.shape
     dev = x.device
     if not in_signed and in_bits == 8:
@@ -99,6 +108,16 @@ def int_matmul(
         offset = _vec(offset, N, torch.int32, dev)
     kw = dict(acc_bits=acc_bits, mode=mode, block_k=int_matmul_block_k(K, block_k),
               spill_int16=spill_int16)
+    if aq_scale is not None:
+        aq_scale = torch.as_tensor(aq_scale, dtype=torch.float32, device=dev)
+        if aq_scale.numel() != 1:
+            raise ValueError("int_matmul: aq_scale must be one fp32 value")
+        lo, hi = int_range(in_bits, in_signed)
+        shift = 128 if not in_signed and in_bits == 8 else 0
+        if not -128 <= lo - shift <= hi - shift <= 127:
+            raise ValueError(f"int_matmul: {in_bits}-bit {'signed' if in_signed else 'unsigned'} "
+                             "prologue codes do not fit the int8 operand")
+        kw.update(aq_scale=aq_scale.reshape(1).contiguous(), q_lo=lo, q_hi=hi, q_shift=shift)
     if dev.type == "cpu":
         return int_matmul_plain(x, w, scale, bias, offset, **kw)
     return int_matmul_cuda(x.contiguous(), w.contiguous(), scale, bias, offset, **kw)
@@ -121,21 +140,26 @@ def paged_attention(
     ``bt (B, MB)``, ``lengths (B,)`` counting valid tokens (including this
     step's write).  Returns ``(B, H, Dh)`` in ``q``'s dtype.  Oracle:
     ``ref.ref_paged_attention``.  ``window`` keeps keys at
-    ``kpos >= length - window``.  Integer pools (``kps``/``vps``) are not
-    ported yet."""
+    ``kpos >= length - window``.
+
+    ``kps``/``vps`` (``(NB, bs, KV)`` fp32) declare integer pools,
+    dequantized in registers: int8 codes (oracle
+    ``ref.ref_paged_attention_q8``) or, when the pools are uint8, packed
+    int4 at width ``Dh // 2`` (oracle ``ref.ref_paged_attention_q4``)."""
     if (kps is None) != (vps is None):
         raise ValueError("paged_attention: kps and vps must be given together")
-    if kps is not None or kp.dtype in (torch.int8, torch.uint8):
-        raise NotImplementedError("paged_attention: int8/int4 pools not ported yet")
+    if kp.dtype == torch.uint8 and kps is None:
+        raise ValueError("paged_attention: packed int4 pools need kps/vps")
     if window is not None and window < 1:
         raise ValueError("paged_attention: window must be >= 1")
     if q.ndim != 3 or kp.ndim != 4 or q.shape[1] % kp.shape[2]:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not fit pools {tuple(kp.shape)}")
     if q.device.type == "cpu":
-        return paged_attention_plain(q, kp, vp, bt, lengths, scale=scale, window=window)
+        return paged_attention_plain(q, kp, vp, bt, lengths, kps, vps, scale=scale,
+                                     window=window)
     return paged_attention_cuda(
         q.contiguous(), kp, vp, bt.to(torch.int32).contiguous(),
-        lengths.to(torch.int32).contiguous(), scale=scale, window=window,
+        lengths.to(torch.int32).contiguous(), kps, vps, scale=scale, window=window,
     )
 
 
@@ -165,9 +189,9 @@ def paged_mla_attention(
     replay the absorb path's activation fake-quant on the latent.  Oracle:
     ``ref.ref_paged_mla_attention``.
 
-    ``ckvs``/``kpes`` (``(NB, bs)`` fp32) declare integer pools: int8 codes,
-    or packed int4 at half width when uint8.  Only the plain version reads
-    them; on CUDA tensors they raise, as the kernel does not take them."""
+    ``ckvs``/``kpes`` (``(NB, bs)`` fp32 per-token scales) declare integer
+    pools: int8 codes, or packed int4 at half width when uint8, dequantized
+    (code times scale) before the replay and the products."""
     if (ckvs is None) != (kpes is None):
         raise ValueError("paged_mla_attention: ckvs and kpes must be given together")
     if ckvp.dtype == torch.uint8 and ckvs is None:
@@ -182,15 +206,12 @@ def paged_mla_attention(
     if q_lat.device.type == "cpu":
         return paged_mla_attention_plain(q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs, kpes,
                                          scale=scale, aq_scale=aq_scale, act_bits=act_bits)
-    if ckvs is not None or ckvp.dtype in (torch.int8, torch.uint8):
-        raise NotImplementedError("paged_mla_attention: int8/int4 latent pools are not "
-                                  "ported to the CUDA kernel yet")
     if aq_scale is not None:
         aq_scale = torch.as_tensor(aq_scale, dtype=torch.float32,
                                    device=q_lat.device).reshape(1).contiguous()
     return paged_mla_attention_cuda(
         q_lat.to(torch.float32).contiguous(), q_pe.to(torch.float32).contiguous(),
         ckvp.contiguous(), kpep.contiguous(), bt.to(torch.int32).contiguous(),
-        lengths.to(torch.int32).contiguous(), scale=scale, aq_scale=aq_scale,
+        lengths.to(torch.int32).contiguous(), ckvs, kpes, scale=scale, aq_scale=aq_scale,
         act_bits=act_bits,
     )

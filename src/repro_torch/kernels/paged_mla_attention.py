@@ -2,14 +2,15 @@
 (``csrc/paged_mla_attention.cu``) and its plain PyTorch version.
 
 Port of the Pallas kernel ``repro.kernels.paged_attention``
-(``paged_mla_attention_kernel`` / ``paged_mla_attention_pallas``) for fp32
-and bf16 latent pools: one query token per row, the absorbed query
-``q_lat (B, H, R)`` and rope query ``q_pe (B, H, P)`` against the shared
-latent pool ``ckvp (NB, bs, R)`` and rope-key pool ``kpep (NB, bs, P)`` read
-through the block table, fp32 online softmax, keys valid iff ``kpos <
-length``, zero rows for length 0, and the optional activation fake-quant of
-the latent (``aq_scale``/``act_bits``).  The int8 and packed-int4 pools
-(``ckvs``/``kpes``) run only in the plain version.
+(``paged_mla_attention_kernel`` / ``paged_mla_attention_pallas``): one query
+token per row, the absorbed query ``q_lat (B, H, R)`` and rope query
+``q_pe (B, H, P)`` against the shared latent pool ``ckvp (NB, bs, R)`` and
+rope-key pool ``kpep (NB, bs, P)`` read through the block table, fp32 online
+softmax, keys valid iff ``kpos < length``, zero rows for length 0, and the
+optional activation fake-quant of the latent (``aq_scale``/``act_bits``).
+Pools are fp32, bf16, int8 codes or packed int4 (uint8 at half the width);
+the integer pools come with fp32 per-token scale pools ``ckvs``/``kpes``
+``(NB, bs)``, dequantized (code times scale) before the replay.
 ``kernels/ops.paged_mla_attention`` picks a version by the tensors' device.
 """
 
@@ -29,7 +30,7 @@ __all__ = ["paged_mla_attention_plain", "paged_mla_attention_cuda"]
 # dense fp32 softmax over it.
 paged_mla_attention_plain = ref_paged_mla_attention
 
-_FLOATS = (torch.float32, torch.bfloat16)
+_POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 MAX_R, MAX_P, MAX_BS = 512, 64, 32  # the kernel's register and lane budget
 
 
@@ -39,22 +40,25 @@ def _bind():
 
     fn = load("paged_mla_attention").paged_mla_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     return fn
 
 
-def paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths, *, scale: float,
-                             aq_scale: Optional[torch.Tensor] = None,
+def paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs=None, kpes=None, *,
+                             scale: float, aq_scale: Optional[torch.Tensor] = None,
                              act_bits: Optional[int] = None):
     """Launch the CUDA kernel on the current stream.  ``q_lat (B, H, R)`` and
     ``q_pe (B, H, P)`` fp32; pools ``(NB, bs, R)`` / ``(NB, bs, P)`` of one
-    fp32 or bf16 dtype; ``bt (B, MB)`` and ``lengths (B,)`` int32;
+    dtype: fp32, bf16, int8 codes, or packed int4 (uint8 at ``R // 2`` /
+    ``P // 2``), the integer pools with fp32 per-token scale pools
+    ``ckvs``/``kpes`` ``(NB, bs)``; ``bt (B, MB)`` and ``lengths (B,)`` int32;
     ``aq_scale`` a one-element fp32 tensor on the device (read by the kernel,
     never by the host) with ``act_bits``; all contiguous on one CUDA device,
     ``R <= 512``, ``P <= 64``, ``bs <= 32``, ``R`` and ``P`` multiples of 8,
-    pools 16-byte aligned.  Returns ``(B, H, R)`` fp32.
-    Every launch adds one to ``paged_mla_attention_cuda.launches``."""
+    pools 16-byte aligned with a whole number of 16 bytes a block.  Returns
+    ``(B, H, R)`` fp32.  Every launch adds one to
+    ``paged_mla_attention_cuda.launches``."""
     B, H, R = q_lat.shape
     NB, bs, Rp = ckvp.shape
     P = q_pe.shape[-1]
@@ -65,18 +69,27 @@ def paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths, *, scale: flo
     if q_lat.dtype != torch.float32 or q_pe.dtype != torch.float32:
         raise ValueError(f"paged_mla_attention_cuda: fp32 queries expected, got "
                          f"{q_lat.dtype}, {q_pe.dtype}")
-    if ckvp.dtype not in _FLOATS or kpep.dtype != ckvp.dtype:
-        raise ValueError(f"paged_mla_attention_cuda: pools must be fp32 or bf16 (alike), "
-                         f"got {ckvp.dtype}, {kpep.dtype}")
-    if tuple(q_pe.shape) != (B, H, P) or Rp != R or tuple(kpep.shape) != (NB, bs, P):
+    if ckvp.dtype not in _POOL_KIND or kpep.dtype != ckvp.dtype:
+        raise ValueError(f"paged_mla_attention_cuda: pools must be one of fp32, bf16, int8, "
+                         f"uint8 (alike), got {ckvp.dtype}, {kpep.dtype}")
+    quant = ckvp.dtype in (torch.int8, torch.uint8)
+    if quant != (ckvs is not None) or (ckvs is None) != (kpes is None):
+        raise ValueError("paged_mla_attention_cuda: integer pools need ckvs/kpes scale pools, "
+                         "float pools take none")
+    pack = 2 if ckvp.dtype == torch.uint8 else 1
+    if tuple(q_pe.shape) != (B, H, P) or Rp * pack != R or \
+            tuple(kpep.shape) != (NB, bs, P // pack):
         raise ValueError(f"paged_mla_attention_cuda: shapes q_lat {tuple(q_lat.shape)}, "
                          f"q_pe {tuple(q_pe.shape)}, ckvp {tuple(ckvp.shape)}, "
                          f"kpep {tuple(kpep.shape)} do not match")
     if R > MAX_R or P > MAX_P or bs > MAX_BS or R % 8 or P % 8:
         raise ValueError(f"paged_mla_attention_cuda: R={R} P={P} bs={bs}: the kernel takes "
                          f"R <= {MAX_R}, P <= {MAX_P}, bs <= {MAX_BS}, R and P multiples of 8")
-    if ckvp.data_ptr() % 16 or kpep.data_ptr() % 16:
-        raise ValueError("paged_mla_attention_cuda: pools must be 16-byte aligned")
+    if ckvp.data_ptr() % 16 or kpep.data_ptr() % 16 or \
+            (bs * ckvp.shape[-1] * ckvp.element_size()) % 16 or \
+            (bs * kpep.shape[-1] * kpep.element_size()) % 16:
+        raise ValueError("paged_mla_attention_cuda: pools must be 16-byte aligned, with a "
+                         "multiple of 16 bytes a block")
     if tuple(bt.shape) != (B, MB) or tuple(lengths.shape) != (B,) or \
             bt.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("paged_mla_attention_cuda: bt (B, MB) and lengths (B,) must be int32")
@@ -84,6 +97,12 @@ def paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths, *, scale: flo
         raise ValueError("paged_mla_attention_cuda: aq_scale and act_bits must be given together")
     named = [("q_lat", q_lat), ("q_pe", q_pe), ("ckvp", ckvp), ("kpep", kpep), ("bt", bt),
              ("lengths", lengths)]
+    if quant:
+        for name, t in (("ckvs", ckvs), ("kpes", kpes)):
+            if t.dtype != torch.float32 or tuple(t.shape) != (NB, bs):
+                raise ValueError(f"paged_mla_attention_cuda: {name} must be fp32 {(NB, bs)}, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+            named.append((name, t))
     if aq_scale is not None:
         if aq_scale.dtype != torch.float32 or aq_scale.numel() != 1 or not 2 <= act_bits <= 16:
             raise ValueError("paged_mla_attention_cuda: aq_scale must be one fp32 value "
@@ -101,11 +120,13 @@ def paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths, *, scale: flo
         err = launch(
             ctypes.c_void_p(q_lat.data_ptr()), ctypes.c_void_p(q_pe.data_ptr()),
             ctypes.c_void_p(ckvp.data_ptr()), ctypes.c_void_p(kpep.data_ptr()),
+            ctypes.c_void_p(ckvs.data_ptr() if quant else 0),
+            ctypes.c_void_p(kpes.data_ptr() if quant else 0),
             ctypes.c_void_p(bt.data_ptr()), ctypes.c_void_p(lengths.data_ptr()),
             ctypes.c_void_p(aq_scale.data_ptr() if aq_scale is not None else 0),
             ctypes.c_void_p(out.data_ptr()),
             B, H, R, P, bs, MB, float(scale), act_bits or 0,
-            int(ckvp.dtype == torch.bfloat16), ctypes.c_void_p(stream),
+            _POOL_KIND[ckvp.dtype], ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"paged_mla_attention kernel launch failed: cudaError {err}")

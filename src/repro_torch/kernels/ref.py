@@ -14,13 +14,18 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.bounds import int_range
+
 __all__ = [
     "exact_product",
     "wrap_bits",
     "saturate_bits",
     "ref_int_matmul",
     "ref_int_matmul_fused",
+    "ref_int_matmul_prologue",
     "ref_paged_attention",
+    "ref_paged_attention_q8",
+    "ref_paged_attention_q4",
     "ref_paged_mla_attention",
 ]
 
@@ -77,6 +82,26 @@ def ref_int_matmul_fused(x, w, scale, bias=None, acc_bits: int = 32, mode: str =
     return out
 
 
+def ref_int_matmul_prologue(x, w, aq_scale, scale, bias=None, acc_bits: int = 32,
+                            mode: str = "exact", block_k: Optional[int] = None,
+                            in_bits: int = 8, in_signed: bool = True) -> torch.Tensor:
+    """The quantizing prologue's semantics, spelled out as the unchained path
+    computes them on their own: the host act-quant of the fp32 ``x``
+    (``clip(round(x / aq_scale))`` to ``in_bits``/``in_signed``, dividing,
+    rounding half to even), unsigned 8-bit codes symmetrized to ``q - 128``
+    with ``128 * colsum(w)`` added back at flush, then
+    ``ref_int_matmul_fused``."""
+    lo, hi = int_range(in_bits, in_signed)
+    s_aq = torch.as_tensor(aq_scale, dtype=torch.float32, device=x.device)
+    codes = torch.clamp(torch.round(x.to(torch.float32) / s_aq), lo, hi)
+    offset = None
+    if not in_signed and in_bits == 8:
+        codes = codes - 128.0
+        offset = 128 * w.to(torch.int32).sum(0, dtype=torch.int32)
+    return ref_int_matmul_fused(codes.to(torch.int8), w, scale, bias, acc_bits=acc_bits,
+                                mode=mode, block_k=block_k, offset=offset)
+
+
 def ref_paged_attention(q, kp, vp, bt, lengths, scale: Optional[float] = None,
                         window: Optional[int] = None) -> torch.Tensor:
     """Paged-attention decode oracle: gather each row's contiguous K/V view
@@ -118,6 +143,26 @@ def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
     hi = (packed >> 4).to(torch.int32)
     out = torch.stack([(lo ^ 8) - 8, (hi ^ 8) - 8], dim=-1)
     return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def ref_paged_attention_q8(q, kp, vp, kps, vps, bt, lengths, scale: Optional[float] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """int8-pool oracle: dequantize the code pools against their per-slot fp32
+    scales ``(NB, bs, KV)`` (``k = k8 * s_k`` in fp32), then the fp32
+    gathered-view softmax of ``ref_paged_attention``."""
+    kd = kp.to(torch.float32) * kps.to(torch.float32)[..., None]
+    vd = vp.to(torch.float32) * vps.to(torch.float32)[..., None]
+    return ref_paged_attention(q, kd, vd, bt, lengths, scale=scale, window=window)
+
+
+def ref_paged_attention_q4(q, kp, vp, kps, vps, bt, lengths, scale: Optional[float] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """Packed-int4-pool oracle: unpack the nibble pairs of the uint8 pools
+    ``(NB, bs, KV, Dh // 2)``, sign-extend, rescale against the per-slot
+    fp32 scales, then the fp32 gathered-view softmax."""
+    kd = _unpack_nibbles(kp).to(torch.float32) * kps.to(torch.float32)[..., None]
+    vd = _unpack_nibbles(vp).to(torch.float32) * vps.to(torch.float32)[..., None]
+    return ref_paged_attention(q, kd, vd, bt, lengths, scale=scale, window=window)
 
 
 def ref_paged_mla_attention(q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs=None, kpes=None, *,

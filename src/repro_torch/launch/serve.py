@@ -1,15 +1,18 @@
 """Serving launcher: the paged engine on random A2Q weights.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
-        --paged --int-forward --decode-kernel --requests 8 --prompt-len 64 \\
-        --max-new 32 --batch 8 [--reduced] [--device cpu]
+        --paged --int-chain --kv-int8 [--kv-bits 4] --decode-kernel \\
+        --requests 8 --prompt-len 64 --max-new 32 --batch 8 [--reduced] [--device cpu]
 
 Port of ``repro.launch.serve`` for the paged engine: ``--deploy-int8`` swaps
 the A2Q params for int8 weights + scales, ``--int-forward`` (implies it)
-runs the deployed linears through the fused W8A8 kernel, ``--decode-kernel``
-reads the paged KV pools through the paged-attention kernel.  ``--device``
-defaults to ``cuda``.  Throughput is reported split into prefill and decode.
-The reference's other flags are refused as not ported yet.
+runs the deployed linears through the fused W8A8 kernel, ``--int-chain``
+(implies ``--int-forward``) folds their act-quant into the kernel's
+prologue, ``--kv-int8`` keeps the paged KV as int8 codes with per-slot
+scales (``--kv-bits 4``: two codes a byte), ``--decode-kernel`` reads the
+paged KV pools through the paged-attention kernel.  ``--device`` defaults to
+``cuda``.  Throughput is reported split into prefill and decode.  The
+reference's other flags are refused as not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from repro_torch.models.lm import Runtime, init_lm
 from repro_torch.serve.engine import PagedServeEngine, deploy_params
 
 NOT_PORTED = (
-    "--int-chain", "--kv-int8", "--kv-bits", "--prefix-share", "--shared-prefix",
+    "--prefix-share", "--shared-prefix",
     "--pin-prompt", "--spec-k", "--spec-draft", "--decode-steps", "--eos-id",
     "--eos-auto", "--sample", "--temperature", "--top-k", "--parity-check",
     "--parity-eps", "--trace", "--metrics-json",
@@ -43,8 +46,9 @@ def _report(tag: str, engine) -> dict:
         f"{tp['dispatches_per_token']:.3f}/tok) | overall {tp['tok_s']:.1f} tok/s"
     )
     if "int_chain_requant_dispatches" in tp:
-        print(f"[{tag}] int-forward calls in the last forward: "
-              f"{tp['int_chain_requant_dispatches']} fused (own act-quant), "
+        print(f"[{tag}] chain report (calls of the last forward): {tp['int_chain_folded']} "
+              f"folded, {tp['int_chain_chained']} chained, "
+              f"{tp['int_chain_requant_dispatches']} standalone act-quant, "
               f"{tp['int_chain_fallback']} fallback")
     return tp
 
@@ -57,6 +61,13 @@ def main(argv=None):
     ap.add_argument("--deploy-int8", action="store_true")
     ap.add_argument("--int-forward", action="store_true",
                     help="fused W8A8 integer matmuls for deployed layers (implies --deploy-int8)")
+    ap.add_argument("--int-chain", action="store_true",
+                    help="fold activation quantization into the W8A8 kernel's prologue, so "
+                         "deployed layers pay no standalone act-quant (implies --int-forward)")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="integer paged KV blocks with per-slot scales")
+    ap.add_argument("--kv-bits", type=int, choices=(8, 4), default=8,
+                    help="KV code width with --kv-int8 (4 packs two codes per byte)")
     ap.add_argument("--decode-kernel", action="store_true",
                     help="route paged decode through the paged-attention kernel")
     ap.add_argument("--device", default="cuda")
@@ -77,18 +88,24 @@ def main(argv=None):
     args = ap.parse_args(given)
     if not args.paged:
         ap.error("the contiguous ServeEngine is not ported yet; add --paged")
+    if args.kv_bits != 8 and not args.kv_int8:
+        ap.error("--kv-bits only affects integer KV blocks; add --kv-int8")
 
     arch = get_arch(args.arch)
     if args.reduced:
         arch = reduced(arch)
     gen = torch.Generator().manual_seed(args.seed)
     params = init_lm(gen, arch, device=args.device)
+    if args.int_chain:
+        args.int_forward = True  # chaining is a mode of the integer fast path
     if args.int_forward:
         args.deploy_int8 = True  # the W8A8 path consumes the deployed artifact
     if args.deploy_int8:
         params = deploy_params(params, arch.quant)
         print("serving deployed int8 weights (A2Q-guaranteed accumulator safety)")
-    if args.int_forward:
+    if args.int_chain:
+        print("int-chain: activation quantization folded into the W8A8 kernel's prologue")
+    elif args.int_forward:
         print("int-forward: deployed linears run the fused W8A8 integer kernel")
 
     rng = np.random.default_rng(args.seed)
@@ -97,10 +114,14 @@ def main(argv=None):
     engine = PagedServeEngine(
         arch, params, batch=args.batch, max_seq=args.max_seq, block_size=args.block_size,
         prefill_chunk=args.prefill_chunk, num_blocks=args.num_blocks, device=args.device,
-        rt=Runtime(decode_kernel=args.decode_kernel, int_forward=args.int_forward),
+        kv_quant=args.kv_int8, kv_bits=args.kv_bits,
+        rt=Runtime(decode_kernel=args.decode_kernel, int_forward=args.int_forward,
+                   int_chain=args.int_chain),
     )
     outs = engine.generate(prompts, max_new=args.max_new)
     report = {"arch": args.arch, "paged": True, "int_forward": args.int_forward,
+              "int_chain": args.int_chain, "kv_int8": args.kv_int8,
+              "kv_bits": args.kv_bits if args.kv_int8 else None,
               "decode_kernel": args.decode_kernel, "device": args.device,
               "paged_engine": _report("paged", engine)}
     cache = engine.cache

@@ -35,16 +35,17 @@ class Runtime:
     ``decode_kernel``, a decode read goes through the MLA latent kernel).
     ``int_forward`` routes deployed (``q8``/``s8``) linears through the fused
     W8A8 integer kernel instead of dequant + a ``compute_dtype`` matmul.
-    ``chain_report`` holds the per-call dispositions of the last forward (see
-    ``nn.linear.chain_report_scope``).  ``int_chain`` is not ported yet."""
+    ``int_chain`` (implies ``int_forward``) folds every deployed linear's
+    act-quant into the kernel's quantizing prologue, so none pays a
+    standalone act-quant.  ``chain_report`` holds the per-call dispositions of
+    the last forward (see ``nn.linear.chain_report_scope``)."""
 
     def __init__(self, decode_kernel: bool = False, int_forward: bool = False,
                  int_chain: bool = False, mla_absorb: bool = False):
-        if int_chain:
-            raise NotImplementedError("int8-out chaining (int_chain) is not ported yet")
         self.mla_absorb = mla_absorb
         self.decode_kernel = decode_kernel
-        self.int_forward = int_forward
+        self.int_forward = int_forward or int_chain
+        self.int_chain = int_chain
         self.chain_report: dict = {}
 
 
@@ -80,7 +81,7 @@ def _head_logits(params, arch: ArchConfig, h: torch.Tensor, rt: Runtime) -> torc
     if arch.tie_embeddings:
         return torch.matmul(h.to(cd), params["embed"]["table"].to(cd).T)
     return apply_linear(params["head"], h, arch.quant, boundary=True, compute_dtype=cd,
-                        int_forward=rt.int_forward, site="head")
+                        int_forward=rt.int_forward, int_chain=rt.int_chain, site="head")
 
 
 def apply_lm(
@@ -123,7 +124,8 @@ def apply_lm(
             sc = cache.get(str(i)) if cache is not None else None
             x = apply_stack(params["stacks"][str(i)], x, arch, s, positions, sc,
                             mla_absorb=rt.mla_absorb, view=view,
-                            decode_kernel=rt.decode_kernel, int_forward=rt.int_forward)
+                            decode_kernel=rt.decode_kernel, int_forward=rt.int_forward,
+                            int_chain=rt.int_chain)
         h = apply_norm(params["final_norm"], x, kind=arch.norm, eps=arch.norm_eps)
         logits = _head_logits(params, arch, h, rt)
     if cache is None:

@@ -21,9 +21,17 @@ MLA down/up projections) as to any other matmul.  Ported from
   ``kernels/ops.paged_mla_attention`` for a ``T == 1`` decode read with
   ``decode_kernel=True``.
 
+Integer KV pools (GQA ``kp``/``vp`` with per-slot scale pools ``kps``/``vps``
+``(NB, bs, KV)``; MLA ``ckvp``/``kpep`` with per-token ``ckvs``/``kpes``
+``(NB, bs)``): each written token is quantized on write (``_kv_quantize``,
+absmax over the feature dim) to int8 codes, or to int4 codes packed two a
+byte into uint8 pools of half the width (``_pack_nibbles``); reads go through
+the kernels, which dequantize in registers, or through the dequantized
+gathered view (``_paged_gather_deq``).
+
 Writes update the pools in place (the reference returns new arrays); the
-returned cache holds the same tensors.  Contiguous and ring caches, and
-int8/int4 pools (GQA and MLA), are not ported yet.
+returned cache holds the same tensors.  Contiguous and ring caches are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import AttnConfig, QuantConfig
 from repro_torch.core.quantizers import apply_act_quant
+from repro_torch.kernels.ref import _unpack_nibbles
 from repro_torch.nn.embedding import apply_rope
 from repro_torch.nn.linear import _quant_weights, apply_linear, init_linear
 from repro_torch.nn.norms import apply_norm, init_norm
@@ -137,6 +146,51 @@ def _paged_write(pool: torch.Tensor, val: torch.Tensor, bt: torch.Tensor,
     return pool
 
 
+def _kv_quantize(val: torch.Tensor, bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric ``bits``-bit quantization of a K/V update along its feature
+    dim: ``val (B, T, ..., D)`` -> (int8 codes in ``[-qmax, qmax]``, fp32
+    scales ``(B, T, ...)``), one absmax-calibrated scale per written token
+    (per KV head for GQA, per latent row for MLA); dividing, rounding half to
+    even, as the reference does."""
+    qmax = (1 << (bits - 1)) - 1  # 127 (int8) or 7 (int4)
+    vf = val.to(torch.float32)
+    amax = vf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, torch.finfo(torch.float32).tiny) / qmax
+    codes = torch.clamp(torch.round(vf / scale[..., None]), -qmax, qmax).to(torch.int8)
+    return codes, scale
+
+
+def _pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """int4 codes ``(..., D)`` (int8 values in [-7, 7]) -> packed uint8
+    ``(..., D // 2)``: element 2i in the low nibble, 2i+1 in the high.  The
+    nibble is taken through int16 (``& 0xF``), never by casting a negative
+    int8 to uint8."""
+    u = (codes.to(torch.int16) & 0xF).to(torch.uint8)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def _paged_write_q8(pool: torch.Tensor, scales: torch.Tensor, val: torch.Tensor,
+                    bt: torch.Tensor, abs_pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize-on-write into an integer pool and its per-slot scale pool, in
+    place.  An int8 pool stores the codes; a uint8 pool is the packed int4
+    layout (two codes a byte, half the feature width)."""
+    if pool.dtype == torch.uint8:
+        codes, s = _kv_quantize(val, bits=4)
+        codes = _pack_nibbles(codes)
+    else:
+        codes, s = _kv_quantize(val, bits=8)
+    return _paged_write(pool, codes, bt, abs_pos), _paged_write(scales, s, bt, abs_pos)
+
+
+def _paged_gather_deq(pool: torch.Tensor, scales: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """The gathered contiguous view of an integer pool, dequantized against
+    its per-slot scales (fp32); uint8 pools are unpacked first."""
+    g = _paged_gather(pool, bt)
+    if pool.dtype == torch.uint8:
+        g = _unpack_nibbles(g)
+    return g.to(torch.float32) * _paged_gather(scales, bt)[..., None]
+
+
 def _paged_gather(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     """The per-row contiguous view ``(B, MB * bs, ...)`` of a pool through the
     block table (the allocator hands out a sequence's blocks in logical
@@ -168,21 +222,25 @@ def apply_attention(
     view: Optional[dict] = None,
     decode_kernel: bool = False,
     int_forward: bool = False,
+    int_chain: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (output, updated cache).  ``cache`` given => a paged step over
     ``T >= 1`` new tokens (decode or chunked prefill) through the block-table
-    ``view`` (pools ``kp``/``vp``, or ``ckvp``/``kpep`` for MLA);
-    ``decode_kernel=True`` routes the ``T == 1`` read through the paged
-    attention kernel (for MLA only on the absorbed path, ``mla_absorb``).
-    ``int_forward`` routes deployed projections through the fused W8A8 path."""
+    ``view`` (pools ``kp``/``vp``, or ``ckvp``/``kpep`` for MLA, with scale
+    pools when integer); ``decode_kernel=True`` routes the ``T == 1`` read
+    through the paged attention kernel (for MLA only on the absorbed path,
+    ``mla_absorb``).  ``int_forward`` routes deployed projections through the
+    fused W8A8 path; every attention projection is a chain break, so
+    ``int_chain`` folds each act-quant into the kernel's prologue."""
     if a.kind == "mla":
         return _apply_mla(params, x, a, q, positions, cache, q_chunk=q_chunk,
                           compute_dtype=compute_dtype, absorb=mla_absorb, view=view,
-                          decode_kernel=decode_kernel, int_forward=int_forward)
+                          decode_kernel=decode_kernel, int_forward=int_forward,
+                          int_chain=int_chain)
     B, T, D = x.shape
     H, KV, Dh = a.heads, a.kv_heads, a.head_dim
     lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
-                            int_forward=int_forward)
+                            int_forward=int_forward, int_chain=int_chain)
     qh = lin(params["wq"], x=x, site="attn.wq").reshape(B, T, H, Dh)
     kh = lin(params["wk"], x=x, site="attn.wk").reshape(B, T, KV, Dh)
     vh = lin(params["wv"], x=x, site="attn.wv").reshape(B, T, KV, Dh)
@@ -197,23 +255,31 @@ def apply_attention(
     elif "kp" in cache:
         if view is None:
             raise ValueError("paged attention cache needs a block-table view")
-        if "kps" in cache:
-            raise NotImplementedError("int8/int4 KV pools are not ported yet")
         bt = view["bt"]
-        new_cache = {
-            "kp": _paged_write(cache["kp"], kh, bt, positions),
-            "vp": _paged_write(cache["vp"], vh, bt, positions),
-        }
+        quant = "kps" in cache  # integer pools carry per-slot scale pools
+        if quant:
+            kp_new, kps_new = _paged_write_q8(cache["kp"], cache["kps"], kh, bt, positions)
+            vp_new, vps_new = _paged_write_q8(cache["vp"], cache["vps"], vh, bt, positions)
+            new_cache = {"kp": kp_new, "kps": kps_new, "vp": vp_new, "vps": vps_new}
+        else:
+            new_cache = {
+                "kp": _paged_write(cache["kp"], kh, bt, positions),
+                "vp": _paged_write(cache["vp"], vh, bt, positions),
+            }
         if decode_kernel and T == 1 and a.causal and a.chunk is None:
             from repro_torch.kernels import ops
 
             out = ops.paged_attention(
                 qh[:, 0], new_cache["kp"], new_cache["vp"], bt, positions[:, 0] + 1,
-                window=a.window,
+                kps=new_cache.get("kps"), vps=new_cache.get("vps"), window=a.window,
             )[:, None]
         else:
-            k_all = _paged_gather(new_cache["kp"], bt)
-            v_all = _paged_gather(new_cache["vp"], bt)
+            if quant:
+                k_all = _paged_gather_deq(new_cache["kp"], new_cache["kps"], bt)
+                v_all = _paged_gather_deq(new_cache["vp"], new_cache["vps"], bt)
+            else:
+                k_all = _paged_gather(new_cache["kp"], bt)
+                v_all = _paged_gather(new_cache["vp"], bt)
             kpos = _paged_kpos(positions, k_all.shape[1])
             out = _sdpa(qh, k_all, v_all, positions, kpos,
                         causal=a.causal, window=a.window, chunk=a.chunk, q_chunk=q_chunk)
@@ -237,13 +303,16 @@ def _apply_mla(
     view: Optional[dict] = None,
     decode_kernel: bool = False,
     int_forward: bool = False,
+    int_chain: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     B, T, D = x.shape
     H = a.heads
     nope, rope, vd = a.qk_nope_dim, a.qk_rope_dim, a.v_head_dim
     theta = a.rope_theta or 10000.0
+    # every MLA projection is a chain break (norms, rope, reshapes and the
+    # attention core sit between each producer and consumer)
     lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
-                            int_forward=int_forward)
+                            int_forward=int_forward, int_chain=int_chain)
 
     cq = apply_norm(params["q_norm"], lin(params["wq_a"], x=x, site="mla.wq_a"))
     qh = lin(params["wq_b"], x=cq, site="mla.wq_b").reshape(B, T, H, nope + rope)
@@ -263,14 +332,21 @@ def _apply_mla(
     elif "ckvp" in cache:
         if view is None:
             raise ValueError("paged MLA cache needs a block-table view")
-        if "ckvs" in cache:
-            raise NotImplementedError("int8/int4 latent pools are not ported yet")
         bt = view["bt"]
-        cache = {"ckvp": _paged_write(cache["ckvp"], ckv, bt, positions),
-                 "kpep": _paged_write(cache["kpep"], kpe, bt, positions)}
+        if "ckvs" in cache:  # integer latent pools, per-token fp32 scales
+            ckvp_new, ckvs_new = _paged_write_q8(cache["ckvp"], cache["ckvs"], ckv, bt, positions)
+            kpep_new, kpes_new = _paged_write_q8(cache["kpep"], cache["kpes"], kpe, bt, positions)
+            cache = {"ckvp": ckvp_new, "ckvs": ckvs_new, "kpep": kpep_new, "kpes": kpes_new}
+            if not use_kernel:
+                ckv_all = _paged_gather_deq(cache["ckvp"], cache["ckvs"], bt)
+                kpe_all = _paged_gather_deq(cache["kpep"], cache["kpes"], bt)
+        else:
+            cache = {"ckvp": _paged_write(cache["ckvp"], ckv, bt, positions),
+                     "kpep": _paged_write(cache["kpep"], kpe, bt, positions)}
+            if not use_kernel:
+                ckv_all = _paged_gather(cache["ckvp"], bt)
+                kpe_all = _paged_gather(cache["kpep"], bt)
         if not use_kernel:
-            ckv_all = _paged_gather(cache["ckvp"], bt)
-            kpe_all = _paged_gather(cache["kpep"], bt)
             kpos = _paged_kpos(positions, ckv_all.shape[1])
     else:
         raise NotImplementedError("contiguous MLA caches are not ported yet")
@@ -294,7 +370,8 @@ def _apply_mla(
                 aq_scale = torch.exp2(wkv_b["aq"]["log2_scale"].to(torch.float32))
             o_lat = ops.paged_mla_attention(
                 q_lat[:, 0], q_pe[:, 0].to(torch.float32), cache["ckvp"], cache["kpep"],
-                view["bt"], positions[:, 0] + 1, scale=scale, aq_scale=aq_scale,
+                view["bt"], positions[:, 0] + 1, ckvs=cache.get("ckvs"),
+                kpes=cache.get("kpes"), scale=scale, aq_scale=aq_scale,
                 act_bits=q.act_bits if aq_scale is not None else None,
             )[:, None]
         else:

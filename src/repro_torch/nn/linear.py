@@ -18,21 +18,30 @@ int8 weights whose l1 norm provably fits the P-bit accumulator.  With
 ``int_forward=True`` a deployed layer runs ``act_quant(x) -> int8 @ int8 ->
 int32 -> scaled output`` through the fused W8A8 kernel
 (``kernels/ops.int_matmul``), with the int16 carry when ``acc_bits <= 16``.
-Int8-out chaining (``int_chain``, ``IntAct``, requant epilogues) and the
-accumulator-headroom probe are not ported yet.
 
-Every ``int_forward`` call records its disposition (``standalone`` for the
-fused path with its own act-quant, ``fallback`` for the dequant path) into
-the active ``chain_report_scope``.  The port runs eagerly, so the report
-lists every call of the last forward (one entry per layer per site), where
-the reference lists the call sites of a compiled program.
+Int8-out chaining (``int_chain=True``): at a chain break (a residual add, a
+norm, the attention core, a gated MLP's ``silu(gate) * up`` — every edge of
+the gated models the port serves) the consumer folds its act-quant into the
+kernel's prologue (``aq_scale``), so no deployed linear pays a standalone
+act-quant.  An :class:`IntAct` (int8 codes with their scale) is consumed
+directly.  A producer that would requantize into its consumer's quantizer
+(``out_aq`` from :func:`chain_out_aq`: the non-gated MLP, rwkv6's
+channel-mix) needs the requant epilogue, which is not ported yet: it raises.
+The accumulator-headroom probe is not ported yet.
+
+Every ``int_forward`` call records its disposition (``folded`` for the
+prologue or an ``IntAct`` input, ``standalone`` for the fused path with its
+own act-quant, ``fallback`` for the dequant path) into the active
+``chain_report_scope``.  The port runs eagerly, so the report lists every
+call of the last forward (one entry per layer per site), where the reference
+lists the call sites of a compiled program.
 """
 
 from __future__ import annotations
 
 import contextlib
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -52,8 +61,31 @@ __all__ = [
     "init_linear",
     "apply_linear",
     "deploy_linear",
+    "IntAct",
+    "chain_out_aq",
     "chain_report_scope",
 ]
+
+
+class IntAct(NamedTuple):
+    """A chained integer activation, ``(codes, scale, bits, signed)``:
+    ``codes`` int8 with the layer-output shape, unsigned 8-bit codes stored
+    symmetrized (``true_code - 128``); ``scale`` the activation scale they
+    were quantized with (the consumer's ``exp2(aq.log2_scale)``)."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+    bits: int
+    signed: bool
+
+
+def _int_act_to_fp(a: IntAct, dtype) -> torch.Tensor:
+    """Re-materialize an IntAct to floating point (chain-repair fallback)."""
+    q = a.codes.to(torch.float32)
+    if not a.signed and a.bits == 8:
+        q = q + 128.0
+    return (q * a.scale).to(dtype)
+
 
 _ACTIVE_REPORT: list = []
 _WARNED: set = set()
@@ -62,10 +94,12 @@ _WARNED: set = set()
 @contextlib.contextmanager
 def chain_report_scope(report: dict):
     """Collect ``int_forward`` dispositions into ``report`` (cleared on
-    entry): ``standalone`` — a deployed layer ran the fused kernel after its
-    own act-quant; ``fallback`` — the fused path was unavailable and the
-    layer took the dequant path.  (``folded``/``chained`` stay empty until
-    chaining is ported.)"""
+    entry): ``folded`` — the act-quant ran inside the fused kernel (the
+    prologue, or an ``IntAct`` input); ``standalone`` — a deployed layer ran
+    the fused kernel after its own act-quant dispatch (must be empty under
+    ``int_chain``); ``fallback`` — the fused path was unavailable and the
+    layer took the dequant path.  ``chained`` (a requantizing epilogue)
+    stays empty until that epilogue is ported."""
     report.clear()
     report.update({"folded": [], "chained": [], "standalone": [], "fallback": []})
     _ACTIVE_REPORT.append(report)
@@ -146,39 +180,69 @@ def _quant_weights(params: dict, cfg: QuantConfig, boundary: bool, input_signed:
     raise ValueError(cfg.mode)
 
 
-def _apply_linear_int8(params: dict, x: torch.Tensor, cfg: QuantConfig, *, boundary: bool,
-                       input_signed: bool, compute_dtype, site: str = ""):
-    """Fused W8A8 forward, unchained: the act-quant runs on its own ahead of
-    the kernel (unsigned 8-bit codes symmetrized into the int8 operand), the
-    activation scale folds into the per-channel weight scale, and the kernel's
-    epilogue is one per-column fp32 rescale (+ bias).  The int16 carry engages
-    when A2Q guarantees ``acc_bits <= 16``."""
+def chain_out_aq(consumer: dict, cfg: QuantConfig, *, boundary: bool = False,
+                 input_signed: bool = True, act_fn: Optional[str] = None) -> Optional[dict]:
+    """The consumer's activation-quantizer descriptor if a producer could
+    requantize into it (a deployed 2-D consumer with ``N <= 8``), else
+    ``None`` (a chain break).  ``act_fn`` names the elementwise activation
+    between the two linears."""
+    N = _bits(cfg, boundary)[1]
+    if "q8" not in consumer or "aq" not in consumer or N > 8 or consumer["q8"].ndim != 2:
+        return None
+    return {"log2_scale": consumer["aq"]["log2_scale"], "bits": N, "signed": input_signed,
+            "act_fn": act_fn}
+
+
+def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
+                       input_signed: bool, compute_dtype, int_chain: bool = False,
+                       site: str = ""):
+    """Fused W8A8 forward: the activation scale folds into the per-channel
+    weight scale, so the kernel's epilogue is one per-column fp32 rescale
+    (+ bias); the int16 carry engages when A2Q guarantees ``acc_bits <=
+    16``.  Where the act-quant runs:
+
+    * ``x`` an :class:`IntAct` — the codes feed the kernel (``folded``);
+    * ``int_chain`` with an fp ``x`` — in the kernel's prologue (``folded``),
+      bit for bit the standalone act-quant's codes;
+    * else on its own ahead of the kernel (``standalone``), unsigned 8-bit
+      codes symmetrized into the int8 operand."""
     from repro_torch.kernels import ops
 
     M, N = _bits(cfg, boundary)
     a2q = cfg.mode == "a2q"
-    _record("standalone", site)
-    xq, x_scale = act_quant_int({"log2_scale": params["aq"]["log2_scale"]},
-                                x.to(torch.float32), N, signed=input_signed)
-    if not input_signed and N == 8:
-        xq = xq - 128.0
-    K = x.shape[-1]
-    lead = x.shape[:-1]
-    y = ops.int_matmul(
-        xq.to(torch.int8).reshape(-1, K), params["q8"],
-        scale=x_scale * params["s8"].to(torch.float32),
-        bias=params.get("b"),
-        acc_bits=cfg.acc_bits if a2q else 32,
-        mode="exact",
-        spill_int16=a2q and cfg.acc_bits <= 16,
-        in_bits=N, in_signed=input_signed,
-    )
+    kw = dict(acc_bits=cfg.acc_bits if a2q else 32, mode="exact",
+              spill_int16=a2q and cfg.acc_bits <= 16, bias=params.get("b"))
+    s8 = params["s8"].to(torch.float32)
+    if isinstance(x, IntAct):
+        _record("folded", site)
+        K = x.codes.shape[-1]
+        lead = x.codes.shape[:-1]
+        y = ops.int_matmul(x.codes.reshape(-1, K), params["q8"], scale=x.scale * s8,
+                           in_bits=x.bits, in_signed=x.signed, **kw)
+    elif int_chain:
+        _record("folded", site)
+        x_scale = torch.exp2(params["aq"]["log2_scale"].to(torch.float32))
+        K = x.shape[-1]
+        lead = x.shape[:-1]
+        y = ops.int_matmul(x.to(torch.float32).reshape(-1, K), params["q8"],
+                           scale=x_scale * s8, aq_scale=x_scale, in_bits=N,
+                           in_signed=input_signed, **kw)
+    else:
+        _record("standalone", site)
+        xq, x_scale = act_quant_int({"log2_scale": params["aq"]["log2_scale"]},
+                                    x.to(torch.float32), N, signed=input_signed)
+        if not input_signed and N == 8:
+            xq = xq - 128.0
+        K = x.shape[-1]
+        lead = x.shape[:-1]
+        y = ops.int_matmul(xq.to(torch.int8).reshape(-1, K), params["q8"],
+                           scale=x_scale * s8, in_bits=N, in_signed=input_signed, **kw)
     return y.reshape(*lead, y.shape[-1]).to(compute_dtype)
 
 
 def apply_linear(
     params: dict,
-    x: torch.Tensor,
+    x,
     cfg: QuantConfig,
     *,
     boundary: bool = False,
@@ -193,15 +257,19 @@ def apply_linear(
 
     ``int_forward=True`` on a deployed layer (``q8``/``s8`` and an activation
     quantizer, ``N <= 8``, 2-D weights) runs the fused W8A8 integer path
-    instead of dequant + ``compute_dtype`` matmul."""
-    if int_chain or out_aq is not None:
-        raise NotImplementedError("int8-out chaining (int_chain / out_aq) is not ported yet")
+    instead of dequant + ``compute_dtype`` matmul; ``int_chain=True`` folds
+    the act-quant into the kernel's prologue, and ``x`` may be an
+    :class:`IntAct`.  ``out_aq`` (a requantizing epilogue) raises: it is
+    not ported yet."""
+    if out_aq is not None:
+        raise NotImplementedError("int8-out chaining through the requant epilogue (out_aq) is "
+                                  "not ported yet; it goes with the rwkv6 slice")
     M, N = _bits(cfg, boundary)
     if int_forward and "q8" in params:
         if "aq" in params and N <= 8 and params["q8"].ndim == 2:
             return _apply_linear_int8(params, x, cfg, boundary=boundary,
-                                      input_signed=input_signed,
-                                      compute_dtype=compute_dtype, site=site)
+                                      input_signed=input_signed, compute_dtype=compute_dtype,
+                                      int_chain=int_chain, site=site)
         if "aq" not in params:
             reason = "no activation quantizer in the deployed params"
         elif N > 8:
@@ -210,6 +278,10 @@ def apply_linear(
             reason = f"stacked weight leaves (rank {params['q8'].ndim})"
         _warn_fallback_once(site, reason)
         _record("fallback", site)
+    if isinstance(x, IntAct):
+        # chain repair: the consumer cannot take codes — re-materialize fp
+        _record("fallback", site)
+        x = _int_act_to_fp(x, compute_dtype)
     if cfg.mode != "none" and "aq" in params:
         x = apply_act_quant({"log2_scale": params["aq"]["log2_scale"]}, x, N, signed=input_signed)
     w = _quant_weights(params, cfg, boundary, input_signed).to(compute_dtype)

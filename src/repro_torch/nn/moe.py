@@ -169,6 +169,7 @@ def apply_moe(
     *,
     compute_dtype=torch.bfloat16,
     int_forward: bool = False,
+    int_chain: bool = False,
 ) -> torch.Tensor:
     B, T, d = x.shape
     if int_forward and "q8" in params.get("w_in", {}):
@@ -185,8 +186,10 @@ def apply_moe(
     probs = torch.softmax(logits, dim=-1)
     out = _dispatch_compute_combine(x2d, probs, params, cfg, q, compute_dtype).reshape(B, T, d)
     if "shared_in" in params:
+        # shared experts are plain 2-D linears; the silu gate makes each a
+        # chain break, so under int_chain each quantizes in its prologue
         lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
-                                int_forward=int_forward)
+                                int_forward=int_forward, int_chain=int_chain)
         h = F.silu(lin(params["shared_gate"], x=x, site="moe.shared_gate").to(torch.float32))
         h = h.to(compute_dtype) * lin(params["shared_in"], x=x, site="moe.shared_in")
         out = out + lin(params["shared_out"], x=h, site="moe.shared_out")

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, QuantConfig, StackConfig
 from repro_torch.nn.attention import apply_attention, init_attention
-from repro_torch.nn.linear import apply_linear, init_linear
+from repro_torch.nn.linear import apply_linear, chain_out_aq, init_linear
 from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.norms import apply_norm, init_norm
 
@@ -38,15 +38,20 @@ def _init_mlp(gen, d: int, ff: int, q: QuantConfig, gated: bool, use_bias: bool)
 
 
 def _apply_mlp(p: dict, x: torch.Tensor, q: QuantConfig, compute_dtype,
-               int_forward: bool = False) -> torch.Tensor:
+               int_forward: bool = False, int_chain: bool = False) -> torch.Tensor:
     lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
-                            int_forward=int_forward)
+                            int_forward=int_forward, int_chain=int_chain)
     if "w_gate" in p:
+        # the silu(gate) * up product is a chain break: every edge quantizes
+        # in its own kernel's prologue
         h = lin(p["w_in"], x=x, site="mlp.w_in")
         gate = lin(p["w_gate"], x=x, site="mlp.w_gate")
         h = F.silu(gate.to(torch.float32)).to(compute_dtype) * h
         return lin(p["w_out"], x=h, site="mlp.w_out")
-    h = lin(p["w_in"], x=x, site="mlp.w_in")
+    # w_in -> gelu -> w_out is a producer/consumer chain: under int_chain the
+    # reference requantizes in w_in's epilogue (not ported yet: it raises)
+    out_aq = chain_out_aq(p["w_out"], q, act_fn="gelu") if int_chain else None
+    h = lin(p["w_in"], x=x, site="mlp.w_in", out_aq=out_aq)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(compute_dtype)  # jax.nn.gelu's default
     return lin(p["w_out"], x=h, site="mlp.w_out")
 
@@ -73,21 +78,23 @@ def _init_block(gen, arch: ArchConfig, s: StackConfig) -> dict:
 def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                  positions: torch.Tensor, cache: Optional[dict], *,
                  mla_absorb: bool = False, view: Optional[dict] = None,
-                 decode_kernel: bool = False, int_forward: bool = False):
+                 decode_kernel: bool = False, int_forward: bool = False,
+                 int_chain: bool = False):
     q = arch.quant
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     norm = functools.partial(apply_norm, kind=arch.norm, eps=arch.norm_eps)
 
     def ffn(h):
         if s.kind == "moe":
-            return apply_moe(p["moe"], h, s.moe, q, compute_dtype=cd, int_forward=int_forward)
-        return _apply_mlp(p["mlp"], h, q, cd, int_forward)
+            return apply_moe(p["moe"], h, s.moe, q, compute_dtype=cd, int_forward=int_forward,
+                             int_chain=int_chain)
+        return _apply_mlp(p["mlp"], h, q, cd, int_forward, int_chain)
 
     h = norm(p["ln1"], x)
     attn_out, _ = apply_attention(  # a paged cache is written in place
         p["attn"], h, s.attn, q, positions, (cache or {}).get("attn"),
         q_chunk=arch.attn_q_chunk, compute_dtype=cd, mla_absorb=mla_absorb, view=view,
-        decode_kernel=decode_kernel, int_forward=int_forward,
+        decode_kernel=decode_kernel, int_forward=int_forward, int_chain=int_chain,
     )
     if s.parallel_block:
         return x + attn_out + ffn(h)
@@ -117,7 +124,8 @@ def init_stack(gen: torch.Generator, arch: ArchConfig, s: StackConfig) -> dict:
 def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                 positions: torch.Tensor, cache: Optional[dict] = None, *,
                 mla_absorb: bool = False, view: Optional[dict] = None,
-                decode_kernel: bool = False, int_forward: bool = False):
+                decode_kernel: bool = False, int_forward: bool = False,
+                int_chain: bool = False):
     """Apply ``s.count`` blocks in order and return ``x``; a paged cache's
     pools (leaves ``(count, ...)``) are updated in place."""
     _check_kind(s)
@@ -126,6 +134,6 @@ def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
             _layer(params, i), x, arch, s, positions,
             _layer(cache, i) if cache is not None else None,
             mla_absorb=mla_absorb, view=view, decode_kernel=decode_kernel,
-            int_forward=int_forward,
+            int_forward=int_forward, int_chain=int_chain,
         )
     return x

@@ -10,14 +10,17 @@ trash block.  The forward runs eagerly; the pools are updated in place.
 scales — the artifact whose l1 norms provably fit the target accumulator —
 and ``Runtime(int_forward=True, decode_kernel=True)`` serves it through the
 fused W8A8 kernel and the paged-attention kernel (for MLA models with
-``mla_absorb=True`` too, through the MLA latent-attention kernel).
+``mla_absorb=True`` too, through the MLA latent-attention kernel);
+``Runtime(int_chain=True)`` folds every act-quant into the W8A8 kernel's
+prologue.  ``kv_quant=True`` keeps the KV pools as int8 codes, or with
+``kv_bits=4`` packed int4, beside fp32 scale pools.
 
 The engine keeps the reference's ``stats`` = {prefill_tokens, decode_tokens,
 prefill_s, decode_s, decode_dispatches} and ``throughput()`` contract (first
 generated token booked under prefill).  Not ported yet: the contiguous
 ``ServeEngine``, the decode megastep (``decode_steps > 1``), lockstep
-admission, prefix sharing, int8/int4 KV, disaggregated handoff, non-greedy
-sampling and the observability bundle.
+admission, prefix sharing, disaggregated handoff, non-greedy sampling and
+the observability bundle.
 """
 
 from __future__ import annotations
@@ -138,7 +141,9 @@ class PagedServeEngine:
     ``params`` must already live on ``device`` (default ``"cuda"``; a CUDA
     device without a usable card raises).  ``num_blocks`` bounds KV memory
     (default: every slot at ``max_seq``); admission stalls, never crashes,
-    when blocks run out.  The KV pools are updated in place."""
+    when blocks run out.  ``kv_quant`` stores the KV pools as integer codes
+    (``kv_bits`` 8, or 4 packed two a byte) with per-slot fp32 scales.  The KV
+    pools are updated in place."""
 
     def __init__(
         self,
@@ -155,6 +160,8 @@ class PagedServeEngine:
         bos_id: int = 0,
         eos_id: Optional[int] = None,
         decode_steps: int = 1,
+        kv_quant: bool = False,
+        kv_bits: int = 8,
         device="cuda",
     ):
         if decode_steps != 1:
@@ -173,7 +180,8 @@ class PagedServeEngine:
         self.eos_id = eos_id
         self.cache = PagedKVCache(
             arch, batch, block_size=block_size, num_blocks=num_blocks, max_seq=max_seq,
-            dtype=COMPUTE_DTYPES[arch.compute_dtype], device=self.device,
+            dtype=COMPUTE_DTYPES[arch.compute_dtype], device=self.device, kv_quant=kv_quant,
+            kv_bits=kv_bits,
         )
         self.sched = Scheduler(batch, prefill_chunk=prefill_chunk)
         self.stats = _fresh_stats()

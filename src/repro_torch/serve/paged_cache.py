@@ -1,11 +1,17 @@
 """Paged KV cache: fixed-size token blocks + per-sequence block tables.
 
 Port of ``repro.serve.paged_cache`` for full-attention GQA and MLA stacks
-(``attn_mlp`` and ``moe`` blocks) with float pools.  Seq-indexed K/V lives
-in pools of ``block_size``-token blocks shared by all slots, per stack
-``kp``/``vp`` of shape ``(count, NB, bs, KV, Dh)``, or for MLA the latent
-``ckvp (count, NB, bs, kv_lora_rank)`` and rope key ``kpep (count, NB, bs,
-qk_rope_dim)``.
+(``attn_mlp`` and ``moe`` blocks).  Seq-indexed K/V lives in pools of
+``block_size``-token blocks shared by all slots, per stack ``kp``/``vp`` of
+shape ``(count, NB, bs, KV, Dh)``, or for MLA the latent ``ckvp (count, NB,
+bs, kv_lora_rank)`` and rope key ``kpep (count, NB, bs, qk_rope_dim)``.
+
+``kv_quant=True`` stores the pools as integer codes beside fp32 scale pools
+in the same block geometry: ``kps``/``vps (count, NB, bs, KV)`` for GQA (one
+scale per token-slot per KV head), ``ckvs``/``kpes (count, NB, bs)`` for MLA
+(one per token-slot).  ``kv_bits=8`` stores int8 codes, ``kv_bits=4`` two
+codes a byte in uint8 pools of half the feature width.  The layers quantize
+on write and the kernels dequantize on read.
 A host-side free-list allocator hands each sequence the blocks its tokens
 need, recorded in a per-slot block table; releasing a finished sequence
 returns its blocks at once, so cache memory scales with live tokens.
@@ -20,8 +26,8 @@ Invariants: a sequence's blocks appear in its table row in logical order
 (so the gathered view equals the contiguous layout); unowned table entries
 stay 0 (trash); the trash block is never freed; ``lens[slot]`` counts tokens
 written for the slot.  Not ported yet: refcounts and copy-on-write, the
-radix prompt cache, rollback/truncate, KV-block export/import, int8/int4
-pools, and ring / recurrent per-slot leaves.
+radix prompt cache, rollback/truncate, KV-block export/import, and ring /
+recurrent per-slot leaves.
 """
 
 from __future__ import annotations
@@ -38,25 +44,50 @@ __all__ = ["PagedKVCache", "init_paged_attn_cache", "TRASH_BLOCK"]
 TRASH_BLOCK = 0
 
 
+def _code_shape(dim: int, kv_bits: int) -> tuple[int, ...]:
+    """Feature width of a code pool: int8 keeps the width, int4 packs two
+    codes a byte (an even feature dim)."""
+    if kv_bits == 8:
+        return (dim,)
+    if kv_bits == 4:
+        if dim % 2:
+            raise ValueError(f"int4 KV packing needs an even feature dim, got {dim}")
+        return (dim // 2,)
+    raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
+
+
 def init_paged_attn_cache(a: AttnConfig, num_blocks: int, block_size: int, dtype,
-                          device, count: int = 1) -> dict:
-    """Float paged pools for ``count`` stacked GQA or MLA layers."""
+                          device, count: int = 1, kv_quant: bool = False,
+                          kv_bits: int = 8) -> dict:
+    """Paged pools for ``count`` stacked GQA or MLA layers: ``dtype`` pools,
+    or with ``kv_quant`` integer code pools (int8, or packed int4 in uint8)
+    and their fp32 scale pools."""
+    lead = (count, num_blocks, block_size)
+    code = (torch.int8 if kv_bits == 8 else torch.uint8) if kv_quant else dtype
+
+    def pool(*heads, dim):
+        width = _code_shape(dim, kv_bits) if kv_quant else (dim,)
+        return torch.zeros(lead + heads + width, dtype=code, device=device)
+
+    def scales(*heads):
+        return torch.zeros(lead + heads, dtype=torch.float32, device=device)
+
     if a.kind == "mla":
-        return {
-            "ckvp": torch.zeros((count, num_blocks, block_size, a.kv_lora_rank), dtype=dtype,
-                                device=device),
-            "kpep": torch.zeros((count, num_blocks, block_size, a.qk_rope_dim), dtype=dtype,
-                                device=device),
-        }
+        pools = {"ckvp": pool(dim=a.kv_lora_rank), "kpep": pool(dim=a.qk_rope_dim)}
+        if kv_quant:
+            pools.update(ckvs=scales(), kpes=scales())
+        return pools
     if (a.window or a.chunk) is not None:
         raise NotImplementedError("ring (sliding-window / chunked-local) caches are not ported yet")
-    shape = (count, num_blocks, block_size, a.kv_heads, a.head_dim)
-    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
-            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+    pools = {"kp": pool(a.kv_heads, dim=a.head_dim), "vp": pool(a.kv_heads, dim=a.head_dim)}
+    if kv_quant:
+        pools.update(kps=scales(a.kv_heads), vps=scales(a.kv_heads))
+    return pools
 
 
 class PagedKVCache:
-    """Device pools + host-side block-table allocator for ``slots`` sequences."""
+    """Device pools + host-side block-table allocator for ``slots`` sequences
+    (integer code pools with ``kv_quant``, at ``kv_bits`` 8 or 4)."""
 
     def __init__(
         self,
@@ -68,7 +99,13 @@ class PagedKVCache:
         max_seq: int = 512,
         dtype=torch.bfloat16,
         device="cpu",
+        kv_quant: bool = False,
+        kv_bits: int = 8,
     ):
+        if kv_bits not in (8, 4):
+            raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
+        self.kv_quant = kv_quant
+        self.kv_bits = kv_bits if kv_quant else 8
         self.arch = arch
         self.slots = slots
         self.block_size = block_size
@@ -86,7 +123,8 @@ class PagedKVCache:
                 raise NotImplementedError(f"paged cache for {s.kind!r} stacks is not ported yet")
         self.pools = {
             str(i): {"attn": init_paged_attn_cache(s.attn, num_blocks, block_size, dtype,
-                                                   self.device, count=s.count)}
+                                                   self.device, count=s.count,
+                                                   kv_quant=kv_quant, kv_bits=kv_bits)}
             for i, s in enumerate(arch.stacks)
         }
         # LIFO free list; low ids handed out first so fresh tables are ordered
@@ -132,7 +170,8 @@ class PagedKVCache:
         self.lens[slot] = 0
 
     def kv_bytes_per_token(self) -> int:
-        """Device bytes one cached token costs across every pool (all layers)."""
+        """Device bytes one cached token costs across every pool (all layers;
+        codes and scale pools)."""
         total = 0
         for stack in self.pools.values():
             for leaf in stack["attn"].values():

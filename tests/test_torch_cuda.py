@@ -7,20 +7,24 @@ so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: int_matmul — exact (integer carry, and the fused epilogue rounds
-the multiply and the add once each, as the plain version does); paged
-attention — 1e-5 with fp32 pools (fp32 softmax summed in another order), one
-bf16 rounding of the output (2^-6, one ulp at |o| < 2) with bf16 pools; MLA
-latent attention — 2e-5 (fp32 output; bf16 pools convert to fp32 exactly, so
-only the summation order differs), and exactly on a row of length 1, whose
-output is the staged latent itself (the activation fake-quant replay's
-codes times its scale).
+the multiply and the add once each, as the plain version does), also with
+the quantizing prologue, whose codes must equal the standalone act-quant's;
+paged attention — 1e-5 with fp32, int8 and int4 pools (fp32 softmax summed
+in another order; integer codes dequantize exactly as in the plain version),
+one bf16 rounding of the output (2^-6, one ulp at |o| < 2) with bf16 pools
+or a bf16 query; MLA latent attention — 2e-5 (fp32 output; bf16 pools and
+dequantized codes convert to fp32 exactly, so only the summation order
+differs), and exactly on a row of length 1, whose output is the staged
+latent itself (the activation fake-quant replay's codes times its scale).
+A block past a row's length holds NaN (in the pool, or in the scale pool of
+an integer pool) and must not be read.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
+from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain, prologue_codes
 from repro_torch.kernels.ops import int_matmul_block_k
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
@@ -60,6 +64,30 @@ def test_int_matmul_cuda_matches_plain(dev, mode, acc_bits, spill):
         assert torch.equal(got, int_matmul_plain(x, w, scale, bias, offset, **kw)), (M, K, N)
 
 
+@pytest.mark.parametrize("bits,signed", [(8, True), (8, False), (4, True)])
+def test_int_matmul_cuda_prologue_matches_plain(dev, bits, signed):
+    """fp32 activations quantized in the kernel: the output equals the plain
+    version's and the kernel run on the standalone act-quant's codes."""
+    rng = np.random.default_rng(11)
+    lo, hi = (-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed else (0, (1 << bits) - 1)
+    shift = 128 if not signed and bits == 8 else 0
+    s = torch.tensor([2.0**-5], device=dev)
+    for M, K, N in ((1, 576, 192), (8, 1536, 576), (64, 576, 1536), (33, 100, 70), (3, 40, 5)):
+        x = rng.normal(size=(M, K)).astype(np.float32) * 3
+        ties = rng.random((M, K)) < 0.1
+        x[ties] = (rng.integers(-140, 140, ties.sum()) + 0.5) * 2.0**-5
+        x = torch.from_numpy(np.abs(x) if not signed else x).to(dev)
+        w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(dev)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, N).astype(np.float32)).to(dev)
+        kw = dict(acc_bits=32, mode="exact", block_k=int_matmul_block_k(K))
+        pro = dict(aq_scale=s, q_lo=lo, q_hi=hi, q_shift=shift)
+        got = int_matmul_cuda(x, w, scale, **kw, **pro)
+        torch.cuda.synchronize()
+        assert torch.equal(got, int_matmul_plain(x, w, scale, **kw, **pro)), (M, K, N)
+        codes = prologue_codes(x, s, lo, hi, shift)
+        assert torch.equal(got, int_matmul_cuda(codes, w, scale, **kw)), (M, K, N)
+
+
 def _paged_case(dev, dtype):
     rng = np.random.default_rng(8)
     B, H, KV, Dh, NB, bs, MB = 5, 8, 2, 16, 12, 4, 3
@@ -81,6 +109,41 @@ def test_paged_attention_cuda_matches_plain(dev, dtype, window):
     tol = 1e-5 if dtype == torch.float32 else 2.0**-6
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
     assert (got[2] == 0).all()
+
+
+def _quantize_pools(kp, vp, bits):
+    """Integer pools of the same shape: codes, packed for int4, and fp32
+    per-slot scales."""
+    from repro_torch.nn.attention import _kv_quantize, _pack_nibbles
+
+    out = []
+    for p in (kp, vp):
+        codes, sc = _kv_quantize(p.float(), bits=bits)
+        out.append((_pack_nibbles(codes) if bits == 4 else codes, sc))
+    (kq, ks), (vq, vs) = out
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 3])
+def test_paged_attention_cuda_int_pools_match_plain(dev, bits, q_dtype, window):
+    q, kp, vp, bt, lengths = _paged_case(dev, torch.float32)
+    q = q.to(q_dtype)
+    kq, vq, ks, vs = _quantize_pools(kp, vp, bits)
+    got = paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs, window=window)
+    torch.cuda.synchronize()
+    want = paged_attention_plain(q, kq, vq, bt, lengths, ks, vs, window=window)
+    tol = 1e-5 if q_dtype == torch.float32 else 2.0**-6
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert (got[2] == 0).all()
+    # a NaN scale block behind a table entry past row 4's length is never read
+    ks_nan, bt_past = ks.clone(), bt.clone()
+    ks_nan[10] = float("nan")
+    bt_past[4, 1] = 10
+    again = paged_attention_cuda(q, kq, vq, bt_past, lengths, ks_nan, vs, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
 
 
 def _mla_case(dev, dtype, B, H, R, P, bs, lens):
@@ -125,10 +188,48 @@ def test_paged_mla_attention_cuda_matches_plain(dev, shape, dtype, act_quant):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("shape", [(5, 12, 32, 16, 4), (8, 128, 512, 64, 16)],
+                         ids=["small", "deepseek"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("act_quant", [False, True], ids=["plain", "act_quant"])
+def test_paged_mla_attention_cuda_int_pools_match_plain(dev, shape, bits, act_quant):
+    from repro_torch.nn.attention import _kv_quantize, _pack_nibbles
+
+    B, H, R, P, bs = shape
+    lens = [7, 1, 0, 2 * bs + 3, 3 * bs, bs - 1, 1, 4 * bs][:B]
+    q_lat, q_pe, ckv, kpe, bt, lengths = _mla_case(dev, torch.float32, B, H, R, P, bs, lens)
+    pools = []
+    for p in (ckv, kpe):
+        codes, sc = _kv_quantize(p, bits=bits)
+        pools.append((_pack_nibbles(codes) if bits == 4 else codes, sc))
+    (ckvq, ckvs), (kpeq, kpes) = pools
+    kw = dict(scale=192**-0.5)
+    if act_quant:
+        kw.update(aq_scale=torch.tensor([0.02], device=dev), act_bits=8)
+    got = paged_mla_attention_cuda(q_lat, q_pe, ckvq, kpeq, bt, lengths, ckvs, kpes, **kw)
+    torch.cuda.synchronize()
+    want = paged_mla_attention_plain(q_lat, q_pe, ckvq, kpeq, bt, lengths, ckvs, kpes, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    assert (got[2] == 0).all()  # length 0
+    assert torch.equal(got[1], want[1])  # length 1: the dequantized (replayed) latent, exactly
+    ckvs_nan = ckvs.clone()
+    ckvs_nan[-1] = float("nan")  # the scales of the block past row 0's length
+    again = paged_mla_attention_cuda(q_lat, q_pe, ckvq, kpeq, bt, lengths, ckvs_nan, kpes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
 def test_paged_mla_attention_cuda_refuses_quantized_pools(dev):
+    """Malformed integer pools are refused: without their scale pools, with
+    mismatched code types, or with float scale pools of the wrong shape."""
     args = list(_mla_case(dev, torch.float32, 2, 8, 32, 8, 4, [5, 3]))
     codes = [a.to(torch.int8) for a in args[2:4]]
     scales = torch.full(args[2].shape[:2], 0.01, device=dev)
-    with pytest.raises(NotImplementedError):
-        ops.paged_mla_attention(*args[:2], *codes, *args[4:], ckvs=scales, kpes=scales,
-                                scale=0.1)
+    with pytest.raises(ValueError):
+        ops.paged_mla_attention(*args[:2], *codes, *args[4:], scale=0.1)
+    with pytest.raises(ValueError):
+        ops.paged_mla_attention(*args[:2], codes[0], codes[1].to(torch.uint8), *args[4:],
+                                ckvs=scales, kpes=scales, scale=0.1)
+    with pytest.raises(ValueError):
+        ops.paged_mla_attention(*args[:2], *codes, *args[4:], ckvs=scales[:, :2],
+                                kpes=scales[:, :2], scale=0.1)

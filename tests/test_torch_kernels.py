@@ -157,6 +157,9 @@ def test_paged_attention_argument_checks():
     q, kp, vp, bt, lengths = (torch.from_numpy(a) for a in _paged_case(np.random.default_rng(6)))
     with pytest.raises(ValueError):
         ops.paged_attention(q, kp, vp, bt, lengths, window=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # integer pools: kps and vps come together
         ops.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), bt, lengths,
-                            kps=torch.ones(kp.shape[:3]), vps=torch.ones(kp.shape[:3]))
+                            kps=torch.ones(kp.shape[:3]))
+    with pytest.raises(ValueError):  # packed int4 pools need their scale pools
+        ops.paged_attention(q, kp[..., ::2].to(torch.uint8), vp[..., ::2].to(torch.uint8), bt,
+                            lengths)

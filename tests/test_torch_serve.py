@@ -106,7 +106,7 @@ def test_launcher_runs_and_refuses_unported_flags(capsys):
     outs = launch_serve.main(base)
     assert [len(o) for o in outs] == [3, 3]
     assert "decode:" in capsys.readouterr().out
-    for extra in (["--kv-int8"], ["--decode-steps", "4"], ["--spec-k=2"]):
+    for extra in (["--prefix-share"], ["--decode-steps", "4"], ["--spec-k=2"]):
         with pytest.raises(SystemExit):
             launch_serve.main(base + extra)
     with pytest.raises(SystemExit):
