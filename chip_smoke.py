@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100 for the numbers in
 PERF.md): builds the kernels, holds each against its plain PyTorch version at
-the main paths' shapes, serves full-width smollm-135m and full-width
-deepseek-v3 (depth cut) through the paged engine on the kernels, and checks
-the results.
+the main paths' shapes, serves full-width smollm-135m, full-width deepseek-v3
+(depth cut) and full-size rwkv6-7b through the paged engine on the kernels,
+and checks the results.
 
     python3 chip_smoke.py
 
@@ -34,7 +34,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    packed-int4 pools with a bf16 query and ``paged_mla_attention`` on int8
    and packed-int4 latent pools with the replay, each against its plain
    version with a NaN scale block behind a table entry past a length, and
-   SDPA on the dequantized gathered view as the library time;
+   SDPA on the dequantized gathered view as the library time.  The rwkv6
+   slice's: ``int_matmul`` with the requantizing epilogue behind the
+   prologue (relu^2 replayed in bf16, unsigned 8-bit codes out) at rwkv6-7b's
+   cm.wk shape (K=4096, N=14336) and K=N=64, M in {8, 32}, bit for bit the
+   plain version and timed beside the prologue-only kernel; ``rwkv6_scan`` at
+   decode (B=8, H=64, T=1, bf16 r/k/v, fp32 y, the state updated in place),
+   a prefill chunk (B=1, T=32, carried state) and a T=64 chunk with the
+   decay floored at e^-8, within ``RWKV_TOL`` of the plain version;
 4. serve full-width smollm-135m (30 layers, random A2Q weights from seed 0,
    deployed to int8): 8 requests, prompt 64, 32 new tokens, batch 8, through
    ``PagedServeEngine`` with ``Runtime(int_forward=True, decode_kernel=True)``;
@@ -73,10 +80,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4d. the same on phase 4b's deepseek-v3 params (no second model is built),
    with ``mla_absorb=True``: 29 int_matmul per forward (29 folded), 4
    paged_mla_attention per tick;
+4e. serve full-size rwkv6-7b (32 layers, d_model 4096, d_ff 14336, vocab
+   65536, random A2Q weights from seed 0 deployed block by block): 8
+   requests, prompt 64, 32 new tokens, batch 8, with ``Runtime(int_chain=
+   True)``: 225 int_matmul a forward (32 of them cm.wk's requant), 32
+   rwkv6_scan, chain report 225 folded / 32 chained / 0 standalone; the
+   recurrent state bytes a slot, host ops a decode tick, a profiled decode;
+   the unchained int-forward run gives bitwise-equal prompt logits and
+   identical tokens and margins;
+5e. the dequant path (``Runtime()``) as in phase 5 (logits within two bf16
+   ulps of the largest, ``parity_up_to_ties`` at that eps); reduced rwkv6
+   on the card (int-chain, prefill chunks of the ssm chunk, so chunked and
+   sequential forms) against the CPU, token for token;
 6. print the ``kernels`` line (every kernel and its int-chain variants:
-   ``int_matmul[prologue]``, ``paged_attention[int8|int4]``,
-   ``paged_mla_attention[int8|int4]``, each with its launches on its main
-   path), then the result line.
+   ``int_matmul[prologue]``, ``int_matmul[requant]``,
+   ``paged_attention[int8|int4]``, ``paged_mla_attention[int8|int4]``,
+   ``rwkv6_scan``, each with its launches on its main paths), then the
+   result line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its launches on the main paths (counted from zero
@@ -530,6 +550,147 @@ def check_int_matmul_prologue(dev) -> dict:
         entry["at_deepseek"][f"M={M} K={K} N={N}"] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+    entry["max_abs_err"] = worst
+    return entry
+
+
+RWKV_CM_WK = (4096, 14336)  # rwkv6-7b's cm.wk (K, N): the requant epilogue's site
+# rwkv6_scan vs plain: the same fp32 recurrence with its 64-deep sums split in
+# four and contracted into FMAs: 1e-5 of the largest |y| and |S| with fp32 y;
+# one bf16 rounding of y (2^-7 of the largest |y|) with bf16 y
+RWKV_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def check_int_matmul_requant(dev) -> dict:
+    """int_matmul with the requantizing epilogue behind the prologue, as
+    rwkv6's cm.wk runs it under ``--int-chain`` (fp32 x quantized in the
+    kernel, relu^2 replayed in bf16, unsigned 8-bit codes out for cm.wv), at
+    cm.wk's shape (K=4096, N=14336) and a reduced one (K=N=64), M=8 (decode)
+    and M=32 (a prefill chunk): bit for bit the plain version.  At cm.wk's
+    shape timed beside the prologue-only kernel (fp32 out) on the same
+    inputs and the weight-byte bound."""
+    from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
+    from repro_torch.kernels.ops import int_matmul_block_k
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pro = dict(aq_scale=torch.tensor([6.0 / 127], device=dev), q_lo=-128, q_hi=127, q_shift=0)
+    entry = None
+    for K, N in ((64, 64), RWKV_CM_WK):
+        w = a2q_bounded_weights(gen, K, N, dev)
+        scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+        kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True,
+                  **pro)
+        for M in (8, 32):
+            x = torch.randn((M, K), generator=gen, device=dev) * 3
+            y = int_matmul_plain(x, w, scale, **kw)
+            # the consumer's scale: relu^2 of the flush spans ~1.3x the codes
+            req = dict(out_scale=torch.full((N,), (y.clamp_min(0) ** 2).max().item() / 200,
+                                            device=dev),
+                       r_lo=0, r_hi=255, r_shift=128, act_fn="relu2", cast_dtype=torch.bfloat16)
+            got = int_matmul_cuda(x, w, scale, **kw, **req)
+            torch.cuda.synchronize()
+            want = int_matmul_plain(x, w, scale, **kw, **req)
+            if not torch.equal(got, want):
+                raise AssertionError(f"int_matmul requant M={M} K={K} N={N}: kernel != plain in "
+                                     f"{(got != want).sum().item()} codes")
+            codes = len(torch.unique(got))
+            if (K, N) != RWKV_CM_WK:
+                print(f"int_matmul requant M={M} K={K} N={N}: equal ({codes} distinct codes)",
+                      flush=True)
+                continue
+            ms = events_ms(lambda: int_matmul_cuda(x, w, scale, **kw, **req), 20)
+            pro_ms = events_ms(lambda: int_matmul_cuda(x, w, scale, **kw), 20)
+            plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, **kw, **req), 3)
+            b_ms, b_by = bound_ms(4 * M * K + K * N + 8 * N + M * N, 2 * M * K * N,
+                                  INT8_OPS_PER_S)
+            print(f"int_matmul requant (prologue + relu2 in bf16 -> u8) M={M} K={K} N={N}: equal "
+                  f"({codes} distinct codes), kernel_ms {ms:.4f} prologue-only kernel_ms "
+                  f"{pro_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by})", flush=True)
+            at = {"ms": ms, "prologue_only_ms": pro_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                  "bound_by": b_by, "library_ms": None}
+            if M == 8:
+                entry = {"name": "int_matmul[requant]", "route": "cuda",
+                         "source": "src/repro_torch/csrc/int_matmul.cu",
+                         "replaces": "src/repro/kernels/int_matmul.py:300",
+                         "at": "rwkv6-7b cm.wk, M=8 K=4096 N=14336: fp32 x through the prologue, "
+                               "int16 carry, relu^2 replayed in bf16, unsigned 8-bit codes out",
+                         "max_abs_err": 0.0, **at}
+            else:
+                entry["at_prefill"] = {f"M={M} K={K} N={N}": at}
+        del w
+    return entry
+
+
+def _rwkv6_inputs(dev, B, H, T, D, dtype, seed):
+    """r, k, v in ``dtype`` and fp32 w as the time-mix makes them: head views
+    ``(B, H, T, D)`` of ``(B, T, H * D)`` projections; u and a state."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def heads(t):
+        return t.reshape(B, T, H, D).transpose(1, 2)
+
+    r, k, v = (heads(torch.randn((B, T, H * D), generator=g, device=dev).to(dtype))
+               for _ in range(3))
+    w = heads(torch.exp(-torch.exp(torch.randn((B, T, H * D), generator=g, device=dev) - 0.6)))
+    return r, k, v, w, torch.randn((H, D), generator=g, device=dev) * 0.5, \
+        torch.randn((B, H, D, D), generator=g, device=dev)
+
+
+def check_rwkv6_scan(dev) -> dict:
+    """rwkv6_scan at rwkv6-7b's shapes against its plain version: decode
+    (B=8, H=64, T=1, bf16 r/k/v, fp32 y, the carried state updated in
+    place), a prefill chunk (B=1, T=32, carried state, bf16 y) and a T=64
+    chunk with the decay floored at e^-8 (some decays below it), each timed
+    (CUDA graphs of back-to-back calls) beside the plain version and its
+    bound.  No single PyTorch call computes this recurrence (no library
+    time)."""
+    import math
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
+
+    entry, worst = None, 0.0
+    for tag, (B, T, out_dtype, floor, carried) in {
+            "decode": (8, 1, torch.float32, False, True),
+            "prefill T=32": (1, 32, torch.bfloat16, False, True),
+            "chunk T=64, floored": (1, 64, torch.bfloat16, True, False)}.items():
+        H, D = 64, 64
+        r, k, v, w, u, s0 = _rwkv6_inputs(dev, B, H, T, D, torch.bfloat16, seed=T)
+        if floor:
+            w[..., ::7] = 1e-5
+        kw = dict(out_dtype=out_dtype, min_w=math.exp(-8.0) if floor else None)
+        init = s0 if carried else None
+        state = s0.clone() if carried else None
+        y, s = rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state, **kw)
+        torch.cuda.synchronize()
+        y_p, s_p = rwkv6_scan_plain(r, k, v, w, u, init, **kw)
+        err_y = (y.float() - y_p.float()).abs().max().item()
+        err_s = (s - s_p).abs().max().item()
+        tol_y = RWKV_TOL[out_dtype] * y_p.float().abs().max().item()
+        tol_s = 1e-5 * s_p.abs().max().item()
+        if not (err_y <= tol_y and err_s <= tol_s) or (carried and s is not state):
+            raise AssertionError(f"rwkv6_scan {tag}: y err {err_y} > {tol_y} or state err "
+                                 f"{err_s} > {tol_s}")
+        worst = max(worst, err_y)
+        reps = 30 if T == 1 else 10
+        ms = graph_ms(lambda: rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state, **kw), reps)
+        plain_ms = graph_ms(lambda: rwkv6_scan_plain(r, k, v, w, u, init, **kw), reps)
+        n = B * H * T * D
+        n_bytes = 3 * 2 * n + 4 * n + 4 * H * D + out_dtype.itemsize * n + \
+            4 * B * H * D * D * (2 if carried else 1)
+        b_ms, b_by = bound_ms(n_bytes, 7 * n * D, FP32_FLOPS_PER_S)
+        print(f"rwkv6_scan {tag} B={B} H={H} T={T} D={D}: y err {err_y:.3g} (tol {tol_y:.3g}), "
+              f"state err {err_s:.3g} (tol {tol_s:.3g}), kernel_ms {ms:.5f} plain_ms "
+              f"{plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by})", flush=True)
+        at = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": None}
+        if entry is None:
+            entry = {"name": "rwkv6_scan", "route": "cuda",
+                     "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+                     "replaces": "src/repro/kernels/rwkv6_scan.py:100",
+                     "at": "rwkv6-7b decode, B=8 H=64 T=1 D=64, bf16 r/k/v, fp32 y, state in place",
+                     **at}
+        else:
+            entry[f"at {tag}"] = at
     entry["max_abs_err"] = worst
     return entry
 
@@ -1021,11 +1182,6 @@ def build_deepseek(dev, arch) -> dict:
                 "attn": deploy_params(init_attention(gen, d, s.attn, q), q),
                 "ln2": init_norm(d, arch.norm, device=dev), "moe": moe}
 
-    def stack(*layers):  # the (count, ...) leaves of init_stack
-        if isinstance(layers[0], dict):
-            return {k: stack(*(layer[k] for layer in layers)) for k in layers[0]}
-        return layers[0].unsqueeze(0) if len(layers) == 1 else torch.stack(layers)
-
     params = {"embed": init_embedding(gen, arch.vocab, d), "stacks": {}}
     for i, s in enumerate(arch.stacks):
         layers = []
@@ -1033,10 +1189,17 @@ def build_deepseek(dev, arch) -> dict:
             layers.append(deploy_params(_init_block(gen, arch, s), q) if s.kind == "attn_mlp"
                           else moe_layer(s))
             torch.cuda.empty_cache()
-        params["stacks"][str(i)] = stack(*layers)
+        params["stacks"][str(i)] = _stack_layers(*layers)
     params["final_norm"] = init_norm(d, arch.norm, device=dev)
     params["head"] = deploy_params(init_linear(gen, d, arch.vocab, q, boundary=True), q)
     return params
+
+
+def _stack_layers(*layers):
+    """The ``(count, ...)`` leaves of ``init_stack`` from per-layer trees."""
+    if isinstance(layers[0], dict):
+        return {k: _stack_layers(*(layer[k] for layer in layers)) for k in layers[0]}
+    return layers[0].unsqueeze(0) if len(layers) == 1 else torch.stack(layers)
 
 
 def profile_decode(engine, prompts, ticks: int = 4) -> None:
@@ -1198,6 +1361,170 @@ def serve_deepseek(dev):
     return {"deepseek-v3": launches, "deepseek-v3 int-chain": int_counts}
 
 
+def build_rwkv6(dev, arch) -> dict:
+    """Full-width random A2Q params of ``arch``, each block drawn with the
+    package's own initializer and deployed to int8 before the next is drawn,
+    so no whole fp32 tree exists (one block's fp32 weights, ~0.8 GB, at a
+    time)."""
+    from repro_torch.nn.embedding import init_embedding
+    from repro_torch.nn.linear import init_linear
+    from repro_torch.nn.norms import init_norm
+    from repro_torch.nn.transformer import _init_block
+    from repro_torch.serve.engine import deploy_params
+
+    q, d = arch.quant, arch.d_model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"embed": init_embedding(gen, arch.vocab, d), "stacks": {}}
+    for i, s in enumerate(arch.stacks):
+        layers = []
+        for _ in range(s.count):
+            layers.append(deploy_params(_init_block(gen, arch, s), q))
+            torch.cuda.empty_cache()
+        params["stacks"][str(i)] = _stack_layers(*layers)
+        del layers
+    params["final_norm"] = init_norm(d, arch.norm, device=dev)
+    params["head"] = deploy_params(init_linear(gen, d, arch.vocab, q, boundary=True), q)
+    return params
+
+
+def serve_rwkv6(dev) -> dict:
+    """Phases 4e and 5e: full-width rwkv6-7b served on ``--int-chain`` (every
+    deployed linear on int_matmul, cm.wk through the requant epilogue, every
+    recurrence through rwkv6_scan), held against the unchained int-forward
+    run (bitwise) and the dequant path (``parity_up_to_ties``); then reduced
+    rwkv6 on the card against the CPU.  Returns the main run's launches by
+    kernel variant."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    from repro_torch.models.lm import Runtime, apply_lm, init_lm
+    from repro_torch.nn.module import tree_to
+    from repro_torch.serve.engine import PagedServeEngine, deploy_params, parity_up_to_ties
+
+    phase("4e: serve full-width rwkv6-7b on --int-chain (requant epilogue, rwkv6_scan)")
+    arch = get_arch("rwkv6-7b")
+    n = arch.n_layers
+    per_forward = 7 * n + 1  # r, k, v, g, o, cm.wk, cm.wv a layer, and the untied head
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_rwkv6(dev, arch)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"init + deploy of {arch.name} ({n} layers, d_model {arch.d_model}, d_ff "
+          f"{arch.stacks[0].d_ff}, vocab {arch.vocab}): {time.perf_counter() - t0:.1f}s, "
+          f"{n_params / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB on the card, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(8)]
+    kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev)
+    chunks = sum(-(-len(p) // 32) for p in prompts)
+
+    def run(tag, **rt):
+        engine = PagedServeEngine(arch, params, rt=Runtime(**rt), **kw)
+        engine.generate(prompts[:1], max_new=2)  # warm-up
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        int_matmul_cuda.launches = int_matmul_cuda.requant_launches = 0
+        rwkv6_scan_cuda.launches = 0
+        outs = engine.generate(prompts, max_new=32)
+        torch.cuda.synchronize()
+        launches = {"int_matmul": int_matmul_cuda.launches,
+                    "int_matmul[requant]": int_matmul_cuda.requant_launches,
+                    "rwkv6_scan": rwkv6_scan_cuda.launches}
+        tp = engine.throughput()
+        print(f"[{tag}] prefill {tp['prefill_tokens']} tok in {tp['prefill_s']:.3f}s "
+              f"({tp['prefill_tok_s']:.2f} tok/s) | decode {tp['decode_tokens']} tok in "
+              f"{tp['decode_s']:.3f}s ({tp['decode_tok_s']:.2f} tok/s, {tp['decode_dispatches']} "
+              f"ticks) | peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB | "
+              f"launches {launches} | chain report: {tp.get('int_chain_folded')} folded, "
+              f"{tp.get('int_chain_chained')} chained, {tp.get('int_chain_requant_dispatches')} "
+              f"standalone, {tp.get('int_chain_fallback')} fallback", flush=True)
+        for r, o in zip(engine.last_requests, outs):
+            if len(o) != 32 or not all(0 <= t < arch.vocab for t in o) or \
+                    not np.isfinite(r.margins).all():
+                raise AssertionError(f"[{tag}] bad output: {o} margins {r.margins}")
+        return engine, outs, launches, tp
+
+    main, outs, launches, tp = run("int-chain (main path)", int_chain=True)
+    ticks = tp["decode_dispatches"]
+    forwards = ticks + chunks
+    if launches != {"int_matmul": per_forward * forwards, "int_matmul[requant]": n * forwards,
+                    "rwkv6_scan": n * forwards} or ticks < 31 or \
+            (tp["int_chain_folded"], tp["int_chain_chained"],
+             tp["int_chain_requant_dispatches"], tp["int_chain_fallback"]) != (per_forward, n, 0, 0):
+        raise AssertionError(f"launches {launches} over {forwards} forwards, chain report {tp}: "
+                             f"expected {per_forward} int_matmul ({n} requant) and {n} rwkv6_scan "
+                             f"a forward, {per_forward} folded / {n} chained / 0 standalone")
+    cache = main.cache
+    print(f"launches on the main path: {launches} over {ticks} decode ticks and {chunks} prefill "
+          f"chunks = {per_forward} int_matmul ({n} requant) and {n} rwkv6_scan a forward; "
+          f"{cache.kv_bytes_per_token()} KV bytes/token, {cache.state_bytes_per_slot()} recurrent "
+          f"state bytes a slot ({4 * n * cache.pools['0']['tm']['S'][0, 0].numel()} of them the "
+          f"fp32 state)", flush=True)
+    print(f"req 0 tokens: {outs[0]}", flush=True)
+    print(f"host ops per decode tick (int-chain): {tick_ops(main, prompts)}", flush=True)
+    profile_decode(main, prompts)
+    # chaining is a pure dispatch fusion: the unchained run on the same weights
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    l_c = apply_lm(params, arch, tokens=toks, rt=Runtime(int_chain=True))[0].float()
+    l_u = apply_lm(params, arch, tokens=toks, rt=Runtime(int_forward=True))[0].float()
+    unchained, outs_u, _, _ = run("unchained int-forward", int_forward=True)
+    same_margins = [r.margins for r in unchained.last_requests] == \
+        [r.margins for r in main.last_requests]
+    print(f"chained vs unchained: prompt logits bitwise equal {torch.equal(l_c, l_u)}, tokens "
+          f"identical {outs_u == outs}, margins identical {same_margins}", flush=True)
+    if not torch.equal(l_c, l_u) or outs_u != outs or not same_margins:
+        raise AssertionError("rwkv6-7b: chained and unchained runs differ")
+    del unchained, l_u
+
+    phase("5e: rwkv6-7b on the dequant path; reduced rwkv6 card vs CPU")
+    l_deq = apply_lm(params, arch, tokens=toks)[0].float()
+    scale = l_deq.abs().max().item()
+    diff = (l_c - l_deq).abs().max().item()
+    eps = 2.0**-6 * scale  # two bf16 ulps at the top of the logit range
+    print(f"prompt logits, int-chain path vs dequant path: max |diff| {diff:.4g}, max |logit| "
+          f"{scale:.4g}, bound {eps:.4g}; argmax agreement "
+          f"{(l_c.argmax(-1) == l_deq.argmax(-1)).float().mean().item():.4f}", flush=True)
+    if not (np.isfinite(diff) and diff <= eps):
+        raise AssertionError(f"int-chain logits off the dequant path by {diff} > {eps}")
+    del l_c, l_deq
+    ref, ref_outs, _, _ = run("dequant path", )
+    ok, ties, detail = parity_up_to_ties(ref.last_requests, outs, eps)
+    same = sum(a == b for a, b in zip(ref_outs, outs))
+    print(f"served tokens, int-chain vs dequant path: parity_up_to_ties eps={eps:.4g}: ok={ok} "
+          f"ties={ties} identical_requests={same}/{len(outs)}", flush=True)
+    if not ok:
+        raise AssertionError(f"parity failed: {detail}")
+    del main, ref, params
+    torch.cuda.empty_cache()
+    small = reduced(arch)
+    sp = deploy_params(init_lm(torch.Generator().manual_seed(0), small, device="cpu"), small.quant)
+    small_prompts = [p[: 5 + 3 * i] % small.vocab for i, p in enumerate(prompts[:3])]
+    skw = dict(batch=2, max_seq=32, block_size=4, prefill_chunk=8, rt=Runtime(int_chain=True))
+    cpu_e = PagedServeEngine(small, sp, device="cpu", **skw)
+    cpu_outs = cpu_e.generate(small_prompts, max_new=5)
+    rwkv6_scan_cuda.launches = int_matmul_cuda.requant_launches = 0
+    gpu_e = PagedServeEngine(small, tree_to(sp, dev), device=dev, **skw)
+    gpu_outs = gpu_e.generate(small_prompts, max_new=5)
+    ok, ties, detail = parity_up_to_ties(cpu_e.last_requests, gpu_outs, 1e-4)
+    marg = max(abs(a - b) for r, g in zip(cpu_e.last_requests, gpu_e.last_requests)
+               for a, b in zip(r.margins, g.margins))
+    print(f"reduced rwkv6-7b card vs CPU (prefill chunks of 8 = the chunk: chunked and "
+          f"sequential forms): tokens {gpu_outs} vs {cpu_outs}, ties {ties}, max margin diff "
+          f"{marg:.3g}, {rwkv6_scan_cuda.launches} rwkv6_scan and "
+          f"{int_matmul_cuda.requant_launches} requant launches on the card", flush=True)
+    if not ok or ties or marg > 1e-4 or not rwkv6_scan_cuda.launches or \
+            not int_matmul_cuda.requant_launches:
+        raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
+    return {"rwkv6-7b int-chain": {
+        "int_matmul[requant]": launches["int_matmul[requant]"],
+        "int_matmul[prologue]": launches["int_matmul"] - launches["int_matmul[requant]"],
+        "rwkv6_scan": launches["rwkv6_scan"]}}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1233,14 +1560,17 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     phase("3: kernels against their plain versions")
-    entries = [check_int_matmul(dev), check_int_matmul_prologue(dev), check_paged_attention(dev),
+    entries = [check_int_matmul(dev), check_int_matmul_prologue(dev),
+               check_int_matmul_requant(dev), check_paged_attention(dev),
                *check_paged_attention_int(dev), check_paged_mla_attention(dev),
-               *check_paged_mla_attention_int(dev)]
+               *check_paged_mla_attention_int(dev), check_rwkv6_scan(dev)]
     entries[0]["at_deepseek"] = check_int_matmul_deepseek(dev)
     torch.cuda.empty_cache()
     by_path = serve(dev)
     torch.cuda.empty_cache()
     by_path.update(serve_deepseek(dev))
+    torch.cuda.empty_cache()  # deepseek's params are gone before rwkv6 is built
+    by_path.update(serve_rwkv6(dev))
     for e in entries:
         counts = {path: n[e["name"]] for path, n in by_path.items() if e["name"] in n}
         e["launches"] = sum(counts.values())

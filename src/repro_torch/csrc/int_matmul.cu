@@ -1,5 +1,6 @@
 // int8 x int8 -> int32 matmul with P-bit accumulator emulation, the fused
-// W8A8 epilogue and the quantizing prologue, for Hopper (sm_90a).
+// W8A8 epilogue, the quantizing prologue and the requantizing epilogue, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `int_matmul_kernel` / `int_matmul_pallas`
 // (repro/kernels/int_matmul.py).  It computes, for x (M, K) int8 row-major
@@ -24,7 +25,16 @@
 //          given (one rounded multiply, then one rounded add: __fmul_rn /
 //          __fadd_rn keep nvcc from contracting them into an FMA, so the
 //          scale-only output is bit-identical to the plain version), else
-//          the raw int32 accumulator.
+//          the raw int32 accumulator;
+//   codes  (requant, `osc` given; rwkv6's cm.wk -> relu^2 -> cm.wv edge of
+//          --int-chain) the flush's fp32 `out` cast to the layer's compute
+//          dtype (__float2bfloat16_rn for bf16), relu^2 replayed there (the
+//          square of a bf16 value is exact in fp32 and is rounded once back to
+//          bf16), back to fp32, then clip(rint(y / osc[n]), lo, hi) - shift as
+//          int8: the next linear's act-quant, dividing (__fdiv_rn) and
+//          rounding half to even, so the codes equal the unchained path's.
+//          The requant reads the same weights and writes a quarter of the
+//          fp32 output's bytes, so its bound is the scale-only kernel's.
 //
 // What bounds it on the H100: at decode M is the batch (1-8 rows), so the
 // kernel reads each weight byte once and does ~M multiply-adds with it; the
@@ -52,10 +62,11 @@
 // issued: the one warp holding 8 rows' segments would otherwise divide 16
 // values a thread alone and set the step's time.  Past 16 rows each thread
 // quantizes its own segment.  Rows past M are neither staged nor divided.
-// Not yet done:
-// tensor-core (mma/wgmma) products and split-K for the few-column decode
-// shapes.
+// The requant epilogue adds a handful of instructions a flushed output.  Not
+// yet done: tensor-core (mma/wgmma) products and split-K for the few-column
+// decode shapes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,6 +85,7 @@ constexpr int PITCH = BKC + 16;          // bytes per staged row: 16-byte aligne
                                          // 20 words -> conflict-free 16-byte reads
 
 enum Mode { kExact = 0, kWrap = 1, kSaturate = 2 };
+enum Act { kActNone = 0, kActRelu2 = 1 };
 
 __device__ __forceinline__ int add_wrap32(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -141,6 +153,21 @@ __device__ __forceinline__ int8_t act_code(float x, float aq, float lo, float hi
                              shift);
 }
 
+// The requant epilogue's code of one flushed fp32 output `y`: the cast to
+// the compute dtype, the activation replayed there, then the consumer's
+// act-quant clip(rint(y / osc), lo, hi) - shift.
+__device__ __forceinline__ int8_t requant_code(float y, float osc, float lo, float hi, int shift,
+                                               int act, int cast_bf16) {
+  if (cast_bf16) y = __bfloat162float(__float2bfloat16_rn(y));
+  if (act == kActRelu2) {
+    y = fmaxf(y, 0.0f);
+    y = __fmul_rn(y, y);
+    if (cast_bf16) y = __bfloat162float(__float2bfloat16_rn(y));
+  }
+  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(y, osc)), lo), hi)) -
+                             shift);
+}
+
 // TX is int8_t (codes) or float (the prologue quantizes while staging).
 template <typename TX>
 __global__ void __launch_bounds__(THREADS)
@@ -149,7 +176,9 @@ int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
                   int spill16, const float* __restrict__ scale,
                   const float* __restrict__ bias, const int* __restrict__ offset,
                   const float* __restrict__ aq, int q_lo, int q_hi, int q_shift,
-                  float* __restrict__ out_f, int* __restrict__ out_i) {
+                  const float* __restrict__ osc, int r_lo, int r_hi, int r_shift, int act,
+                  int cast_bf16, float* __restrict__ out_f, int* __restrict__ out_i,
+                  int8_t* __restrict__ out_q) {
   constexpr bool kPrologue = std::is_same<TX, float>::value;
   __shared__ __align__(16) int8_t xs[BM * PITCH];  // xs[r][k]
   __shared__ __align__(16) int8_t ws[BN * PITCH];  // ws[n][k] (transposed)
@@ -285,6 +314,9 @@ int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
   const float sc = scale != nullptr ? scale[n] : 0.0f;
   const float bi = bias != nullptr ? bias[n] : 0.0f;
   const int off = offset != nullptr ? offset[n] : 0;
+  const float os = osc != nullptr ? osc[n] : 1.0f;
+  const float rlo = static_cast<float>(r_lo);
+  const float rhi = static_cast<float>(r_hi);
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + i * ROW_GROUPS;
@@ -293,7 +325,11 @@ int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
     if (scale != nullptr) {
       float y = __fmul_rn(__int2float_rn(add_wrap32(carry[i], off)), sc);
       if (bias != nullptr) y = __fadd_rn(y, bi);
-      out_f[o] = y;
+      if (osc != nullptr) {
+        out_q[o] = requant_code(y, os, rlo, rhi, r_shift, act, cast_bf16);
+      } else {
+        out_f[o] = y;
+      }
     } else {
       out_i[o] = carry[i];
     }
@@ -304,15 +340,20 @@ int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).  Shapes
 // and pointers are validated by the Python wrapper; `bk_ref` must be a
-// positive multiple of 64.  `out_f` is written when `scale` is given, else
-// `out_i`.  With `aq` (one fp32 value on the device) `x` is fp32 and the
-// prologue quantizes it to [q_lo, q_hi] minus `q_shift`; else `x` is int8.
+// positive multiple of 64.  `out_q` (int8) is written when `osc` is given,
+// else `out_f` when `scale` is given, else `out_i`.  With `aq` (one fp32
+// value on the device) `x` is fp32 and the prologue quantizes it to
+// [q_lo, q_hi] minus `q_shift`; else `x` is int8.  With `osc` ((N,) fp32,
+// needs `scale`) the epilogue replays `act` (0 none, 1 relu^2) in bf16 when
+// `cast_bf16`, else fp32, and requantizes to [r_lo, r_hi] minus `r_shift`.
 extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
                                  int K, int bk_ref, int mode, int acc_bits,
                                  int spill16, const void* scale,
                                  const void* bias, const void* offset,
                                  const void* aq, int q_lo, int q_hi, int q_shift,
-                                 void* out_f, void* out_i, void* stream) {
+                                 const void* osc, int r_lo, int r_hi, int r_shift, int act,
+                                 int cast_bf16, void* out_f, void* out_i, void* out_q,
+                                 void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* wp = static_cast<const int8_t*>(w);
@@ -320,14 +361,18 @@ extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
   const auto* bi = static_cast<const float*>(bias);
   const auto* of = static_cast<const int*>(offset);
   const auto* a = static_cast<const float*>(aq);
+  const auto* os = static_cast<const float*>(osc);
+  auto* of_ = static_cast<float*>(out_f);
+  auto* oi = static_cast<int*>(out_i);
+  auto* oq = static_cast<int8_t*>(out_q);
   if (aq != nullptr) {
     int_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, sc, bi,
-        of, a, q_lo, q_hi, q_shift, static_cast<float*>(out_f), static_cast<int*>(out_i));
+        of, a, q_lo, q_hi, q_shift, os, r_lo, r_hi, r_shift, act, cast_bf16, of_, oi, oq);
   } else {
     int_matmul_kernel<int8_t><<<grid, THREADS, 0, s>>>(
         static_cast<const int8_t*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, sc, bi,
-        of, nullptr, 0, 0, 0, static_cast<float*>(out_f), static_cast<int*>(out_i));
+        of, nullptr, 0, 0, 0, os, r_lo, r_hi, r_shift, act, cast_bf16, of_, oi, oq);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,4 +2,9 @@
 versions, public wrappers (ops.py) and PyTorch oracles (ref.py).  Layers
 import from ops."""
 
-from repro_torch.kernels.ops import int_matmul, paged_attention, paged_mla_attention  # noqa: F401
+from repro_torch.kernels.ops import (  # noqa: F401
+    int_matmul,
+    paged_attention,
+    paged_mla_attention,
+    rwkv6_scan,
+)

@@ -1,16 +1,20 @@
 """int8 x int8 -> int32 matmul with P-bit accumulator emulation, the fused
-W8A8 epilogue and the quantizing prologue: the CUDA kernel
-(``csrc/int_matmul.cu``) and its plain PyTorch version.
+W8A8 epilogue, the quantizing prologue and the requantizing epilogue: the
+CUDA kernel (``csrc/int_matmul.cu``) and its plain PyTorch version.
 
 Port of the Pallas kernel ``repro.kernels.int_matmul`` (``int_matmul_kernel``
 / ``int_matmul_pallas``): the core GEMM with ``exact`` / ``wrap`` /
 ``saturate`` carry per reference K-tile, the optional int16 carry that the
 A2Q bound makes lossless for ``acc_bits <= 16``, the fused epilogue
-``(acc + offset) * scale (+ bias)``, and the prologue that quantizes an fp32
+``(acc + offset) * scale (+ bias)``, the prologue that quantizes an fp32
 ``x`` with ``aq_scale`` as it is staged (``clip(round(x / aq_scale), lo,
 hi)``, minus 128 for unsigned 8-bit codes), the chain-break entry of
-``--int-chain``.  The requantizing epilogue (int8 codes out) is not ported
-yet: no gated model reaches it.
+``--int-chain``, and the requantizing epilogue that hands int8 codes to the
+next linear (``out_scale``: the activation replayed in ``cast_dtype``, then
+``clip(round(y / out_scale), lo, hi)``, minus 128 for unsigned 8-bit codes),
+the chained edge of ``--int-chain`` (rwkv6's ``cm.wk -> relu^2 -> cm.wv``).
+The replay covers ``act_fn`` ``None`` and ``"relu2"``; ``"gelu"`` (the
+non-gated MLP) is not ported yet.
 
 Both versions replay the carry at the reference's K-tile boundaries
 ``block_k`` (the public wrapper passes ``min(512, round_up(K, 128))``), so
@@ -28,9 +32,12 @@ import torch
 
 from repro_torch.kernels.ref import exact_product, saturate_bits, wrap_bits
 
-__all__ = ["MODES", "int_matmul_plain", "int_matmul_cuda", "prologue_codes"]
+__all__ = ["MODES", "ACTS", "CAST_DTYPES", "int_matmul_plain", "int_matmul_cuda", "prologue_codes",
+           "requant_codes"]
 
 MODES = {"exact": 0, "wrap": 1, "saturate": 2}
+ACTS = {None: 0, "relu2": 1}  # the requant epilogue's activation replays
+CAST_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # and the dtype they run in
 
 
 def prologue_codes(x: torch.Tensor, aq_scale: torch.Tensor, lo: int, hi: int,
@@ -41,14 +48,32 @@ def prologue_codes(x: torch.Tensor, aq_scale: torch.Tensor, lo: int, hi: int,
     return (torch.clamp(torch.round(x / aq_scale), lo, hi) - shift).to(torch.int8)
 
 
+def requant_codes(y: torch.Tensor, out_scale: torch.Tensor, lo: int, hi: int, shift: int,
+                  act_fn=None, cast_dtype=torch.float32) -> torch.Tensor:
+    """The requant epilogue's int8 codes of the fp32 flush ``y (M, N)``: the
+    cast to ``cast_dtype``, ``act_fn`` replayed there (``relu2``: relu, then
+    the square, rounded once to ``cast_dtype``), back to fp32, then
+    ``clip(round(y / out_scale), lo, hi) - shift`` (dividing, rounding half
+    to even), as the layer code and the consumer's act-quant compute it."""
+    y = y.to(cast_dtype)
+    if act_fn == "relu2":
+        y = torch.square(torch.relu(y))
+    y = y.to(torch.float32)
+    return (torch.clamp(torch.round(y / out_scale[None, :]), lo, hi) - shift).to(torch.int8)
+
+
 def int_matmul_plain(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
                      mode: str = "exact", block_k: int, spill_int16: bool = False,
-                     aq_scale=None, q_lo: int = 0, q_hi: int = 0, q_shift: int = 0):
+                     aq_scale=None, q_lo: int = 0, q_hi: int = 0, q_shift: int = 0,
+                     out_scale=None, r_lo: int = 0, r_hi: int = 0, r_shift: int = 0,
+                     act_fn=None, cast_dtype=torch.float32):
     """The kernel's arithmetic in PyTorch, on any device: with ``aq_scale``
     the prologue's codes of the fp32 ``x`` (``prologue_codes``), then one
     exact int64 partial per ``block_k`` K-tile, folded into the carry in tile
     order as the Pallas body does (``carried + tile``, the mode's wrap or
-    clip, then the int16 store when ``spill_int16``), then the epilogue."""
+    clip, then the int16 store when ``spill_int16``), then the epilogue, and
+    with ``out_scale`` its int8 codes (``requant_codes`` to ``[r_lo, r_hi]``
+    minus ``r_shift``)."""
     if aq_scale is not None:
         x = prologue_codes(x, aq_scale, q_lo, q_hi, q_shift)
     K = x.shape[1]
@@ -68,6 +93,8 @@ def int_matmul_plain(x, w, scale=None, bias=None, offset=None, *, acc_bits: int 
     out = acc.to(torch.float32) * scale[None, :]
     if bias is not None:
         out = out + bias[None, :]
+    if out_scale is not None:
+        return requant_codes(out, out_scale, r_lo, r_hi, r_shift, act_fn, cast_dtype)
     return out
 
 
@@ -82,21 +109,28 @@ def _bind():
     fn = load("int_matmul").int_matmul_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
     return fn
 
 
 def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
                     mode: str = "exact", block_k: int, spill_int16: bool = False,
-                    aq_scale=None, q_lo: int = 0, q_hi: int = 0, q_shift: int = 0):
+                    aq_scale=None, q_lo: int = 0, q_hi: int = 0, q_shift: int = 0,
+                    out_scale=None, r_lo: int = 0, r_hi: int = 0, r_shift: int = 0,
+                    act_fn=None, cast_dtype=torch.float32):
     """Launch the CUDA kernel on the current stream.  ``x (M, K)`` and
     ``w (K, N)`` are contiguous int8 on one CUDA device; ``scale``/``bias``
     fp32 and ``offset`` int32 are ``(N,)``; ``block_k`` is a positive multiple
     of 64.  With ``aq_scale`` (a one-element fp32 tensor on the device, read
     by the kernel, never by the host) ``x`` is fp32 and the prologue
-    quantizes it to ``[q_lo, q_hi]`` minus ``q_shift``.  Returns fp32
-    ``(M, N)`` with ``scale``, else int32.  Every launch adds one to
-    ``int_matmul_cuda.launches``."""
+    quantizes it to ``[q_lo, q_hi]`` minus ``q_shift``.  With ``out_scale``
+    (fp32 ``(N,)``; needs ``scale`` and ``mode="exact"``) the epilogue
+    replays ``act_fn`` in ``cast_dtype`` and requantizes to int8 codes in
+    ``[r_lo, r_hi]`` minus ``r_shift``.  Returns int8 ``(M, N)`` with
+    ``out_scale``, fp32 with ``scale``, else int32.  Every launch adds one to
+    ``int_matmul_cuda.launches``, and a requant launch also to
+    ``int_matmul_cuda.requant_launches``."""
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
@@ -105,7 +139,8 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
                                ("scale", scale, torch.float32, (N,)),
                                ("bias", bias, torch.float32, (N,)),
                                ("offset", offset, torch.int32, (N,)),
-                               ("aq_scale", aq_scale, torch.float32, (1,))):
+                               ("aq_scale", aq_scale, torch.float32, (1,)),
+                               ("out_scale", out_scale, torch.float32, (N,))):
         if t is None:
             continue
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
@@ -120,7 +155,19 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
     if aq_scale is not None and not -128 <= q_lo - q_shift <= q_hi - q_shift <= 127:
         raise ValueError(f"int_matmul_cuda: prologue codes [{q_lo}, {q_hi}] - {q_shift} "
                          "do not fit int8")
-    out = torch.empty((M, N), dtype=torch.float32 if scale is not None else torch.int32, device=dev)
+    if out_scale is not None:
+        if scale is None or mode != "exact":
+            raise ValueError("int_matmul_cuda: the requant epilogue needs a scale and mode='exact'")
+        if act_fn not in ACTS or cast_dtype not in CAST_DTYPES:
+            raise ValueError(f"int_matmul_cuda: no requant replay of act_fn={act_fn!r} in "
+                             f"{cast_dtype}")
+        if not -128 <= r_lo - r_shift <= r_hi - r_shift <= 127:
+            raise ValueError(f"int_matmul_cuda: requant codes [{r_lo}, {r_hi}] - {r_shift} "
+                             "do not fit int8")
+        out_dtype = torch.int8
+    else:
+        out_dtype = torch.float32 if scale is not None else torch.int32
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
     launch = _bind()
@@ -129,13 +176,19 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
         err = launch(
             _ptr(x), _ptr(w), M, N, K, block_k, MODES[mode], acc_bits, int(spill_int16),
             _ptr(scale), _ptr(bias), _ptr(offset), _ptr(aq_scale), q_lo, q_hi, q_shift,
-            _ptr(out) if scale is not None else None, None if scale is not None else _ptr(out),
+            _ptr(out_scale), r_lo, r_hi, r_shift, ACTS.get(act_fn, 0),
+            CAST_DTYPES.get(cast_dtype, 0),
+            _ptr(out) if out_dtype == torch.float32 else None,
+            _ptr(out) if out_dtype == torch.int32 else None,
+            _ptr(out) if out_dtype == torch.int8 else None,
             ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"int_matmul kernel launch failed: cudaError {err}")
     int_matmul_cuda.launches += 1
+    int_matmul_cuda.requant_launches += out_scale is not None
     return out
 
 
 int_matmul_cuda.launches = 0
+int_matmul_cuda.requant_launches = 0

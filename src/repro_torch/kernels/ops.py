@@ -20,8 +20,10 @@ from repro_torch.kernels.paged_mla_attention import (
     paged_mla_attention_cuda,
     paged_mla_attention_plain,
 )
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
 
-__all__ = ["int_matmul", "paged_attention", "paged_mla_attention", "int_matmul_block_k"]
+__all__ = ["int_matmul", "paged_attention", "paged_mla_attention", "rwkv6_scan",
+           "int_matmul_block_k"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -53,6 +55,10 @@ def int_matmul(
     aq_scale=None,
     in_bits: int = 8,
     in_signed: bool = True,
+    out_bits: int = 8,
+    out_signed: bool = True,
+    act_fn: Optional[str] = None,
+    cast_dtype=torch.float32,
     block_k: int = 512,
     spill_int16: bool = False,
 ) -> torch.Tensor:
@@ -72,11 +78,17 @@ def int_matmul(
     ``aq_scale`` (one fp32 value) engages the quantizing prologue: ``x``
     arrives fp32 and is quantized to ``in_bits``/``in_signed`` codes
     (``clip(round(x / aq_scale))``, unsigned 8-bit symmetrized) inside the
-    kernel, bit for bit the standalone ``act_quant_int``'s codes.  The
-    requantizing epilogue (``out_scale``) is not ported yet; it raises."""
-    if out_scale is not None:
-        raise NotImplementedError("int_matmul: the requant epilogue (out_scale) is not ported "
-                                  "yet; it goes with the rwkv6 slice")
+    kernel, bit for bit the standalone ``act_quant_int``'s codes.
+
+    ``out_scale`` (scalar or ``(N,)`` fp32, the next layer's activation
+    scale; needs ``scale`` and ``mode="exact"``) engages the requantizing
+    epilogue: the rescaled accumulator is cast to ``cast_dtype`` (fp32 or
+    bf16), ``act_fn`` (``None`` or ``"relu2"``) is replayed there as the
+    layer code computes it, and the result is quantized to ``out_bits``/
+    ``out_signed`` codes (``clip(round(y / out_scale))``) in the same flush;
+    the op returns int8, unsigned 8-bit targets symmetrized (``q - 128``).
+    Oracle: ``ref.ref_int_matmul_requant``.  ``act_fn="gelu"`` (the
+    non-gated MLP) is not ported yet and raises."""
     if mode not in ("exact", "wrap", "saturate"):
         raise ValueError(f"unknown mode {mode!r}")
     if spill_int16 and acc_bits > 16:
@@ -92,11 +104,25 @@ def int_matmul(
         raise ValueError("int_matmul: bias requires an epilogue scale")
     if aq_scale is not None and scale is None:
         raise ValueError("int_matmul: aq_scale requires an epilogue scale")
+    if out_scale is not None:
+        if scale is None:
+            raise ValueError("int_matmul: out_scale requires an epilogue scale")
+        if mode != "exact":
+            raise ValueError("int_matmul: the requant epilogue needs mode='exact'")
+        if act_fn == "gelu":
+            raise NotImplementedError("int_matmul: the requant epilogue's gelu replay is not "
+                                      "ported yet (the rwkv6 slice ported act_fn None and "
+                                      "'relu2'; gelu goes with hubert's non-gated MLP)")
+        if act_fn not in (None, "relu2"):
+            raise ValueError(f"unknown chained activation {act_fn!r}")
+        if cast_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"int_matmul: the requant replay runs in fp32 or bf16, not "
+                             f"{cast_dtype}")
     K, N = w.shape
     dev = x.device
     if not in_signed and in_bits == 8:
         # symmetrized unsigned operand: acc_true = acc_sym + 128 * colsum(w)
-        sym = 128 * w.to(torch.int32).sum(0, dtype=torch.int32)
+        sym = 128 * w.sum(0, dtype=torch.int32)
         offset = sym if offset is None else _vec(offset, N, torch.int32, dev) + sym
     if offset is not None and scale is None:
         raise ValueError("int_matmul: offset requires an epilogue scale")
@@ -118,6 +144,14 @@ def int_matmul(
             raise ValueError(f"int_matmul: {in_bits}-bit {'signed' if in_signed else 'unsigned'} "
                              "prologue codes do not fit the int8 operand")
         kw.update(aq_scale=aq_scale.reshape(1).contiguous(), q_lo=lo, q_hi=hi, q_shift=shift)
+    if out_scale is not None:
+        lo, hi = int_range(out_bits, out_signed)
+        shift = 128 if not out_signed and out_bits == 8 else 0
+        if not -128 <= lo - shift <= hi - shift <= 127:
+            raise ValueError(f"int_matmul: {out_bits}-bit {'signed' if out_signed else 'unsigned'} "
+                             "requant codes do not fit int8")
+        kw.update(out_scale=_vec(out_scale, N, torch.float32, dev), r_lo=lo, r_hi=hi,
+                  r_shift=shift, act_fn=act_fn, cast_dtype=cast_dtype)
     if dev.type == "cpu":
         return int_matmul_plain(x, w, scale, bias, offset, **kw)
     return int_matmul_cuda(x.contiguous(), w.contiguous(), scale, bias, offset, **kw)
@@ -215,3 +249,35 @@ def paged_mla_attention(
         lengths.to(torch.int32).contiguous(), ckvs, kpes, scale=scale, aq_scale=aq_scale,
         act_bits=act_bits,
     )
+
+
+def rwkv6_scan(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    initial_state: Optional[torch.Tensor] = None,
+    *,
+    out_dtype=None,
+    min_w: Optional[float] = None,
+    state_out: Optional[torch.Tensor] = None,
+):
+    """RWKV-6 scan over ``(B, H, T, Dk/Dv)`` tensors with the per-head bonus
+    ``u (H, Dk)`` shared by the batch (the reference's ``ops.rwkv6_scan``
+    contract).  Returns ``(y (B, H, T, Dv), S_T (B, H, Dk, Dv) fp32)``, y in
+    ``out_dtype`` (default ``r``'s dtype; the decode step asks for fp32).
+    ``min_w`` floors the decay (``exp(-8)`` replays the chunked form's
+    log-decay clamp); ``state_out`` receives S_T and may be
+    ``initial_state`` itself (the slot's state updated in place).  Oracle:
+    ``ref.ref_rwkv6`` per head."""
+    if r.ndim != 4 or k.shape != r.shape or w.shape != r.shape or v.ndim != 4 or \
+            v.shape[:3] != r.shape[:3] or tuple(u.shape) != (r.shape[1], r.shape[3]):
+        raise ValueError(f"rwkv6_scan: r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, w {tuple(w.shape)}, u {tuple(u.shape)} do not fit")
+    out_dtype = r.dtype if out_dtype is None else out_dtype
+    if r.device.type == "cpu":
+        return rwkv6_scan_plain(r, k, v, w, u, initial_state, out_dtype=out_dtype, min_w=min_w,
+                                state_out=state_out)
+    return rwkv6_scan_cuda(r, k, v, w, u, initial_state, out_dtype=out_dtype, min_w=min_w,
+                           state_out=state_out)

@@ -23,10 +23,12 @@ __all__ = [
     "ref_int_matmul",
     "ref_int_matmul_fused",
     "ref_int_matmul_prologue",
+    "ref_int_matmul_requant",
     "ref_paged_attention",
     "ref_paged_attention_q8",
     "ref_paged_attention_q4",
     "ref_paged_mla_attention",
+    "ref_rwkv6",
 ]
 
 
@@ -100,6 +102,28 @@ def ref_int_matmul_prologue(x, w, aq_scale, scale, bias=None, acc_bits: int = 32
         offset = 128 * w.to(torch.int32).sum(0, dtype=torch.int32)
     return ref_int_matmul_fused(codes.to(torch.int8), w, scale, bias, acc_bits=acc_bits,
                                 mode=mode, block_k=block_k, offset=offset)
+
+
+def ref_int_matmul_requant(x, w, scale, out_scale, bias=None, offset=None, out_bits: int = 8,
+                           out_signed: bool = True, act_fn: Optional[str] = None,
+                           cast_dtype=torch.float32, acc_bits: int = 32) -> torch.Tensor:
+    """The requantizing epilogue's semantics (int8-out chaining): the integer
+    matmul, ``(acc + offset) * scale (+ bias)``, the activation replay in
+    ``cast_dtype`` (``act_fn`` ``None`` is the bare cast round-trip,
+    ``'relu2'`` squares relu in ``cast_dtype``), then the consumer's
+    act-quant ``clip(round(y / out_scale))`` to ``out_bits``/``out_signed``,
+    as int8 codes; unsigned 8-bit codes come out symmetrized (``q - 128``)."""
+    y = ref_int_matmul_fused(x, w, scale, bias, acc_bits=acc_bits, offset=offset).to(cast_dtype)
+    if act_fn == "relu2":
+        y = torch.square(torch.relu(y))
+    elif act_fn is not None:
+        raise ValueError(f"unknown chained activation {act_fn!r}")
+    lo, hi = int_range(out_bits, out_signed)
+    s = torch.as_tensor(out_scale, dtype=torch.float32, device=y.device).reshape(1, -1)
+    q = torch.clamp(torch.round(y.to(torch.float32) / s), lo, hi)
+    if not out_signed and out_bits == 8:
+        q = q - 128.0
+    return q.to(torch.int8)
 
 
 def ref_paged_attention(q, kp, vp, bt, lengths, scale: Optional[float] = None,
@@ -210,3 +234,27 @@ def ref_paged_mla_attention(q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs=None, kpe
     denom = p.sum(-1, keepdim=True)
     p = torch.where(denom > 0.0, p / torch.clamp_min(denom, 1e-30), torch.zeros_like(p))
     return torch.einsum("bhs,bsr->bhr", p, ckv)
+
+
+def ref_rwkv6(r, k, v, w, u, initial_state=None):
+    """RWKV-6 (Finch) recurrence, naive scan: r/k/w ``(B, T, Dk)``, v
+    ``(B, T, Dv)``, u ``(Dk,)``, state ``(B, Dk, Dv)`` (one head folded into
+    the batch).  Per step, in fp32:
+
+        y_t = r_t @ (S + (u * k_t) v_t^T)
+        S   = diag(w_t) S + k_t v_t^T
+
+    Returns (y ``(B, T, Dv)`` in ``r``'s dtype, the final fp32 state)."""
+    B, T, Dk = r.shape
+    Dv = v.shape[-1]
+    S = (torch.zeros((B, Dk, Dv), dtype=torch.float32, device=r.device)
+         if initial_state is None else initial_state.to(torch.float32))
+    u = u.to(torch.float32)
+    ys = []
+    for t in range(T):
+        r_t, k_t, v_t, w_t = (a[:, t].to(torch.float32) for a in (r, k, v, w))
+        kv = k_t[:, :, None] * v_t[:, None, :]
+        ys.append(torch.einsum("bk,bkv->bv", r_t, S + u[None, :, None] * kv))
+        S = w_t[:, :, None] * S + kv
+    y = torch.stack(ys, 1) if ys else torch.zeros((B, 0, Dv), device=r.device)
+    return y.to(r.dtype), S

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --paged --int-chain --kv-int8 [--kv-bits 4] --decode-kernel \\
         --requests 8 --prompt-len 64 --max-new 32 --batch 8 [--reduced] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --paged --int-chain --requests 8 --prompt-len 64 --max-new 32 --batch 8
 
 Port of ``repro.launch.serve`` for the paged engine: ``--deploy-int8`` swaps
 the A2Q params for int8 weights + scales, ``--int-forward`` (implies it)
@@ -10,7 +12,9 @@ runs the deployed linears through the fused W8A8 kernel, ``--int-chain``
 (implies ``--int-forward``) folds their act-quant into the kernel's
 prologue, ``--kv-int8`` keeps the paged KV as int8 codes with per-slot
 scales (``--kv-bits 4``: two codes a byte), ``--decode-kernel`` reads the
-paged KV pools through the paged-attention kernel.  ``--device`` defaults to
+paged KV pools through the paged-attention kernel.  An attention-free model
+(rwkv6) keeps a recurrent state per slot instead of KV; its bytes a slot are
+printed beside the KV bytes a token.  ``--device`` defaults to
 ``cuda``.  Throughput is reported split into prefill and decode.  The
 reference's other flags are refused as not ported yet.
 """
@@ -127,9 +131,11 @@ def main(argv=None):
     cache = engine.cache
     print(f"paged KV: peak {cache.peak_blocks} blocks "
           f"({cache.peak_blocks * cache.block_size} tokens) of {cache.num_blocks - 1} "
-          f"(block_size={cache.block_size}); {cache.kv_bytes_per_token()} KV bytes/token")
+          f"(block_size={cache.block_size}); {cache.kv_bytes_per_token()} KV bytes/token; "
+          f"{cache.state_bytes_per_slot()} recurrent state bytes a slot")
     report["paged_peak_blocks"] = cache.peak_blocks
     report["kv_bytes_per_token"] = cache.kv_bytes_per_token()
+    report["state_bytes_per_slot"] = cache.state_bytes_per_slot()
     for i, o in enumerate(outs):
         print(f"req {i}: {o}")
     if args.json:

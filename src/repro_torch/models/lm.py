@@ -1,10 +1,11 @@
 """Decoder LM assembly: embeddings -> stacks -> final norm -> head.
 
 Port of ``repro.models.lm`` for token decoders (``family="lm"``) whose stacks
-are ``attn_mlp`` (GQA or MLA) or ``moe`` blocks.  The reference's sharding
-constraints have no counterpart on one device and are dropped; training
-losses (and with them the multi-token-prediction head's forward, which only
-the loss reads) and the other families are not ported yet.
+are ``attn_mlp`` (GQA or MLA), ``moe`` or ``rwkv6`` blocks (rwkv6 reads no
+positions).  The reference's sharding constraints have no counterpart on one
+device and are dropped; training losses (and with them the
+multi-token-prediction head's forward, which only the loss reads), hymba's
+blocks and the other families are not ported yet.
 """
 
 from __future__ import annotations
@@ -97,8 +98,9 @@ def apply_lm(
     over paged pools (``T == 1`` decode or ``T > 1`` chunked prefill), written
     at each row's ``start_pos`` (an int or a ``(B,)`` tensor); the cache
     carries its block-table view under the reserved key ``"_paged"``.  The
-    pools are updated in place; the returned cache holds the per-stack pools
-    without the view.
+    pools and the recurrent per-slot leaves (rwkv6's ``tm.S``, ``tm.shift``,
+    ``cm.shift``, one row per batch row) are updated in place; the returned
+    cache holds the per-stack leaves without the view.
 
     Returns ``(logits, new_cache)``; the reference's third output, the A2Q
     training penalty, belongs to the training path, which is not ported."""

@@ -24,10 +24,11 @@ norm, the attention core, a gated MLP's ``silu(gate) * up`` — every edge of
 the gated models the port serves) the consumer folds its act-quant into the
 kernel's prologue (``aq_scale``), so no deployed linear pays a standalone
 act-quant.  An :class:`IntAct` (int8 codes with their scale) is consumed
-directly.  A producer that would requantize into its consumer's quantizer
-(``out_aq`` from :func:`chain_out_aq`: the non-gated MLP, rwkv6's
-channel-mix) needs the requant epilogue, which is not ported yet: it raises.
-The accumulator-headroom probe is not ported yet.
+directly.  A producer that requantizes into its consumer's quantizer
+(``out_aq`` from :func:`chain_out_aq`: rwkv6's channel-mix ``cm.wk ->
+relu^2 -> cm.wv``) runs the kernel's requant epilogue and returns an
+:class:`IntAct` (``chained``); the non-gated MLP's gelu replay is not ported
+yet and raises.  The accumulator-headroom probe is not ported yet.
 
 Every ``int_forward`` call records its disposition (``folded`` for the
 prologue or an ``IntAct`` input, ``standalone`` for the fused path with its
@@ -98,8 +99,9 @@ def chain_report_scope(report: dict):
     prologue, or an ``IntAct`` input); ``standalone`` — a deployed layer ran
     the fused kernel after its own act-quant dispatch (must be empty under
     ``int_chain``); ``fallback`` — the fused path was unavailable and the
-    layer took the dequant path.  ``chained`` (a requantizing epilogue)
-    stays empty until that epilogue is ported."""
+    layer took the dequant path; ``chained`` — the layer requantized in its
+    epilogue and handed int8 codes to the next linear (recorded besides the
+    layer's ``folded`` or ``standalone`` entry)."""
     report.clear()
     report.update({"folded": [], "chained": [], "standalone": [], "fallback": []})
     _ACTIVE_REPORT.append(report)
@@ -195,7 +197,7 @@ def chain_out_aq(consumer: dict, cfg: QuantConfig, *, boundary: bool = False,
 
 def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
                        input_signed: bool, compute_dtype, int_chain: bool = False,
-                       site: str = ""):
+                       out_aq: Optional[dict] = None, site: str = ""):
     """Fused W8A8 forward: the activation scale folds into the per-channel
     weight scale, so the kernel's epilogue is one per-column fp32 rescale
     (+ bias); the int16 carry engages when A2Q guarantees ``acc_bits <=
@@ -205,13 +207,20 @@ def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
     * ``int_chain`` with an fp ``x`` — in the kernel's prologue (``folded``),
       bit for bit the standalone act-quant's codes;
     * else on its own ahead of the kernel (``standalone``), unsigned 8-bit
-      codes symmetrized into the int8 operand."""
+      codes symmetrized into the int8 operand.
+
+    With ``out_aq`` (the consumer's quantizer) the epilogue requantizes into
+    it and the call returns an :class:`IntAct` (``chained``)."""
     from repro_torch.kernels import ops
 
     M, N = _bits(cfg, boundary)
     a2q = cfg.mode == "a2q"
     kw = dict(acc_bits=cfg.acc_bits if a2q else 32, mode="exact",
               spill_int16=a2q and cfg.acc_bits <= 16, bias=params.get("b"))
+    if out_aq is not None:
+        out_scale = torch.exp2(out_aq["log2_scale"].to(torch.float32))
+        kw.update(out_scale=out_scale, out_bits=out_aq["bits"], out_signed=out_aq["signed"],
+                  act_fn=out_aq["act_fn"], cast_dtype=compute_dtype)
     s8 = params["s8"].to(torch.float32)
     if isinstance(x, IntAct):
         _record("folded", site)
@@ -237,6 +246,10 @@ def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
         lead = x.shape[:-1]
         y = ops.int_matmul(xq.to(torch.int8).reshape(-1, K), params["q8"],
                            scale=x_scale * s8, in_bits=N, in_signed=input_signed, **kw)
+    if out_aq is not None:
+        _record("chained", site)
+        return IntAct(codes=y.reshape(*lead, y.shape[-1]), scale=out_scale,
+                      bits=out_aq["bits"], signed=out_aq["signed"])
     return y.reshape(*lead, y.shape[-1]).to(compute_dtype)
 
 
@@ -259,17 +272,14 @@ def apply_linear(
     quantizer, ``N <= 8``, 2-D weights) runs the fused W8A8 integer path
     instead of dequant + ``compute_dtype`` matmul; ``int_chain=True`` folds
     the act-quant into the kernel's prologue, and ``x`` may be an
-    :class:`IntAct`.  ``out_aq`` (a requantizing epilogue) raises: it is
-    not ported yet."""
-    if out_aq is not None:
-        raise NotImplementedError("int8-out chaining through the requant epilogue (out_aq) is "
-                                  "not ported yet; it goes with the rwkv6 slice")
+    :class:`IntAct`; with ``out_aq`` (from :func:`chain_out_aq`) the result
+    is one too, requantized in the kernel's epilogue."""
     M, N = _bits(cfg, boundary)
     if int_forward and "q8" in params:
         if "aq" in params and N <= 8 and params["q8"].ndim == 2:
             return _apply_linear_int8(params, x, cfg, boundary=boundary,
                                       input_signed=input_signed, compute_dtype=compute_dtype,
-                                      int_chain=int_chain, site=site)
+                                      int_chain=int_chain, out_aq=out_aq, site=site)
         if "aq" not in params:
             reason = "no activation quantizer in the deployed params"
         elif N > 8:

@@ -4,8 +4,9 @@ A model is a sequence of *stacks*; each stack is ``count`` identical blocks
 whose parameters are stacked along a leading ``count`` axis, as in
 ``repro.nn.transformer`` (which scans them); here a Python loop applies
 them in order.  Ported block kinds: ``attn_mlp`` (pre-norm GQA or MLA + gated
-or plain MLP, optionally command-r's parallel attention+FFN) and ``moe``
-(the same attention + the mixture-of-experts FFN); the other kinds raise.
+or plain MLP, optionally command-r's parallel attention+FFN), ``moe`` (the
+same attention + the mixture-of-experts FFN) and ``rwkv6`` (pre-norm RWKV-6
+time-mix + channel-mix, attention-free); ``hymba`` and ``conv`` raise.
 """
 
 from __future__ import annotations
@@ -21,6 +22,12 @@ from repro_torch.nn.attention import apply_attention, init_attention
 from repro_torch.nn.linear import apply_linear, chain_out_aq, init_linear
 from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.norms import apply_norm, init_norm
+from repro_torch.nn.ssm import (
+    apply_rwkv6_channelmix,
+    apply_rwkv6_timemix,
+    init_rwkv6_channelmix,
+    init_rwkv6_timemix,
+)
 
 __all__ = ["init_stack", "apply_stack", "COMPUTE_DTYPES"]
 
@@ -49,7 +56,8 @@ def _apply_mlp(p: dict, x: torch.Tensor, q: QuantConfig, compute_dtype,
         h = F.silu(gate.to(torch.float32)).to(compute_dtype) * h
         return lin(p["w_out"], x=h, site="mlp.w_out")
     # w_in -> gelu -> w_out is a producer/consumer chain: under int_chain the
-    # reference requantizes in w_in's epilogue (not ported yet: it raises)
+    # reference requantizes in w_in's epilogue (its gelu replay is not ported
+    # yet: it raises)
     out_aq = chain_out_aq(p["w_out"], q, act_fn="gelu") if int_chain else None
     h = lin(p["w_in"], x=x, site="mlp.w_in", out_aq=out_aq)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(compute_dtype)  # jax.nn.gelu's default
@@ -57,13 +65,18 @@ def _apply_mlp(p: dict, x: torch.Tensor, q: QuantConfig, compute_dtype,
 
 
 def _check_kind(s: StackConfig) -> None:
-    if s.kind not in ("attn_mlp", "moe"):
+    if s.kind not in ("attn_mlp", "moe", "rwkv6"):
         raise NotImplementedError(f"block kind {s.kind!r} is not ported yet")
 
 
 def _init_block(gen, arch: ArchConfig, s: StackConfig) -> dict:
     _check_kind(s)
     d, q = arch.d_model, arch.quant
+    if s.kind == "rwkv6":
+        return {"ln1": init_norm(d, arch.norm, device=gen.device),
+                "tm": init_rwkv6_timemix(gen, d, s.ssm, q),
+                "ln2": init_norm(d, arch.norm, device=gen.device),
+                "cm": init_rwkv6_channelmix(gen, d, s.d_ff, q)}
     p = {"ln1": init_norm(d, arch.norm, device=gen.device),
          "attn": init_attention(gen, d, s.attn, q, arch.use_bias)}
     if not s.parallel_block:
@@ -83,6 +96,14 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
     q = arch.quant
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     norm = functools.partial(apply_norm, kind=arch.norm, eps=arch.norm_eps)
+
+    if s.kind == "rwkv6":  # the recurrent leaves of a cache are updated in place
+        kw = dict(compute_dtype=cd, int_forward=int_forward, int_chain=int_chain)
+        y, _ = apply_rwkv6_timemix(p["tm"], norm(p["ln1"], x), s.ssm, q,
+                                   (cache or {}).get("tm"), **kw)
+        x = x + y
+        y, _ = apply_rwkv6_channelmix(p["cm"], norm(p["ln2"], x), q, (cache or {}).get("cm"), **kw)
+        return x + y
 
     def ffn(h):
         if s.kind == "moe":
@@ -127,7 +148,7 @@ def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                 decode_kernel: bool = False, int_forward: bool = False,
                 int_chain: bool = False):
     """Apply ``s.count`` blocks in order and return ``x``; a paged cache's
-    pools (leaves ``(count, ...)``) are updated in place."""
+    pools and recurrent leaves (``(count, ...)``) are updated in place."""
     _check_kind(s)
     for i in range(s.count):
         x = _apply_block(

@@ -3,8 +3,11 @@
 Port of ``repro.serve.engine`` for the paged engine's per-tick greedy path:
 scheduler-driven continuous batching (``serve/scheduler.py``), chunked
 prefill of each admitted request on an isolated one-row view of the block
-tables, and a full-batch decode step per tick whose dead rows write into the
-trash block.  The forward runs eagerly; the pools are updated in place.
+tables and of the per-slot recurrent leaves (zeroed at admission), and a
+full-batch decode step per tick whose dead rows write into the trash block
+(their recurrent rows advance and are zeroed on the slot's next admission).
+The forward runs eagerly; the pools and recurrent leaves are updated in
+place.
 
 ``deploy_params`` swaps trained A2Q params for int8 weights + per-channel
 scales — the artifact whose l1 norms provably fit the target accumulator —
@@ -218,19 +221,19 @@ class PagedServeEngine:
 
     # -- steps (sampling on device: only ids and margins reach the host) ------
 
-    def _forward(self, tokens: torch.Tensor, bt: torch.Tensor, start, last: int):
-        cache = {**self.cache.pools, "_paged": {"bt": bt}}
+    def _forward(self, tokens: torch.Tensor, pools: dict, bt: torch.Tensor, start, last: int):
+        cache = {**pools, "_paged": {"bt": bt}}
         logits, _ = apply_lm(self.params, self.arch, tokens=tokens, cache=cache,
                              start_pos=start, rt=self.rt)
         row = logits[:, last]
         tok = sample_tokens(row, self.sample_cfg)
         return tok.cpu().numpy(), _greedy_margin(row).cpu().numpy()
 
-    def _prefill_fn(self, tokens: torch.Tensor, bt: torch.Tensor, start: int):
-        return self._forward(tokens, bt, start, -1)
+    def _prefill_fn(self, tokens: torch.Tensor, pools: dict, bt: torch.Tensor, start: int):
+        return self._forward(tokens, pools, bt, start, -1)
 
     def _decode_fn(self, tokens: torch.Tensor, bt: torch.Tensor, pos: torch.Tensor):
-        return self._forward(tokens, bt, pos, 0)
+        return self._forward(tokens, self.cache.pools, bt, pos, 0)
 
     # -- request lifecycle ----------------------------------------------------
 
@@ -263,14 +266,17 @@ class PagedServeEngine:
 
     def _admit(self, slot: int, req: Request) -> None:
         """Isolated chunked prefill: whole prompt chunks through a one-row
-        view of this slot's block table — other live rows are never touched."""
+        view of this slot's block table and recurrent leaves (zeroed first) —
+        other live rows are never touched."""
+        self.cache.reset_slot(slot)
         self.cache.allocate(slot, len(req.prompt) + req.max_new)
         t0 = time.perf_counter()
         bt = self.cache.bt_row(slot)
+        pools = self.cache.slice_slot(slot)
         tok = marg = None
         for chunk, start in self.sched.prefill_plan(slot):
             tokens = torch.as_tensor(chunk[None, :], device=self.device)
-            tok, marg = self._prefill_fn(tokens, bt, start)
+            tok, marg = self._prefill_fn(tokens, pools, bt, start)
         self.cache.lens[slot] = len(req.prompt)
         req.margins.append(float(marg[0]))
         self.stats["prefill_s"] += time.perf_counter() - t0

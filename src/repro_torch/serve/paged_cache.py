@@ -1,7 +1,7 @@
 """Paged KV cache: fixed-size token blocks + per-sequence block tables.
 
 Port of ``repro.serve.paged_cache`` for full-attention GQA and MLA stacks
-(``attn_mlp`` and ``moe`` blocks).  Seq-indexed K/V lives in pools of
+(``attn_mlp`` and ``moe`` blocks) and RWKV-6 stacks.  Seq-indexed K/V lives in pools of
 ``block_size``-token blocks shared by all slots, per stack ``kp``/``vp`` of
 shape ``(count, NB, bs, KV, Dh)``, or for MLA the latent ``ckvp (count, NB,
 bs, kv_lora_rank)`` and rope key ``kpep (count, NB, bs, qk_rope_dim)``.
@@ -22,12 +22,21 @@ write into trash and attend to garbage that is never read).  All layers
 share one block table.  The device-facing view is attached to the cache tree
 under the reserved key ``"_paged"``; the layers write the pools in place.
 
+Recurrent stacks keep per-slot leaves instead of pools: rwkv6's ``tm.S
+(count, slots, H, Dk, Dv)`` fp32 state and the token-shift carries
+``tm.shift``/``cm.shift (count, slots, 1, d)`` in the compute dtype.
+``reset_slot`` zeroes a slot's rows at admission; ``slice_slot`` gives the
+one-row view an isolated prefill reads and writes.  The layers write the
+slot's row in place through that view, so no merge follows (the reference
+returns new leaves and merges them back).  Dead rows ride along in decode:
+their state advances and is zeroed on the slot's next admission.
+
 Invariants: a sequence's blocks appear in its table row in logical order
 (so the gathered view equals the contiguous layout); unowned table entries
 stay 0 (trash); the trash block is never freed; ``lens[slot]`` counts tokens
 written for the slot.  Not ported yet: refcounts and copy-on-write, the
-radix prompt cache, rollback/truncate, KV-block export/import, and ring /
-recurrent per-slot leaves.
+radix prompt cache, rollback/truncate, KV-block export/import, ring caches
+and hymba's per-slot leaves.
 """
 
 from __future__ import annotations
@@ -37,11 +46,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig, AttnConfig
+from repro_torch.configs.base import ArchConfig, AttnConfig, StackConfig
 
-__all__ = ["PagedKVCache", "init_paged_attn_cache", "TRASH_BLOCK"]
+__all__ = ["PagedKVCache", "init_paged_attn_cache", "init_paged_stack_cache", "POOL_KEYS",
+           "TRASH_BLOCK"]
 
 TRASH_BLOCK = 0
+# leaves indexed by block (shared by all slots); every other leaf is per slot
+POOL_KEYS = frozenset({"kp", "vp", "ckvp", "kpep", "kps", "vps", "ckvs", "kpes"})
 
 
 def _code_shape(dim: int, kv_bits: int) -> tuple[int, ...]:
@@ -85,6 +97,33 @@ def init_paged_attn_cache(a: AttnConfig, num_blocks: int, block_size: int, dtype
     return pools
 
 
+def init_paged_stack_cache(arch: ArchConfig, s: StackConfig, slots: int, num_blocks: int,
+                           block_size: int, dtype, device, kv_quant: bool = False,
+                           kv_bits: int = 8) -> dict:
+    """One stack's cache leaves, each with a leading ``count`` axis: paged
+    attention pools, or rwkv6's per-slot recurrent leaves."""
+    if s.kind in ("attn_mlp", "moe"):
+        return {"attn": init_paged_attn_cache(s.attn, num_blocks, block_size, dtype, device,
+                                              count=s.count, kv_quant=kv_quant, kv_bits=kv_bits)}
+    if s.kind == "rwkv6":
+        H, Dk = arch.d_model // s.ssm.head_dim, s.ssm.head_dim
+
+        def shift():
+            return torch.zeros((s.count, slots, 1, arch.d_model), dtype=dtype, device=device)
+
+        return {"tm": {"S": torch.zeros((s.count, slots, H, Dk, Dk), dtype=torch.float32,
+                                        device=device),
+                       "shift": shift()},
+                "cm": {"shift": shift()}}
+    raise NotImplementedError(f"paged cache for {s.kind!r} stacks is not ported yet")
+
+
+def _map_slot_leaves(tree: dict, fn) -> dict:
+    """``tree`` with ``fn`` applied to every per-slot (non-pool) leaf."""
+    return {k: _map_slot_leaves(v, fn) if isinstance(v, dict) else v if k in POOL_KEYS else fn(v)
+            for k, v in tree.items()}
+
+
 class PagedKVCache:
     """Device pools + host-side block-table allocator for ``slots`` sequences
     (integer code pools with ``kv_quant``, at ``kv_bits`` 8 or 4)."""
@@ -118,13 +157,9 @@ class PagedKVCache:
         if num_blocks < 2:
             raise ValueError("need at least one non-trash block")
         self.num_blocks = num_blocks
-        for s in arch.stacks:
-            if s.kind not in ("attn_mlp", "moe"):
-                raise NotImplementedError(f"paged cache for {s.kind!r} stacks is not ported yet")
         self.pools = {
-            str(i): {"attn": init_paged_attn_cache(s.attn, num_blocks, block_size, dtype,
-                                                   self.device, count=s.count,
-                                                   kv_quant=kv_quant, kv_bits=kv_bits)}
+            str(i): init_paged_stack_cache(arch, s, slots, num_blocks, block_size, dtype,
+                                           self.device, kv_quant=kv_quant, kv_bits=kv_bits)
             for i, s in enumerate(arch.stacks)
         }
         # LIFO free list; low ids handed out first so fresh tables are ordered
@@ -169,14 +204,39 @@ class PagedKVCache:
         self.tables[slot] = TRASH_BLOCK
         self.lens[slot] = 0
 
+    def _leaves(self, pools: bool):
+        def walk(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from walk(v)
+                elif (k in POOL_KEYS) == pools:
+                    yield v
+        return walk(self.pools)
+
     def kv_bytes_per_token(self) -> int:
         """Device bytes one cached token costs across every pool (all layers;
-        codes and scale pools)."""
-        total = 0
-        for stack in self.pools.values():
-            for leaf in stack["attn"].values():
-                total += leaf[0, 0, 0].numel() * leaf.element_size() * leaf.shape[0]
-        return total
+        codes and scale pools); 0 for a stack without pools (rwkv6)."""
+        return sum(leaf[0, 0, 0].numel() * leaf.element_size() * leaf.shape[0]
+                   for leaf in self._leaves(pools=True))
+
+    def state_bytes_per_slot(self) -> int:
+        """Device bytes of one slot's per-slot leaves across all layers (rwkv6's
+        fp32 state and token-shift carries); they do not grow with tokens."""
+        return sum(leaf[:, 0].numel() * leaf.element_size() for leaf in self._leaves(pools=False))
+
+    # -- per-slot state (recurrent leaves) ------------------------------------
+
+    def reset_slot(self, slot: int) -> None:
+        """Zero ``slot``'s rows of every per-slot leaf, so a fresh sequence
+        starts from a zero state whatever the slot's previous occupant left."""
+        for leaf in self._leaves(pools=False):
+            leaf[:, slot].zero_()
+
+    def slice_slot(self, slot: int) -> dict:
+        """The cache tree an isolated prefill of ``slot`` runs on: pools whole
+        (the slot's blocks live there), per-slot leaves as one-row views
+        ``(count, 1, ...)`` written in place.  Pair with ``bt_row(slot)``."""
+        return _map_slot_leaves(self.pools, lambda leaf: leaf[:, slot:slot + 1])
 
     # -- device view --------------------------------------------------------
 

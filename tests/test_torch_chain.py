@@ -11,7 +11,8 @@ Covered:
 * ``apply_linear`` on a deployed layer: the prologue branch, the ``IntAct``
   consumer branch and the chain repair of an ``IntAct`` into a layer that
   cannot take codes, against ``repro.nn.linear``; ``chain_out_aq``; the
-  requant epilogue (``out_aq``) still raising;
+  requant epilogue's gelu replay (``out_aq`` of the non-gated MLP) still
+  raising (relu2 is covered in ``test_torch_requant.py``);
 * the slice as a whole on reduced smollm-135m, yi-6b and deepseek-v3
   (``mla_absorb``): the chain report of one forward equals the JAX report
   site for site (the reference traces each stacked block once, the port
@@ -147,8 +148,8 @@ def test_prologue_argument_checks():
         ops.int_matmul(x, w, scale=1.0, aq_scale=torch.full((8,), 0.1))
     with pytest.raises(ValueError):  # 9-bit unsigned codes do not fit int8
         ops.int_matmul(x, w, scale=1.0, aq_scale=s, in_bits=9, in_signed=False)
-    with pytest.raises(NotImplementedError):  # the requant epilogue is not ported
-        ops.int_matmul(x, w, scale=1.0, aq_scale=s, out_scale=1.0)
+    with pytest.raises(NotImplementedError):  # the requant epilogue's gelu is not ported
+        ops.int_matmul(x, w, scale=1.0, aq_scale=s, out_scale=1.0, act_fn="gelu")
 
 
 # ---------------------------------------------------------------------------

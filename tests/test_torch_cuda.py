@@ -8,7 +8,8 @@ so it also runs where only PyTorch is installed:
 
 Tolerances: int_matmul — exact (integer carry, and the fused epilogue rounds
 the multiply and the add once each, as the plain version does), also with
-the quantizing prologue, whose codes must equal the standalone act-quant's;
+the quantizing prologue, whose codes must equal the standalone act-quant's,
+and with the requantizing epilogue (int8 codes out, bit for bit);
 paged attention — 1e-5 with fp32, int8 and int4 pools (fp32 softmax summed
 in another order; integer codes dequantize exactly as in the plain version),
 one bf16 rounding of the output (2^-6, one ulp at |o| < 2) with bf16 pools
@@ -17,8 +18,13 @@ dequantized codes convert to fp32 exactly, so only the summation order
 differs), and exactly on a row of length 1, whose output is the staged
 latent itself (the activation fake-quant replay's codes times its scale).
 A block past a row's length holds NaN (in the pool, or in the scale pool of
-an integer pool) and must not be read.
+an integer pool) and must not be read.  rwkv6_scan — 1e-5 of the largest
+|y| and |S| with fp32 y (the same fp32 recurrence, its 64-deep sums split
+in four and contracted into FMAs), 2^-7 of the largest |y| with bf16 y (one
+bf16 rounding of values that differ in their last fp32 bits).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -32,6 +38,7 @@ from repro_torch.kernels.paged_mla_attention import (
     paged_mla_attention_cuda,
     paged_mla_attention_plain,
 )
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -233,3 +240,109 @@ def test_paged_mla_attention_cuda_refuses_quantized_pools(dev):
     with pytest.raises(ValueError):
         ops.paged_mla_attention(*args[:2], *codes, *args[4:], ckvs=scales[:, :2],
                                 kpes=scales[:, :2], scale=0.1)
+
+
+@pytest.mark.parametrize("act_fn", [None, "relu2"], ids=["none", "relu2"])
+@pytest.mark.parametrize("cast", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("out_bits,out_signed", [(8, False), (8, True), (4, True)])
+@pytest.mark.parametrize("prologue", [False, True], ids=["int8_x", "prologue"])
+def test_int_matmul_cuda_requant_matches_plain(dev, act_fn, cast, out_bits, out_signed, prologue):
+    """The requant epilogue's int8 codes equal the plain version's bit for
+    bit, on int8 codes and behind the prologue, at rwkv6's cm.wk shape and
+    small ragged ones."""
+    rng = np.random.default_rng(13)
+    lo, hi = (-(1 << (out_bits - 1)), (1 << (out_bits - 1)) - 1) if out_signed else \
+        (0, (1 << out_bits) - 1)
+    shift = 128 if not out_signed and out_bits == 8 else 0
+    for M, K, N in ((8, 4096, 14336), (32, 4096, 1024), (33, 100, 70), (3, 40, 5)):
+        w = torch.from_numpy(rng.integers(-3, 4, (K, N)).astype(np.int8)).to(dev)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, N).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
+        if prologue:
+            x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev)
+            pro = dict(aq_scale=torch.tensor([2.0**-5], device=dev), q_lo=-128, q_hi=127,
+                       q_shift=0)
+        else:
+            x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(dev)
+            pro = {}
+        y = int_matmul_plain(x, w, scale, bias, block_k=int_matmul_block_k(K), **pro)
+        y = y.clamp_min(0) ** 2 if act_fn == "relu2" else y
+        out_scale = (y.abs().amax(0) / (0.7 * hi) + 1e-6).to(torch.float32)
+        kw = dict(acc_bits=32, mode="exact", block_k=int_matmul_block_k(K), out_scale=out_scale,
+                  r_lo=lo, r_hi=hi, r_shift=shift, act_fn=act_fn, cast_dtype=cast, **pro)
+        got = int_matmul_cuda(x, w, scale, bias, **kw)
+        torch.cuda.synchronize()
+        want = int_matmul_plain(x, w, scale, bias, **kw)
+        assert got.dtype == torch.int8
+        assert torch.equal(got, want), (M, K, N, (got != want).sum().item())
+        if M * N > 1000:
+            assert len(torch.unique(got)) > 4  # the codes span their range
+
+
+def _rwkv6_case(dev, B, H, T, D, dtype, seed, heads_view=True):
+    """r, k, v in ``dtype`` and fp32 w as the time-mix makes them: (B, H, T, D)
+    head views of (B, T, H * D) projections."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def heads(t):
+        return t.reshape(B, T, H, D).transpose(1, 2) if heads_view else \
+            t.reshape(B, T, H, D).transpose(1, 2).contiguous()
+
+    r, k, v = (heads(torch.randn((B, T, H * D), generator=g, device=dev).to(dtype))
+               for _ in range(3))
+    w = heads(torch.exp(-torch.exp(torch.randn((B, T, H * D), generator=g, device=dev) - 0.6)))
+    u = torch.randn((H, D), generator=g, device=dev) * 0.5
+    s0 = torch.randn((B, H, D, D), generator=g, device=dev)
+    return r, k, v, w, u, s0
+
+
+def _rwkv6_close(got, want, out_dtype):
+    (y, s), (y_p, s_p) = got, want
+    rel = 1e-5 if out_dtype == torch.float32 else 2.0**-7
+    assert y.dtype == y_p.dtype == out_dtype
+    assert (y.float() - y_p.float()).abs().max().item() <= rel * y_p.float().abs().max().item()
+    assert (s - s_p).abs().max().item() <= 1e-5 * s_p.abs().max().item()
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, T, D, in dtype, out dtype, floor, carried): rwkv6-7b's decode,
+    # prefill chunk and chunked T=64, then reduced and ragged shapes
+    (8, 64, 1, 64, torch.bfloat16, torch.float32, False, True),
+    (1, 64, 32, 64, torch.bfloat16, torch.bfloat16, False, True),
+    (1, 64, 64, 64, torch.bfloat16, torch.bfloat16, True, False),
+    (2, 4, 8, 16, torch.float32, torch.float32, True, True),
+    (3, 5, 37, 24, torch.float32, torch.float32, False, False),
+], ids=["decode", "prefill32", "chunk64_floor", "reduced", "ragged"])
+def test_rwkv6_scan_cuda_matches_plain(dev, case):
+    B, H, T, D, dt, out_dtype, floor, carried = case
+    r, k, v, w, u, s0 = _rwkv6_case(dev, B, H, T, D, dt, seed=T + D)
+    if floor:
+        w[..., ::7] = 1e-5  # below e^-8, where the floor acts
+    kw = dict(out_dtype=out_dtype, min_w=math.exp(-8.0) if floor else None)
+    init = s0 if carried else None
+    want = rwkv6_scan_plain(r, k, v, w, u, init, **kw)
+    got = rwkv6_scan_cuda(r, k, v, w, u, init, **kw)
+    torch.cuda.synchronize()
+    _rwkv6_close(got, want, out_dtype)
+    # the same through ops, contiguous inputs, the state updated in place
+    rc, kc, vc, wc = (t.contiguous() for t in (r, k, v, w))
+    state = s0.clone() if carried else torch.zeros_like(s0)
+    y, s = ops.rwkv6_scan(rc, kc, vc, wc, u, state, state_out=state, **kw)
+    torch.cuda.synchronize()
+    assert s is state
+    _rwkv6_close((y, s), want, out_dtype)
+
+
+def test_rwkv6_scan_cuda_refuses_bad_arguments(dev):
+    r, k, v, w, u, s0 = _rwkv6_case(dev, 1, 2, 3, 16, torch.float32, seed=1)
+    with pytest.raises(ValueError):  # fp32 decays
+        rwkv6_scan_cuda(r, k, v, w.half(), u, out_dtype=torch.float32)
+    with pytest.raises(ValueError):  # a strided feature axis
+        rwkv6_scan_cuda(r[..., ::2], k[..., ::2], v[..., ::2], w[..., ::2], u[:, ::2],
+                        out_dtype=torch.float32)
+    big = torch.zeros((1, 1, 2, 80), device=dev)
+    with pytest.raises(ValueError):  # head dims above 64
+        rwkv6_scan_cuda(big, big, big, big, torch.zeros((1, 80), device=dev),
+                        out_dtype=torch.float32)
+    with pytest.raises(ValueError):  # the state is contiguous fp32
+        rwkv6_scan_cuda(r, k, v, w, u, s0.transpose(-1, -2), out_dtype=torch.float32)

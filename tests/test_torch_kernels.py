@@ -121,8 +121,8 @@ def test_int_matmul_argument_checks():
         ops.int_matmul(x, w, acc_bits=24, spill_int16=True)
     with pytest.raises(ValueError):
         ops.int_matmul(x, w, bias=torch.zeros(4))
-    with pytest.raises(NotImplementedError):
-        ops.int_matmul(x, w, scale=1.0, out_scale=1.0)
+    with pytest.raises(ValueError):  # the requant epilogue follows the fused one
+        ops.int_matmul(x, w, out_scale=1.0)
 
 
 def _paged_case(rng, B=5, H=8, KV=2, Dh=16, NB=12, bs=4, MB=3, dtype=np.float32):
