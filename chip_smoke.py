@@ -2,7 +2,8 @@
 PERF.md): builds the kernels, holds each against its plain PyTorch version at
 the main paths' shapes, serves full-width smollm-135m, full-width deepseek-v3
 (depth cut) and full-size rwkv6-7b through the paged engine on the kernels,
-and checks the results.
+encodes full-size hubert-xlarge, and checks the results.  Every model is
+deployed on the card through the ``a2q_quantize`` kernel.
 
     python3 chip_smoke.py
 
@@ -41,7 +42,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version and timed beside the prologue-only kernel; ``rwkv6_scan`` at
    decode (B=8, H=64, T=1, bf16 r/k/v, fp32 y, the state updated in place),
    a prefill chunk (B=1, T=32, carried state) and a T=64 chunk with the
-   decay floored at e^-8, within ``RWKV_TOL`` of the plain version;
+   decay floored at e^-8, within ``RWKV_TOL`` of the plain version.  The
+   hubert slice's: ``a2q_quantize`` at hubert-xlarge's four matrix shapes
+   and rwkv6-7b's cm.wk (l1 to 1e-6, codes equal but for counted flips at
+   near-integers, every column within the A2Q l1 budget); ``flash_attention``
+   at hubert's encode (8 x 1000 frames, 16 heads of 80, bidirectional, bf16
+   and fp32), smollm's causal GQA, a window and end-aligned queries, with
+   SDPA as the library time; ``int_matmul`` at M=8000 with the gelu requant
+   epilogue (hubert's mlp.w_in, equal or one apart at rounding ties) and at
+   hubert's other shapes, with ``torch._int_mm`` as the library time;
 4. serve full-width smollm-135m (30 layers, random A2Q weights from seed 0,
    deployed to int8): 8 requests, prompt 64, 32 new tokens, batch 8, through
    ``PagedServeEngine`` with ``Runtime(int_forward=True, decode_kernel=True)``;
@@ -92,11 +101,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ulps of the largest, ``parity_up_to_ties`` at that eps); reduced rwkv6
    on the card (int-chain, prefill chunks of the ssm chunk, so chunked and
    sequential forms) against the CPU, token for token;
+4f. deploy full-size hubert-xlarge (48 layers, d_model 1280, d_ff 5120, 504
+   classes, random A2Q weights from seed 0, block by block: 289
+   ``a2q_quantize`` launches) and encode 8 clips of 1000 bf16 frames (seed
+   0) with ``Runtime(int_chain=True)`` through ``build_prefill_step`` /
+   ``apply_lm(frontend_embeds=...)``: 289 int_matmul a forward (241 with the
+   prologue, 48 of them mlp.w_in's gelu requant; 48 on int8 codes), 48
+   flash_attention, chain report 289 folded /
+   48 chained / 0 standalone; frames/s, peak memory building and encoding,
+   kernel time of a profiled forward;
+5f. chained vs unchained: the w_out input codes compared (each differing
+   code one apart at a gelu rounding tie, ``requant_ties``), logits bitwise
+   equal where none differs, else within two bf16 ulps; the dequant path
+   (logits within two bf16 ulps of the largest, framewise argmax
+   agreement), reduced hubert on the card against the CPU to 1e-4;
 6. print the ``kernels`` line (every kernel and its int-chain variants:
    ``int_matmul[prologue]``, ``int_matmul[requant]``,
-   ``paged_attention[int8|int4]``, ``paged_mla_attention[int8|int4]``,
-   ``rwkv6_scan``, each with its launches on its main paths), then the
-   result line.
+   ``int_matmul[gelu requant]``, ``paged_attention[int8|int4]``,
+   ``paged_mla_attention[int8|int4]``, ``rwkv6_scan``, ``a2q_quantize``,
+   ``flash_attention``, each with its launches on its main paths, counted
+   by the wrappers: ``int_matmul[prologue]`` every launch with the prologue,
+   the requant ones included; ``int_matmul`` the launches with int8 codes
+   in), then the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its launches on the main paths (counted from zero
@@ -695,6 +721,271 @@ def check_rwkv6_scan(dev) -> dict:
     return entry
 
 
+HUBERT_SITES = {  # (K, N) of the six deployed linears of one hubert-xlarge layer -> count
+    (1280, 1280): 4,  # attn.wq, wk, wv, wo
+    (1280, 5120): 1,  # mlp.w_in (gelu requant into w_out)
+    (5120, 1280): 1,  # mlp.w_out (int8 codes in)
+}
+HUBERT_HEAD = (1280, 504)  # the boundary classification head
+HUBERT_CLIPS, HUBERT_FRAMES = 8, 1000  # 20 s of 16 kHz audio at HuBERT's 20 ms frame stride
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores: the card's peak for bf16 inputs
+# flash_attention vs plain: the fp32 softmax summed in another order (2e-5, as
+# the reference's own test), plus one bf16 rounding of the output in bf16
+
+
+def flash_within_tolerance(got, want) -> tuple[bool, float]:
+    g, w = got.float(), want.float()
+    tol = torch.full_like(w, 2e-5)
+    if want.dtype == torch.bfloat16:
+        top = torch.maximum(g.abs(), w.abs())
+        tol = tol + torch.ldexp(torch.ones_like(w), torch.frexp(top).exponent - 8)
+    err = (g - w).abs()
+    return bool((err <= tol).all()), err.max().item()
+
+
+def check_a2q_quantize(dev) -> dict:
+    """a2q_quantize against its plain version (``a2q_int_weights``'
+    arithmetic) at hubert-xlarge's four matrix shapes (1280x1280 for the
+    attention projections, 1280x5120, 5120x1280, the 1280x504 head) and at
+    rwkv6-7b's cm.wk (4096x14336), on the A2Q initializer's (v, t, d) at P=16,
+    8-bit signed inputs: l1 to 1e-6 relative; codes equal except one apart
+    where ``g/s * v / l1`` lies within the two sums' difference of an integer
+    (counted); dequantized weights equal where the codes are; and the A2Q
+    bound exactly: every column's ``sum |q|`` within ``l1_budget``; the
+    codes-only launch (``dequantize=False``, as ``deploy_linear`` calls it)
+    writes the same codes.  Each shape timed (CUDA events) as the deploy
+    calls it, beside the launch that also writes ``q * s``, the plain
+    version and the byte bound; no single PyTorch call computes the
+    quantizer (no library time)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.a2q import _effective_gs
+    from repro_torch.core.bounds import l1_budget
+    from repro_torch.kernels.a2q_quantize import (a2q_quantize_cuda, a2q_quantize_plain,
+                                                  code_flips_explained)
+    from repro_torch.nn.linear import init_linear
+
+    quant = get_arch("hubert-xlarge").quant
+    P, N = quant.acc_bits, quant.act_bits
+    budget = l1_budget(P, N, True)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    layer = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    at, worst, flips_total = {}, 0.0, 0
+    shapes = [((K, C), f"hubert x{n}", n) for (K, C), n in HUBERT_SITES.items()]
+    shapes += [(HUBERT_HEAD, "hubert head", 0), ((4096, 14336), "rwkv6-7b cm.wk", 0)]
+    for (K, C), site, count in shapes:
+        p = init_linear(gen, K, C, quant, boundary=site == "hubert head")
+        gs, s = _effective_gs(p, P, N, True)
+        v = p["v"]
+        deq, q, l1 = a2q_quantize_cuda(v, gs, s, n=-128, p=127)
+        torch.cuda.synchronize()
+        deq_p, q_p, l1_p = a2q_quantize_plain(v, gs, s, n=-128, p=127)
+        l1_rel = ((l1 - l1_p).abs() / l1_p).max().item()
+        flips, explained = code_flips_explained(q, q_p, v, gs, l1, l1_p)
+        same = q == q_p
+        col_l1 = q.to(torch.int64).abs().sum(0)
+        err = (deq - deq_p).abs().max().item()
+        if l1_rel > 1e-6 or not explained or not torch.equal(deq[same], deq_p[same]) or \
+                not (col_l1 <= budget).all():
+            raise AssertionError(f"a2q_quantize K={K} C={C}: l1 rel err {l1_rel}, {flips} code "
+                                 f"flips (explained {explained}), or a column's l1 "
+                                 f"{col_l1.max().item()} above the budget {budget}")
+        worst = max(worst, err)
+        flips_total += flips
+        _, q_n, _ = a2q_quantize_cuda(v, gs, s, n=-128, p=127, dequantize=False)
+        if not torch.equal(q_n, q):
+            raise AssertionError(f"a2q_quantize K={K} C={C}: codes without deq != with deq")
+        # timed as deploy_linear calls it: codes only (the dequantized weights are q * s)
+        kw = dict(n=-128, p=127, dequantize=False)
+        ms = events_ms(lambda: a2q_quantize_cuda(v, gs, s, **kw), 10)
+        deq_ms = events_ms(lambda: a2q_quantize_cuda(v, gs, s, n=-128, p=127), 10)
+        plain_ms = events_ms(lambda: a2q_quantize_plain(v, gs, s, **kw), 3)
+        n_bytes = 5 * K * C + 12 * C  # v read once, q written; gs, s in, l1 out
+        b_ms, b_by = bound_ms(n_bytes, 4 * K * C, FP32_FLOPS_PER_S)
+        print(f"a2q_quantize {site} K={K} C={C}: l1 max rel err {l1_rel:.3g}, {flips} code flips "
+              f"(each one apart at a near-integer), max |deq - plain| {err:.3g}, largest column "
+              f"l1 {col_l1.max().item()} <= budget {budget:.2f}, kernel_ms {ms:.5f} (with deq "
+              f"written {deq_ms:.5f}) plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by})",
+              flush=True)
+        at[f"{site} K={K} C={C}"] = {"ms": ms, "deq_ms": deq_ms, "plain_ms": plain_ms,
+                                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                                     "code_flips": flips, "l1_max_rel_err": l1_rel}
+        layer["ms"] += count * ms
+        layer["plain_ms"] += count * plain_ms
+        layer["bytes"] += count * n_bytes
+        layer["ops"] += count * 4 * K * C
+        del p, v, deq, q, deq_p, q_p, q_n
+    b_ms, b_by = bound_ms(layer["bytes"], layer["ops"], FP32_FLOPS_PER_S)
+    print(f"a2q_quantize one hubert-xlarge layer's 6 matrices: kernel_ms {layer['ms']:.5f} "
+          f"plain_ms {layer['plain_ms']:.5f} bound_ms {b_ms:.6f} ({b_by}); {flips_total} code "
+          f"flips in all shapes", flush=True)
+    return {"name": "a2q_quantize", "route": "cuda", "source": "src/repro_torch/csrc/a2q_quantize.cu",
+            "replaces": "src/repro/kernels/a2q_quantize.py:101",
+            "at": "one hubert-xlarge layer's 6 deploys (4 x 1280x1280, 1280x5120, 5120x1280), "
+                  "A2Q P=16 M=8 N=8",
+            "max_abs_err": worst, "code_flips": flips_total, "ms": layer["ms"],
+            "plain_ms": layer["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "at_shapes": at}
+
+
+def check_flash_attention(dev) -> dict:
+    """flash_attention against its plain version (dense fp32 softmax) on the
+    head views of (B, T, H * D) projections, as the layer passes them:
+    hubert-xlarge's whole-utterance encode (8 clips x 1000 frames, 16 heads
+    of 80, bidirectional) in bf16 and fp32; smollm-135m's causal GQA (9 heads
+    over 3, D 64, T 64); a causal sliding window of 256 at hubert's shape;
+    64 queries end-aligned to 1000 keys.  Within 2e-5 (fp32) plus one bf16
+    ulp of the output (bf16).  hubert's bf16 case timed (CUDA events) beside
+    the plain version, ``F.scaled_dot_product_attention`` on the same bf16
+    views (the library time; the port never calls it) and the bound: its
+    operations at the bf16 tensor-core peak (the card's for bf16 inputs),
+    with the fp32 CUDA-core peak's (where this kernel computes) beside it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    B, H, D = HUBERT_CLIPS, 16, 80
+    cases = {  # tag: (B, H, KV, Tq, Tk, D, causal, window, dtype)
+        "hubert bf16": (B, H, H, HUBERT_FRAMES, HUBERT_FRAMES, D, False, None, torch.bfloat16),
+        "hubert fp32": (B, H, H, HUBERT_FRAMES, HUBERT_FRAMES, D, False, None, torch.float32),
+        "smollm GQA causal bf16": (8, 9, 3, 64, 64, 64, True, None, torch.bfloat16),
+        "smollm GQA causal fp32": (8, 9, 3, 64, 64, 64, True, None, torch.float32),
+        "window 256 causal bf16": (2, H, H, HUBERT_FRAMES, HUBERT_FRAMES, D, True, 256,
+                                   torch.bfloat16),
+        "end-aligned Tq=64 Tk=1000 bf16": (B, H, H, 64, HUBERT_FRAMES, D, True, None,
+                                           torch.bfloat16),
+    }
+    gen = torch.Generator(device=dev).manual_seed(9)
+    entry, worst, worst_bf16 = None, 0.0, 0.0
+    for tag, (b, h, kv, tq, tk, d, causal, window, dtype) in cases.items():
+        q = torch.randn((b, tq, h * d), generator=gen, device=dev).to(dtype)
+        q = q.reshape(b, tq, h, d).transpose(1, 2)
+        k, v = (torch.randn((b, tk, kv * d), generator=gen, device=dev).to(dtype)
+                .reshape(b, tk, kv, d).transpose(1, 2) for _ in range(2))
+        kw = dict(causal=causal, window=window, scale=d**-0.5)
+        got = flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, **kw)
+        ok, err = flash_within_tolerance(got, want)
+        if not ok:
+            raise AssertionError(f"flash_attention {tag}: kernel != plain, max err {err}")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        else:
+            worst_bf16 = max(worst_bf16, err)
+        print(f"flash_attention {tag} (B={b} H={h} KV={kv} Tq={tq} Tk={tk} D={d}): max err "
+              f"{err:.3g} within tolerance", flush=True)
+        if tag != "hubert bf16":
+            continue
+        ms = events_ms(lambda: flash_attention_cuda(q, k, v, **kw), 10)
+        plain_ms = events_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
+        lib_ms = events_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+        n_ops = 4 * b * h * tq * tk * d  # QK^T and PV, every key kept (bidirectional)
+        n_bytes = dtype.itemsize * (2 * b * h * tq * d + 2 * b * kv * tk * d)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOPS_PER_S)
+        cc_ms, cc_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
+        print(f"flash_attention {tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms(sdpa) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by}, bf16 tensor cores; "
+              f"{cc_ms:.5f} {cc_by} at the fp32 CUDA-core peak; {n_ops / 1e9:.2f} GFLOP, "
+              f"{n_bytes / 1e6:.1f} MB)", flush=True)
+        entry = {"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:135",
+                 "at": "hubert-xlarge encode, one layer: B=8 H=16 T=1000 D=80, bidirectional, "
+                       "bf16 head views",
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "bound_ms_fp32_cuda_cores": cc_ms, "library_ms": lib_ms}
+        del want
+    entry["max_abs_err"] = worst  # fp32; bf16 adds one rounding of the output
+    entry["max_abs_err_bf16"] = worst_bf16
+    return entry
+
+
+def check_int_matmul_hubert(dev) -> dict:
+    """int_matmul at hubert-xlarge's encode shapes (M = 8 clips x 1000 frames,
+    the kernel's first M past a few hundred rows): mlp.w_in with the
+    prologue, bias and the gelu requant epilogue (replayed in bf16 after the
+    flush, signed 8-bit codes out for mlp.w_out) against its plain version,
+    equal or one apart only at rounding ties (``requant_ties``: the kernel's
+    tanhf against PyTorch's tanh), timed beside the prologue-only kernel on
+    the same inputs; then the attention projections and the head (prologue,
+    fp32 out) and mlp.w_out (int8 codes in), bit for bit.  Every shape timed
+    beside ``torch._int_mm`` on the same int8 operands (the library time)."""
+    from repro_torch.kernels.int_matmul import (int_matmul_cuda, int_matmul_plain,
+                                                prologue_codes, requant_ties)
+    from repro_torch.kernels.ops import int_matmul_block_k
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    M = HUBERT_CLIPS * HUBERT_FRAMES
+    s_aq = torch.tensor([6.0 / 127], device=dev)  # the A2Q init's act scale
+    pro = dict(aq_scale=s_aq, q_lo=-128, q_hi=127, q_shift=0)
+    entry, at = None, {}
+    for (K, N), site in (((1280, 5120), "mlp.w_in"), ((1280, 1280), "attn.wq/wk/wv/wo"),
+                         ((5120, 1280), "mlp.w_out"), (HUBERT_HEAD, "head")):
+        w = a2q_bounded_weights(gen, K, N, dev)
+        w_cm = w.t().contiguous().t()  # column-major for cuBLASLt
+        scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+        bias = torch.randn((N,), generator=gen, device=dev) * 0.1
+        kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
+        x = torch.randn((M, K), generator=gen, device=dev)
+        codes = prologue_codes(x, s_aq, -128, 127, 0)
+        lib_ms = events_ms(lambda: torch._int_mm(codes, w_cm), 10)
+        if site == "mlp.w_out":  # int8 codes in, as the chained edge hands them over
+            x, xkw = codes, kw
+        else:
+            xkw = {**kw, **pro}
+        y = int_matmul_plain(x, w, scale, bias, **xkw)
+        if site == "mlp.w_in":
+            # w_out's quantizer: one scale for the tensor, gelu's range over 127 codes
+            out_scale = torch.full((N,), y.clamp_min(0).max().item() / 127, device=dev)
+            req = dict(out_scale=out_scale, r_lo=-128, r_hi=127, r_shift=0, act_fn="gelu",
+                       cast_dtype=torch.bfloat16)
+            got = int_matmul_cuda(x, w, scale, bias, **xkw, **req)
+            torch.cuda.synchronize()
+            want = int_matmul_plain(x, w, scale, bias, **xkw, **req)
+            diff = got.to(torch.int32) - want.to(torch.int32)
+            ties = requant_ties(y, out_scale, "gelu", torch.bfloat16)
+            n_diff = int((diff != 0).sum())
+            if diff.abs().max().item() > 1 or (diff != 0)[~ties].any():
+                raise AssertionError(f"int_matmul gelu requant M={M} K={K} N={N}: {n_diff} codes "
+                                     "differ from plain, some not one apart at a rounding tie")
+            ms = events_ms(lambda: int_matmul_cuda(x, w, scale, bias, **xkw, **req), 10)
+            pro_ms = events_ms(lambda: int_matmul_cuda(x, w, scale, bias, **xkw), 10)
+            plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, bias, **xkw, **req), 2)
+            b_ms, b_by = bound_ms(4 * M * K + K * N + 12 * N + M * N, 2 * M * K * N,
+                                  INT8_OPS_PER_S)
+            print(f"int_matmul gelu requant ({site}: prologue + bias + gelu in bf16 -> s8) M={M} "
+                  f"K={K} N={N}: {n_diff} of {M * N} codes one apart from plain, all at "
+                  f"rounding ties ({int(ties.sum())} ties); {len(torch.unique(got))} distinct "
+                  f"codes; kernel_ms {ms:.4f} prologue-only kernel_ms {pro_ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} library_ms(_int_mm) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by})",
+                  flush=True)
+            entry = {"name": "int_matmul[gelu requant]", "route": "cuda",
+                     "source": "src/repro_torch/csrc/int_matmul.cu",
+                     "replaces": "src/repro/kernels/int_matmul.py:300",
+                     "at": "hubert-xlarge mlp.w_in, M=8000 K=1280 N=5120: fp32 x through the "
+                           "prologue, int16 carry, bias, gelu replayed in fp32 after a bf16 "
+                           "cast, signed 8-bit codes out",
+                     "max_abs_err": float(diff.abs().max().item()), "codes_off_by_one": n_diff,
+                     "ms": ms, "prologue_only_ms": pro_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "at_hubert": at}
+            continue
+        got = int_matmul_cuda(x, w, scale, bias, **xkw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, y):
+            raise AssertionError(f"int_matmul hubert {site} M={M} K={K} N={N}: kernel != plain")
+        ms = events_ms(lambda: int_matmul_cuda(x, w, scale, bias, **xkw), 10)
+        plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, bias, **xkw), 2)
+        b_ms, b_by = bound_ms(x.element_size() * M * K + K * N + 12 * N + 4 * M * N,
+                              2 * M * K * N, INT8_OPS_PER_S)
+        print(f"int_matmul hubert {site} ({'int8 x' if site == 'mlp.w_out' else 'prologue'}) "
+              f"M={M} K={K} N={N}: equal to plain, kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms(_int_mm) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by})", flush=True)
+        at[f"{site} M={M} K={K} N={N}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                           "bound_by": b_by, "library_ms": lib_ms}
+    return entry
+
+
 def _quantize(pool, bits):
     """Integer pool of ``pool``'s values: codes (packed for int4) and fp32
     per-token scales, by the layers' own quantize-on-write."""
@@ -850,6 +1141,7 @@ def check_paged_mla_attention_int(dev) -> list:
 
 def serve(dev):
     from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
     from repro_torch.kernels.int_matmul import int_matmul_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.models.lm import Runtime, apply_lm, init_lm
@@ -859,11 +1151,13 @@ def serve(dev):
     phase("4: serve full-width smollm-135m on the kernels")
     arch = get_arch("smollm-135m")
     t0 = time.perf_counter()
+    a2q_quantize_cuda.launches = 0
     params = deploy_params(init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev),
                            arch.quant)
     torch.cuda.synchronize()
+    deploys = a2q_quantize_cuda.launches
     print(f"init + deploy of {arch.name} ({arch.n_layers} layers, d_model {arch.d_model}): "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
+          f"{time.perf_counter() - t0:.2f}s, {deploys} a2q_quantize launches", flush=True)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(8)]
     kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev)
@@ -897,6 +1191,10 @@ def serve(dev):
                 not np.isfinite(r.margins).all():
             raise AssertionError(f"bad output: {o} margins {r.margins}")
     print(f"req 0 tokens: {outs[0]}", flush=True)
+    if deploys != 7 * arch.n_layers:
+        raise AssertionError(f"{deploys} a2q_quantize launches at deploy, expected "
+                             f"{7 * arch.n_layers}")
+    launches["a2q_quantize"] = deploys
 
     phase("5: same weights and prompts on the dequant bf16 path; reduced model card vs CPU")
     toks = torch.as_tensor(np.stack(prompts), device=dev)
@@ -1022,11 +1320,12 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
         engine.reset_stats()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        int_matmul_cuda.launches = 0
+        int_matmul_cuda.launches = int_matmul_cuda.prologue_launches = 0
         attn.launches = 0
         outs = engine.generate(prompts, max_new=32)
         torch.cuda.synchronize()
-        launches = {"int_matmul": int_matmul_cuda.launches, name: attn.launches}
+        launches = {"int_matmul": int_matmul_cuda.launches,
+                    "int_matmul[prologue]": int_matmul_cuda.prologue_launches, name: attn.launches}
         tp = engine.throughput()
         peak = torch.cuda.max_memory_allocated() / 1e9
         print(f"[{tag}] prefill {tp['prefill_tok_s']:.2f} tok/s | decode {tp['decode_tok_s']:.2f} "
@@ -1052,12 +1351,13 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
                                        int_chain=True, decode_kernel=True)
         ticks = tp["decode_dispatches"]
         if launches["int_matmul"] != per_forward * (ticks + chunks) or \
+                launches["int_matmul[prologue]"] != launches["int_matmul"] or \
                 launches[name] != n_attn * ticks or ticks < 31 or \
                 tp["int_chain_requant_dispatches"] != 0 or tp["int_chain_folded"] != per_forward:
             raise AssertionError(f"int{bits} KV: launches {launches}, chain report {tp} do not "
                                  f"show {per_forward} folded int_matmul per forward and {n_attn} "
                                  f"{name} per decode tick")
-        counts["int_matmul[prologue]"] += launches["int_matmul"]
+        counts["int_matmul[prologue]"] += launches["int_matmul[prologue]"]
         counts[f"{name}[int{bits}]"] = launches[name]
         # chaining is a pure dispatch fusion: the unchained run on the same pools
         l_q = _prompt_logits(params, arch, toks, chained, dev, bits)
@@ -1241,6 +1541,7 @@ def profile_decode(engine, prompts, ticks: int = 4) -> None:
 
 def serve_deepseek(dev):
     from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
     from repro_torch.kernels.int_matmul import int_matmul_cuda
     from repro_torch.kernels.paged_mla_attention import paged_mla_attention_cuda
     from repro_torch.models.lm import Runtime, apply_lm, init_lm
@@ -1255,14 +1556,19 @@ def serve_deepseek(dev):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    a2q_quantize_cuda.launches = 0
     params = build_deepseek(dev, arch)
     torch.cuda.synchronize()
+    deploys = a2q_quantize_cuda.launches
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"init + deploy of {arch.name} cut to {arch.n_layers} layers (d_model {arch.d_model}, "
           f"{arch.stacks[1].moe.n_experts} experts): {time.perf_counter() - t0:.1f}s, "
           f"{n_params / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB on the card, peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {deploys} a2q_quantize launches",
+          flush=True)
+    if deploys == 0:
+        raise AssertionError("deepseek-v3 was deployed without a2q_quantize")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(8)]
     kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev)
@@ -1280,6 +1586,7 @@ def serve_deepseek(dev):
                 "paged_mla_attention": paged_mla_attention_cuda.launches}
     tp = engine.throughput()
     ticks = tp["decode_dispatches"]
+    launches_deploy = {"a2q_quantize": deploys}
     chunks = sum(-(-len(p) // 32) for p in prompts)
     print(f"prefill: {tp['prefill_tokens']} tok in {tp['prefill_s']:.3f}s "
           f"({tp['prefill_tok_s']:.2f} tok/s) | decode: {tp['decode_tokens']} tok in "
@@ -1358,7 +1665,7 @@ def serve_deepseek(dev):
           f"launches on the card", flush=True)
     if not ok or ties or marg > 1e-4 or paged_mla_attention_cuda.launches == 0:
         raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
-    return {"deepseek-v3": launches, "deepseek-v3 int-chain": int_counts}
+    return {"deepseek-v3": {**launches, **launches_deploy}, "deepseek-v3 int-chain": int_counts}
 
 
 def build_rwkv6(dev, arch) -> dict:
@@ -1395,6 +1702,7 @@ def serve_rwkv6(dev) -> dict:
     rwkv6 on the card against the CPU.  Returns the main run's launches by
     kernel variant."""
     from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
     from repro_torch.kernels.int_matmul import int_matmul_cuda
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
     from repro_torch.models.lm import Runtime, apply_lm, init_lm
@@ -1408,14 +1716,19 @@ def serve_rwkv6(dev) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    a2q_quantize_cuda.launches = 0
     params = build_rwkv6(dev, arch)
     torch.cuda.synchronize()
+    deploys = a2q_quantize_cuda.launches
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"init + deploy of {arch.name} ({n} layers, d_model {arch.d_model}, d_ff "
           f"{arch.stacks[0].d_ff}, vocab {arch.vocab}): {time.perf_counter() - t0:.1f}s, "
           f"{n_params / 1e9:.3f} B params, {n_bytes / 1e9:.2f} GB on the card, peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {deploys} a2q_quantize launches",
+          flush=True)
+    if deploys != per_forward:
+        raise AssertionError(f"{deploys} a2q_quantize launches at deploy, expected {per_forward}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(8)]
     kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev)
@@ -1428,10 +1741,11 @@ def serve_rwkv6(dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         int_matmul_cuda.launches = int_matmul_cuda.requant_launches = 0
-        rwkv6_scan_cuda.launches = 0
+        int_matmul_cuda.prologue_launches = rwkv6_scan_cuda.launches = 0
         outs = engine.generate(prompts, max_new=32)
         torch.cuda.synchronize()
         launches = {"int_matmul": int_matmul_cuda.launches,
+                    "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
                     "int_matmul[requant]": int_matmul_cuda.requant_launches,
                     "rwkv6_scan": rwkv6_scan_cuda.launches}
         tp = engine.throughput()
@@ -1451,13 +1765,16 @@ def serve_rwkv6(dev) -> dict:
     main, outs, launches, tp = run("int-chain (main path)", int_chain=True)
     ticks = tp["decode_dispatches"]
     forwards = ticks + chunks
-    if launches != {"int_matmul": per_forward * forwards, "int_matmul[requant]": n * forwards,
-                    "rwkv6_scan": n * forwards} or ticks < 31 or \
+    if launches != {"int_matmul": per_forward * forwards,
+                    "int_matmul[prologue]": (per_forward - n) * forwards,
+                    "int_matmul[requant]": n * forwards, "rwkv6_scan": n * forwards} or \
+            ticks < 31 or \
             (tp["int_chain_folded"], tp["int_chain_chained"],
              tp["int_chain_requant_dispatches"], tp["int_chain_fallback"]) != (per_forward, n, 0, 0):
         raise AssertionError(f"launches {launches} over {forwards} forwards, chain report {tp}: "
-                             f"expected {per_forward} int_matmul ({n} requant) and {n} rwkv6_scan "
-                             f"a forward, {per_forward} folded / {n} chained / 0 standalone")
+                             f"expected {per_forward} int_matmul ({per_forward - n} prologue, {n} "
+                             f"requant) and {n} rwkv6_scan a forward, {per_forward} folded / {n} "
+                             "chained / 0 standalone")
     cache = main.cache
     print(f"launches on the main path: {launches} over {ticks} decode ticks and {chunks} prefill "
           f"chunks = {per_forward} int_matmul ({n} requant) and {n} rwkv6_scan a forward; "
@@ -1520,9 +1837,243 @@ def serve_rwkv6(dev) -> dict:
             not int_matmul_cuda.requant_launches:
         raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
     return {"rwkv6-7b int-chain": {
+        "a2q_quantize": deploys,
         "int_matmul[requant]": launches["int_matmul[requant]"],
-        "int_matmul[prologue]": launches["int_matmul"] - launches["int_matmul[requant]"],
+        "int_matmul[prologue]": launches["int_matmul[prologue]"],
+        "int_matmul": launches["int_matmul"] - launches["int_matmul[prologue]"],  # int8 x in
         "rwkv6_scan": launches["rwkv6_scan"]}}
+
+
+def build_hubert(dev, arch) -> dict:
+    """Full-size random A2Q params of ``arch`` (hubert-xlarge), each block
+    drawn with the package's own initializer and deployed to int8 (on the
+    card: every A2Q matrix through the ``a2q_quantize`` kernel) before the
+    next is drawn, so no whole fp32 tree exists."""
+    from repro_torch.nn.linear import init_linear
+    from repro_torch.nn.norms import init_norm
+    from repro_torch.nn.transformer import _init_block
+    from repro_torch.serve.engine import deploy_params
+
+    q, d = arch.quant, arch.d_model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"stacks": {}}
+    for i, s in enumerate(arch.stacks):
+        layers = []
+        for _ in range(s.count):
+            layers.append(deploy_params(_init_block(gen, arch, s), q))
+        params["stacks"][str(i)] = _stack_layers(*layers)
+        del layers
+    params["final_norm"] = init_norm(d, arch.norm, device=dev)
+    params["head"] = deploy_params(init_linear(gen, d, arch.n_classes, q, boundary=True), q)
+    return params
+
+
+def profile_forward(fn) -> float:
+    """Device time of one call of ``fn`` by kernel, from a torch.profiler
+    trace (CUPTI).  Prints the kernels' device time and the largest kernels;
+    returns the total in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
+        dev[e.key] = dev.get(e.key, 0.0) + t / 1e3
+    total = sum(dev.values())
+    print(f"profiled forward: kernels' device time {total:.3f} ms ({len(dev)} kernels)",
+          flush=True)
+    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.3f} ms  {ms / max(total, 1e-9):6.1%}  {name[:110]}", flush=True)
+    return total
+
+
+def w_out_code_diffs(params, arch, frames) -> tuple[int, int, bool]:
+    """One ``int_chain`` encode with every layer's non-gated MLP probed: the
+    int8 codes ``mlp.w_in``'s gelu requant epilogue hands ``mlp.w_out``
+    against the codes the unchained path makes of the same input (the fp
+    output, the host gelu, ``w_out``'s own act-quant).  Returns (codes that
+    differ, codes compared, whether each differing code is one apart at a
+    rounding tie of the gelu replay, ``requant_ties``)."""
+    import repro_torch.nn.transformer as transformer
+    from repro_torch.core.quantizers import act_quant_int
+    from repro_torch.kernels.int_matmul import requant_ties
+    from repro_torch.kernels.ref import gelu_tanh
+    from repro_torch.models.lm import Runtime, apply_lm
+    from repro_torch.nn.linear import apply_linear, chain_out_aq
+
+    apply_mlp = transformer._apply_mlp
+    seen = [0, 0, True]
+
+    def probe(p, x, q, cd, int_forward=False, int_chain=False):
+        chained = apply_linear(p["w_in"], x, q, compute_dtype=cd, int_forward=True,
+                               int_chain=True, out_aq=chain_out_aq(p["w_out"], q, act_fn="gelu"))
+        h = apply_linear(p["w_in"], x, q, compute_dtype=cd, int_forward=True)
+        h = gelu_tanh(h.to(torch.float32)).to(cd)
+        codes, scale = act_quant_int({"log2_scale": p["w_out"]["aq"]["log2_scale"]},
+                                     h.to(torch.float32), q.act_bits, signed=True)
+        diff = chained.codes.to(torch.float32) - codes
+        if (diff != 0).any():
+            N = h.shape[-1]
+            ties = requant_ties(h.reshape(-1, N), scale.reshape(-1).expand(N), "gelu", cd)
+            seen[2] &= bool(diff.abs().max() <= 1) and not (diff != 0).reshape(-1, N)[~ties].any()
+        seen[0] += int((diff != 0).sum())
+        seen[1] += codes.numel()
+        return apply_mlp(p, x, q, cd, int_forward, int_chain)
+
+    transformer._apply_mlp = probe
+    try:
+        apply_lm(params, arch, frontend_embeds=frames, rt=Runtime(int_chain=True))
+    finally:
+        transformer._apply_mlp = apply_mlp
+    return seen[0], seen[1], seen[2]
+
+
+def encode_hubert(dev) -> dict:
+    """Phases 4f and 5f: full-size hubert-xlarge deployed on the card through
+    a2q_quantize and encoded on ``--int-chain`` through the port's
+    ``build_prefill_step`` / ``apply_lm(frontend_embeds=...)``: every
+    attention on flash_attention, every deployed linear on int_matmul,
+    mlp.w_in's gelu requant epilogue handing int8 codes to mlp.w_out; held
+    against the unchained int-forward encode and the dequant path; then
+    reduced hubert on the card against the CPU.  Returns the main run's
+    launches by kernel variant."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.models.lm import Runtime, apply_lm, init_lm
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.nn.module import tree_to
+    from repro_torch.serve.engine import deploy_params
+
+    phase("4f: encode full-size hubert-xlarge on --int-chain (a2q_quantize deploy, "
+          "flash_attention, gelu requant)")
+    arch = get_arch("hubert-xlarge")
+    n = arch.n_layers
+    per_forward = 6 * n + 1  # wq, wk, wv, wo, w_in, w_out a layer, and the head
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a2q_quantize_cuda.launches = 0
+    t0 = time.perf_counter()
+    params = build_hubert(dev, arch)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    deploys = a2q_quantize_cuda.launches
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"init + deploy of {arch.name} ({n} layers, d_model {arch.d_model}, d_ff "
+          f"{arch.stacks[0].d_ff}, {arch.n_classes} classes): {build_s:.1f}s, "
+          f"{n_params / 1e9:.4f} B params, {n_bytes / 1e9:.3f} GB on the card, peak allocated "
+          f"while building {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {deploys} "
+          f"a2q_quantize launches", flush=True)
+    if deploys != per_forward:
+        raise AssertionError(f"{deploys} a2q_quantize launches at deploy, expected {per_forward}")
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal((HUBERT_CLIPS, HUBERT_FRAMES, arch.d_model),
+                                                  dtype=np.float32)).to(dev, torch.bfloat16)
+    rt = Runtime(int_chain=True)
+    step = build_prefill_step(arch, rt)
+    step(params, {"frontend_embeds": frames[:1, :64]})  # warm-up: first-call library set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    int_matmul_cuda.launches = int_matmul_cuda.requant_launches = 0
+    int_matmul_cuda.prologue_launches = flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    logits = apply_lm(params, arch, frontend_embeds=frames, rt=rt)[0]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"int_matmul": int_matmul_cuda.launches,
+                "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
+                "int_matmul[requant]": int_matmul_cuda.requant_launches,
+                "flash_attention": flash_attention_cuda.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rep = rt.chain_report
+    report = tuple(len(rep[k]) for k in ("folded", "chained", "standalone", "fallback"))
+    print(f"encode of {HUBERT_CLIPS} clips x {HUBERT_FRAMES} frames: {first_s:.3f}s; peak "
+          f"allocated while encoding {peak:.2f} GB; launches {launches}; chain report "
+          f"{report[0]} folded, {report[1]} chained, {report[2]} standalone, {report[3]} "
+          f"fallback", flush=True)
+    if launches != {"int_matmul": per_forward, "int_matmul[prologue]": per_forward - n,
+                    "int_matmul[requant]": n, "flash_attention": n} \
+            or report != (per_forward, n, 0, 0) or rep["chained"] != ["mlp.w_in"] * n:
+        raise AssertionError(f"launches {launches}, chain report {report}: expected {per_forward} "
+                             f"int_matmul ({per_forward - n} prologue, {n} gelu requant, {n} "
+                             f"int8 x), {n} flash_attention, {per_forward} folded / {n} chained / "
+                             "0 standalone")
+    if logits.shape != (HUBERT_CLIPS, HUBERT_FRAMES, arch.n_classes) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"bad logits: {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        apply_lm(params, arch, frontend_embeds=frames, rt=rt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    frames_n = HUBERT_CLIPS * HUBERT_FRAMES
+    print(f"encode seconds {[round(t, 4) for t in times]}: {frames_n / np.median(times):.1f} "
+          f"frames/s ({frames_n * 0.02 / np.median(times):.1f} s of audio a second), median of 3",
+          flush=True)
+    last = step(params, {"frontend_embeds": frames})
+    if not torch.equal(last, logits[:, -1:]):
+        raise AssertionError("build_prefill_step's logits are not the last frame's")
+    kernel_ms = profile_forward(lambda: apply_lm(params, arch, frontend_embeds=frames, rt=rt))
+    print(f"kernel ms a forward {kernel_ms:.3f}; prefill step gives the last frame's logits "
+          f"(max |logit| {logits.float().abs().max().item():.4g})", flush=True)
+
+    phase("5f: hubert-xlarge chained vs unchained and on the dequant path; reduced hubert "
+          "card vs CPU")
+    l_c = logits.float()
+    l_u = apply_lm(params, arch, frontend_embeds=frames, rt=Runtime(int_forward=True))[0].float()
+    differ, compared, at_ties = w_out_code_diffs(params, arch, frames)
+    cu_diff = (l_c - l_u).abs().max().item()
+    cu_eps = 2.0**-6 * l_u.abs().max().item()  # two bf16 ulps at the top of the logit range
+    print(f"chained vs unchained: logits bitwise equal {torch.equal(l_c, l_u)}, max |diff| "
+          f"{cu_diff:.4g} (bound {cu_eps:.4g} where codes differ); w_out input codes differing "
+          f"{differ} of {compared}, each one apart at a gelu rounding tie {at_ties}", flush=True)
+    if not (torch.equal(l_c, l_u) if differ == 0 else at_ties and cu_diff <= cu_eps):
+        raise AssertionError(f"hubert-xlarge: chained and unchained encodes differ ({differ} "
+                             f"w_out input codes, at ties {at_ties}; logits max |diff| {cu_diff})")
+    del l_u
+    l_deq = apply_lm(params, arch, frontend_embeds=frames)[0].float()
+    scale = l_deq.abs().max().item()
+    diff = (l_c - l_deq).abs().max().item()
+    eps = 2.0**-6 * scale  # two bf16 ulps at the top of the logit range
+    agree = (l_c.argmax(-1) == l_deq.argmax(-1)).float().mean().item()
+    print(f"logits, int-chain vs dequant path: max |diff| {diff:.4g}, max |logit| {scale:.4g}, "
+          f"bound {eps:.4g}; framewise argmax agreement {agree:.4f}", flush=True)
+    if not (np.isfinite(diff) and diff <= eps):
+        raise AssertionError(f"int-chain logits off the dequant path by {diff} > {eps}")
+    del params, logits, l_c, l_deq
+    torch.cuda.empty_cache()
+    small = reduced(arch)
+    sp = deploy_params(init_lm(torch.Generator().manual_seed(0), small, device="cpu"), small.quant)
+    x = torch.from_numpy(rng.standard_normal((2, 40, small.d_model), dtype=np.float32))
+    small_rt = Runtime(int_chain=True)
+    cpu_l = apply_lm(sp, small, frontend_embeds=x, rt=small_rt)[0]
+    flash_attention_cuda.launches = int_matmul_cuda.requant_launches = 0
+    gpu_l = apply_lm(tree_to(sp, dev), small, frontend_embeds=x.to(dev), rt=small_rt)[0].cpu()
+    err = (gpu_l - cpu_l).abs().max().item()
+    tol = 1e-4 * cpu_l.abs().max().item()
+    print(f"reduced hubert-xlarge card vs CPU (int-chain, 2 x 40 frames): max |diff| {err:.3g} "
+          f"(tol {tol:.3g}), {flash_attention_cuda.launches} flash_attention and "
+          f"{int_matmul_cuda.requant_launches} gelu requant launches on the card", flush=True)
+    if not err <= tol or not flash_attention_cuda.launches or \
+            not int_matmul_cuda.requant_launches:
+        raise AssertionError(f"reduced hubert card vs CPU: max |diff| {err} > {tol}")
+    return {"hubert-xlarge int-chain": {
+        "a2q_quantize": deploys,
+        "int_matmul[gelu requant]": launches["int_matmul[requant]"],
+        "int_matmul[prologue]": launches["int_matmul[prologue]"],  # the gelu requant's included
+        "int_matmul": launches["int_matmul"] - launches["int_matmul[prologue]"],  # int8 x in
+        "flash_attention": launches["flash_attention"]}}
 
 
 def _leaves(tree):
@@ -1563,7 +2114,8 @@ def main() -> int:
     entries = [check_int_matmul(dev), check_int_matmul_prologue(dev),
                check_int_matmul_requant(dev), check_paged_attention(dev),
                *check_paged_attention_int(dev), check_paged_mla_attention(dev),
-               *check_paged_mla_attention_int(dev), check_rwkv6_scan(dev)]
+               *check_paged_mla_attention_int(dev), check_rwkv6_scan(dev),
+               check_a2q_quantize(dev), check_flash_attention(dev), check_int_matmul_hubert(dev)]
     entries[0]["at_deepseek"] = check_int_matmul_deepseek(dev)
     torch.cuda.empty_cache()
     by_path = serve(dev)
@@ -1571,6 +2123,8 @@ def main() -> int:
     by_path.update(serve_deepseek(dev))
     torch.cuda.empty_cache()  # deepseek's params are gone before rwkv6 is built
     by_path.update(serve_rwkv6(dev))
+    torch.cuda.empty_cache()
+    by_path.update(encode_hubert(dev))
     for e in entries:
         counts = {path: n[e["name"]] for path, n in by_path.items() if e["name"] in n}
         e["launches"] = sum(counts.values())

@@ -97,12 +97,17 @@ def apply_a2q(params: dict, bits: int, acc_bits: int, input_bits: int, input_sig
 def a2q_int_weights(params: dict, bits: int, acc_bits: int, input_bits: int, input_signed: bool):
     """(integer weights as floats, per-channel scale) — the deployable
     artifacts; ``||w_int||_1 <= g/s <= (2**(P-1)-1) * 2**(1_signed - N)``."""
-    v = params["v"]
     n, p = int_range(bits, signed=True)
     g_over_s, s = _effective_gs(params, acc_bits, input_bits, input_signed)
+    return a2q_codes(params["v"], g_over_s, n, p)[0], s
+
+
+def a2q_codes(v: torch.Tensor, g_over_s: torch.Tensor, n: int, p: int):
+    """(integer weights as floats, per-channel l1 of ``v``): ``clip(trunc(g/s
+    * v / ||v||_1), n, p)``, the arithmetic of ``a2q_int_weights`` and of the
+    fused quantizer's plain version."""
     l1_v = torch.clamp_min(_channel_sum(v.abs()), _EPS)
-    q = clip(torch.trunc(g_over_s * v / l1_v), n, p)
-    return q, s
+    return clip(torch.trunc(g_over_s * v / l1_v), n, p), l1_v
 
 
 def a2q_penalty(params: dict, acc_bits: int, input_bits: int, input_signed: bool) -> torch.Tensor:

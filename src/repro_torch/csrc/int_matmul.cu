@@ -26,13 +26,19 @@
 //          __fadd_rn keep nvcc from contracting them into an FMA, so the
 //          scale-only output is bit-identical to the plain version), else
 //          the raw int32 accumulator;
-//   codes  (requant, `osc` given; rwkv6's cm.wk -> relu^2 -> cm.wv edge of
-//          --int-chain) the flush's fp32 `out` cast to the layer's compute
-//          dtype (__float2bfloat16_rn for bf16), relu^2 replayed there (the
-//          square of a bf16 value is exact in fp32 and is rounded once back to
-//          bf16), back to fp32, then clip(rint(y / osc[n]), lo, hi) - shift as
-//          int8: the next linear's act-quant, dividing (__fdiv_rn) and
-//          rounding half to even, so the codes equal the unchained path's.
+//   codes  (requant, `osc` given; the chained edges of --int-chain: rwkv6's
+//          cm.wk -> relu^2 -> cm.wv and the non-gated MLP's w_in -> gelu ->
+//          w_out) the flush's fp32 `out` cast to the layer's compute dtype
+//          (__float2bfloat16_rn for bf16), the activation replayed: relu^2
+//          there (the square of a bf16 value is exact in fp32 and is rounded
+//          once back to bf16), or the tanh gelu in fp32, written out op by op
+//          as the host computes it (x * (0.5 * (1 + tanhf(c * (x + 0.044715 *
+//          x^3))))), each op rounded once with __fmul_rn/__fadd_rn so nvcc
+//          contracts nothing into an FMA, then rounded once to bf16; back to
+//          fp32, then clip(rint(y / osc[n]), lo, hi) - shift as int8: the next
+//          linear's act-quant, dividing (__fdiv_rn) and rounding half to even,
+//          so the codes equal the unchained path's wherever tanhf equals
+//          PyTorch's tanh.
 //          The requant reads the same weights and writes a quarter of the
 //          fp32 output's bytes, so its bound is the scale-only kernel's.
 //
@@ -85,7 +91,14 @@ constexpr int PITCH = BKC + 16;          // bytes per staged row: 16-byte aligne
                                          // 20 words -> conflict-free 16-byte reads
 
 enum Mode { kExact = 0, kWrap = 1, kSaturate = 2 };
-enum Act { kActNone = 0, kActRelu2 = 1 };
+enum Act { kActNone = 0, kActRelu2 = 1, kActGelu = 2 };
+
+// jax.nn.gelu's tanh form in the host's op order, each op rounded once.
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
+  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(x, __fmul_rn(0.044715f, x3)));
+  return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
+}
 
 __device__ __forceinline__ int add_wrap32(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -162,6 +175,9 @@ __device__ __forceinline__ int8_t requant_code(float y, float osc, float lo, flo
   if (act == kActRelu2) {
     y = fmaxf(y, 0.0f);
     y = __fmul_rn(y, y);
+    if (cast_bf16) y = __bfloat162float(__float2bfloat16_rn(y));
+  } else if (act == kActGelu) {
+    y = gelu_tanh(y);
     if (cast_bf16) y = __bfloat162float(__float2bfloat16_rn(y));
   }
   return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(y, osc)), lo), hi)) -
@@ -344,8 +360,9 @@ int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
 // else `out_f` when `scale` is given, else `out_i`.  With `aq` (one fp32
 // value on the device) `x` is fp32 and the prologue quantizes it to
 // [q_lo, q_hi] minus `q_shift`; else `x` is int8.  With `osc` ((N,) fp32,
-// needs `scale`) the epilogue replays `act` (0 none, 1 relu^2) in bf16 when
-// `cast_bf16`, else fp32, and requantizes to [r_lo, r_hi] minus `r_shift`.
+// needs `scale`) the epilogue replays `act` (0 none, 1 relu^2 in the cast
+// dtype, 2 tanh gelu in fp32) after a cast to bf16 when `cast_bf16` (else
+// fp32), and requantizes to [r_lo, r_hi] minus `r_shift`.
 extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
                                  int K, int bk_ref, int mode, int acc_bits,
                                  int spill16, const void* scale,

@@ -30,7 +30,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("int_matmul", "paged_attention", "paged_mla_attention", "rwkv6_scan")
+SOURCES = ("int_matmul", "paged_attention", "paged_mla_attention", "rwkv6_scan",
+           "a2q_quantize", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

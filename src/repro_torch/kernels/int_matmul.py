@@ -12,9 +12,10 @@ hi)``, minus 128 for unsigned 8-bit codes), the chain-break entry of
 ``--int-chain``, and the requantizing epilogue that hands int8 codes to the
 next linear (``out_scale``: the activation replayed in ``cast_dtype``, then
 ``clip(round(y / out_scale), lo, hi)``, minus 128 for unsigned 8-bit codes),
-the chained edge of ``--int-chain`` (rwkv6's ``cm.wk -> relu^2 -> cm.wv``).
-The replay covers ``act_fn`` ``None`` and ``"relu2"``; ``"gelu"`` (the
-non-gated MLP) is not ported yet.
+the chained edge of ``--int-chain`` (rwkv6's ``cm.wk -> relu^2 -> cm.wv``,
+the non-gated MLP's ``w_in -> gelu -> w_out``).  The replay covers
+``act_fn`` ``None``, ``"relu2"`` and ``"gelu"`` (``ref.gelu_tanh`` in fp32,
+cast back to ``cast_dtype``).
 
 Both versions replay the carry at the reference's K-tile boundaries
 ``block_k`` (the public wrapper passes ``min(512, round_up(K, 128))``), so
@@ -30,13 +31,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ref import exact_product, saturate_bits, wrap_bits
+from repro_torch.kernels.ref import (_SQRT_2_OVER_PI, exact_product, gelu_tanh, saturate_bits,
+                                    wrap_bits)
 
 __all__ = ["MODES", "ACTS", "CAST_DTYPES", "int_matmul_plain", "int_matmul_cuda", "prologue_codes",
-           "requant_codes"]
+           "requant_codes", "requant_ties"]
 
 MODES = {"exact": 0, "wrap": 1, "saturate": 2}
-ACTS = {None: 0, "relu2": 1}  # the requant epilogue's activation replays
+ACTS = {None: 0, "relu2": 1, "gelu": 2}  # the requant epilogue's activation replays
 CAST_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # and the dtype they run in
 
 
@@ -52,14 +54,40 @@ def requant_codes(y: torch.Tensor, out_scale: torch.Tensor, lo: int, hi: int, sh
                   act_fn=None, cast_dtype=torch.float32) -> torch.Tensor:
     """The requant epilogue's int8 codes of the fp32 flush ``y (M, N)``: the
     cast to ``cast_dtype``, ``act_fn`` replayed there (``relu2``: relu, then
-    the square, rounded once to ``cast_dtype``), back to fp32, then
+    the square, rounded once to ``cast_dtype``; ``gelu``: ``gelu_tanh`` in
+    fp32, rounded once to ``cast_dtype``), back to fp32, then
     ``clip(round(y / out_scale), lo, hi) - shift`` (dividing, rounding half
     to even), as the layer code and the consumer's act-quant compute it."""
     y = y.to(cast_dtype)
     if act_fn == "relu2":
         y = torch.square(torch.relu(y))
+    elif act_fn == "gelu":
+        y = gelu_tanh(y.to(torch.float32)).to(cast_dtype)
     y = y.to(torch.float32)
     return (torch.clamp(torch.round(y / out_scale[None, :]), lo, hi) - shift).to(torch.int8)
+
+
+def requant_ties(y: torch.Tensor, out_scale: torch.Tensor, act_fn=None,
+                 cast_dtype=torch.float32) -> torch.Tensor:
+    """Where another replay of the requant epilogue may round the fp32
+    flush ``y (M, N)`` to a code one apart from ``requant_codes``': only
+    the gelu replay calls a library function (``tanh``), and a ``tanh``
+    within 4 of its own ulps of ``torch.tanh``'s (CUDA's ``tanhf`` and
+    PyTorch's are each within 2 ulps of the exact value) moves nothing
+    else.  Every op of ``gelu_tanh`` after the ``tanh``, the cast to
+    ``cast_dtype``, the division and the rounding are monotone in it, so the
+    codes of the two ends of that ``tanh`` interval bound every such
+    replay's code; an element is a tie where they differ.  The None and
+    relu2 replays have no ties: both versions round the same IEEE ops."""
+    if act_fn != "gelu":
+        return torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+    x = y.to(cast_dtype).to(torch.float32)
+    t = torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x)))
+    dt = 4 * torch.ldexp(torch.ones_like(t), torch.frexp(t).exponent - 24)
+    lo, hi = (torch.round((x * (0.5 * (1.0 + torch.clamp(t + e, -1.0, 1.0))))
+                          .to(cast_dtype).to(torch.float32) / out_scale[None, :])
+              for e in (-dt, dt))
+    return lo != hi
 
 
 def int_matmul_plain(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
@@ -129,8 +157,9 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
     replays ``act_fn`` in ``cast_dtype`` and requantizes to int8 codes in
     ``[r_lo, r_hi]`` minus ``r_shift``.  Returns int8 ``(M, N)`` with
     ``out_scale``, fp32 with ``scale``, else int32.  Every launch adds one to
-    ``int_matmul_cuda.launches``, and a requant launch also to
-    ``int_matmul_cuda.requant_launches``."""
+    ``int_matmul_cuda.launches``, a launch with the prologue also to
+    ``int_matmul_cuda.prologue_launches``, and one with the requant epilogue
+    to ``int_matmul_cuda.requant_launches``."""
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
@@ -186,9 +215,11 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
     if err != 0:
         raise RuntimeError(f"int_matmul kernel launch failed: cudaError {err}")
     int_matmul_cuda.launches += 1
+    int_matmul_cuda.prologue_launches += aq_scale is not None
     int_matmul_cuda.requant_launches += out_scale is not None
     return out
 
 
 int_matmul_cuda.launches = 0
+int_matmul_cuda.prologue_launches = 0
 int_matmul_cuda.requant_launches = 0

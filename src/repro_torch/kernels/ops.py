@@ -13,7 +13,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.a2q import _effective_gs
 from repro_torch.core.bounds import int_range
+from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda, a2q_quantize_plain
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
 from repro_torch.kernels.paged_mla_attention import (
@@ -22,8 +25,8 @@ from repro_torch.kernels.paged_mla_attention import (
 )
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
 
-__all__ = ["int_matmul", "paged_attention", "paged_mla_attention", "rwkv6_scan",
-           "int_matmul_block_k"]
+__all__ = ["int_matmul", "a2q_quantize", "flash_attention", "paged_attention",
+           "paged_mla_attention", "rwkv6_scan", "int_matmul_block_k"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -83,12 +86,11 @@ def int_matmul(
     ``out_scale`` (scalar or ``(N,)`` fp32, the next layer's activation
     scale; needs ``scale`` and ``mode="exact"``) engages the requantizing
     epilogue: the rescaled accumulator is cast to ``cast_dtype`` (fp32 or
-    bf16), ``act_fn`` (``None`` or ``"relu2"``) is replayed there as the
-    layer code computes it, and the result is quantized to ``out_bits``/
-    ``out_signed`` codes (``clip(round(y / out_scale))``) in the same flush;
-    the op returns int8, unsigned 8-bit targets symmetrized (``q - 128``).
-    Oracle: ``ref.ref_int_matmul_requant``.  ``act_fn="gelu"`` (the
-    non-gated MLP) is not ported yet and raises."""
+    bf16), ``act_fn`` (``None``, ``"relu2"`` or ``"gelu"``) is replayed as
+    the layer code computes it, and the result is quantized to
+    ``out_bits``/``out_signed`` codes (``clip(round(y / out_scale))``) in the
+    same flush; the op returns int8, unsigned 8-bit targets symmetrized
+    (``q - 128``).  Oracle: ``ref.ref_int_matmul_requant``."""
     if mode not in ("exact", "wrap", "saturate"):
         raise ValueError(f"unknown mode {mode!r}")
     if spill_int16 and acc_bits > 16:
@@ -109,11 +111,7 @@ def int_matmul(
             raise ValueError("int_matmul: out_scale requires an epilogue scale")
         if mode != "exact":
             raise ValueError("int_matmul: the requant epilogue needs mode='exact'")
-        if act_fn == "gelu":
-            raise NotImplementedError("int_matmul: the requant epilogue's gelu replay is not "
-                                      "ported yet (the rwkv6 slice ported act_fn None and "
-                                      "'relu2'; gelu goes with hubert's non-gated MLP)")
-        if act_fn not in (None, "relu2"):
+        if act_fn not in (None, "relu2", "gelu"):
             raise ValueError(f"unknown chained activation {act_fn!r}")
         if cast_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"int_matmul: the requant replay runs in fp32 or bf16, not "
@@ -155,6 +153,74 @@ def int_matmul(
     if dev.type == "cpu":
         return int_matmul_plain(x, w, scale, bias, offset, **kw)
     return int_matmul_cuda(x.contiguous(), w.contiguous(), scale, bias, offset, **kw)
+
+
+def a2q_quantize(
+    v: torch.Tensor,
+    t: torch.Tensor,
+    d: torch.Tensor,
+    *,
+    weight_bits: int,
+    acc_bits: int,
+    input_bits: int,
+    input_signed: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused A2Q quantizer for a ``(K, C)`` weight matrix with per-column
+    ``t``/``d`` of shape ``(C,)``: ``q = clip(trunc(g/s * v / ||v||_1))`` at
+    ``weight_bits`` with the Eq. 23 norm cap for a ``acc_bits`` accumulator
+    and ``input_bits``/``input_signed`` inputs.  Returns (int8 ``q``, fp32
+    ``s = 2^d`` ``(C,)``); the reference's dequantized weights are ``q * s``
+    (exact in fp32: ``s`` is a power of two), which the kernel does not
+    write here.  ``g/s`` and ``s`` are computed here, per column,
+    with ``core.a2q``'s own expression, so the kernel and the plain version
+    (``a2q_int_weights``' arithmetic) differ at most in the l1 sum's order.
+    Oracle: ``ref.ref_a2q_quantize``."""
+    if v.ndim != 2 or tuple(t.shape) != (v.shape[1],) or tuple(d.shape) != (v.shape[1],):
+        raise ValueError(f"a2q_quantize: v {tuple(v.shape)} with t {tuple(t.shape)}, d "
+                         f"{tuple(d.shape)}: (K, C) and (C,) expected")
+    if weight_bits > 8:
+        raise ValueError(f"a2q_quantize: {weight_bits}-bit codes do not fit int8")
+    n, p = int_range(weight_bits, True)
+    gs, s = _effective_gs({"t": t.to(torch.float32), "d": d.to(torch.float32)}, acc_bits,
+                          input_bits, input_signed)
+    v = v.to(torch.float32)
+    if v.device.type == "cpu":
+        _, q, _ = a2q_quantize_plain(v, gs, s, n=n, p=p, dequantize=False)
+    else:
+        _, q, _ = a2q_quantize_cuda(v.contiguous(), gs.contiguous(), s.contiguous(), n=n, p=p,
+                                    dequantize=False)
+    return q, s
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Softmax attention of ``q (B, H, Tq, D)`` over ``k, v (B, KV, Tk, D)``
+    (query head ``h`` reads KV head ``h // (H // KV)``; ``KV == H`` is the
+    reference wrapper's contract): queries end-aligned to the keys, causal
+    and sliding-window masks, fp32 softmax, a query with no kept key gives
+    0; out ``(B, H, Tq, D)`` in ``q``'s dtype.  The head views of ``(B, T,
+    H * D)`` projections go in without a copy.  ``q_chunk`` bounds the
+    plain version's scores to ``(B, H, q_chunk, Tk)``; the kernel tiles the
+    queries itself.  Oracle: ``ref.ref_flash_attention``."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or q.shape[0] != k.shape[0] or \
+            q.shape[3] != k.shape[3] or k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not fit")
+    if window is not None and window < 1:
+        raise ValueError("flash_attention: window must be >= 1")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
+                                     q_chunk=q_chunk)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def paged_attention(

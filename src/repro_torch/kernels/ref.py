@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 
 from repro_torch.core.bounds import int_range
@@ -24,6 +26,10 @@ __all__ = [
     "ref_int_matmul_fused",
     "ref_int_matmul_prologue",
     "ref_int_matmul_requant",
+    "gelu_tanh",
+    "ref_a2q_quantize",
+    "flash_keep_mask",
+    "ref_flash_attention",
     "ref_paged_attention",
     "ref_paged_attention_q8",
     "ref_paged_attention_q4",
@@ -110,12 +116,15 @@ def ref_int_matmul_requant(x, w, scale, out_scale, bias=None, offset=None, out_b
     """The requantizing epilogue's semantics (int8-out chaining): the integer
     matmul, ``(acc + offset) * scale (+ bias)``, the activation replay in
     ``cast_dtype`` (``act_fn`` ``None`` is the bare cast round-trip,
-    ``'relu2'`` squares relu in ``cast_dtype``), then the consumer's
+    ``'relu2'`` squares relu in ``cast_dtype``, ``'gelu'`` runs
+    :func:`gelu_tanh` in fp32 and casts back), then the consumer's
     act-quant ``clip(round(y / out_scale))`` to ``out_bits``/``out_signed``,
     as int8 codes; unsigned 8-bit codes come out symmetrized (``q - 128``)."""
     y = ref_int_matmul_fused(x, w, scale, bias, acc_bits=acc_bits, offset=offset).to(cast_dtype)
     if act_fn == "relu2":
         y = torch.square(torch.relu(y))
+    elif act_fn == "gelu":
+        y = gelu_tanh(y.to(torch.float32)).to(cast_dtype)
     elif act_fn is not None:
         raise ValueError(f"unknown chained activation {act_fn!r}")
     lo, hi = int_range(out_bits, out_signed)
@@ -124,6 +133,71 @@ def ref_int_matmul_requant(x, w, scale, out_scale, bias=None, offset=None, out_b
     if not out_signed and out_bits == 8:
         q = q - 128.0
     return q.to(torch.int8)
+
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)  # rounded to fp32 where it meets an fp32 tensor
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default (tanh) form, written out op by op in the
+    order the reference computes it, each op rounded once in ``x``'s dtype:
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))))``.  The
+    non-gated MLP's host gelu, the requant epilogue's plain replay and the
+    CUDA kernel's (``__fmul_rn``/``__fadd_rn`` and ``tanhf``) all follow it,
+    so the chained and unchained paths agree wherever ``tanhf`` equals
+    ``torch.tanh``.  (``F.gelu(approximate="tanh")`` fuses the ops.)"""
+    inner = _SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def ref_a2q_quantize(v, t, d, weight_bits: int, acc_bits: int, input_bits: int,
+                     input_signed: bool):
+    """Fused A2Q weight quantizer on a ``(K, C)`` matrix with per-column
+    ``t``/``d`` ``(C,)``: ``q = clip(trunc(2^(min(t, T) - d) * v / ||v||_1),
+    n, p)`` with ``T = 1_signed + log2(2^(P-1) - 1) + d - N`` (Eq. 23), and
+    the dequantized ``q * 2^d``.  Returns (dequantized fp32, integer weights
+    as int32), as ``a2q_int_weights`` computes them."""
+    n, p = int_range(weight_bits, True)
+    log2_amax = torch.log2(torch.tensor(2.0 ** (acc_bits - 1) - 1.0, dtype=v.dtype,
+                                        device=v.device))
+    T = int(input_signed) + log2_amax + d - input_bits
+    g_over_s = torch.exp2(torch.minimum(t, T) - d)
+    s = torch.exp2(d)
+    l1 = torch.clamp_min(v.abs().sum(0), 1e-12)
+    q = torch.clamp(torch.trunc(g_over_s[None, :] * v / l1[None, :]), n, p)
+    return (q * s[None, :]).to(torch.float32), q.to(torch.int32)
+
+
+def flash_keep_mask(Tq: int, Tk: int, causal: bool, window: Optional[int],
+                    device=None) -> torch.Tensor:
+    """``(Tq, Tk)`` bool: the keys each query keeps, queries end-aligned to
+    the keys (``qpos = i + Tk - Tq``): ``kpos <= qpos`` when ``causal``,
+    ``kpos > qpos - window`` with a ``window``."""
+    qpos = torch.arange(Tq, device=device)[:, None] + (Tk - Tq)
+    kpos = torch.arange(Tk, device=device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def ref_flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Dense softmax attention oracle over ``(B, H, Tq, Dh)`` queries and
+    ``(B, H, Tk, Dh)`` keys/values (KV heads already repeated), fp32 softmax:
+    query positions end-aligned (``qpos = i + Tk - Tq``), a key kept iff
+    ``kpos <= qpos`` when ``causal`` and ``kpos > qpos - window`` with a
+    ``window``.  Out in ``q``'s dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf = q.to(torch.float32) * scale
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, k.to(torch.float32))
+    mask = flash_keep_mask(q.shape[-2], k.shape[-2], causal, window, q.device)
+    scores = torch.where(mask, scores, torch.full_like(scores, -math.inf))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32)).to(q.dtype)
 
 
 def ref_paged_attention(q, kp, vp, bt, lengths, scale: Optional[float] = None,

@@ -1,11 +1,14 @@
-"""Decoder LM assembly: embeddings -> stacks -> final norm -> head.
+"""Model assembly: embeddings or frames -> stacks -> final norm -> head.
 
 Port of ``repro.models.lm`` for token decoders (``family="lm"``) whose stacks
 are ``attn_mlp`` (GQA or MLA), ``moe`` or ``rwkv6`` blocks (rwkv6 reads no
-positions).  The reference's sharding constraints have no counterpart on one
+positions), and for audio encoders (``family="audio"``, hubert): no token
+embedding, precomputed frame embeddings in (the conv feature frontend is a
+stub in the reference too), a boundary ``head`` of ``n_classes`` over every
+frame.  The reference's sharding constraints have no counterpart on one
 device and are dropped; training losses (and with them the
 multi-token-prediction head's forward, which only the loss reads), hymba's
-blocks and the other families are not ported yet.
+blocks and the vision-language family are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,17 +55,23 @@ class Runtime:
 
 def init_lm(gen: torch.Generator, arch: ArchConfig, device="cuda") -> dict:
     """Parameters of ``arch`` drawn from ``gen`` (on the generator's device)
-    and placed on ``device`` — the reference's tree: ``embed``, ``stacks``
-    (leaves stacked ``(count, ...)``), ``final_norm``, ``head`` when untied,
-    and ``mtp`` when ``arch.mtp_depth > 0`` (the multi-token-prediction head
-    of the training loss; serving never reads it)."""
-    if arch.family != "lm":
+    and placed on ``device`` — the reference's tree: ``embed`` (not for
+    audio), ``stacks`` (leaves stacked ``(count, ...)``), ``final_norm``,
+    ``head`` when untied (audio: ``d_model -> n_classes``), and ``mtp`` when
+    ``arch.mtp_depth > 0`` (the multi-token-prediction head of the training
+    loss; serving never reads it)."""
+    if arch.family not in ("lm", "audio"):
         raise NotImplementedError(f"model family {arch.family!r} is not ported yet")
     dev = resolve_device(device)
-    params: dict = {"embed": init_embedding(gen, arch.vocab, arch.d_model)}
+    params: dict = {}
+    if arch.family != "audio":
+        params["embed"] = init_embedding(gen, arch.vocab, arch.d_model)
     params["stacks"] = {str(i): init_stack(gen, arch, s) for i, s in enumerate(arch.stacks)}
     params["final_norm"] = init_norm(arch.d_model, arch.norm, device=gen.device)
-    if not arch.tie_embeddings:
+    if arch.family == "audio":
+        params["head"] = init_linear(gen, arch.d_model, arch.n_classes, arch.quant,
+                                     boundary=True)
+    elif not arch.tie_embeddings:
         params["head"] = init_linear(gen, arch.d_model, arch.vocab, arch.quant, boundary=True)
     if arch.mtp_depth > 0:
         last = arch.stacks[-1]
@@ -79,7 +88,7 @@ def init_lm(gen: torch.Generator, arch: ArchConfig, device="cuda") -> dict:
 
 def _head_logits(params, arch: ArchConfig, h: torch.Tensor, rt: Runtime) -> torch.Tensor:
     cd = COMPUTE_DTYPES[arch.compute_dtype]
-    if arch.tie_embeddings:
+    if arch.tie_embeddings and arch.family != "audio":
         return torch.matmul(h.to(cd), params["embed"]["table"].to(cd).T)
     return apply_linear(params["head"], h, arch.quant, boundary=True, compute_dtype=cd,
                         int_forward=rt.int_forward, int_chain=rt.int_chain, site="head")
@@ -89,12 +98,15 @@ def apply_lm(
     params: dict,
     arch: ArchConfig,
     *,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor] = None,
+    frontend_embeds: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
     start_pos=None,
     rt: Optional[Runtime] = None,
 ):
-    """Forward pass over ``tokens (B, T)``.  ``cache`` given => a cached step
+    """Forward pass over ``tokens (B, T)``, precomputed ``frontend_embeds
+    (B, S, d_model)`` (hubert's frames), or both (the embeddings first, then
+    the tokens', along the sequence).  ``cache`` given => a cached step
     over paged pools (``T == 1`` decode or ``T > 1`` chunked prefill), written
     at each row's ``start_pos`` (an int or a ``(B,)`` tensor); the cache
     carries its block-table view under the reserved key ``"_paged"``.  The
@@ -106,7 +118,14 @@ def apply_lm(
     training penalty, belongs to the training path, which is not ported."""
     rt = rt or Runtime()
     cd = COMPUTE_DTYPES[arch.compute_dtype]
-    x = apply_embedding(params["embed"], tokens, dtype=cd)
+    parts = []
+    if frontend_embeds is not None:
+        parts.append(frontend_embeds.to(cd))
+    if tokens is not None:
+        parts.append(apply_embedding(params["embed"], tokens, dtype=cd))
+    if not parts:
+        raise ValueError("apply_lm needs tokens or frontend_embeds")
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     B, S, _ = x.shape
     dev = x.device
     steps = torch.arange(S, dtype=torch.int32, device=dev)[None, :]

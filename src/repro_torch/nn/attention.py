@@ -12,6 +12,10 @@ MLA down/up projections) as to any other matmul.  Ported from
 * the decode-kernel dispatch: with ``decode_kernel=True`` the paged
   ``T == 1`` read goes through ``kernels/ops.paged_attention`` instead of the
   gathered-view ``_sdpa``;
+* the cacheless GQA step (a whole utterance through hubert's bidirectional
+  encoder, a prompt scored without a cache) goes through
+  ``kernels/ops.flash_attention`` (the reference computes it with ``_sdpa``;
+  chunk-local masks are not ported there and raise);
 * MLA (deepseek-v3): low-rank compressed q and kv with a shared rope key,
   cached as the latent ``ckvp (NB, bs, kv_lora_rank)`` and rope-key ``kpep
   (NB, bs, qk_rope_dim)`` pools.  The materialized path up-projects the
@@ -249,8 +253,14 @@ def apply_attention(
         kh = apply_rope(kh, positions, a.rope_theta)
 
     if cache is None:
-        out = _sdpa(qh, kh, vh, positions, positions,
-                    causal=a.causal, window=a.window, chunk=a.chunk, q_chunk=q_chunk)
+        if a.chunk is not None:
+            raise NotImplementedError("chunk-local attention is not ported yet (llama4's local "
+                                      "layers)")
+        from repro_torch.kernels import ops
+
+        out = ops.flash_attention(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+                                  causal=a.causal, window=a.window,
+                                  q_chunk=q_chunk).transpose(1, 2)
         new_cache = None
     elif "kp" in cache:
         if view is None:

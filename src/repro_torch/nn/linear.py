@@ -14,9 +14,10 @@ layers stay at 8 bits.  Weights are ``(d_in, d_out)``: output channels
 (accumulators) on the last axis.
 
 Deployment: ``deploy_linear`` turns a trained layer into ``{q8, s8}`` —
-int8 weights whose l1 norm provably fits the P-bit accumulator.  With
-``int_forward=True`` a deployed layer runs ``act_quant(x) -> int8 @ int8 ->
-int32 -> scaled output`` through the fused W8A8 kernel
+int8 weights whose l1 norm provably fits the P-bit accumulator; an A2Q layer
+is quantized by ``kernels/ops.a2q_quantize`` (the fused kernel on the
+card).  With ``int_forward=True`` a deployed layer runs ``act_quant(x) ->
+int8 @ int8 -> int32 -> scaled output`` through the fused W8A8 kernel
 (``kernels/ops.int_matmul``), with the int16 carry when ``acc_bits <= 16``.
 
 Int8-out chaining (``int_chain=True``): at a chain break (a residual add, a
@@ -26,9 +27,9 @@ kernel's prologue (``aq_scale``), so no deployed linear pays a standalone
 act-quant.  An :class:`IntAct` (int8 codes with their scale) is consumed
 directly.  A producer that requantizes into its consumer's quantizer
 (``out_aq`` from :func:`chain_out_aq`: rwkv6's channel-mix ``cm.wk ->
-relu^2 -> cm.wv``) runs the kernel's requant epilogue and returns an
-:class:`IntAct` (``chained``); the non-gated MLP's gelu replay is not ported
-yet and raises.  The accumulator-headroom probe is not ported yet.
+relu^2 -> cm.wv``, the non-gated MLP's ``w_in -> gelu -> w_out``) runs the
+kernel's requant epilogue and returns an :class:`IntAct` (``chained``).  The
+accumulator-headroom probe is not ported yet.
 
 Every ``int_forward`` call records its disposition (``folded`` for the
 prologue or an ``IntAct`` input, ``standalone`` for the fused path with its
@@ -47,7 +48,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import QuantConfig
-from repro_torch.core.a2q import a2q_int_weights, apply_a2q, init_a2q
+from repro_torch.core.a2q import apply_a2q, init_a2q
 from repro_torch.core.quantizers import (
     act_quant_int,
     apply_act_quant,
@@ -304,11 +305,16 @@ def apply_linear(
 def deploy_linear(params: dict, cfg: QuantConfig, *, boundary: bool = False,
                   input_signed: bool = True) -> dict:
     """A2Q/QAT layer -> inference artifacts ``{q8 int8, s8 scale [, b, aq]}``
-    (2-D weights; ``serve.engine.deploy_params`` walks stacked leaves)."""
+    (2-D weights; ``serve.engine.deploy_params`` walks stacked leaves).  The
+    A2Q codes come from ``ops.a2q_quantize`` (``a2q_int_weights``'
+    arithmetic; the fused kernel for CUDA tensors), the scale is
+    ``2^d``."""
+    from repro_torch.kernels import ops
+
     M, N = _bits(cfg, boundary)
     if cfg.mode == "a2q":
-        q, s = a2q_int_weights({"v": params["v"], "t": params["t"], "d": params["d"]},
-                               M, cfg.acc_bits, N, input_signed)
+        q, s = ops.a2q_quantize(params["v"], params["t"], params["d"], weight_bits=M,
+                                acc_bits=cfg.acc_bits, input_bits=N, input_signed=input_signed)
     elif cfg.mode == "qat":
         q, s = weight_qat_int({"log2_scale": params["wq"]["log2_scale"]}, params["w"], M)
     else:

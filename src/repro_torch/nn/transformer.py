@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, QuantConfig, StackConfig
 from repro_torch.nn.attention import apply_attention, init_attention
-from repro_torch.nn.linear import apply_linear, chain_out_aq, init_linear
+from repro_torch.kernels.ref import gelu_tanh
+from repro_torch.nn.linear import IntAct, apply_linear, chain_out_aq, init_linear
 from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.norms import apply_norm, init_norm
 from repro_torch.nn.ssm import (
@@ -55,12 +56,14 @@ def _apply_mlp(p: dict, x: torch.Tensor, q: QuantConfig, compute_dtype,
         gate = lin(p["w_gate"], x=x, site="mlp.w_gate")
         h = F.silu(gate.to(torch.float32)).to(compute_dtype) * h
         return lin(p["w_out"], x=h, site="mlp.w_out")
-    # w_in -> gelu -> w_out is a producer/consumer chain: under int_chain the
-    # reference requantizes in w_in's epilogue (its gelu replay is not ported
-    # yet: it raises)
+    # w_in -> gelu -> w_out is a producer/consumer chain: under int_chain w_in
+    # requantizes into w_out's quantizer in its epilogue (gelu replayed there)
+    # and hands int8 codes across; otherwise the host runs jax.nn.gelu's tanh
+    # form, op by op as the epilogue replays it
     out_aq = chain_out_aq(p["w_out"], q, act_fn="gelu") if int_chain else None
     h = lin(p["w_in"], x=x, site="mlp.w_in", out_aq=out_aq)
-    h = F.gelu(h.to(torch.float32), approximate="tanh").to(compute_dtype)  # jax.nn.gelu's default
+    if not isinstance(h, IntAct):
+        h = gelu_tanh(h.to(torch.float32)).to(compute_dtype)
     return lin(p["w_out"], x=h, site="mlp.w_out")
 
 

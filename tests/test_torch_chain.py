@@ -11,8 +11,9 @@ Covered:
 * ``apply_linear`` on a deployed layer: the prologue branch, the ``IntAct``
   consumer branch and the chain repair of an ``IntAct`` into a layer that
   cannot take codes, against ``repro.nn.linear``; ``chain_out_aq``; the
-  requant epilogue's gelu replay (``out_aq`` of the non-gated MLP) still
-  raising (relu2 is covered in ``test_torch_requant.py``);
+  requant epilogue's gelu replay (``out_aq`` of the non-gated MLP) returning
+  an ``IntAct`` (relu2 is covered in ``test_torch_requant.py``, the
+  non-gated MLP against JAX in ``test_torch_hubert.py``);
 * the slice as a whole on reduced smollm-135m, yi-6b and deepseek-v3
   (``mla_absorb``): the chain report of one forward equals the JAX report
   site for site (the reference traces each stacked block once, the port
@@ -148,8 +149,8 @@ def test_prologue_argument_checks():
         ops.int_matmul(x, w, scale=1.0, aq_scale=torch.full((8,), 0.1))
     with pytest.raises(ValueError):  # 9-bit unsigned codes do not fit int8
         ops.int_matmul(x, w, scale=1.0, aq_scale=s, in_bits=9, in_signed=False)
-    with pytest.raises(NotImplementedError):  # the requant epilogue's gelu is not ported
-        ops.int_matmul(x, w, scale=1.0, aq_scale=s, out_scale=1.0, act_fn="gelu")
+    got = ops.int_matmul(x, w, scale=1.0, aq_scale=s, out_scale=1.0, act_fn="gelu")
+    assert got.dtype == torch.int8 and got.shape == (4, 4)  # the requant epilogue's gelu
 
 
 # ---------------------------------------------------------------------------
@@ -227,14 +228,17 @@ def test_chain_out_aq_and_the_unported_requant_epilogue(deployed_linear):
                 {k: v for k, v in want.items() if k != "log2_scale"}
             assert float(got["log2_scale"]) == float(want["log2_scale"])
     out_aq = tlinear.chain_out_aq(from_jax_numpy(dep), q, act_fn="gelu")
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        tlinear.apply_linear(from_jax_numpy(dep), torch.zeros((1, 64)), q, int_forward=True,
-                             int_chain=True, out_aq=out_aq)
-    # a non-gated MLP is a producer/consumer chain: under int_chain it needs
-    # the requant epilogue, and says so
-    mlp = {"w_in": from_jax_numpy(dep), "w_out": from_jax_numpy(dep)}
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        _apply_mlp(mlp, torch.zeros((1, 1, 64)), q, torch.float32, True, True)
+    got = tlinear.apply_linear(from_jax_numpy(dep), torch.zeros((1, 64)), q, int_forward=True,
+                               int_chain=True, out_aq=out_aq)
+    assert isinstance(got, tlinear.IntAct) and got.codes.dtype == torch.int8
+    # a non-gated MLP is a producer/consumer chain: under int_chain w_in
+    # requantizes into w_out in its epilogue and w_out takes the codes
+    w_out = {**from_jax_numpy(dep), "q8": from_jax_numpy(dep)["q8"][:40]}  # 40 -> 40
+    mlp = {"w_in": from_jax_numpy(dep), "w_out": w_out}
+    rep: dict = {}
+    with tlinear.chain_report_scope(rep):
+        y = _apply_mlp(mlp, torch.zeros((1, 1, 64)), q, torch.float32, True, True)
+    assert y.shape == (1, 1, 40) and rep["chained"] == ["mlp.w_in"]
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,16 @@ A block past a row's length holds NaN (in the pool, or in the scale pool of
 an integer pool) and must not be read.  rwkv6_scan — 1e-5 of the largest
 |y| and |S| with fp32 y (the same fp32 recurrence, its 64-deep sums split
 in four and contracted into FMAs), 2^-7 of the largest |y| with bf16 y (one
-bf16 rounding of values that differ in their last fp32 bits).
+bf16 rounding of values that differ in their last fp32 bits).  The gelu
+requant epilogue — codes exact, or one apart only where a ``tanh`` 4 ulps
+off PyTorch's could move the code (``requant_ties``: the kernel's ``tanhf``
+against PyTorch's ``tanh``).  a2q_quantize — l1 to 1e-6 relative
+(fp64 against fp32 sums), codes exact except one apart where ``g/s * v /
+l1`` lies within the two sums' difference of an integer
+(``code_flips_explained``), the dequantized weights exact where the codes
+are, and every column within the A2Q l1 budget.  flash_attention — 2e-5 in
+fp32 (the softmax summed in another order), plus one bf16 ulp of the output
+in bf16.
 """
 
 import math
@@ -30,7 +39,21 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain, prologue_codes
+from repro_torch.configs import get_arch
+from repro_torch.core.a2q import _effective_gs
+from repro_torch.core.bounds import l1_budget
+from repro_torch.kernels.a2q_quantize import (
+    a2q_quantize_cuda,
+    a2q_quantize_plain,
+    code_flips_explained,
+)
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.int_matmul import (
+    int_matmul_cuda,
+    int_matmul_plain,
+    prologue_codes,
+    requant_ties,
+)
 from repro_torch.kernels.ops import int_matmul_block_k
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
@@ -39,6 +62,7 @@ from repro_torch.kernels.paged_mla_attention import (
     paged_mla_attention_plain,
 )
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
+from repro_torch.nn.linear import init_linear
 
 pytestmark = pytest.mark.cuda
 
@@ -346,3 +370,125 @@ def test_rwkv6_scan_cuda_refuses_bad_arguments(dev):
                         out_dtype=torch.float32)
     with pytest.raises(ValueError):  # the state is contiguous fp32
         rwkv6_scan_cuda(r, k, v, w, u, s0.transpose(-1, -2), out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("cast", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("prologue", [False, True], ids=["int8_x", "prologue"])
+def test_int_matmul_cuda_gelu_requant_matches_plain(dev, cast, prologue):
+    """The non-gated MLP's chained edge (biased, gelu replayed, signed 8-bit
+    codes out) at hubert's mlp.w_in (M = 8 clips x 1000 frames, K 1280, N
+    5120) and small ragged shapes."""
+    rng = np.random.default_rng(17)
+    for M, K, N in ((8000, 1280, 5120), (33, 100, 70), (3, 40, 5)):
+        w = torch.from_numpy(rng.integers(-3, 4, (K, N)).astype(np.int8)).to(dev)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, N).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
+        if prologue:
+            x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev)
+            pro = dict(aq_scale=torch.tensor([2.0**-5], device=dev), q_lo=-128, q_hi=127,
+                       q_shift=0)
+        else:
+            x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(dev)
+            pro = {}
+        kw = dict(acc_bits=32, mode="exact", block_k=int_matmul_block_k(K), **pro)
+        y = int_matmul_plain(x, w, scale, bias, **kw)
+        out_scale = (y.abs().amax(0) / 100 + 1e-6).to(torch.float32)
+        req = dict(out_scale=out_scale, r_lo=-128, r_hi=127, r_shift=0, act_fn="gelu",
+                   cast_dtype=cast)
+        got = int_matmul_cuda(x, w, scale, bias, **kw, **req)
+        torch.cuda.synchronize()
+        want = int_matmul_plain(x, w, scale, bias, **kw, **req)
+        diff = got.to(torch.int32) - want.to(torch.int32)
+        ties = requant_ties(y, out_scale, "gelu", cast)
+        assert got.dtype == torch.int8
+        assert diff.abs().max().item() <= 1 and not (diff != 0)[~ties].any(), \
+            (M, K, N, (diff != 0).sum().item())
+        if M * N > 1000:
+            assert len(torch.unique(got)) > 50  # the codes span their range
+
+
+@pytest.mark.parametrize("K,C", [(1280, 504), (5120, 1280), (17, 5), (300, 130)])
+def test_a2q_quantize_cuda_matches_plain(dev, K, C):
+    """hubert's head and w_out shapes and small ragged ones, from the A2Q
+    initializer (P = 16, signed 8-bit inputs)."""
+    quant = get_arch("hubert-xlarge").quant
+    p = init_linear(torch.Generator(device=dev).manual_seed(K + C), K, C, quant)
+    gs, s = _effective_gs(p, quant.acc_bits, quant.act_bits, True)
+    deq, q, l1 = a2q_quantize_cuda(p["v"], gs, s, n=-128, p=127)
+    torch.cuda.synchronize()
+    deq_p, q_p, l1_p = a2q_quantize_plain(p["v"], gs, s, n=-128, p=127)
+    assert ((l1 - l1_p).abs() <= 1e-6 * l1_p).all()
+    flips, explained = code_flips_explained(q, q_p, p["v"], gs, l1, l1_p)
+    assert explained, flips
+    same = q == q_p
+    assert torch.equal(deq[same], deq_p[same])
+    assert (q.to(torch.int64).abs().sum(0) <= l1_budget(quant.acc_bits, quant.act_bits, True)).all()
+    q_o, s_o = ops.a2q_quantize(p["v"], p["t"], p["d"], weight_bits=8, acc_bits=quant.acc_bits,
+                                input_bits=quant.act_bits, input_signed=True)
+    _, q_n, _ = a2q_quantize_cuda(p["v"], gs, s, n=-128, p=127, dequantize=False)
+    torch.cuda.synchronize()
+    assert torch.equal(q_o, q) and torch.equal(q_n, q) and torch.equal(q_o * s_o, deq)
+
+
+def test_a2q_quantize_cuda_budget_with_norms_over_the_cap(dev):
+    """Norms over the cap (t above T), unsigned 8-bit inputs, P = 14, a short
+    K whose codes come close to the budget: every column stays within it."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    for K in (24, 640):
+        v = torch.randn((K, 256), generator=g, device=dev)
+        t = torch.randn((256,), generator=g, device=dev) + 6
+        d = torch.randn((256,), generator=g, device=dev) - 5
+        q, _ = ops.a2q_quantize(v, t, d, weight_bits=8, acc_bits=14, input_bits=8,
+                                input_signed=False)
+        torch.cuda.synchronize()
+        assert (q.to(torch.int64).abs().sum(0) <= l1_budget(14, 8, False)).all()
+
+
+def _flash_close(got, want):
+    assert got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    tol = 2e-5
+    if want.dtype == torch.bfloat16:  # plus one bf16 rounding of the output
+        tol = tol + torch.ldexp(torch.ones_like(w), torch.frexp(torch.maximum(g.abs(),
+                                                                              w.abs())).exponent - 8)
+    assert ((g - w).abs() <= tol).all(), (g - w).abs().max().item()
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, KV, Tq, Tk, D, causal, window)
+    (2, 16, 16, 100, 100, 80, False, None),   # hubert's heads, bidirectional
+    (2, 9, 3, 64, 64, 64, True, None),        # smollm's GQA, causal
+    (1, 4, 4, 200, 200, 64, True, 64),        # sliding window
+    (2, 4, 2, 16, 100, 64, True, None),       # Tq < Tk, end-aligned
+    (1, 2, 2, 8, 4, 16, True, None),          # queries with no key give 0
+    (1, 2, 1, 37, 70, 128, False, 20),        # window, bidirectional, D 128
+    (3, 4, 4, 65, 65, 32, True, None),        # ragged tiles
+], ids=["hubert", "gqa", "window", "end_aligned", "no_key", "d128", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_cuda_matches_plain(dev, case, dtype):
+    B, H, KV, Tq, Tk, D, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(Tq + D)
+    # head views of (B, T, heads * D) projections, as the layer passes them
+    q = torch.randn((B, Tq, H * D), generator=g, device=dev).to(dtype)
+    q = q.reshape(B, Tq, H, D).transpose(1, 2)
+    k, v = (torch.randn((B, Tk, KV * D), generator=g, device=dev).to(dtype)
+            .reshape(B, Tk, KV, D).transpose(1, 2) for _ in range(2))
+    kw = dict(causal=causal, window=window, scale=D**-0.5)
+    got = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, **kw)
+    assert got.shape == (B, H, Tq, D)
+    _flash_close(got, want)
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal, window=window), got)
+
+
+def test_flash_attention_cuda_refuses_bad_arguments(dev):
+    q = torch.zeros((1, 2, 8, 48), device=dev)
+    with pytest.raises(ValueError):  # no kernel for D = 48
+        flash_attention_cuda(q, q, q, causal=True, window=None, scale=1.0)
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    with pytest.raises(ValueError):  # one dtype
+        flash_attention_cuda(q, q.bfloat16(), q.bfloat16(), causal=True, window=None, scale=1.0)
+    with pytest.raises(ValueError):  # a strided feature axis
+        flash_attention_cuda(q[..., ::2], q[..., ::2], q[..., ::2], causal=True, window=None,
+                             scale=1.0)

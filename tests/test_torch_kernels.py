@@ -5,12 +5,19 @@ version; these tests hold it against ``repro.kernels.ref`` on the same numpy
 inputs, and one small case per kernel against ``repro.kernels.ops`` in Pallas
 interpret mode.  Tolerances: integer results and the fused epilogue — exact
 (the plain version rounds the multiply and the add once each, as the oracle
-does); paged attention — 1e-5 (fp32 softmax, summed in another order).
+does); paged attention — 1e-5 (fp32 softmax, summed in another order); the
+A2Q quantizer — codes exact and dequantized weights to 1e-6 given JAX's
+per-column scales (``jnp.exp2`` and ``torch.exp2`` differ in the last bits,
+which can flip a code); flash attention — 2e-5 in fp32 (as the reference's
+own test), plus one bf16 ulp of the output in bf16; the gelu requant epilogue —
+codes exact except +-1 where the value lies at a rounding tie (the
+written-out tanh gelu and ``jax.nn.gelu`` differ in the last fp32 bits).
 
 ``test_torch_cuda.py`` holds the CUDA kernels against their plain versions
 on a card; ``chip_smoke.py`` does the same at the main path's shapes.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +26,12 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
+from repro_torch.core.a2q import a2q_int_weights
+from repro_torch.core.bounds import l1_budget
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels.a2q_quantize import a2q_quantize_plain
+from repro_torch.nn.linear import deploy_linear, init_linear
 
 torch.set_num_threads(1)
 
@@ -163,3 +174,220 @@ def test_paged_attention_argument_checks():
     with pytest.raises(ValueError):  # packed int4 pools need their scale pools
         ops.paged_attention(q, kp[..., ::2].to(torch.uint8), vp[..., ::2].to(torch.uint8), bt,
                             lengths)
+
+
+# ---------------------------------------------------------------------------
+# The int_matmul requant epilogue's gelu replay
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cast", [jnp.float32, jnp.bfloat16], ids=["fp32", "bf16"])
+def test_requant_gelu_matches_jax_oracle(cast):
+    """The non-gated MLP's chained edge (``w_in -> gelu -> w_out``, biased,
+    signed 8-bit codes out): the plain requant flush against JAX's
+    ``ref_int_matmul_requant(act_fn="gelu")``.  Codes agree exactly except
+    +-1 at elements whose value lies within a rounding of the replay dtype
+    of a .5 tie; the port's own oracle agrees exactly."""
+    rng = np.random.default_rng(41)
+    M, K, N = 24, 320, 96
+    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    w = _a2q_bounded_w(rng, K, N)
+    scale = rng.uniform(2e-3, 8e-3, N).astype(np.float32)
+    bias = rng.normal(size=N).astype(np.float32)
+    out_scale = np.asarray(jnp.exp2(jnp.asarray(rng.uniform(-5.5, -4.5, N), jnp.float32)))
+    tcast = torch.float32 if cast == jnp.float32 else torch.bfloat16
+    want = np.asarray(jref.ref_int_matmul_requant(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale), jnp.asarray(out_scale),
+        bias=jnp.asarray(bias), act_fn="gelu", cast_dtype=cast, acc_bits=16))
+    kw = dict(scale=torch.from_numpy(scale), bias=torch.from_numpy(bias),
+              out_scale=torch.from_numpy(out_scale), act_fn="gelu", cast_dtype=tcast)
+    got = ops.int_matmul(torch.from_numpy(x), torch.from_numpy(w), acc_bits=16, spill_int16=True,
+                         **kw)
+    assert got.dtype == torch.int8
+    assert torch.equal(got, ref.ref_int_matmul_requant(torch.from_numpy(x), torch.from_numpy(w),
+                                                       acc_bits=16, **kw))
+    # JAX's value before rounding, and the width of one rounding of it
+    y = jref.ref_int_matmul_fused(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale),
+                                  jnp.asarray(bias), acc_bits=16).astype(cast)
+    y = np.asarray(jax.nn.gelu(y.astype(jnp.float32)).astype(cast).astype(jnp.float32))
+    ratio = y / out_scale
+    ulp = np.spacing(np.abs(y).astype(np.float32)) * (1 if cast == jnp.float32 else 2.0**16)
+    tie = np.abs(np.abs(ratio - np.floor(ratio)) - 0.5) <= 2 * ulp / out_scale
+    diff = got.numpy().astype(np.int32) - want.astype(np.int32)
+    assert np.abs(diff).max() <= 1 and not (diff != 0)[~tie].any(), (diff != 0).sum()
+    assert len(np.unique(want)) > 50  # the codes span their range
+
+
+# ---------------------------------------------------------------------------
+# a2q_quantize
+# ---------------------------------------------------------------------------
+
+
+def _a2q_case(rng, K, C):
+    v = rng.normal(size=(K, C)).astype(np.float32)
+    t = (rng.normal(size=(C,)) + 3).astype(np.float32)
+    d = (rng.normal(size=(C,)) - 6).astype(np.float32)
+    return v, t, d
+
+
+@pytest.mark.parametrize("K,C", [(300, 130), (512, 256), (17, 5), (1024, 64)])
+@pytest.mark.parametrize("acc_bits,input_signed", [(16, False), (20, True), (12, False)])
+def test_a2q_quantize_plain_matches_ref(K, C, acc_bits, input_signed):
+    """The reference's cases: the plain quantizer given JAX's per-column
+    ``g/s`` and ``s`` equals ``ref_a2q_quantize`` (codes exact, dequantized
+    to 1e-6); ``ops.a2q_quantize``'s codes and scales equal the port's own
+    oracle (``q * s`` its dequantized weights) and ``a2q_int_weights``
+    exactly."""
+    v, t, d = _a2q_case(np.random.default_rng(K * C + acc_bits), K, C)
+    jv, jt, jd = jnp.asarray(v), jnp.asarray(t), jnp.asarray(d)
+    deq_r, q_r = jref.ref_a2q_quantize(jv, jt, jd, 8, acc_bits, 8, input_signed)
+    T = int(input_signed) + jnp.log2(jnp.float32(2.0 ** (acc_bits - 1) - 1.0)) + jd - 8
+    gs, s = jnp.exp2(jnp.minimum(jt, T) - jd), jnp.exp2(jd)
+    deq, q, _ = a2q_quantize_plain(torch.from_numpy(v), torch.from_numpy(np.asarray(gs)),
+                                   torch.from_numpy(np.asarray(s)), n=-128, p=127)
+    np.testing.assert_array_equal(q.numpy().astype(np.int32), np.asarray(q_r))
+    np.testing.assert_allclose(deq.numpy(), np.asarray(deq_r), rtol=0, atol=1e-6)
+    tv, tt, td = torch.from_numpy(v), torch.from_numpy(t), torch.from_numpy(d)
+    q, s = ops.a2q_quantize(tv, tt, td, weight_bits=8, acc_bits=acc_bits, input_bits=8,
+                            input_signed=input_signed)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32 and s.shape == (C,)
+    deq_t, q_t = ref.ref_a2q_quantize(tv, tt, td, 8, acc_bits, 8, input_signed)
+    assert torch.equal(q.to(torch.int32), q_t) and torch.equal(q * s, deq_t)
+    q_w, s_w = a2q_int_weights({"v": tv, "t": tt, "d": td}, 8, acc_bits, 8, input_signed)
+    assert torch.equal(q.to(torch.float32), q_w) and torch.equal(s, s_w)
+
+
+@pytest.mark.parametrize("K", [640, 24])
+def test_a2q_quantize_budget_invariant(K):
+    """Every column's integer l1 norm fits the Eq. 15 budget, norms over the
+    cap included: the reference's invariant (K = 640) on the port, and at a
+    short K where the codes come close to the budget."""
+    rng = np.random.default_rng(43)
+    v = torch.from_numpy(rng.normal(size=(K, 256)).astype(np.float32))
+    t = torch.from_numpy((rng.normal(size=(256,)) + 6).astype(np.float32))  # over the cap
+    d = torch.from_numpy((rng.normal(size=(256,)) - 5).astype(np.float32))
+    q, _ = ops.a2q_quantize(v, t, d, weight_bits=8, acc_bits=14, input_bits=8,
+                            input_signed=False)
+    l1 = q.to(torch.int64).abs().sum(0)
+    assert (l1 <= l1_budget(14, 8, False)).all()
+    if K < 32:
+        assert l1.max() >= 0.75 * l1_budget(14, 8, False)
+
+
+@pytest.mark.parametrize("boundary,signed", [(False, True), (False, False), (True, True)])
+def test_deploy_linear_through_ops_equals_a2q_int_weights(boundary, signed):
+    """``deploy_linear`` quantizes through ``ops.a2q_quantize``: its codes and
+    scales are ``a2q_int_weights``'."""
+    from repro_torch.configs import get_arch
+
+    q = get_arch("smollm-135m").quant
+    p = init_linear(torch.Generator().manual_seed(7), 320, 96, q, boundary=boundary,
+                    input_signed=signed)
+    dep = deploy_linear(p, q, boundary=boundary, input_signed=signed)
+    M, N = (q.boundary_bits, q.boundary_bits) if boundary else (q.weight_bits, q.act_bits)
+    want_q, want_s = a2q_int_weights(p, M, q.acc_bits, N, signed)
+    assert dep["q8"].dtype == torch.int8 and torch.equal(dep["q8"].to(torch.float32), want_q)
+    assert torch.equal(dep["s8"], want_s)
+
+
+def test_a2q_quantize_argument_checks():
+    v, t, d = torch.zeros((8, 4)), torch.zeros(4), torch.zeros(4)
+    with pytest.raises(ValueError):
+        ops.a2q_quantize(v, t[:3], d, weight_bits=8, acc_bits=16, input_bits=8,
+                         input_signed=True)
+    with pytest.raises(ValueError):  # codes past int8
+        ops.a2q_quantize(v, t, d, weight_bits=9, acc_bits=16, input_bits=8, input_signed=True)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("Tq,Tk,causal,window,D", [
+    (100, 100, True, None, 64),
+    (100, 100, True, 17, 64),
+    (64, 64, False, None, 64),
+    (1, 100, True, None, 64),     # decode
+    (1, 100, True, 32, 64),       # windowed decode
+    (96, 128, True, None, 64),    # Tq < Tk end-aligned
+    (100, 100, False, None, 80),  # hubert's head size, bidirectional
+    (70, 90, True, 25, 80),
+])
+def test_flash_attention_plain_matches_ref(Tq, Tk, causal, window, D):
+    """The reference's cases plus D = 80, against ``ref_flash_attention``."""
+    rng = np.random.default_rng(Tq + Tk + D)
+    B, H = 2, 3
+    q, k, v = (rng.normal(size=(B, H, T, D)).astype(np.float32) for T in (Tq, Tk, Tk))
+    want = jref.ref_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    causal=causal, window=window)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_gqa_and_dtypes(dtype):
+    """Query heads grouped over fewer KV heads by index, against the oracle
+    on the repeated heads; output in q's dtype, in bf16 within the fp32
+    tolerance plus one bf16 ulp (the two round sums that differ in their last
+    fp32 bits)."""
+    rng = np.random.default_rng(47)
+    B, H, KV, T, D = 2, 6, 2, 48, 32
+    q = jnp.asarray(rng.normal(size=(B, H, T, D)), dtype)
+    k, v = (jnp.asarray(rng.normal(size=(B, KV, T, D)), dtype) for _ in range(2))
+    want = np.asarray(jref.ref_flash_attention(q, jnp.repeat(k, H // KV, 1),
+                                               jnp.repeat(v, H // KV, 1)).astype(jnp.float32))
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(tdt)
+
+    got = ops.flash_attention(t(q), t(k), t(v))
+    assert got.dtype == tdt and got.shape == (B, H, T, D)
+    got = got.to(torch.float32).numpy()
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    else:
+        # the fp32 summation-order tolerance, then one rounding to bf16
+        ulp = np.spacing(np.maximum(np.abs(got), np.abs(want))) * 2.0**16
+        assert (np.abs(got - want) <= 2e-5 + ulp).all()
+
+
+@pytest.mark.parametrize("q_chunk", [1, 7, 64])
+def test_flash_attention_plain_query_chunks(q_chunk):
+    """The plain version a query chunk at a time (the layer passes the
+    arch's ``attn_q_chunk``) against the oracle: end-aligned, causal with a
+    window, queries with no key included."""
+    rng = np.random.default_rng(59 + q_chunk)
+    q = rng.normal(size=(2, 3, 20, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 3, 24, 16)).astype(np.float32) for _ in range(2))
+    want = jref.ref_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=6)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              window=6, q_chunk=q_chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
+    got = ops.flash_attention(torch.from_numpy(q[:, :, :4]), torch.from_numpy(k[:, :, :2]),
+                              torch.from_numpy(v[:, :, :2]), q_chunk=q_chunk)
+    assert (got[:, :, :2] == 0).all() and torch.isfinite(got).all()
+
+
+def test_flash_attention_query_without_keys_gives_zero():
+    """Causal with more queries than keys: the first queries keep no key and
+    give 0 (the TPU kernel's flush), the others the oracle's output."""
+    rng = np.random.default_rng(53)
+    q = rng.normal(size=(1, 2, 8, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 2, 4, 16)).astype(np.float32) for _ in range(2))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    assert (got[:, :, :4] == 0).all() and torch.isfinite(got).all()
+    want = jref.ref_flash_attention(jnp.asarray(q[:, :, 4:]), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(got[:, :, 4:].numpy(), np.asarray(want), rtol=0, atol=2e-5)
+
+
+def test_flash_attention_argument_checks():
+    q, k = torch.zeros((1, 4, 8, 16)), torch.zeros((1, 3, 8, 16))
+    with pytest.raises(ValueError):  # 4 heads do not group over 3
+        ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q[..., :8], q[..., :8])

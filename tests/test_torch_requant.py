@@ -176,15 +176,46 @@ def test_requant_argument_checks():
         ops.int_matmul(x, w, scale=1.0, out_scale=1.0, cast_dtype=torch.float16)
     with pytest.raises(ValueError):  # 9-bit unsigned codes do not fit int8
         ops.int_matmul(x, w, scale=1.0, out_scale=1.0, out_bits=9, out_signed=False)
-    with pytest.raises(NotImplementedError, match="gelu"):  # with hubert's non-gated MLP
-        ops.int_matmul(x, w, scale=1.0, out_scale=1.0, act_fn="gelu")
-    got = ops.int_matmul(x, w, scale=1.0, out_scale=torch.tensor(0.5), act_fn="relu2")
-    assert got.dtype == torch.int8 and got.shape == (4, 4)
+    for act_fn in ("relu2", "gelu"):  # gelu: hubert's non-gated MLP
+        got = ops.int_matmul(x, w, scale=1.0, out_scale=torch.tensor(0.5), act_fn=act_fn)
+        assert got.dtype == torch.int8 and got.shape == (4, 4)
 
 
 # ---------------------------------------------------------------------------
 # The linear layer's chained producer
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cast", ["float32", "bfloat16"])
+def test_requant_ties_holds_every_code_a_nearby_tanh_moves(cast):
+    """``requant_ties`` (the card check's allowance for the gelu replay):
+    every code that a ``tanh`` up to 4 ulps off ``torch.tanh``'s (kept in
+    [-1, 1]) rounds differently lies in it, and it is a small set (the
+    window of one ulp of the value it replaced held every element in the
+    upper half of the code range); the None and relu2 replays have none."""
+    from repro_torch.kernels.int_matmul import requant_codes, requant_ties
+
+    tcast = _DT[cast][1]
+    g = torch.Generator().manual_seed(61)
+    y = torch.randn((1000, 1024), generator=g) * 3
+    out_scale = torch.full((1024,), y.clamp_min(0).max().item() / 127)
+    ties = requant_ties(y, out_scale, "gelu", tcast)
+    base = requant_codes(y, out_scale, -128, 127, 0, "gelu", tcast)
+    x = y.to(tcast).to(torch.float32)
+    t = torch.tanh(ref._SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x)))
+    moved = torch.zeros_like(ties)
+    for end in (-1.0, 1.0):
+        tp = t
+        for _ in range(4):
+            tp = torch.nextafter(tp, torch.full_like(tp, end))
+            y_r = (x * (0.5 * (1.0 + tp))).to(tcast).to(torch.float32)
+            moved |= torch.clamp(torch.round(y_r / out_scale), -128, 127).to(torch.int8) != base
+    assert not moved[~ties].any()
+    assert int(ties.sum()) <= 1e-4 * ties.numel()
+    if tcast == torch.float32:
+        assert moved.any()  # the case reaches a tie
+    for act_fn in (None, "relu2"):
+        assert not requant_ties(y, out_scale, act_fn, tcast).any()
 
 
 @pytest.fixture(scope="module")
