@@ -3,7 +3,8 @@ PERF.md): builds the kernels, holds each against its plain PyTorch version at
 the main paths' shapes, serves full-width smollm-135m, full-width deepseek-v3
 (depth cut) and full-size rwkv6-7b through the paged engine on the kernels,
 encodes full-size hubert-xlarge, and checks the results.  Every model is
-deployed on the card through the ``a2q_quantize`` kernel.
+deployed on the card through the ``a2q_quantize`` kernel, and every deployed
+matrix's codes are held to the plain quantizer's on the card.
 
     python3 chip_smoke.py
 
@@ -44,18 +45,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a prefill chunk (B=1, T=32, carried state) and a T=64 chunk with the
    decay floored at e^-8, within ``RWKV_TOL`` of the plain version.  The
    hubert slice's: ``a2q_quantize`` at hubert-xlarge's four matrix shapes
-   and rwkv6-7b's cm.wk (l1 to 1e-6, codes equal but for counted flips at
-   near-integers, every column within the A2Q l1 budget); ``flash_attention``
+   and rwkv6-7b's cm.wk (l1, codes and dequantized weights bit for bit,
+   every column within the A2Q l1 budget); ``flash_attention``
    at hubert's encode (8 x 1000 frames, 16 heads of 80, bidirectional, bf16
    and fp32), smollm's causal GQA, a window and end-aligned queries, with
-   SDPA as the library time; ``int_matmul`` at M=8000 with the gelu requant
-   epilogue (hubert's mlp.w_in, equal or one apart at rounding ties) and at
-   hubert's other shapes, with ``torch._int_mm`` as the library time;
+   SDPA as the library time, bf16 on the tensor-core kernel and fp32 on the
+   CUDA-core one (also timed on hubert's bf16 values); ``int_matmul`` at
+   M=8000 on the tensor-core kernel with the gelu requant epilogue (hubert's
+   mlp.w_in, equal or one apart at rounding ties; bf16 x equal to its fp32
+   widening) and at hubert's other shapes, with ``torch._int_mm`` as the
+   library time and the share of the bound, then both int_matmul kernels
+   forced at M in {8, 16, 32, 64} (the crossover);
 4. serve full-width smollm-135m (30 layers, random A2Q weights from seed 0,
-   deployed to int8): 8 requests, prompt 64, 32 new tokens, batch 8, through
+   deployed to int8; in this phase and 4b, 4e and 4f every deployed
+   matrix's codes recomputed on the card with the plain quantizer from the
+   same ``v``, ``t``, ``d`` and the flips counted, ``held_deploys``):
+   8 requests, prompt 64, 32 new tokens, batch 8, through
    ``PagedServeEngine`` with ``Runtime(int_forward=True, decode_kernel=True)``;
    print prefill and decode tok/s and check that the launch counts show both
-   kernels on every decode tick (210 int_matmul and 30 paged_attention);
+   kernels on every decode tick (210 int_matmul and 30 paged_attention) and
+   the prefill chunks' rows on the tensor-core int_matmul;
 5. compare the int path with the default ``Runtime()`` (dequant bf16
    matmuls, gathered-view attention) on the same weights: the prompts'
    logits must agree to two bf16 ulps of the largest logit (``eps``), and
@@ -106,8 +115,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``a2q_quantize`` launches) and encode 8 clips of 1000 bf16 frames (seed
    0) with ``Runtime(int_chain=True)`` through ``build_prefill_step`` /
    ``apply_lm(frontend_embeds=...)``: 289 int_matmul a forward (241 with the
-   prologue, 48 of them mlp.w_in's gelu requant; 48 on int8 codes), 48
-   flash_attention, chain report 289 folded /
+   prologue, 48 of them mlp.w_in's gelu requant; 48 on int8 codes; all 289
+   on the tensor-core kernel), 48 flash_attention (all on the tensor-core
+   kernel), chain report 289 folded /
    48 chained / 0 standalone; frames/s, peak memory building and encoding,
    kernel time of a profiled forward;
 5f. chained vs unchained: the w_out input codes compared (each differing
@@ -119,10 +129,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``int_matmul[prologue]``, ``int_matmul[requant]``,
    ``int_matmul[gelu requant]``, ``paged_attention[int8|int4]``,
    ``paged_mla_attention[int8|int4]``, ``rwkv6_scan``, ``a2q_quantize``,
-   ``flash_attention``, each with its launches on its main paths, counted
-   by the wrappers: ``int_matmul[prologue]`` every launch with the prologue,
-   the requant ones included; ``int_matmul`` the launches with int8 codes
-   in), then the result line.
+   ``flash_attention``, ``int_matmul[tc]`` (the tensor-core kernel), each
+   with its launches on its main paths, counted by the wrappers:
+   ``int_matmul[prologue]`` every launch with the prologue, the requant ones
+   included; ``int_matmul`` the launches with int8 codes in;
+   ``int_matmul[tc]`` every launch on the tensor cores; flash's
+   ``launches_tc``; and on ``a2q_quantize`` the deployed matrices held to
+   the plain quantizer and their code flips, refused if any), then the
+   result line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its launches on the main paths (counted from zero
@@ -133,6 +147,7 @@ plain version's, a PyTorch library call's and the card's bound.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -175,6 +190,47 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def held_deploys(tag: str):
+    """Every ``a2q_quantize`` kernel launch of the deploys inside the block
+    held to the plain quantizer while the fp32 ``v`` is alive: the codes
+    recomputed on the card with ``a2q_quantize_plain`` from the same ``v``
+    and the same ``g/s``, ``s`` (from the same ``t``, ``d``), the flips
+    counted with ``code_flips_explained``; a flip it does not explain fails
+    the phase.  Yields the block's counts of matrices and flips."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.a2q_quantize import deployed_code_flips
+
+    kernel, held = ops.a2q_quantize_cuda, {"matrices": 0, "flips": 0}
+
+    def checked(v, gs, s, *, n, p, dequantize=True):
+        deq, q, l1 = kernel(v, gs, s, n=n, p=p, dequantize=dequantize)
+        flips, explained = deployed_code_flips(q, l1, v, gs, s, n=n, p=p)
+        if not explained:
+            raise AssertionError(f"{tag}: a deployed {tuple(v.shape)} matrix has {flips} codes off "
+                                 "the plain quantizer's, not all one apart at a near-integer")
+        held["matrices"] += 1
+        held["flips"] += flips
+        return deq, q, l1
+
+    ops.a2q_quantize_cuda = checked
+    try:
+        yield held
+    finally:
+        ops.a2q_quantize_cuda = kernel
+        print(f"{tag} deploy held to the plain quantizer on the card: {held['matrices']} matrices, "
+              f"{held['flips']} code flips", flush=True)
+
+
+def check_held(tag: str, held: dict, deploys: int) -> None:
+    """Every deploy launch of a phase was held (the flips, all explained,
+    go on the path's counts and are refused in phase 6, once every phase
+    has run)."""
+    if held["matrices"] != deploys:
+        raise AssertionError(f"{tag}: {held['matrices']} of {deploys} deployed matrices held to the "
+                             "plain quantizer")
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -748,10 +804,10 @@ def check_a2q_quantize(dev) -> dict:
     arithmetic) at hubert-xlarge's four matrix shapes (1280x1280 for the
     attention projections, 1280x5120, 5120x1280, the 1280x504 head) and at
     rwkv6-7b's cm.wk (4096x14336), on the A2Q initializer's (v, t, d) at P=16,
-    8-bit signed inputs: l1 to 1e-6 relative; codes equal except one apart
-    where ``g/s * v / l1`` lies within the two sums' difference of an integer
-    (counted); dequantized weights equal where the codes are; and the A2Q
-    bound exactly: every column's ``sum |q|`` within ``l1_budget``; the
+    8-bit signed inputs: l1, codes and dequantized weights equal (both sum
+    in ``core.a2q.pairwise_sum``'s fp32 order; flips counted with
+    ``code_flips_explained``, none allowed); and the A2Q bound exactly:
+    every column's ``sum |q|`` within ``l1_budget``; the
     codes-only launch (``dequantize=False``, as ``deploy_linear`` calls it)
     writes the same codes.  Each shape timed (CUDA events) as the deploy
     calls it, beside the launch that also writes ``q * s``, the plain
@@ -781,10 +837,9 @@ def check_a2q_quantize(dev) -> dict:
         deq_p, q_p, l1_p = a2q_quantize_plain(v, gs, s, n=-128, p=127)
         l1_rel = ((l1 - l1_p).abs() / l1_p).max().item()
         flips, explained = code_flips_explained(q, q_p, v, gs, l1, l1_p)
-        same = q == q_p
         col_l1 = q.to(torch.int64).abs().sum(0)
         err = (deq - deq_p).abs().max().item()
-        if l1_rel > 1e-6 or not explained or not torch.equal(deq[same], deq_p[same]) or \
+        if not torch.equal(l1, l1_p) or flips or not torch.equal(deq, deq_p) or \
                 not (col_l1 <= budget).all():
             raise AssertionError(f"a2q_quantize K={K} C={C}: l1 rel err {l1_rel}, {flips} code "
                                  f"flips (explained {explained}), or a column's l1 "
@@ -801,8 +856,8 @@ def check_a2q_quantize(dev) -> dict:
         plain_ms = events_ms(lambda: a2q_quantize_plain(v, gs, s, **kw), 3)
         n_bytes = 5 * K * C + 12 * C  # v read once, q written; gs, s in, l1 out
         b_ms, b_by = bound_ms(n_bytes, 4 * K * C, FP32_FLOPS_PER_S)
-        print(f"a2q_quantize {site} K={K} C={C}: l1 max rel err {l1_rel:.3g}, {flips} code flips "
-              f"(each one apart at a near-integer), max |deq - plain| {err:.3g}, largest column "
+        print(f"a2q_quantize {site} K={K} C={C}: l1 max rel err {l1_rel:.3g}, {flips} code flips, "
+              f"max |deq - plain| {err:.3g}, largest column "
               f"l1 {col_l1.max().item()} <= budget {budget:.2f}, kernel_ms {ms:.5f} (with deq "
               f"written {deq_ms:.5f}) plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by})",
               flush=True)
@@ -834,11 +889,15 @@ def check_flash_attention(dev) -> dict:
     of 80, bidirectional) in bf16 and fp32; smollm-135m's causal GQA (9 heads
     over 3, D 64, T 64); a causal sliding window of 256 at hubert's shape;
     64 queries end-aligned to 1000 keys.  Within 2e-5 (fp32) plus one bf16
-    ulp of the output (bf16).  hubert's bf16 case timed (CUDA events) beside
-    the plain version, ``F.scaled_dot_product_attention`` on the same bf16
-    views (the library time; the port never calls it) and the bound: its
-    operations at the bf16 tensor-core peak (the card's for bf16 inputs),
-    with the fp32 CUDA-core peak's (where this kernel computes) beside it."""
+    ulp of the output (bf16); bf16 runs on the tensor-core kernel, fp32 on
+    the CUDA-core one (the launch counts show which).  hubert's bf16 case
+    timed (CUDA events) beside the plain version, the CUDA-core kernel on
+    the same values (an unaligned copy of the views, which the wrapper
+    routes there; also held to the gate),
+    ``F.scaled_dot_product_attention`` on the same bf16 views (the library
+    time; the port never calls it) and the bound: its operations at the
+    bf16 tensor-core peak (the card's for bf16 inputs), with the share of
+    it reached."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
@@ -862,54 +921,91 @@ def check_flash_attention(dev) -> dict:
         k, v = (torch.randn((b, tk, kv * d), generator=gen, device=dev).to(dtype)
                 .reshape(b, tk, kv, d).transpose(1, 2) for _ in range(2))
         kw = dict(causal=causal, window=window, scale=d**-0.5)
+        before = flash_attention_cuda.tc_launches
         got = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
+        kernel = "tc" if flash_attention_cuda.tc_launches > before else "cuda_cores"
         want = flash_attention_plain(q, k, v, **kw)
         ok, err = flash_within_tolerance(got, want)
-        if not ok:
-            raise AssertionError(f"flash_attention {tag}: kernel != plain, max err {err}")
+        if not ok or kernel != ("tc" if dtype == torch.bfloat16 else "cuda_cores"):
+            raise AssertionError(f"flash_attention {tag}: kernel {kernel} != plain, max err {err}")
         if dtype == torch.float32:
             worst = max(worst, err)
         else:
             worst_bf16 = max(worst_bf16, err)
-        print(f"flash_attention {tag} (B={b} H={h} KV={kv} Tq={tq} Tk={tk} D={d}): max err "
-              f"{err:.3g} within tolerance", flush=True)
+        print(f"flash_attention {tag} (B={b} H={h} KV={kv} Tq={tq} Tk={tk} D={d}): kernel "
+              f"{kernel}, max err {err:.3g} within tolerance", flush=True)
         if tag != "hubert bf16":
             continue
+        # the same values as unaligned views: the wrapper routes them to the CUDA cores
+        def unaligned(t):
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            view = flat[1:].view(b, t.shape[2], t.shape[1], d).transpose(1, 2)
+            view.copy_(t)
+            return view
+        qu, ku, vu = unaligned(q), unaligned(k), unaligned(v)
+        before = flash_attention_cuda.tc_launches
+        got_cc = flash_attention_cuda(qu, ku, vu, **kw)
+        torch.cuda.synchronize()
+        ok, err_cc = flash_within_tolerance(got_cc, want)
+        if not ok or flash_attention_cuda.tc_launches != before:
+            raise AssertionError(f"flash_attention {tag} on the CUDA cores: max err {err_cc}")
         ms = events_ms(lambda: flash_attention_cuda(q, k, v, **kw), 10)
+        cc_kernel_ms = events_ms(lambda: flash_attention_cuda(qu, ku, vu, **kw), 10)
         plain_ms = events_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
         lib_ms = events_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
         n_ops = 4 * b * h * tq * tk * d  # QK^T and PV, every key kept (bidirectional)
         n_bytes = dtype.itemsize * (2 * b * h * tq * d + 2 * b * kv * tk * d)
         b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOPS_PER_S)
-        cc_ms, cc_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
-        print(f"flash_attention {tag}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        print(f"flash_attention {tag}: kernel tc ms {ms:.4f} (the CUDA-core kernel on the same "
+              f"values {cc_kernel_ms:.4f}, max err {err_cc:.3g}) plain_ms {plain_ms:.4f} "
               f"library_ms(sdpa) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by}, bf16 tensor cores; "
-              f"{cc_ms:.5f} {cc_by} at the fp32 CUDA-core peak; {n_ops / 1e9:.2f} GFLOP, "
-              f"{n_bytes / 1e6:.1f} MB)", flush=True)
+              f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), {b_ms / ms:.1%} of the bound",
+              flush=True)
         entry = {"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:135",
                  "at": "hubert-xlarge encode, one layer: B=8 H=16 T=1000 D=80, bidirectional, "
                        "bf16 head views",
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                 "bound_ms_fp32_cuda_cores": cc_ms, "library_ms": lib_ms}
-        del want
+                 "kernel": kernel, "ms": ms, "cuda_cores_ms": cc_kernel_ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                 "library_ms": lib_ms}
+        del want, qu, ku, vu, got_cc
     entry["max_abs_err"] = worst  # fp32; bf16 adds one rounding of the output
     entry["max_abs_err_bf16"] = worst_bf16
     return entry
 
 
-def check_int_matmul_hubert(dev) -> dict:
+@contextlib.contextmanager
+def int_matmul_route(tc: bool):
+    """Every ``int_matmul_cuda`` call inside the block on the tensor-core
+    kernel (``tc``) or on ``__dp4a``, whatever its rows: the crossover's
+    timings."""
+    import importlib
+
+    im = importlib.import_module("repro_torch.kernels.int_matmul")
+    edge = im.TC_MIN_ROWS
+    im.TC_MIN_ROWS = 1 if tc else 1 << 30
+    try:
+        yield
+    finally:
+        im.TC_MIN_ROWS = edge
+
+
+def check_int_matmul_hubert(dev) -> list:
     """int_matmul at hubert-xlarge's encode shapes (M = 8 clips x 1000 frames,
-    the kernel's first M past a few hundred rows): mlp.w_in with the
-    prologue, bias and the gelu requant epilogue (replayed in bf16 after the
-    flush, signed 8-bit codes out for mlp.w_out) against its plain version,
-    equal or one apart only at rounding ties (``requant_ties``: the kernel's
-    tanhf against PyTorch's tanh), timed beside the prologue-only kernel on
-    the same inputs; then the attention projections and the head (prologue,
+    on the tensor-core kernel): mlp.w_in with the prologue (fp32 and bf16
+    x), bias and the gelu requant epilogue (replayed in bf16 after the flush,
+    signed 8-bit codes out for mlp.w_out) against its plain version, equal
+    or one apart only at rounding ties (``requant_ties``: the kernel's tanhf
+    against PyTorch's tanh), timed beside the prologue-only kernel on the
+    same inputs; then the attention projections and the head (prologue,
     fp32 out) and mlp.w_out (int8 codes in), bit for bit.  Every shape timed
-    beside ``torch._int_mm`` on the same int8 operands (the library time)."""
+    beside ``torch._int_mm`` on the same int8 operands (the library time),
+    with the kernel that ran and the share of the bound it reached; then
+    the crossover: both kernels forced at w_in's and the projections' K, N
+    for M in {8, 16, 32, 64}.  Returns the ``int_matmul[gelu requant]`` and
+    ``int_matmul[tc]`` (mlp.w_out, int8 codes in) entries."""
     from repro_torch.kernels.int_matmul import (int_matmul_cuda, int_matmul_plain,
                                                 prologue_codes, requant_ties)
     from repro_torch.kernels.ops import int_matmul_block_k
@@ -918,7 +1014,13 @@ def check_int_matmul_hubert(dev) -> dict:
     M = HUBERT_CLIPS * HUBERT_FRAMES
     s_aq = torch.tensor([6.0 / 127], device=dev)  # the A2Q init's act scale
     pro = dict(aq_scale=s_aq, q_lo=-128, q_hi=127, q_shift=0)
-    entry, at = None, {}
+    entry, tc_entry, at = None, None, {}
+
+    def timed(fn, reps=10):
+        before = int_matmul_cuda.tc_launches
+        ms = events_ms(fn, reps)
+        return ms, "tc" if int_matmul_cuda.tc_launches > before else "dp4a"
+
     for (K, N), site in (((1280, 5120), "mlp.w_in"), ((1280, 1280), "attn.wq/wk/wv/wo"),
                          ((5120, 1280), "mlp.w_out"), (HUBERT_HEAD, "head")):
         w = a2q_bounded_weights(gen, K, N, dev)
@@ -948,42 +1050,91 @@ def check_int_matmul_hubert(dev) -> dict:
             if diff.abs().max().item() > 1 or (diff != 0)[~ties].any():
                 raise AssertionError(f"int_matmul gelu requant M={M} K={K} N={N}: {n_diff} codes "
                                      "differ from plain, some not one apart at a rounding tie")
-            ms = events_ms(lambda: int_matmul_cuda(x, w, scale, bias, **xkw, **req), 10)
-            pro_ms = events_ms(lambda: int_matmul_cuda(x, w, scale, bias, **xkw), 10)
+            xb = x.bfloat16()  # bf16 x, as the int-chain layer now hands it over
+            got_b = int_matmul_cuda(xb, w, scale, bias, **xkw, **req)
+            torch.cuda.synchronize()
+            if not torch.equal(got_b, int_matmul_cuda(xb.float(), w, scale, bias, **xkw, **req)):
+                raise AssertionError("int_matmul gelu requant: bf16 x != its fp32 widening")
+            ms, kernel = timed(lambda: int_matmul_cuda(x, w, scale, bias, **xkw, **req))
+            bf16_ms, _ = timed(lambda: int_matmul_cuda(xb, w, scale, bias, **xkw, **req))
+            pro_ms, _ = timed(lambda: int_matmul_cuda(x, w, scale, bias, **xkw))
+            int8_ms, _ = timed(lambda: int_matmul_cuda(codes, w, scale, bias, **kw, **req))
             plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, bias, **xkw, **req), 2)
             b_ms, b_by = bound_ms(4 * M * K + K * N + 12 * N + M * N, 2 * M * K * N,
                                   INT8_OPS_PER_S)
             print(f"int_matmul gelu requant ({site}: prologue + bias + gelu in bf16 -> s8) M={M} "
                   f"K={K} N={N}: {n_diff} of {M * N} codes one apart from plain, all at "
-                  f"rounding ties ({int(ties.sum())} ties); {len(torch.unique(got))} distinct "
-                  f"codes; kernel_ms {ms:.4f} prologue-only kernel_ms {pro_ms:.4f} plain_ms "
-                  f"{plain_ms:.4f} library_ms(_int_mm) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by})",
-                  flush=True)
+                  f"rounding ties ({int(ties.sum())} ties); bf16 x equal to its widening; "
+                  f"{len(torch.unique(got))} distinct codes; kernel {kernel} ms {ms:.4f} (bf16 x "
+                  f"{bf16_ms:.4f}, int8 codes in {int8_ms:.4f}: the prologue pass costs "
+                  f"{ms - int8_ms:.4f}) prologue-only (fp32 out) {pro_ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} library_ms(_int_mm) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by}), "
+                  f"{b_ms / ms:.1%} of the bound", flush=True)
             entry = {"name": "int_matmul[gelu requant]", "route": "cuda",
                      "source": "src/repro_torch/csrc/int_matmul.cu",
                      "replaces": "src/repro/kernels/int_matmul.py:300",
                      "at": "hubert-xlarge mlp.w_in, M=8000 K=1280 N=5120: fp32 x through the "
                            "prologue, int16 carry, bias, gelu replayed in fp32 after a bf16 "
                            "cast, signed 8-bit codes out",
-                     "max_abs_err": float(diff.abs().max().item()), "codes_off_by_one": n_diff,
-                     "ms": ms, "prologue_only_ms": pro_ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                     "at_hubert": at}
+                     "kernel": kernel, "max_abs_err": float(diff.abs().max().item()),
+                     "codes_off_by_one": n_diff, "ms": ms, "bf16_x_ms": bf16_ms,
+                     "int8_x_ms": int8_ms, "prologue_only_ms": pro_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                     "library_ms": lib_ms, "at_hubert": at}
             continue
         got = int_matmul_cuda(x, w, scale, bias, **xkw)
         torch.cuda.synchronize()
         if not torch.equal(got, y):
             raise AssertionError(f"int_matmul hubert {site} M={M} K={K} N={N}: kernel != plain")
-        ms = events_ms(lambda: int_matmul_cuda(x, w, scale, bias, **xkw), 10)
+        ms, kernel = timed(lambda: int_matmul_cuda(x, w, scale, bias, **xkw))
         plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, bias, **xkw), 2)
         b_ms, b_by = bound_ms(x.element_size() * M * K + K * N + 12 * N + 4 * M * N,
                               2 * M * K * N, INT8_OPS_PER_S)
         print(f"int_matmul hubert {site} ({'int8 x' if site == 'mlp.w_out' else 'prologue'}) "
-              f"M={M} K={K} N={N}: equal to plain, kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"library_ms(_int_mm) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by})", flush=True)
-        at[f"{site} M={M} K={K} N={N}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                                           "bound_by": b_by, "library_ms": lib_ms}
-    return entry
+              f"M={M} K={K} N={N}: equal to plain, kernel {kernel} ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms(_int_mm) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by}), "
+              f"{b_ms / ms:.1%} of the bound", flush=True)
+        at[f"{site} M={M} K={K} N={N}"] = {"kernel": kernel, "ms": ms, "plain_ms": plain_ms,
+                                           "bound_ms": b_ms, "bound_by": b_by,
+                                           "bound_share": b_ms / ms, "library_ms": lib_ms}
+        if site == "mlp.w_out":
+            tc_entry = {"name": "int_matmul[tc]", "route": "cuda",
+                        "source": "src/repro_torch/csrc/int_matmul.cu",
+                        "replaces": "src/repro/kernels/int_matmul.py:300",
+                        "at": "the tensor-core kernel (M > 16) at hubert-xlarge mlp.w_out, "
+                              "M=8000 K=5120 N=1280: int8 codes in, int16 carry, scale + bias",
+                        "kernel": kernel, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                        "library_ms": lib_ms, "crossover": {}}
+        del w, w_cm, x, codes, y
+    # the crossover: both kernels on the same int8 operands at a few rows
+    for K, N in ((1280, 5120), (1280, 1280)):
+        w = a2q_bounded_weights(gen, K, N, dev)
+        w_cm = w.t().contiguous().t()
+        scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+        kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
+        for m in (8, 16, 32, 64):
+            x = torch.randint(-128, 128, (m, K), generator=gen, device=dev, dtype=torch.int8)
+            row = {}
+            for tc in (False, True):
+                with int_matmul_route(tc):
+                    got = int_matmul_cuda(x, w, scale, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, int_matmul_plain(x, w, scale, **kw)):
+                        raise AssertionError(f"int_matmul M={m} K={K} N={N} tc={tc}: != plain")
+                    row["tc_ms" if tc else "dp4a_ms"] = graph_ms(
+                        lambda: int_matmul_cuda(x, w, scale, **kw), 20)
+            row["library_ms"] = graph_ms(lambda: torch._int_mm(x, w_cm), 20) if m > 16 else None
+            row["bound_ms"], row["bound_by"] = bound_ms(m * K + K * N + 4 * N + 4 * m * N,
+                                                        2 * m * K * N, INT8_OPS_PER_S)
+            lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
+            print(f"int_matmul crossover M={m} K={K} N={N} (int8 x, scale): dp4a_ms "
+                  f"{row['dp4a_ms']:.5f} tc_ms {row['tc_ms']:.5f} library_ms(_int_mm) {lib} "
+                  f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']}); the wrapper runs "
+                  f"{'tc' if m > 16 else 'dp4a'}", flush=True)
+            tc_entry["crossover"][f"M={m} K={K} N={N}"] = row
+        del w, w_cm
+    return [entry, tc_entry]
 
 
 def _quantize(pool, bits):
@@ -1152,10 +1303,12 @@ def serve(dev):
     arch = get_arch("smollm-135m")
     t0 = time.perf_counter()
     a2q_quantize_cuda.launches = 0
-    params = deploy_params(init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev),
-                           arch.quant)
+    with held_deploys(arch.name) as held:
+        params = deploy_params(init_lm(torch.Generator(device=dev).manual_seed(0), arch,
+                                       device=dev), arch.quant)
     torch.cuda.synchronize()
     deploys = a2q_quantize_cuda.launches
+    check_held(arch.name, held, deploys)
     print(f"init + deploy of {arch.name} ({arch.n_layers} layers, d_model {arch.d_model}): "
           f"{time.perf_counter() - t0:.2f}s, {deploys} a2q_quantize launches", flush=True)
     rng = np.random.default_rng(0)
@@ -1165,11 +1318,12 @@ def serve(dev):
     engine.generate(prompts[:1], max_new=2)  # warm-up: first-call library set-up
     engine.reset_stats()
     torch.cuda.synchronize()
-    int_matmul_cuda.launches = 0
+    int_matmul_cuda.launches = int_matmul_cuda.tc_launches = 0
     paged_attention_cuda.launches = 0
     outs = engine.generate(prompts, max_new=32)
     torch.cuda.synchronize()
     launches = {"int_matmul": int_matmul_cuda.launches,
+                "int_matmul[tc]": int_matmul_cuda.tc_launches,
                 "paged_attention": paged_attention_cuda.launches}
     tp = engine.throughput()
     ticks = tp["decode_dispatches"]
@@ -1183,9 +1337,11 @@ def serve(dev):
           flush=True)
     per_forward = 7 * arch.n_layers
     if launches["int_matmul"] != per_forward * (ticks + chunks) or \
-            launches["paged_attention"] != arch.n_layers * ticks or ticks < 31:
+            launches["paged_attention"] != arch.n_layers * ticks or ticks < 31 or \
+            not 0 < launches["int_matmul[tc]"] <= per_forward * chunks:
         raise AssertionError(f"launch counts {launches} do not show {per_forward} int_matmul "
-                             f"and {arch.n_layers} paged_attention per decode tick")
+                             f"and {arch.n_layers} paged_attention per decode tick, and the "
+                             "prefill chunks' rows on the tensor cores")
     for r, o in zip(engine.last_requests, outs):
         if len(o) != 32 or not all(0 <= t < arch.vocab for t in o) or \
                 not np.isfinite(r.margins).all():
@@ -1195,6 +1351,7 @@ def serve(dev):
         raise AssertionError(f"{deploys} a2q_quantize launches at deploy, expected "
                              f"{7 * arch.n_layers}")
     launches["a2q_quantize"] = deploys
+    launches["a2q_quantize[flips]"] = held["flips"]
 
     phase("5: same weights and prompts on the dequant bf16 path; reduced model card vs CPU")
     toks = torch.as_tensor(np.stack(prompts), device=dev)
@@ -1321,11 +1478,12 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         int_matmul_cuda.launches = int_matmul_cuda.prologue_launches = 0
-        attn.launches = 0
+        int_matmul_cuda.tc_launches = attn.launches = 0
         outs = engine.generate(prompts, max_new=32)
         torch.cuda.synchronize()
         launches = {"int_matmul": int_matmul_cuda.launches,
-                    "int_matmul[prologue]": int_matmul_cuda.prologue_launches, name: attn.launches}
+                    "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
+                    "int_matmul[tc]": int_matmul_cuda.tc_launches, name: attn.launches}
         tp = engine.throughput()
         peak = torch.cuda.max_memory_allocated() / 1e9
         print(f"[{tag}] prefill {tp['prefill_tok_s']:.2f} tok/s | decode {tp['decode_tok_s']:.2f} "
@@ -1345,7 +1503,7 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
     bf16, bf16_outs, _, _ = run("bf16 KV, int-chain, kernel", None, int_chain=True,
                                 decode_kernel=True)
     l_bf16 = _prompt_logits(params, arch, toks, chained, dev)
-    counts = {"int_matmul[prologue]": 0}
+    counts = {"int_matmul[prologue]": 0, "int_matmul[tc]": 0}
     for bits in (8, 4):
         main, outs, launches, tp = run(f"int{bits} KV, int-chain, kernel (main path)", bits,
                                        int_chain=True, decode_kernel=True)
@@ -1358,6 +1516,7 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
                                  f"show {per_forward} folded int_matmul per forward and {n_attn} "
                                  f"{name} per decode tick")
         counts["int_matmul[prologue]"] += launches["int_matmul[prologue]"]
+        counts["int_matmul[tc]"] += launches["int_matmul[tc]"]
         counts[f"{name}[int{bits}]"] = launches[name]
         # chaining is a pure dispatch fusion: the unchained run on the same pools
         l_q = _prompt_logits(params, arch, toks, chained, dev, bits)
@@ -1557,9 +1716,11 @@ def serve_deepseek(dev):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     a2q_quantize_cuda.launches = 0
-    params = build_deepseek(dev, arch)
+    with held_deploys(arch.name) as held:
+        params = build_deepseek(dev, arch)
     torch.cuda.synchronize()
     deploys = a2q_quantize_cuda.launches
+    check_held(arch.name, held, deploys)
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"init + deploy of {arch.name} cut to {arch.n_layers} layers (d_model {arch.d_model}, "
@@ -1578,15 +1739,16 @@ def serve_deepseek(dev):
     engine.reset_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    int_matmul_cuda.launches = 0
+    int_matmul_cuda.launches = int_matmul_cuda.tc_launches = 0
     paged_mla_attention_cuda.launches = 0
     outs = engine.generate(prompts, max_new=32)
     torch.cuda.synchronize()
     launches = {"int_matmul": int_matmul_cuda.launches,
+                "int_matmul[tc]": int_matmul_cuda.tc_launches,
                 "paged_mla_attention": paged_mla_attention_cuda.launches}
     tp = engine.throughput()
     ticks = tp["decode_dispatches"]
-    launches_deploy = {"a2q_quantize": deploys}
+    launches_deploy = {"a2q_quantize": deploys, "a2q_quantize[flips]": held["flips"]}
     chunks = sum(-(-len(p) // 32) for p in prompts)
     print(f"prefill: {tp['prefill_tokens']} tok in {tp['prefill_s']:.3f}s "
           f"({tp['prefill_tok_s']:.2f} tok/s) | decode: {tp['decode_tokens']} tok in "
@@ -1717,9 +1879,11 @@ def serve_rwkv6(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     a2q_quantize_cuda.launches = 0
-    params = build_rwkv6(dev, arch)
+    with held_deploys(arch.name) as held:
+        params = build_rwkv6(dev, arch)
     torch.cuda.synchronize()
     deploys = a2q_quantize_cuda.launches
+    check_held(arch.name, held, deploys)
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"init + deploy of {arch.name} ({n} layers, d_model {arch.d_model}, d_ff "
@@ -1742,12 +1906,14 @@ def serve_rwkv6(dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         int_matmul_cuda.launches = int_matmul_cuda.requant_launches = 0
         int_matmul_cuda.prologue_launches = rwkv6_scan_cuda.launches = 0
+        int_matmul_cuda.tc_launches = 0
         outs = engine.generate(prompts, max_new=32)
         torch.cuda.synchronize()
         launches = {"int_matmul": int_matmul_cuda.launches,
                     "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
                     "int_matmul[requant]": int_matmul_cuda.requant_launches,
                     "rwkv6_scan": rwkv6_scan_cuda.launches}
+        tc = int_matmul_cuda.tc_launches
         tp = engine.throughput()
         print(f"[{tag}] prefill {tp['prefill_tokens']} tok in {tp['prefill_s']:.3f}s "
               f"({tp['prefill_tok_s']:.2f} tok/s) | decode {tp['decode_tokens']} tok in "
@@ -1760,9 +1926,9 @@ def serve_rwkv6(dev) -> dict:
             if len(o) != 32 or not all(0 <= t < arch.vocab for t in o) or \
                     not np.isfinite(r.margins).all():
                 raise AssertionError(f"[{tag}] bad output: {o} margins {r.margins}")
-        return engine, outs, launches, tp
+        return engine, outs, launches, tp, tc
 
-    main, outs, launches, tp = run("int-chain (main path)", int_chain=True)
+    main, outs, launches, tp, tc = run("int-chain (main path)", int_chain=True)
     ticks = tp["decode_dispatches"]
     forwards = ticks + chunks
     if launches != {"int_matmul": per_forward * forwards,
@@ -1788,7 +1954,7 @@ def serve_rwkv6(dev) -> dict:
     toks = torch.as_tensor(np.stack(prompts), device=dev)
     l_c = apply_lm(params, arch, tokens=toks, rt=Runtime(int_chain=True))[0].float()
     l_u = apply_lm(params, arch, tokens=toks, rt=Runtime(int_forward=True))[0].float()
-    unchained, outs_u, _, _ = run("unchained int-forward", int_forward=True)
+    unchained, outs_u, _, _, _ = run("unchained int-forward", int_forward=True)
     same_margins = [r.margins for r in unchained.last_requests] == \
         [r.margins for r in main.last_requests]
     print(f"chained vs unchained: prompt logits bitwise equal {torch.equal(l_c, l_u)}, tokens "
@@ -1808,7 +1974,7 @@ def serve_rwkv6(dev) -> dict:
     if not (np.isfinite(diff) and diff <= eps):
         raise AssertionError(f"int-chain logits off the dequant path by {diff} > {eps}")
     del l_c, l_deq
-    ref, ref_outs, _, _ = run("dequant path", )
+    ref, ref_outs, _, _, _ = run("dequant path")
     ok, ties, detail = parity_up_to_ties(ref.last_requests, outs, eps)
     same = sum(a == b for a, b in zip(ref_outs, outs))
     print(f"served tokens, int-chain vs dequant path: parity_up_to_ties eps={eps:.4g}: ok={ok} "
@@ -1838,9 +2004,11 @@ def serve_rwkv6(dev) -> dict:
         raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
     return {"rwkv6-7b int-chain": {
         "a2q_quantize": deploys,
+        "a2q_quantize[flips]": held["flips"],
         "int_matmul[requant]": launches["int_matmul[requant]"],
         "int_matmul[prologue]": launches["int_matmul[prologue]"],
         "int_matmul": launches["int_matmul"] - launches["int_matmul[prologue]"],  # int8 x in
+        "int_matmul[tc]": tc,
         "rwkv6_scan": launches["rwkv6_scan"]}}
 
 
@@ -1962,10 +2130,12 @@ def encode_hubert(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     a2q_quantize_cuda.launches = 0
     t0 = time.perf_counter()
-    params = build_hubert(dev, arch)
+    with held_deploys(arch.name) as held:
+        params = build_hubert(dev, arch)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     deploys = a2q_quantize_cuda.launches
+    check_held(arch.name, held, deploys)
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"init + deploy of {arch.name} ({n} layers, d_model {arch.d_model}, d_ff "
@@ -1985,6 +2155,7 @@ def encode_hubert(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     int_matmul_cuda.launches = int_matmul_cuda.requant_launches = 0
     int_matmul_cuda.prologue_launches = flash_attention_cuda.launches = 0
+    int_matmul_cuda.tc_launches = flash_attention_cuda.tc_launches = 0
     t0 = time.perf_counter()
     logits = apply_lm(params, arch, frontend_embeds=frames, rt=rt)[0]
     torch.cuda.synchronize()
@@ -1992,7 +2163,9 @@ def encode_hubert(dev) -> dict:
     launches = {"int_matmul": int_matmul_cuda.launches,
                 "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
                 "int_matmul[requant]": int_matmul_cuda.requant_launches,
-                "flash_attention": flash_attention_cuda.launches}
+                "int_matmul[tc]": int_matmul_cuda.tc_launches,
+                "flash_attention": flash_attention_cuda.launches,
+                "flash_attention[tc]": flash_attention_cuda.tc_launches}
     peak = torch.cuda.max_memory_allocated() / 1e9
     rep = rt.chain_report
     report = tuple(len(rep[k]) for k in ("folded", "chained", "standalone", "fallback"))
@@ -2001,12 +2174,13 @@ def encode_hubert(dev) -> dict:
           f"{report[0]} folded, {report[1]} chained, {report[2]} standalone, {report[3]} "
           f"fallback", flush=True)
     if launches != {"int_matmul": per_forward, "int_matmul[prologue]": per_forward - n,
-                    "int_matmul[requant]": n, "flash_attention": n} \
+                    "int_matmul[requant]": n, "int_matmul[tc]": per_forward,
+                    "flash_attention": n, "flash_attention[tc]": n} \
             or report != (per_forward, n, 0, 0) or rep["chained"] != ["mlp.w_in"] * n:
         raise AssertionError(f"launches {launches}, chain report {report}: expected {per_forward} "
                              f"int_matmul ({per_forward - n} prologue, {n} gelu requant, {n} "
-                             f"int8 x), {n} flash_attention, {per_forward} folded / {n} chained / "
-                             "0 standalone")
+                             f"int8 x; all on the tensor cores), {n} flash_attention on the "
+                             f"tensor cores, {per_forward} folded / {n} chained / 0 standalone")
     if logits.shape != (HUBERT_CLIPS, HUBERT_FRAMES, arch.n_classes) or \
             not torch.isfinite(logits).all():
         raise AssertionError(f"bad logits: {tuple(logits.shape)}, finite "
@@ -2070,10 +2244,13 @@ def encode_hubert(dev) -> dict:
         raise AssertionError(f"reduced hubert card vs CPU: max |diff| {err} > {tol}")
     return {"hubert-xlarge int-chain": {
         "a2q_quantize": deploys,
+        "a2q_quantize[flips]": held["flips"],
         "int_matmul[gelu requant]": launches["int_matmul[requant]"],
         "int_matmul[prologue]": launches["int_matmul[prologue]"],  # the gelu requant's included
         "int_matmul": launches["int_matmul"] - launches["int_matmul[prologue]"],  # int8 x in
-        "flash_attention": launches["flash_attention"]}}
+        "int_matmul[tc]": launches["int_matmul[tc]"],
+        "flash_attention": launches["flash_attention"],
+        "flash_attention[tc]": launches["flash_attention[tc]"]}}
 
 
 def _leaves(tree):
@@ -2115,7 +2292,7 @@ def main() -> int:
                check_int_matmul_requant(dev), check_paged_attention(dev),
                *check_paged_attention_int(dev), check_paged_mla_attention(dev),
                *check_paged_mla_attention_int(dev), check_rwkv6_scan(dev),
-               check_a2q_quantize(dev), check_flash_attention(dev), check_int_matmul_hubert(dev)]
+               check_a2q_quantize(dev), check_flash_attention(dev), *check_int_matmul_hubert(dev)]
     entries[0]["at_deepseek"] = check_int_matmul_deepseek(dev)
     torch.cuda.empty_cache()
     by_path = serve(dev)
@@ -2131,6 +2308,14 @@ def main() -> int:
         e["launches_by_path"] = counts
         if e["launches"] == 0:
             raise AssertionError(f"{e['name']} was never launched on the main paths")
+        if e["name"] == "flash_attention":
+            e["launches_tc"] = sum(n.get("flash_attention[tc]", 0) for n in by_path.values())
+        if e["name"] == "a2q_quantize":  # each phase held every deploy launch (check_held)
+            e["deploy_matrices_checked"] = e["launches"]
+            e["deploy_code_flips"] = sum(n.get("a2q_quantize[flips]", 0) for n in by_path.values())
+            if e["deploy_code_flips"]:
+                raise AssertionError(f"{e['deploy_code_flips']} deployed codes off the plain "
+                                     "quantizer's")
 
     phase("6: result")
     print(smi, flush=True)

@@ -46,8 +46,22 @@ def a2q_norm_cap(d: torch.Tensor, acc_bits: int, input_bits: int, input_signed: 
     return int(input_signed) + log2_amax + d - input_bits
 
 
+def pairwise_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum of a 2-D tensor over its rows in one fixed order: a perfect
+    binary tree over the rows zero-padded to a power of two (``((r0 + r1) +
+    (r2 + r3)) + ...``), one rounded fp32 add a node.  Every device and the
+    ``a2q_quantize`` kernel compute it bit for bit alike, so the deployed
+    codes on the card equal the plain quantizer's (``torch.sum``'s order is
+    its own on each device)."""
+    while a.shape[0] > 1:
+        if a.shape[0] % 2:
+            a = torch.cat([a, torch.zeros_like(a[:1])])
+        a = a[0::2] + a[1::2]
+    return a.sum(0)  # one row (or none): the row itself
+
+
 def _channel_sum(w: torch.Tensor) -> torch.Tensor:
-    return w.reshape(-1, w.shape[-1]).sum(0)
+    return pairwise_sum(w.reshape(-1, w.shape[-1]))
 
 
 def init_a2q(w: torch.Tensor, bits: int, acc_bits: int, input_bits: int, input_signed: bool) -> dict:

@@ -15,12 +15,13 @@
 //          with `spill16` the carry is stored as int16 after every tile
 //          (wraps exactly like `astype(int16)`; lossless when the A2Q bound
 //          holds for acc_bits <= 16);
-//   x    is either int8 codes, or (prologue, `aq` given) fp32 activations
-//          quantized while they are staged: clip(rint(x / aq), lo, hi) - shift,
-//          with `shift` 128 for unsigned 8-bit codes (symmetrized into the int8
-//          operand; the wrapper's offset adds 128 * colsum(w) back).  The
-//          division is IEEE (__fdiv_rn, never a reciprocal) and rint rounds
-//          half to even, so the codes equal the standalone act-quant's;
+//   x    is either int8 codes, or (prologue, `aq` given) fp32 or bf16
+//          activations quantized on the card: clip(rint(x / aq), lo, hi) -
+//          shift, with `shift` 128 for unsigned 8-bit codes (symmetrized into
+//          the int8 operand; the wrapper's offset adds 128 * colsum(w) back).
+//          bf16 is widened to fp32 exactly first.  The division is IEEE
+//          (__fdiv_rn, never a reciprocal) and rint rounds half to even, so
+//          the codes equal the standalone act-quant's;
 //   out  = (acc + offset[n]) * scale[n] (+ bias[n]) in fp32 when `scale` is
 //          given (one rounded multiply, then one rounded add: __fmul_rn /
 //          __fadd_rn keep nvcc from contracting them into an FMA, so the
@@ -39,38 +40,84 @@
 //          linear's act-quant, dividing (__fdiv_rn) and rounding half to even,
 //          so the codes equal the unchained path's wherever tanhf equals
 //          PyTorch's tanh.
-//          The requant reads the same weights and writes a quarter of the
-//          fp32 output's bytes, so its bound is the scale-only kernel's.
 //
-// What bounds it on the H100: at decode M is the batch (1-8 rows), so the
-// kernel reads each weight byte once and does ~M multiply-adds with it; the
-// bound is the weight bytes over the 3.35 TB/s of HBM.  At prefill (M = a
-// prompt chunk) it is still far below the int8 tensor-core roofline.
+// Two kernels compute that one function; the wrapper picks by M (a constant,
+// `TC_MIN_ROWS` in kernels/int_matmul.py):
 //
-// Design (simple first): one block of 256 threads owns a 64-row x 64-column
-// output tile and walks K in 64-element steps staged in shared memory; the
-// weight step is stored transposed, so each thread holds its column's 64
-// weights of the step in registers and runs each of its rows' inner product
-// on `__dp4a` (four int8 products per instruction), with one guard per row so
-// a row's products issue back to back.  Each thread keeps one int32 partial
-// per output for the current reference K-tile and folds it into the carried
-// accumulator at the reference boundary, so the carry semantics do not
-// depend on this kernel's own step size.  Rows past M are skipped, which
-// makes a 1-row decode call cost one row of arithmetic; the next step's
-// global loads are issued into registers before the current step is
-// multiplied, so the weight stream overlaps the arithmetic.  With the
-// prologue a thread's x segment is 16 fp32 values (four 16-byte loads),
-// issued with the weight loads a step ahead and divided only when the next
-// step is staged (an IEEE division is a branch to a slow path behind a
-// convergence barrier, so dividing between loads would serialise them).  With
-// at most 16 live rows (decode) the step goes through fp32 shared memory and
-// all the threads quantize it together after the next step's loads are
-// issued: the one warp holding 8 rows' segments would otherwise divide 16
-// values a thread alone and set the step's time.  Past 16 rows each thread
-// quantizes its own segment.  Rows past M are neither staged nor divided.
-// The requant epilogue adds a handful of instructions a flushed output.  Not
-// yet done: tensor-core (mma/wgmma) products and split-K for the few-column
-// decode shapes.
+// (1) M <= 16 (decode): `int_matmul_kernel`, on __dp4a.  What bounds it: M is
+// the batch (1-8 rows), so each weight byte is read once for ~M
+// multiply-adds; the bound is the weight bytes over the 3.35 TB/s of HBM.
+// One block of 256 threads owns a 64-row x 64-column output tile and walks
+// K in 64-element steps staged in shared memory; the weight step is stored
+// transposed, so each thread holds its column's 64 weights of the step in
+// registers and runs each of its rows' inner product on `__dp4a` (four int8
+// products per instruction), with one guard per row so a row's products
+// issue back to back.  Each thread keeps one int32 partial per output for
+// the current reference K-tile and folds it into the carried accumulator at
+// the reference boundary.  Rows past M are skipped, which makes a 1-row
+// decode call cost one row of arithmetic; the next step's global loads are
+// issued into registers before the current step is multiplied.  With the
+// prologue a thread's x segment is 16 fp32 (or bf16) values, issued with the
+// weight loads a step ahead and divided only when the next step is staged
+// (an IEEE division is a branch to a slow path behind a convergence barrier,
+// so dividing between loads would serialise them).  With at most 16 live
+// rows the step goes through fp32 shared memory and all the threads quantize
+// it together after the next step's loads are issued.  Not yet done: split-K
+// for the few-column decode shapes.
+//
+// (2) M > 16 (prefill chunks, hubert's 8000-row encode): `int_matmul_tc_kernel`
+// on the int8 tensor cores.  What bounds it: operations (2 M K N against the
+// 1,979 TOP/s int8 peak) once M is in the thousands; bytes below ~300 rows.
+//   * Products: `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32` fed by
+//     `ldmatrix`.  Chosen over `wgmma` because its fragment layouts are
+//     fixed by the ISA and can be checked line by line without a compiler or
+//     a card at hand, where wgmma's shared-memory descriptors (swizzle mode,
+//     leading and stride offsets) show an error only as wrong numbers on the
+//     card.  A block of 256 threads (8 warps, 2 x 4) owns a 128 x 128
+//     output tile, each warp 64 x 32: 16 mmas a 32-deep k-step.
+//   * Asynchronous copies: a 4-stage ring of 64-deep K-steps (x tile 128 x 64
+//     and w tile 64 x 128, 16 KB a stage) filled by `cp.async.cg` 16-byte
+//     copies (zero-filled past M, K and N by the copy's source size), one
+//     barrier a step; the copies of step k + 3 fly while step k multiplies.
+//     Rows that start on 8 bytes only (K or N a multiple of 8, not of 16:
+//     hubert's 504-class head) take two 8-byte copies a chunk; other shapes
+//     stage the same tiles through registers (same layout, slower).
+//   * The weight tile is transposed on its way to the tensor cores, not in
+//     memory: s8 mma wants B K-major (4 consecutive k of one column in a
+//     register) and w is N-major.  The N-major tile is copied as it is; a
+//     `ldmatrix.trans` over 16-bit pairs of it, whose eight row addresses
+//     are the k rows {0,1,4,5,8,9,12,13} (+2 for the second matrix),
+//     hands each thread 2 k x 2 n bytes per matrix, and two `__byte_perm`s
+//     (selectors 0x6420 and 0x7531) turn two such words into the B
+//     registers of columns 2g and 2g + 1.  So one mma computes the even
+//     columns of a 16-column group and a second the odd ones, and in the
+//     accumulators each thread holds 4 neighbouring columns of its rows.
+//     Both tiles are XOR-swizzled by 16-byte chunk so that every ldmatrix
+//     phase reads 8 distinct bank groups.
+//   * The carry needs no per-tile fold on the main path.  For int8 operands
+//     |x w| <= 2^14, so the int32 sum cannot overflow for K < 2^17 (18,432 *
+//     2^14 < 2^31), and the tensor cores' int32 sum is the exact sum.
+//     sign_extend to 16 (int16 carry) or to acc_bits (wrap) is reduction mod
+//     2^n, which commutes with addition, so for `exact` (with or without the
+//     int16 carry) and `wrap`, one sign extension to min(acc_bits, 16) bits
+//     at the flush equals the reference's fold at every tile, bit for bit.
+//     Only `saturate` is not a homomorphism: its template instance keeps a
+//     partial (the mma accumulators) and a carry register set and folds at
+//     every reference K-tile (`bk_ref` is a multiple of the 64-deep step).
+//   * The prologue: with N / 128 column blocks every x tile would be
+//     quantized N / 128 times (40 at hubert's mlp.w_in: 410 M IEEE divisions
+//     and 1.6 GB of fp32 re-reads from L2 at M = 8000), so a separate pass
+//     (`act_codes_kernel`, the same `act_code`) writes the int8 codes once
+//     into a scratch buffer the wrapper allocates, and the product reads
+//     them: the codes are the same, as the reference also quantizes inside
+//     each grid block.
+//   * The epilogue runs on the accumulator fragments: each thread reads
+//     scale / bias / offset / osc once per column it owns, and writes its 4
+//     neighbouring columns with one 16-byte (fp32, int32) or 4-byte (int8)
+//     store where N is a multiple of 4; the arithmetic is the one
+//     `epilogue` function both kernels call.
+// The requant epilogue adds a handful of instructions a flushed output and
+// writes a quarter of the fp32 output's bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,6 +205,32 @@ __device__ __forceinline__ F16 load16(const float* p, int valid) {
   return r;
 }
 
+// 16 bf16 values from `p` widened to fp32 (exactly), zero past `valid`;
+// two 16-byte loads when aligned.
+__device__ __forceinline__ F16 load16(const __nv_bfloat16* p, int valid) {
+  float f[16];
+  if (valid >= 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4 u[2] = {__ldg(reinterpret_cast<const uint4*>(p)),
+                        __ldg(reinterpret_cast<const uint4*>(p) + 1)};
+    const unsigned w[8] = {u[0].x, u[0].y, u[0].z, u[0].w, u[1].x, u[1].y, u[1].z, u[1].w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      f[2 * j] = __uint_as_float(w[j] << 16);
+      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) f[j] = j < valid ? __bfloat162float(p[j]) : 0.0f;
+  }
+  F16 r;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) r.v[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+  return r;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // The prologue's code of one fp32 activation: clip(rint(x / aq), lo, hi) -
 // shift, dividing (never multiplying by a reciprocal) and rounding half to
 // even, as the standalone act-quant computes it.
@@ -184,18 +257,64 @@ __device__ __forceinline__ int8_t requant_code(float y, float osc, float lo, flo
                              shift);
 }
 
-// TX is int8_t (codes) or float (the prologue quantizes while staging).
+// The epilogue's operands and outputs (null where not given).
+struct Epi {
+  const float* scale;
+  const float* bias;
+  const int* offset;
+  const float* osc;
+  int r_lo, r_hi, r_shift, act, cast_bf16;
+  float* out_f;
+  int* out_i;
+  int8_t* out_q;
+};
+
+// One output column's operands, read once per column.
+struct Col {
+  float sc, bi, os;
+  int off;
+};
+
+__device__ __forceinline__ Col column(const Epi& e, int n) {
+  Col c;
+  c.sc = e.scale != nullptr ? e.scale[n] : 0.0f;
+  c.bi = e.bias != nullptr ? e.bias[n] : 0.0f;
+  c.off = e.offset != nullptr ? e.offset[n] : 0;
+  c.os = e.osc != nullptr ? e.osc[n] : 1.0f;
+  return c;
+}
+
+// One flushed accumulator through the epilogue: the raw int32, the fp32
+// (acc + offset) * scale (+ bias), or its requant code.
+__device__ __forceinline__ float scaled(const Epi& e, const Col& c, int acc) {
+  float y = __fmul_rn(__int2float_rn(add_wrap32(acc, c.off)), c.sc);
+  if (e.bias != nullptr) y = __fadd_rn(y, c.bi);
+  return y;
+}
+
+__device__ __forceinline__ int8_t requant(const Epi& e, const Col& c, int acc) {
+  return requant_code(scaled(e, c, acc), c.os, static_cast<float>(e.r_lo),
+                      static_cast<float>(e.r_hi), e.r_shift, e.act, e.cast_bf16);
+}
+
+__device__ __forceinline__ void store_one(const Epi& e, const Col& c, size_t o, int acc) {
+  if (e.scale == nullptr) {
+    e.out_i[o] = acc;
+  } else if (e.osc != nullptr) {
+    e.out_q[o] = requant(e, c, acc);
+  } else {
+    e.out_f[o] = scaled(e, c, acc);
+  }
+}
+
+// TX is int8_t (codes) or float / bf16 (the prologue quantizes while staging).
 template <typename TX>
 __global__ void __launch_bounds__(THREADS)
 int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
                   int M, int N, int K, int bk_ref, int mode, int acc_bits,
-                  int spill16, const float* __restrict__ scale,
-                  const float* __restrict__ bias, const int* __restrict__ offset,
-                  const float* __restrict__ aq, int q_lo, int q_hi, int q_shift,
-                  const float* __restrict__ osc, int r_lo, int r_hi, int r_shift, int act,
-                  int cast_bf16, float* __restrict__ out_f, int* __restrict__ out_i,
-                  int8_t* __restrict__ out_q) {
-  constexpr bool kPrologue = std::is_same<TX, float>::value;
+                  int spill16, const float* __restrict__ aq, int q_lo, int q_hi, int q_shift,
+                  Epi epi) {
+  constexpr bool kPrologue = !std::is_same<TX, int8_t>::value;
   __shared__ __align__(16) int8_t xs[BM * PITCH];  // xs[r][k]
   __shared__ __align__(16) int8_t ws[BN * PITCH];  // ws[n][k] (transposed)
   __shared__ __align__(16) float xf[kPrologue ? BM * BKC : 4];  // the prologue's fp32 step
@@ -207,8 +326,8 @@ int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
   const int m0 = blockIdx.y * BM;
   const int rows = min(BM, M - m0);
 
-  // staging roles: one 16-byte segment of x (16 int8 codes, or 16 fp32
-  // values for the prologue) and one of w per thread per step
+  // staging roles: one 16-byte segment of x (16 int8 codes, or 16 fp32 /
+  // bf16 values for the prologue) and one of w per thread per step
   const int xr = tid / (BKC / 16);        // x row 0..63
   const int xk = (tid % (BKC / 16)) * 16; // x column offset within the step
   const int wk = tid / (BN / 16);         // w row (k) 0..63
@@ -327,29 +446,350 @@ int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
 
   const int n = n0 + col;
   if (n >= N) return;
-  const float sc = scale != nullptr ? scale[n] : 0.0f;
-  const float bi = bias != nullptr ? bias[n] : 0.0f;
-  const int off = offset != nullptr ? offset[n] : 0;
-  const float os = osc != nullptr ? osc[n] : 1.0f;
-  const float rlo = static_cast<float>(r_lo);
-  const float rhi = static_cast<float>(r_hi);
+  const Col c = column(epi, n);
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + i * ROW_GROUPS;
     if (r >= rows) continue;
-    const size_t o = static_cast<size_t>(m0 + r) * N + n;
-    if (scale != nullptr) {
-      float y = __fmul_rn(__int2float_rn(add_wrap32(carry[i], off)), sc);
-      if (bias != nullptr) y = __fadd_rn(y, bi);
-      if (osc != nullptr) {
-        out_q[o] = requant_code(y, os, rlo, rhi, r_shift, act, cast_bf16);
-      } else {
-        out_f[o] = y;
-      }
+    store_one(epi, c, static_cast<size_t>(m0 + r) * N + n, carry[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (M > 16) and its prologue pass.
+
+namespace tc {
+constexpr int BM = 128;                  // output rows per block
+constexpr int BN = 128;                  // output columns per block
+constexpr int BK = 64;                   // K elements per pipeline stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 256;             // 8 warps: 2 along M x 4 along N
+constexpr int WM = 64;                   // warp tile rows
+constexpr int WN = 32;                   // warp tile columns
+constexpr int MT = WM / 16;              // m16 tiles a warp
+constexpr int NG = WN / 16;              // 16-column groups a warp (two n8 mmas each)
+constexpr int XS = BM * BK;              // x tile bytes: 128 rows of 64 (4 chunks of 16)
+constexpr int WS = BK * BN;              // w tile bytes: 64 k rows of 128 (8 chunks)
+constexpr int STAGE = XS + WS;
+constexpr int SMEM = STAGES * STAGE;     // 64 KB
+constexpr int CODES_PER_THREAD = 8;      // the prologue pass
+constexpr int CODES_THREADS = 256;
+}  // namespace tc
+
+// Byte offset of 16-byte chunk `c` of x-tile row `m` (rows of 64 bytes): the
+// chunk index XORed with bits 1-2 of the row, so the 8 rows an ldmatrix
+// phase reads land in 8 distinct bank groups.
+__device__ __forceinline__ int xs_off(int m, int c) { return m * 64 + 16 * (c ^ ((m >> 1) & 3)); }
+
+// Byte offset of chunk `c` of w-tile row `k` (rows of 128 bytes): XORed with
+// k's bits 0, 2 and 3, distinct over the k rows {0,1,4,5,8,9,12,13} (+2,
+// +16, +32) that one transposing ldmatrix reads.
+__device__ __forceinline__ int ws_off(int k, int c) {
+  return k * 128 + 16 * (c ^ ((k & 1) | (((k >> 2) & 3) << 1)));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; bytes past `src_bytes` are zero.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// The same as two 8-byte copies, for rows that start on 8 bytes only.
+__device__ __forceinline__ void cp_async8x2(unsigned dst, const int8_t* src, bool lo, bool hi) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(lo ? 8 : 0)
+               : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst + 8),
+               "l"(hi ? src + 8 : src), "r"(hi ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned& r0, unsigned& r1, unsigned& r2,
+                                        unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned& r0, unsigned& r1, unsigned& r2,
+                                          unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), int32 accumulators.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The prologue pass of the tensor-core route: `n` activations (fp32 or bf16)
+// to their int8 codes, 8 a thread.
+template <typename TX>
+__global__ void __launch_bounds__(tc::CODES_THREADS)
+act_codes_kernel(const TX* __restrict__ x, long long n, const float* __restrict__ aq, int q_lo,
+                 int q_hi, int q_shift, int8_t* __restrict__ codes) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * tc::CODES_THREADS + threadIdx.x) * tc::CODES_PER_THREAD;
+  if (i0 >= n) return;
+  const float s_aq = *aq;
+  const float lo = static_cast<float>(q_lo);
+  const float hi = static_cast<float>(q_hi);
+  if (i0 + tc::CODES_PER_THREAD <= n && (reinterpret_cast<uintptr_t>(x + i0) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(codes + i0) & 7) == 0) {
+    float f[8];
+    if constexpr (std::is_same<TX, float>::value) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(x + i0));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(x + i0) + 1);
+      const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = v[j];
     } else {
-      out_i[o] = carry[i];
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(x + i0));
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        f[2 * j] = __uint_as_float(w[j] << 16);
+        f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+      }
+    }
+    unsigned v[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(act_code(f[j], s_aq, lo, hi, q_shift)))
+                   << (8 * (j & 3));
+    *reinterpret_cast<uint2*>(codes + i0) = make_uint2(v[0], v[1]);
+  } else {
+    for (long long i = i0; i < n && i < i0 + tc::CODES_PER_THREAD; ++i)
+      codes[i] = act_code(to_f32(x[i]), s_aq, lo, hi, q_shift);
+  }
+}
+
+// kCopy 16: every row of x and w starts on 16 bytes (K and N multiples of
+// 16), the stages are filled by 16-byte cp.async; 8: rows start on 8 bytes,
+// two 8-byte cp.async a chunk; 0: through registers.
+// kSat: `saturate` below 32 bits, folded at every reference K-tile.
+template <int kCopy, bool kSat>
+__global__ void __launch_bounds__(tc::THREADS, kSat ? 1 : 2)
+int_matmul_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, int M, int N,
+                     int K, int bk_ref, int acc_bits, int spill16, int flush_bits, Epi epi) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;  // 0..1
+  const int wn = warp & 3;   // 0..3
+  const int n0 = blockIdx.x * tc::BN;
+  const int m0 = blockIdx.y * tc::BM;
+  const int KT = (K + tc::BK - 1) / tc::BK;
+
+  // two 16-byte chunks of x and two of w a thread a stage
+  auto load_stage = [&](int slot, int k0) {
+    uint8_t* xs = smem + slot * tc::STAGE;
+    uint8_t* ws = xs + tc::XS;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = tid + j * tc::THREADS;
+      const int r = e >> 2, c = e & 3;      // x: row, chunk
+      const int kr = e >> 3, wc = e & 7;    // w: k row, chunk
+      const int gm = m0 + r, gk = k0 + 16 * c;
+      const int gkw = k0 + kr, gn = n0 + 16 * wc;
+      const int8_t* xp = x + static_cast<size_t>(gm) * K + gk;
+      const int8_t* wp = w + static_cast<size_t>(gkw) * N + gn;
+      if constexpr (kCopy == 16) {
+        const bool xin = gm < M && gk < K;
+        const bool win = gkw < K && gn < N;
+        cp_async16(smem_u32(xs + xs_off(r, c)), xin ? xp : x, xin ? 16 : 0);
+        cp_async16(smem_u32(ws + ws_off(kr, wc)), win ? wp : w, win ? 16 : 0);
+      } else if constexpr (kCopy == 8) {  // K and N multiples of 8: halves wholly in or out
+        const bool xrow = gm < M;
+        const bool wrow = gkw < K;
+        cp_async8x2(smem_u32(xs + xs_off(r, c)), xrow && gk < K ? xp : x, xrow && gk < K,
+                    xrow && gk + 8 < K);
+        cp_async8x2(smem_u32(ws + ws_off(kr, wc)), wrow && gn < N ? wp : w, wrow && gn < N,
+                    wrow && gn + 8 < N);
+      } else {
+        *reinterpret_cast<int4*>(xs + xs_off(r, c)) = load16(xp, gm < M ? K - gk : 0);
+        *reinterpret_cast<int4*>(ws + ws_off(kr, wc)) = load16(wp, gkw < K ? N - gn : 0);
+      }
+    }
+  };
+
+  int acc[tc::MT][tc::NG][2][4];
+  int carry[kSat ? tc::MT : 1][tc::NG][2][4];
+#pragma unroll
+  for (int i = 0; i < tc::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < tc::NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          acc[i][j][e][r] = 0;
+          if constexpr (kSat) carry[i][j][e][r] = 0;
+        }
+
+#pragma unroll
+  for (int s = 0; s < tc::STAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s * tc::BK);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<tc::STAGES - 2>();  // this thread's copies of step kt have landed
+    __syncthreads();              // everyone's have; everyone is done with step kt - 1
+    {
+      const int nk = kt + tc::STAGES - 1;  // into step kt - 1's slot
+      if (nk < KT) load_stage(nk % tc::STAGES, nk * tc::BK);
+      cp_async_commit();
+    }
+    const uint8_t* xs = smem + (kt % tc::STAGES) * tc::STAGE;
+    const uint8_t* ws = xs + tc::XS;
+#pragma unroll
+    for (int kk = 0; kk < tc::BK / 32; ++kk) {
+      // A: rows (lane & 7) + 8 (matrix & 1) of each m16 tile, chunk 2 kk + (matrix >> 1)
+      unsigned a[tc::MT][4];
+#pragma unroll
+      for (int i = 0; i < tc::MT; ++i) {
+        const int row = wm * tc::WM + 16 * i + (lane & 7) + 8 * ((lane >> 3) & 1);
+        ldsm_x4(smem_u32(xs + xs_off(row, 2 * kk + (lane >> 4))), a[i][0], a[i][1], a[i][2],
+                a[i][3]);
+      }
+      // B: matrix j of the transposing load reads k rows
+      // 16 (j >> 1) + 2 (j & 1) + {0,1,4,5,8,9,12,13} of the 16 columns'
+      // chunk; thread (g, q) gets W[k][2g], W[k][2g+1] for k = 4q, 4q+1 (j even)
+      // or 4q+2, 4q+3 (j odd), and the byte permutes gather each column's 4 k
+      unsigned b[tc::NG][2][2];
+      {
+        const int r = lane & 7, mi = lane >> 3;
+        const int k = 32 * kk + 16 * (mi >> 1) + 2 * (mi & 1) + 4 * (r >> 1) + (r & 1);
+#pragma unroll
+        for (int j = 0; j < tc::NG; ++j) {
+          unsigned r0, r1, r2, r3;
+          ldsm_x4_t(smem_u32(ws + ws_off(k, 2 * wn + j)), r0, r1, r2, r3);
+          b[j][0][0] = __byte_perm(r0, r1, 0x6420);  // column 2g, k 4q..4q+3
+          b[j][1][0] = __byte_perm(r0, r1, 0x7531);  // column 2g + 1
+          b[j][0][1] = __byte_perm(r2, r3, 0x6420);  // the same at k + 16
+          b[j][1][1] = __byte_perm(r2, r3, 0x7531);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < tc::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < tc::NG; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) mma_s8(acc[i][j][e], a[i], b[j][e][0], b[j][e][1]);
+    }
+    if constexpr (kSat) {
+      // bk_ref is a multiple of the step, so a step never straddles a reference tile
+      const int next = (kt + 1) * tc::BK;
+      if (next % bk_ref == 0 || kt + 1 == KT) {
+#pragma unroll
+        for (int i = 0; i < tc::MT; ++i)
+#pragma unroll
+          for (int j = 0; j < tc::NG; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                carry[i][j][e][r] =
+                    fold(carry[i][j][e][r], acc[i][j][e][r], kSaturate, acc_bits, spill16);
+                acc[i][j][e][r] = 0;
+              }
+      }
     }
   }
+  cp_async_wait<0>();
+
+  // the flush: thread (g, q) holds rows g, g + 8 of each m16 tile and, in
+  // each 16-column group, columns 4q .. 4q + 3 (even mma: 4q, 4q + 2; odd:
+  // 4q + 1, 4q + 3)
+  const int g = lane >> 2, q = lane & 3;
+  const bool vec = (N & 3) == 0;
+#pragma unroll
+  for (int j = 0; j < tc::NG; ++j) {
+    const int col0 = n0 + wn * tc::WN + 16 * j + 4 * q;
+    if (col0 >= N) continue;
+    Col cols[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cols[c] = column(epi, min(col0 + c, N - 1));
+#pragma unroll
+    for (int i = 0; i < tc::MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * tc::WM + 16 * i + g + 8 * h;
+        if (row >= M) continue;
+        int v[4];
+        if constexpr (kSat) {
+          v[0] = carry[i][j][0][2 * h];
+          v[1] = carry[i][j][1][2 * h];
+          v[2] = carry[i][j][0][2 * h + 1];
+          v[3] = carry[i][j][1][2 * h + 1];
+        } else {
+          v[0] = sign_extend(acc[i][j][0][2 * h], flush_bits);
+          v[1] = sign_extend(acc[i][j][1][2 * h], flush_bits);
+          v[2] = sign_extend(acc[i][j][0][2 * h + 1], flush_bits);
+          v[3] = sign_extend(acc[i][j][1][2 * h + 1], flush_bits);
+        }
+        const size_t o = static_cast<size_t>(row) * N + col0;
+        if (vec) {
+          if (epi.scale == nullptr) {
+            *reinterpret_cast<int4*>(epi.out_i + o) = make_int4(v[0], v[1], v[2], v[3]);
+          } else if (epi.osc != nullptr) {
+            unsigned u = 0;
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              u |= static_cast<unsigned>(static_cast<uint8_t>(requant(epi, cols[c], v[c])))
+                   << (8 * c);
+            *reinterpret_cast<unsigned*>(epi.out_q + o) = u;
+          } else {
+            *reinterpret_cast<float4*>(epi.out_f + o) =
+                make_float4(scaled(epi, cols[0], v[0]), scaled(epi, cols[1], v[1]),
+                            scaled(epi, cols[2], v[2]), scaled(epi, cols[3], v[3]));
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (col0 + c < N) store_one(epi, cols[c], o + c, v[c]);
+        }
+      }
+  }
+}
+
+template <int kCopy, bool kSat>
+int launch_tc(const int8_t* x, const int8_t* w, int M, int N, int K, int bk_ref, int acc_bits,
+              int spill16, int flush_bits, const Epi& epi, cudaStream_t s) {
+  static bool sized = false;  // shared memory above 48 KB must be asked for once
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(int_matmul_tc_kernel<kCopy, kSat>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 tc::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::BM - 1) / tc::BM);
+  int_matmul_tc_kernel<kCopy, kSat><<<grid, tc::THREADS, tc::SMEM, s>>>(
+      x, w, M, N, K, bk_ref, acc_bits, spill16, flush_bits, epi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -358,11 +798,13 @@ int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
 // and pointers are validated by the Python wrapper; `bk_ref` must be a
 // positive multiple of 64.  `out_q` (int8) is written when `osc` is given,
 // else `out_f` when `scale` is given, else `out_i`.  With `aq` (one fp32
-// value on the device) `x` is fp32 and the prologue quantizes it to
-// [q_lo, q_hi] minus `q_shift`; else `x` is int8.  With `osc` ((N,) fp32,
-// needs `scale`) the epilogue replays `act` (0 none, 1 relu^2 in the cast
-// dtype, 2 tanh gelu in fp32) after a cast to bf16 when `cast_bf16` (else
-// fp32), and requantizes to [r_lo, r_hi] minus `r_shift`.
+// value on the device) `x` is fp32, or bf16 when `x_bf16`, and the prologue
+// quantizes it to [q_lo, q_hi] minus `q_shift`; else `x` is int8.  With `osc`
+// ((N,) fp32, needs `scale`) the epilogue replays `act` (0 none, 1 relu^2 in
+// the cast dtype, 2 tanh gelu in fp32) after a cast to bf16 when `cast_bf16`
+// (else fp32), and requantizes to [r_lo, r_hi] minus `r_shift`.  `tc` picks
+// the tensor-core kernel; with the prologue it then needs `codes`, an (M, K)
+// int8 scratch buffer for the prologue pass's codes.
 extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
                                  int K, int bk_ref, int mode, int acc_bits,
                                  int spill16, const void* scale,
@@ -370,26 +812,64 @@ extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
                                  const void* aq, int q_lo, int q_hi, int q_shift,
                                  const void* osc, int r_lo, int r_hi, int r_shift, int act,
                                  int cast_bf16, void* out_f, void* out_i, void* out_q,
-                                 void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                                 int x_bf16, int tc_route, void* codes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* wp = static_cast<const int8_t*>(w);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* bi = static_cast<const float*>(bias);
-  const auto* of = static_cast<const int*>(offset);
   const auto* a = static_cast<const float*>(aq);
-  const auto* os = static_cast<const float*>(osc);
-  auto* of_ = static_cast<float*>(out_f);
-  auto* oi = static_cast<int*>(out_i);
-  auto* oq = static_cast<int8_t*>(out_q);
-  if (aq != nullptr) {
-    int_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, sc, bi,
-        of, a, q_lo, q_hi, q_shift, os, r_lo, r_hi, r_shift, act, cast_bf16, of_, oi, oq);
-  } else {
+  const Epi epi{static_cast<const float*>(scale), static_cast<const float*>(bias),
+                static_cast<const int*>(offset), static_cast<const float*>(osc),
+                r_lo, r_hi, r_shift, act, cast_bf16,
+                static_cast<float*>(out_f), static_cast<int*>(out_i), static_cast<int8_t*>(out_q)};
+  if (tc_route) {
+    const int8_t* xc = static_cast<const int8_t*>(x);
+    if (aq != nullptr && K > 0) {
+      const long long n = static_cast<long long>(M) * K;
+      const long long per_block = static_cast<long long>(tc::CODES_THREADS) * tc::CODES_PER_THREAD;
+      const unsigned blocks = static_cast<unsigned>((n + per_block - 1) / per_block);
+      auto* cp = static_cast<int8_t*>(codes);
+      if (x_bf16) {
+        act_codes_kernel<__nv_bfloat16><<<blocks, tc::CODES_THREADS, 0, s>>>(
+            static_cast<const __nv_bfloat16*>(x), n, a, q_lo, q_hi, q_shift, cp);
+      } else {
+        act_codes_kernel<float><<<blocks, tc::CODES_THREADS, 0, s>>>(
+            static_cast<const float*>(x), n, a, q_lo, q_hi, q_shift, cp);
+      }
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      xc = cp;
+    }
+    const auto aligned = [&](int bytes) {
+      return K % bytes == 0 && N % bytes == 0 &&
+             (reinterpret_cast<uintptr_t>(xc) % bytes) == 0 &&
+             (reinterpret_cast<uintptr_t>(wp) % bytes) == 0;
+    };
+    const bool sat = mode == kSaturate && acc_bits < 32;
+    // exact and wrap: the per-tile folds reduce mod 2^flush_bits, once at the flush
+    int flush_bits = mode == kWrap && acc_bits < 32 ? acc_bits : 32;
+    if (spill16) flush_bits = min(flush_bits, 16);
+#define INT_MATMUL_TC(COPY)                                                                  \
+  return sat ? launch_tc<COPY, true>(xc, wp, M, N, K, bk_ref, acc_bits, spill16, flush_bits, \
+                                     epi, s)                                                 \
+             : launch_tc<COPY, false>(xc, wp, M, N, K, bk_ref, acc_bits, spill16, flush_bits, \
+                                      epi, s)
+    if (aligned(16)) INT_MATMUL_TC(16);
+    if (aligned(8)) INT_MATMUL_TC(8);
+    INT_MATMUL_TC(0);
+#undef INT_MATMUL_TC
+  }
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (aq == nullptr) {
     int_matmul_kernel<int8_t><<<grid, THREADS, 0, s>>>(
-        static_cast<const int8_t*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, sc, bi,
-        of, nullptr, 0, 0, 0, os, r_lo, r_hi, r_shift, act, cast_bf16, of_, oi, oq);
+        static_cast<const int8_t*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, nullptr, 0,
+        0, 0, epi);
+  } else if (x_bf16) {
+    int_matmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, a,
+        q_lo, q_hi, q_shift, epi);
+  } else {
+    int_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, a, q_lo,
+        q_hi, q_shift, epi);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,14 +12,15 @@ Port of the Pallas kernel ``repro.kernels.a2q_quantize``
 where ``gs = 2^(min(t, T) - d)`` and ``s = 2^d`` (Eq. 20-23).  Both versions
 take ``gs`` and ``s`` as inputs, computed once per column by the caller with
 ``core.a2q._effective_gs``'s own torch expression (``torch.exp2``, which
-differs from CUDA's ``exp2f`` and ``jnp.exp2`` in the last bits): the codes
-then depend only on the l1 sum.  The kernel accumulates it in fp64 and
-rounds once, ``torch.sum`` in fp32 in its own order, so the two lie a few
-fp32 ulps apart and a code may differ by one where ``gs * v / l1`` lies that
-close to an integer (``code_flips_explained`` tells such flips apart).
+differs from CUDA's ``exp2f`` and ``jnp.exp2`` in the last bits), and both
+sum the l1 norm in fp32 in one order, ``core.a2q.pairwise_sum``'s tree, so
+l1 and the codes agree bit for bit on any device.  ``code_flips_explained``
+tells apart the one flips another sum order would make (one apart where
+``gs * v / l1`` lies within the sums' difference of an integer), and
+``deployed_code_flips`` holds a deployed matrix to the plain quantizer.
 Rounding toward zero keeps ``sum |q| <= gs`` below the A2Q budget whatever
-the sum.  ``kernels/ops.a2q_quantize`` picks a
-version by the tensors' device.
+the sum.  ``kernels/ops.a2q_quantize`` picks a version by the tensors'
+device.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from repro_torch.core.a2q import a2q_codes
 
-__all__ = ["a2q_quantize_plain", "a2q_quantize_cuda", "code_flips_explained"]
+__all__ = ["a2q_quantize_plain", "a2q_quantize_cuda", "code_flips_explained", "deployed_code_flips"]
 
 
 def a2q_quantize_plain(v, gs, s, *, n: int, p: int, dequantize: bool = True):
@@ -58,6 +59,16 @@ def code_flips_explained(q, q_ref, v, gs, l1, l1_ref) -> tuple[int, bool]:
     eps = torch.finfo(torch.float32).eps
     near = (r - torch.round(r)).abs() <= r.abs() * (rel + 2 * eps)
     return n, bool(near.all() and (diff.abs() <= 1).all())
+
+
+def deployed_code_flips(q, l1, v, gs, s, *, n: int, p: int) -> tuple[int, bool]:
+    """One deployed matrix held to the plain quantizer: ``q`` and ``l1`` as
+    the deploy made them from ``v`` with ``gs``/``s``; the codes are
+    recomputed with ``a2q_quantize_plain`` (``a2q_int_weights``'
+    arithmetic) on ``v``'s device, and ``code_flips_explained`` returns
+    ``(flips, explained)``."""
+    _, q_ref, l1_ref = a2q_quantize_plain(v, gs, s, n=n, p=p, dequantize=False)
+    return code_flips_explained(q, q_ref, v, gs, l1, l1_ref)
 
 
 @functools.cache

@@ -12,7 +12,9 @@ kernel's flush does.  Query head ``h`` reads KV head ``h // (H // KV)``
 already repeated).  The output is in ``q``'s dtype.  The CUDA kernel takes
 strided head views and writes ``(B, Tq, H, D)``, returned as its ``(B, H,
 Tq, D)`` view.  ``kernels/ops.flash_attention`` picks a version by the
-tensors' device.
+tensors' device.  On the card, bf16 views whose pointers and strides are
+multiples of 16 bytes run on the bf16 tensor cores; fp32 (and unaligned
+bf16 views) on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ def _bind():
     fn = load("flash_attention").flash_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return fn
 
 
@@ -72,8 +74,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: Optional[int], scale:
     strided views with a contiguous last axis (the head views of ``(B, T,
     H * D)`` projections); ``H`` a multiple of ``KV``, ``D`` in
     ``HEAD_DIMS``.  The output is allocated ``(B, Tq, H, D)`` and returned as
-    its ``(B, H, Tq, D)`` view.  Every launch adds one to
-    ``flash_attention_cuda.launches``."""
+    its ``(B, H, Tq, D)`` view.  bf16 views whose pointers and (batch,
+    time, head) strides are multiples of 16 bytes run the tensor-core
+    kernel, everything else the CUDA-core one.  Every launch adds one to
+    ``flash_attention_cuda.launches``, one on the tensor cores also to
+    ``flash_attention_cuda.tc_launches``."""
     B, H, Tq, D = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     dev = q.device
@@ -101,6 +106,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: Optional[int], scale:
     # (batch, time, head) strides of each (B, heads, T, D) view
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
                                         for s in (t.stride(0), t.stride(2), t.stride(1))))
+    bf16 = q.dtype == torch.bfloat16
+    tc = bf16 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)) and all(s % 8 == 0 for s in strides)
     launch = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -108,13 +115,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: Optional[int], scale:
             ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
             ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
             B, H, KV, Tq, Tk, D, strides, float(scale), int(causal),
-            0 if window is None else int(window), int(q.dtype == torch.bfloat16),
-            ctypes.c_void_p(stream),
+            0 if window is None else int(window), int(bf16), int(tc), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.tc_launches += tc
     return out.permute(0, 2, 1, 3)
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.tc_launches = 0

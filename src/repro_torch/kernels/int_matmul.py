@@ -7,8 +7,9 @@ Port of the Pallas kernel ``repro.kernels.int_matmul`` (``int_matmul_kernel``
 ``saturate`` carry per reference K-tile, the optional int16 carry that the
 A2Q bound makes lossless for ``acc_bits <= 16``, the fused epilogue
 ``(acc + offset) * scale (+ bias)``, the prologue that quantizes an fp32
-``x`` with ``aq_scale`` as it is staged (``clip(round(x / aq_scale), lo,
-hi)``, minus 128 for unsigned 8-bit codes), the chain-break entry of
+or bf16 ``x`` with ``aq_scale`` (``clip(round(x / aq_scale), lo, hi)``,
+minus 128 for unsigned 8-bit codes; bf16 widened to fp32 exactly first),
+the chain-break entry of
 ``--int-chain``, and the requantizing epilogue that hands int8 codes to the
 next linear (``out_scale``: the activation replayed in ``cast_dtype``, then
 ``clip(round(y / out_scale), lo, hi)``, minus 128 for unsigned 8-bit codes),
@@ -20,7 +21,10 @@ cast back to ``cast_dtype``).
 Both versions replay the carry at the reference's K-tile boundaries
 ``block_k`` (the public wrapper passes ``min(512, round_up(K, 128))``), so
 they agree bit for bit with each other and with ``repro.kernels.ref``.
-``kernels/ops.int_matmul`` picks one by the tensors' device.
+``kernels/ops.int_matmul`` picks one by the tensors' device.  On the card
+``int_matmul_cuda`` runs the ``__dp4a`` kernel for at most ``TC_MIN_ROWS``
+rows (decode) and the int8 tensor-core kernel above (prefill chunks,
+encodes), where the prologue is a separate pass writing the codes once.
 """
 
 from __future__ import annotations
@@ -34,19 +38,22 @@ import torch
 from repro_torch.kernels.ref import (_SQRT_2_OVER_PI, exact_product, gelu_tanh, saturate_bits,
                                     wrap_bits)
 
-__all__ = ["MODES", "ACTS", "CAST_DTYPES", "int_matmul_plain", "int_matmul_cuda", "prologue_codes",
-           "requant_codes", "requant_ties"]
+__all__ = ["MODES", "ACTS", "CAST_DTYPES", "TC_MIN_ROWS", "int_matmul_plain", "int_matmul_cuda",
+           "prologue_codes", "requant_codes", "requant_ties"]
 
 MODES = {"exact": 0, "wrap": 1, "saturate": 2}
 ACTS = {None: 0, "relu2": 1, "gelu": 2}  # the requant epilogue's activation replays
 CAST_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # and the dtype they run in
+PROLOGUE_DTYPES = (torch.float32, torch.bfloat16)  # the prologue's activations
+TC_MIN_ROWS = 17  # from this many rows the tensor-core kernel runs, below it __dp4a
 
 
 def prologue_codes(x: torch.Tensor, aq_scale: torch.Tensor, lo: int, hi: int,
                    shift: int) -> torch.Tensor:
     """The prologue's int8 operand: ``clip(round(x / aq_scale), lo, hi) -
-    shift`` (dividing, rounding half to even), as ``act_quant_int`` and the
-    symmetrization compute it on their own."""
+    shift`` (dividing in fp32, rounding half to even), as ``act_quant_int``
+    and the symmetrization compute it on their own."""
+    x = x.to(torch.float32)
     return (torch.clamp(torch.round(x / aq_scale), lo, hi) - shift).to(torch.int8)
 
 
@@ -96,7 +103,7 @@ def int_matmul_plain(x, w, scale=None, bias=None, offset=None, *, acc_bits: int 
                      out_scale=None, r_lo: int = 0, r_hi: int = 0, r_shift: int = 0,
                      act_fn=None, cast_dtype=torch.float32):
     """The kernel's arithmetic in PyTorch, on any device: with ``aq_scale``
-    the prologue's codes of the fp32 ``x`` (``prologue_codes``), then one
+    the prologue's codes of the fp32 or bf16 ``x`` (``prologue_codes``), then one
     exact int64 partial per ``block_k`` K-tile, folded into the carry in tile
     order as the Pallas body does (``carried + tile``, the mode's wrap or
     clip, then the int16 store when ``spill_int16``), then the epilogue, and
@@ -138,7 +145,8 @@ def _bind():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
     return fn
 
 
@@ -151,19 +159,25 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
     ``w (K, N)`` are contiguous int8 on one CUDA device; ``scale``/``bias``
     fp32 and ``offset`` int32 are ``(N,)``; ``block_k`` is a positive multiple
     of 64.  With ``aq_scale`` (a one-element fp32 tensor on the device, read
-    by the kernel, never by the host) ``x`` is fp32 and the prologue
-    quantizes it to ``[q_lo, q_hi]`` minus ``q_shift``.  With ``out_scale``
+    by the kernel, never by the host) ``x`` is fp32 or bf16 and the
+    prologue quantizes it to ``[q_lo, q_hi]`` minus ``q_shift``.  With ``out_scale``
     (fp32 ``(N,)``; needs ``scale`` and ``mode="exact"``) the epilogue
     replays ``act_fn`` in ``cast_dtype`` and requantizes to int8 codes in
     ``[r_lo, r_hi]`` minus ``r_shift``.  Returns int8 ``(M, N)`` with
-    ``out_scale``, fp32 with ``scale``, else int32.  Every launch adds one to
-    ``int_matmul_cuda.launches``, a launch with the prologue also to
-    ``int_matmul_cuda.prologue_launches``, and one with the requant epilogue
-    to ``int_matmul_cuda.requant_launches``."""
+    ``out_scale``, fp32 with ``scale``, else int32.  From ``TC_MIN_ROWS``
+    rows on the int8 tensor-core kernel runs (the prologue then a separate
+    pass into an ``(M, K)`` int8 scratch buffer allocated here), below it the
+    ``__dp4a`` kernel.  Every launch adds one to ``int_matmul_cuda.launches``,
+    one on the tensor cores also to ``int_matmul_cuda.tc_launches``, a launch
+    with the prologue to ``int_matmul_cuda.prologue_launches``, and one with
+    the requant epilogue to ``int_matmul_cuda.requant_launches``."""
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
-    x_dtype = torch.int8 if aq_scale is None else torch.float32
+    if aq_scale is None:
+        x_dtype = torch.int8
+    else:
+        x_dtype = x.dtype if x.dtype in PROLOGUE_DTYPES else torch.float32
     for name, t, dt, shape in (("x", x, x_dtype, (M, K)), ("w", w, torch.int8, (K, N)),
                                ("scale", scale, torch.float32, (N,)),
                                ("bias", bias, torch.float32, (N,)),
@@ -199,6 +213,9 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
+    tc = M >= TC_MIN_ROWS
+    codes = torch.empty((M, K), dtype=torch.int8, device=dev) if tc and aq_scale is not None \
+        else None
     launch = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -210,16 +227,18 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
             _ptr(out) if out_dtype == torch.float32 else None,
             _ptr(out) if out_dtype == torch.int32 else None,
             _ptr(out) if out_dtype == torch.int8 else None,
-            ctypes.c_void_p(stream),
+            int(x.dtype == torch.bfloat16), int(tc), _ptr(codes), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"int_matmul kernel launch failed: cudaError {err}")
     int_matmul_cuda.launches += 1
+    int_matmul_cuda.tc_launches += tc
     int_matmul_cuda.prologue_launches += aq_scale is not None
     int_matmul_cuda.requant_launches += out_scale is not None
     return out
 
 
 int_matmul_cuda.launches = 0
+int_matmul_cuda.tc_launches = 0
 int_matmul_cuda.prologue_launches = 0
 int_matmul_cuda.requant_launches = 0

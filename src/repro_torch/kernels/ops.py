@@ -79,9 +79,10 @@ def int_matmul(
     for ``acc_bits <= 16`` (the A2Q bound).
 
     ``aq_scale`` (one fp32 value) engages the quantizing prologue: ``x``
-    arrives fp32 and is quantized to ``in_bits``/``in_signed`` codes
-    (``clip(round(x / aq_scale))``, unsigned 8-bit symmetrized) inside the
-    kernel, bit for bit the standalone ``act_quant_int``'s codes.
+    arrives fp32 or bf16 (widened to fp32 exactly) and is quantized to
+    ``in_bits``/``in_signed`` codes (``clip(round(x / aq_scale))``, unsigned
+    8-bit symmetrized) on the card, bit for bit the standalone
+    ``act_quant_int``'s codes of the fp32 values.
 
     ``out_scale`` (scalar or ``(N,)`` fp32, the next layer's activation
     scale; needs ``scale`` and ``mode="exact"``) engages the requantizing
@@ -97,9 +98,10 @@ def int_matmul(
         raise ValueError("int16 partial-sum spill is only sound when acc_bits <= 16 (A2Q bound)")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"int_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)} do not chain")
-    x_dtype = torch.int8 if aq_scale is None else torch.float32
-    if x.dtype != x_dtype or w.dtype != torch.int8:
-        raise ValueError(f"int_matmul: {x_dtype} x and int8 w expected, got {x.dtype}, {w.dtype}")
+    x_dtypes = (torch.int8,) if aq_scale is None else (torch.float32, torch.bfloat16)
+    if x.dtype not in x_dtypes or w.dtype != torch.int8:
+        raise ValueError(f"int_matmul: {' or '.join(map(str, x_dtypes))} x and int8 w expected, "
+                         f"got {x.dtype}, {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"int_matmul: x on {x.device}, w on {w.device}")
     if bias is not None and scale is None:

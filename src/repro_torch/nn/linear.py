@@ -234,7 +234,9 @@ def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
         x_scale = torch.exp2(params["aq"]["log2_scale"].to(torch.float32))
         K = x.shape[-1]
         lead = x.shape[:-1]
-        y = ops.int_matmul(x.to(torch.float32).reshape(-1, K), params["q8"],
+        # bf16 goes in as it is: the prologue widens it exactly
+        xf = x if x.dtype == torch.bfloat16 else x.to(torch.float32)
+        y = ops.int_matmul(xf.reshape(-1, K), params["q8"],
                            scale=x_scale * s8, aq_scale=x_scale, in_bits=N,
                            in_signed=input_signed, **kw)
     else:

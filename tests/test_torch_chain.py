@@ -6,8 +6,9 @@ Covered:
   bit against the JAX package's host ``act_quant_int`` codes (unsigned 8-bit
   symmetrized) fed to ``ref_int_matmul_fused``, with the scales JAX computed
   fed to both sides (``jnp.exp2`` and ``torch.exp2`` differ in the last
-  bits); one case against the Pallas kernel itself in interpret mode; the
-  argument checks;
+  bits); one case against the Pallas kernel itself in interpret mode; bf16
+  activations through the prologue against the fp32-widened call and the
+  Pallas kernel; the argument checks;
 * ``apply_linear`` on a deployed layer: the prologue branch, the ``IntAct``
   consumer branch and the chain repair of an ``IntAct`` into a layer that
   cannot take codes, against ``repro.nn.linear``; ``chain_out_aq``; the
@@ -135,6 +136,45 @@ def test_prologue_matches_pallas_interpret():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("bits,signed", [(8, True), (8, False), (4, True), (4, False)])
+def test_prologue_takes_bf16_x_widened_exactly(bits, signed):
+    """bf16 activations go through the prologue as they are (the int-chain
+    linear no longer casts them to fp32): widened to fp32 exactly, so the
+    codes, the fp32 outputs and the requant codes equal the fp32-widened
+    call's, and the output the JAX int_matmul's (Pallas, interpret mode)
+    with the prologue on the widened input."""
+    from repro_torch.kernels.int_matmul import prologue_codes
+
+    rng = np.random.default_rng(40 + bits + signed)
+    M, K, N = 9, 200, 48
+    s = np.float32(2.0**-5)
+    x = _activations(rng, M, K, s)
+    xb = torch.from_numpy(np.abs(x) if not signed else x).bfloat16()
+    xw = xb.to(torch.float32)
+    w = _a2q_bounded_w(rng, K, N)
+    scale = rng.uniform(1e-4, 1e-2, N).astype(np.float32)
+    kw = dict(scale=torch.from_numpy(scale), aq_scale=torch.tensor(s), in_bits=bits,
+              in_signed=signed, acc_bits=16, spill_int16=True)
+    tw = torch.from_numpy(w)
+    got = ops.int_matmul(xb, tw, **kw)
+    assert got.dtype == torch.float32 and torch.equal(got, ops.int_matmul(xw, tw, **kw))
+    lo, hi = (-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed else (0, (1 << bits) - 1)
+    shift = 128 if not signed and bits == 8 else 0
+    codes = prologue_codes(xb, torch.tensor(s), lo, hi, shift)
+    assert torch.equal(codes, prologue_codes(xw, torch.tensor(s), lo, hi, shift))
+    jcodes, _ = jact_quant_int({"log2_scale": jnp.asarray(np.float32(-5.0))},
+                               jnp.asarray(xw.numpy()), bits, signed)
+    np.testing.assert_array_equal(codes.numpy().astype(np.float32) + shift, np.asarray(jcodes))
+    want = jops.int_matmul(jnp.asarray(xw.numpy()), jnp.asarray(w), scale=jnp.asarray(scale),
+                           aq_scale=jnp.asarray(s), in_bits=bits, in_signed=signed, acc_bits=16,
+                           spill_int16=True, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    req = dict(out_scale=torch.full((N,), float(got.abs().max()) / 100), act_fn="gelu",
+               cast_dtype=torch.bfloat16)
+    got_q = ops.int_matmul(xb, tw, **kw, **req)
+    assert got_q.dtype == torch.int8 and torch.equal(got_q, ops.int_matmul(xw, tw, **kw, **req))
+
+
 def test_prologue_argument_checks():
     x = torch.zeros((4, 8))
     w = torch.zeros((8, 4), dtype=torch.int8)
@@ -145,6 +185,8 @@ def test_prologue_argument_checks():
         ops.int_matmul(x.to(torch.int8), w, scale=1.0, aq_scale=s)
     with pytest.raises(ValueError):  # fp32 x needs the prologue
         ops.int_matmul(x, w, scale=1.0)
+    with pytest.raises(ValueError):  # the prologue takes fp32 or bf16, not fp16
+        ops.int_matmul(x.half(), w, scale=1.0, aq_scale=s)
     with pytest.raises(ValueError):  # one scale for the whole tensor
         ops.int_matmul(x, w, scale=1.0, aq_scale=torch.full((8,), 0.1))
     with pytest.raises(ValueError):  # 9-bit unsigned codes do not fit int8

@@ -24,15 +24,14 @@ in four and contracted into FMAs), 2^-7 of the largest |y| with bf16 y (one
 bf16 rounding of values that differ in their last fp32 bits).  The gelu
 requant epilogue — codes exact, or one apart only where a ``tanh`` 4 ulps
 off PyTorch's could move the code (``requant_ties``: the kernel's ``tanhf``
-against PyTorch's ``tanh``).  a2q_quantize — l1 to 1e-6 relative
-(fp64 against fp32 sums), codes exact except one apart where ``g/s * v /
-l1`` lies within the two sums' difference of an integer
-(``code_flips_explained``), the dequantized weights exact where the codes
-are, and every column within the A2Q l1 budget.  flash_attention — 2e-5 in
+against PyTorch's ``tanh``).  a2q_quantize — l1, codes and dequantized
+weights exact (both sides sum in ``core.a2q.pairwise_sum``'s fp32 order),
+and every column within the A2Q l1 budget.  flash_attention — 2e-5 in
 fp32 (the softmax summed in another order), plus one bf16 ulp of the output
-in bf16.
+in bf16, on the CUDA cores (fp32) and the tensor cores (bf16).
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -79,8 +78,14 @@ def dev():
     ("saturate", 12, False), ("wrap", 20, False),
 ])
 def test_int_matmul_cuda_matches_plain(dev, mode, acc_bits, spill):
+    """Full-range weights, every carry mode, on the __dp4a kernel (M <= 16)
+    and the tensor-core kernel (M > 16): tiles crossed in M, ragged last
+    reference K-tiles (K 100, 1000, 1280), N off the 128-column tile, rows
+    16-byte aligned (cp.async) or not (K 100, 1000; N 200)."""
     rng = np.random.default_rng(7)
-    for M, K, N in ((1, 576, 192), (8, 1536, 576), (64, 576, 1536), (33, 100, 70), (3, 40, 5)):
+    for M, K, N in ((1, 576, 192), (8, 1536, 576), (64, 576, 1536), (33, 100, 70), (3, 40, 5),
+                    (17, 100, 200), (200, 1000, 336), (200, 1280, 200), (17, 1280, 336),
+                    (200, 1280, 1536)):
         x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(dev)
         w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(dev)
         kw = dict(acc_bits=acc_bits, mode=mode, block_k=int_matmul_block_k(K), spill_int16=spill)
@@ -95,28 +100,50 @@ def test_int_matmul_cuda_matches_plain(dev, mode, acc_bits, spill):
         assert torch.equal(got, int_matmul_plain(x, w, scale, bias, offset, **kw)), (M, K, N)
 
 
+def test_int_matmul_cuda_picks_the_kernel_by_rows(dev):
+    """The wrapper's route: the tensor cores from TC_MIN_ROWS rows, __dp4a
+    below; both agree with the plain version on either side of the edge."""
+    from repro_torch.kernels.int_matmul import TC_MIN_ROWS
+
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy(rng.integers(-128, 128, (1280, 336)).astype(np.int8)).to(dev)
+    for M in (TC_MIN_ROWS - 1, TC_MIN_ROWS):
+        x = torch.from_numpy(rng.integers(-128, 128, (M, 1280)).astype(np.int8)).to(dev)
+        before = int_matmul_cuda.tc_launches
+        got = int_matmul_cuda(x, w, block_k=512)
+        torch.cuda.synchronize()
+        assert int_matmul_cuda.tc_launches - before == (M >= TC_MIN_ROWS)
+        assert torch.equal(got, int_matmul_plain(x, w, block_k=512)), M
+
+
 @pytest.mark.parametrize("bits,signed", [(8, True), (8, False), (4, True)])
 def test_int_matmul_cuda_prologue_matches_plain(dev, bits, signed):
-    """fp32 activations quantized in the kernel: the output equals the plain
-    version's and the kernel run on the standalone act-quant's codes."""
+    """fp32 and bf16 activations quantized on the card (in the __dp4a
+    kernel's staging, or the tensor-core route's codes pass): the output
+    equals the plain version's and the kernel run on the standalone
+    act-quant's codes."""
     rng = np.random.default_rng(11)
     lo, hi = (-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed else (0, (1 << bits) - 1)
     shift = 128 if not signed and bits == 8 else 0
     s = torch.tensor([2.0**-5], device=dev)
-    for M, K, N in ((1, 576, 192), (8, 1536, 576), (64, 576, 1536), (33, 100, 70), (3, 40, 5)):
+    for (M, K, N), dt in itertools.product(
+            ((1, 576, 192), (8, 1536, 576), (64, 576, 1536), (33, 100, 70), (3, 40, 5),
+             (200, 1000, 336), (200, 1280, 200)), (torch.float32, torch.bfloat16)):
         x = rng.normal(size=(M, K)).astype(np.float32) * 3
         ties = rng.random((M, K)) < 0.1
         x[ties] = (rng.integers(-140, 140, ties.sum()) + 0.5) * 2.0**-5
-        x = torch.from_numpy(np.abs(x) if not signed else x).to(dev)
+        x = torch.from_numpy(np.abs(x) if not signed else x).to(dev, dt)
         w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(dev)
         scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, N).astype(np.float32)).to(dev)
         kw = dict(acc_bits=32, mode="exact", block_k=int_matmul_block_k(K))
         pro = dict(aq_scale=s, q_lo=lo, q_hi=hi, q_shift=shift)
         got = int_matmul_cuda(x, w, scale, **kw, **pro)
         torch.cuda.synchronize()
-        assert torch.equal(got, int_matmul_plain(x, w, scale, **kw, **pro)), (M, K, N)
+        assert torch.equal(got, int_matmul_plain(x, w, scale, **kw, **pro)), (M, K, N, dt)
         codes = prologue_codes(x, s, lo, hi, shift)
-        assert torch.equal(got, int_matmul_cuda(codes, w, scale, **kw)), (M, K, N)
+        assert torch.equal(got, int_matmul_cuda(codes, w, scale, **kw)), (M, K, N, dt)
+        if dt == torch.bfloat16:  # bf16 widens exactly: the fp32 call's output
+            assert torch.equal(got, int_matmul_cuda(x.float(), w, scale, **kw, **pro))
 
 
 def _paged_case(dev, dtype):
@@ -278,7 +305,8 @@ def test_int_matmul_cuda_requant_matches_plain(dev, act_fn, cast, out_bits, out_
     lo, hi = (-(1 << (out_bits - 1)), (1 << (out_bits - 1)) - 1) if out_signed else \
         (0, (1 << out_bits) - 1)
     shift = 128 if not out_signed and out_bits == 8 else 0
-    for M, K, N in ((8, 4096, 14336), (32, 4096, 1024), (33, 100, 70), (3, 40, 5)):
+    for M, K, N in ((8, 4096, 14336), (32, 4096, 1024), (33, 100, 70), (3, 40, 5),
+                    (200, 1000, 336), (200, 1280, 200)):
         w = torch.from_numpy(rng.integers(-3, 4, (K, N)).astype(np.int8)).to(dev)
         scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, N).astype(np.float32)).to(dev)
         bias = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
@@ -379,7 +407,8 @@ def test_int_matmul_cuda_gelu_requant_matches_plain(dev, cast, prologue):
     codes out) at hubert's mlp.w_in (M = 8 clips x 1000 frames, K 1280, N
     5120) and small ragged shapes."""
     rng = np.random.default_rng(17)
-    for M, K, N in ((8000, 1280, 5120), (33, 100, 70), (3, 40, 5)):
+    for M, K, N in ((8000, 1280, 5120), (200, 1000, 336), (200, 1280, 200), (33, 100, 70),
+                    (3, 40, 5)):
         w = torch.from_numpy(rng.integers(-3, 4, (K, N)).astype(np.int8)).to(dev)
         scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, N).astype(np.float32)).to(dev)
         bias = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
@@ -407,9 +436,11 @@ def test_int_matmul_cuda_gelu_requant_matches_plain(dev, cast, prologue):
             assert len(torch.unique(got)) > 50  # the codes span their range
 
 
-@pytest.mark.parametrize("K,C", [(1280, 504), (5120, 1280), (17, 5), (300, 130)])
+@pytest.mark.parametrize("K,C", [(1280, 504), (5120, 1280), (17, 5), (300, 130), (1, 40),
+                                 (4, 9), (7168, 2048), (18432, 64)])
 def test_a2q_quantize_cuda_matches_plain(dev, K, C):
-    """hubert's head and w_out shapes and small ragged ones, from the A2Q
+    """hubert's head and w_out shapes, deepseek's expert and dense w_out
+    depths, small ragged ones and K below the 8 row groups, from the A2Q
     initializer (P = 16, signed 8-bit inputs)."""
     quant = get_arch("hubert-xlarge").quant
     p = init_linear(torch.Generator(device=dev).manual_seed(K + C), K, C, quant)
@@ -417,11 +448,9 @@ def test_a2q_quantize_cuda_matches_plain(dev, K, C):
     deq, q, l1 = a2q_quantize_cuda(p["v"], gs, s, n=-128, p=127)
     torch.cuda.synchronize()
     deq_p, q_p, l1_p = a2q_quantize_plain(p["v"], gs, s, n=-128, p=127)
-    assert ((l1 - l1_p).abs() <= 1e-6 * l1_p).all()
-    flips, explained = code_flips_explained(q, q_p, p["v"], gs, l1, l1_p)
-    assert explained, flips
-    same = q == q_p
-    assert torch.equal(deq[same], deq_p[same])
+    # one fp32 sum order on both sides (core.a2q.pairwise_sum): bit for bit
+    assert torch.equal(l1, l1_p) and torch.equal(q, q_p) and torch.equal(deq, deq_p)
+    assert code_flips_explained(q, q_p, p["v"], gs, l1, l1_p) == (0, True)
     assert (q.to(torch.int64).abs().sum(0) <= l1_budget(quant.acc_bits, quant.act_bits, True)).all()
     q_o, s_o = ops.a2q_quantize(p["v"], p["t"], p["d"], weight_bits=8, acc_bits=quant.acc_bits,
                                 input_bits=quant.act_bits, input_signed=True)
@@ -492,3 +521,31 @@ def test_flash_attention_cuda_refuses_bad_arguments(dev):
     with pytest.raises(ValueError):  # a strided feature axis
         flash_attention_cuda(q[..., ::2], q[..., ::2], q[..., ::2], causal=True, window=None,
                              scale=1.0)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("case", [
+    # (B, H, KV, Tq, Tk, causal, window)
+    (2, 4, 2, 130, 130, True, None),   # causal GQA, a ragged last tile
+    (1, 4, 4, 150, 150, True, 40),     # a sliding window
+    (2, 4, 4, 20, 150, True, None),    # queries end-aligned to the keys
+    (1, 2, 2, 8, 4, True, None),       # queries with no key give 0
+    (2, 3, 3, 70, 200, False, None),   # bidirectional, Tq < Tk
+], ids=["causal", "window", "end_aligned", "no_key", "bidirectional"])
+def test_flash_attention_cuda_bf16_tensor_cores(dev, D, case):
+    """bf16 head views on the tensor-core kernel at every head size: within
+    2e-5 plus one bf16 ulp of the output of the plain fp32 softmax."""
+    B, H, KV, Tq, Tk, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(Tq + Tk + D)
+    q = torch.randn((B, Tq, H * D), generator=g, device=dev).bfloat16()
+    q = q.reshape(B, Tq, H, D).transpose(1, 2)
+    k, v = (torch.randn((B, Tk, KV * D), generator=g, device=dev).bfloat16()
+            .reshape(B, Tk, KV, D).transpose(1, 2) for _ in range(2))
+    kw = dict(causal=causal, window=window, scale=D**-0.5)
+    before = flash_attention_cuda.tc_launches
+    got = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.tc_launches == before + 1
+    _flash_close(got, flash_attention_plain(q, k, v, **kw))
+    if Tq > Tk:
+        assert not got[:, :, :Tq - Tk].float().abs().any()

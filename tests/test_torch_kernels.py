@@ -290,6 +290,58 @@ def test_deploy_linear_through_ops_equals_a2q_int_weights(boundary, signed):
     assert torch.equal(dep["s8"], want_s)
 
 
+def test_deployed_code_flips_holds_every_matrix_of_a_cpu_deploy(monkeypatch):
+    """The deploy check chip_smoke.py runs on the card, on a reduced model
+    deployed on the CPU: every A2Q matrix ``deploy_params`` quantizes is
+    held to the plain quantizer, with 0 flips."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.a2q_quantize import deployed_code_flips
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.engine import deploy_params
+
+    arch = reduced(get_arch("hubert-xlarge"))
+    params = init_lm(torch.Generator().manual_seed(0), arch, device="cpu")
+
+    def matrices(tree):
+        if isinstance(tree, dict):
+            if "v" in tree:
+                return int(np.prod(tree["v"].shape[:-2]))
+            return sum(matrices(t) for t in tree.values())
+        return 0
+
+    plain, held = ops.a2q_quantize_plain, []
+
+    def checked(v, gs, s, *, n, p, dequantize=True):
+        deq, q, l1 = plain(v, gs, s, n=n, p=p, dequantize=dequantize)
+        held.append(deployed_code_flips(q, l1, v, gs, s, n=n, p=p))
+        return deq, q, l1
+
+    monkeypatch.setattr(ops, "a2q_quantize_plain", checked)
+    deploy_params(params, arch.quant)
+    assert len(held) == matrices(params) > 0
+    assert all(h == (0, True) for h in held)
+
+
+def test_deployed_code_flips_reports_a_code_changed_by_hand():
+    """One code moved by hand where ``g/s * v / l1`` lies far from any
+    integer: the check counts one flip and does not explain it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.a2q import _effective_gs
+    from repro_torch.kernels.a2q_quantize import deployed_code_flips
+
+    quant = get_arch("hubert-xlarge").quant
+    p = init_linear(torch.Generator().manual_seed(5), 256, 64, quant)
+    gs, s = _effective_gs(p, quant.acc_bits, quant.act_bits, True)
+    _, q, l1 = a2q_quantize_plain(p["v"], gs, s, n=-128, p=127)
+    assert deployed_code_flips(q, l1, p["v"], gs, s, n=-128, p=127) == (0, True)
+    r = gs[None, :] * p["v"] / l1[None, :]
+    far = ((r - torch.round(r)).abs() - 0.5).abs().argmin()  # a fraction nearest .5
+    assert ((r - torch.round(r)).abs().reshape(-1)[far] > 0.4).item()
+    moved = q.clone()
+    moved.view(-1)[far] += 1 if moved.view(-1)[far] < 127 else -1
+    assert deployed_code_flips(moved, l1, p["v"], gs, s, n=-128, p=127) == (1, False)
+
+
 def test_a2q_quantize_argument_checks():
     v, t, d = torch.zeros((8, 4)), torch.zeros(4), torch.zeros(4)
     with pytest.raises(ValueError):
