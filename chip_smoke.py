@@ -24,8 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    lengths that end mid-block, a table entry past a row's length pointing at
    a block of NaN, fp32 and bf16 pools, with and without the activation
    fake-quant replay.  Times come from CUDA graphs of back-to-back calls
-   timed with CUDA events (at deepseek's int_matmul shapes, where one call
-   takes milliseconds, from CUDA events around back-to-back calls); the
+   timed with CUDA events (the plain versions, hubert's and the deploy's
+   shapes from CUDA events around back-to-back calls); the
    smollm int_matmul weights rotate over 30 layer copies so each call
    streams its weights from HBM as the 30-layer model does.  The
    ``--int-chain`` variants too: ``int_matmul`` with the quantizing prologue
@@ -54,8 +54,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    M=8000 on the tensor-core kernel with the gelu requant epilogue (hubert's
    mlp.w_in, equal or one apart at rounding ties; bf16 x equal to its fp32
    widening) and at hubert's other shapes, with ``torch._int_mm`` as the
-   library time and the share of the bound, then both int_matmul kernels
-   forced at M in {8, 16, 32, 64} (the crossover);
+   library time and the share of the bound.  The decode slice's:
+   ``int_matmul``'s split-K decode kernel (M <= 16) at rwkv6-7b's 4096 x
+   4096 prologue shape, bit for bit, its K splits summed inside a
+   thread-block cluster, two CUDA-graph replays equal to the eager call,
+   timed against the weight bytes; ``torch._int_mm`` on x zero-padded to
+   24 rows (its smallest legal M) as the decode shapes' library time; both
+   int_matmul kernels forced
+   at M in {1, 8, 16, 24, 32} on smollm's, rwkv6's and deepseek's decode
+   shapes (the crossover); ``paged_attention`` at SmolLM-135M's 2048-token
+   context (B=32, lengths from the seed in [1536, 2048]) on bf16, int8 and
+   int4 pools against the plain version, two graph replays equal to the
+   eager call, SDPA on the gathered view as the library time; the fp32 and
+   bf16 pools' entries past a length poisoned with NaN as the integer
+   pools' scales are; every phase-3 call of those two kernels under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails);
 4. serve full-width smollm-135m (30 layers, random A2Q weights from seed 0,
    deployed to int8; in this phase and 4b, 4e and 4f every deployed
    matrix's codes recomputed on the card with the plain quantizer from the
@@ -233,6 +246,32 @@ def check_held(tag: str, held: dict, deploys: int) -> None:
                              "plain quantizer")
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """Any host sync inside the block raises (the split kernels' wrappers
+    must choose their grids from shapes alone)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def replays_equal(fn, want) -> bool:
+    """``fn``'s output captured in a CUDA graph and replayed twice: both
+    replays equal ``want`` bit for bit (a split kernel keeps no state from
+    one launch to the next)."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    got = []
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        got.append(out.clone())
+    return all(torch.equal(t, want) for t in got)
+
+
 def graph_ms(fn, reps: int) -> float:
     """Milliseconds per call of ``fn`` (``reps`` back-to-back calls captured
     in one CUDA graph, replayed and timed with CUDA events)."""
@@ -282,8 +321,8 @@ def check_int_matmul(dev) -> dict:
     from repro_torch.kernels.ops import int_matmul_block_k
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    per_layer = {M: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-                 for M in (1, 8, 64)}
+    per_layer = {M: {"ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
+                     "ops": 0.0, "splits": 0} for M in (1, 8, 64)}
     worst = 0.0
     for (K, N), count in SMOLLM_SITES.items():
         ws = [a2q_bounded_weights(gen, K, N, dev) for _ in range(LAYERS)]
@@ -292,8 +331,11 @@ def check_int_matmul(dev) -> dict:
         kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
         for M in (1, 8, 64):
             x = torch.randint(-128, 128, (M, K), generator=gen, device=dev, dtype=torch.int8)
-            got = int_matmul_cuda(x, ws[0], scale, **kw)
+            split = int_matmul_cuda.split_launches
+            with no_host_sync():
+                got = int_matmul_cuda(x, ws[0], scale, **kw)
             torch.cuda.synchronize()
+            per_layer[M]["splits"] += count * (int_matmul_cuda.split_launches - split)
             want = int_matmul_plain(x, ws[0], scale, **kw)
             err = (got - want).abs().max().item()
             if not torch.equal(got, want):
@@ -303,19 +345,22 @@ def check_int_matmul(dev) -> dict:
             ms = graph_ms(lambda: int_matmul_cuda(x, ws[next(it) % LAYERS], scale, **kw), LAYERS)
             it = iter(range(10**9))
             plain_ms = graph_ms(lambda: int_matmul_plain(x, ws[next(it) % LAYERS], scale, **kw), LAYERS)
-            lib_ms = None
-            if M > 16:  # torch._int_mm's shape rule (and K, N multiples of 8)
-                it = iter(range(10**9))
-                lib_ms = graph_ms(lambda: torch._int_mm(x, ws_cm[next(it) % LAYERS]), LAYERS)
+            # torch._int_mm's shape rule (M > 16, K and N multiples of 8): at
+            # decode rows on x zero-padded to 24 rows, its smallest legal M
+            xl = x if M > 16 else torch.cat([x, x.new_zeros((24 - M, K))])
+            it = iter(range(10**9))
+            lib_ms = graph_ms(lambda: torch._int_mm(xl, ws_cm[next(it) % LAYERS]), LAYERS)
             n_bytes = M * K + K * N + 4 * N + 4 * M * N
             n_ops = 2 * M * K * N
             b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
             print(f"int_matmul M={M} K={K} N={N}: max_abs_err {err} kernel_ms {ms:.5f} "
                   f"plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by}) "
-                  f"library_ms(_int_mm) {'n/a' if lib_ms is None else f'{lib_ms:.5f}'}", flush=True)
+                  f"library_ms(_int_mm{', x padded to 24 rows' if M <= 16 else ''}) "
+                  f"{lib_ms:.5f}", flush=True)
             acc = per_layer[M]
             acc["ms"] += count * ms
             acc["plain_ms"] += count * plain_ms
+            acc["lib_ms"] += count * lib_ms
             acc["bytes"] += count * n_bytes
             acc["ops"] += count * n_ops
     # the other carry modes and the raw int32 output, on full-range weights
@@ -332,21 +377,27 @@ def check_int_matmul(dev) -> dict:
     for M, acc in per_layer.items():
         acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"], INT8_OPS_PER_S)
         print(f"int_matmul one layer's 7 calls at M={M}: kernel_ms {acc['ms']:.5f} "
-              f"plain_ms {acc['plain_ms']:.5f} bound_ms {acc['bound_ms']:.6f} ({acc['bound_by']})",
-              flush=True)
+              f"plain_ms {acc['plain_ms']:.5f} library_ms(_int_mm) {acc['lib_ms']:.5f} "
+              f"bound_ms {acc['bound_ms']:.6f} ({acc['bound_by']}); {acc['splits']} of the 7 calls "
+              "over several K splits", flush=True)
     dec = per_layer[8]
     return {"name": "int_matmul", "route": "cuda", "source": "src/repro_torch/csrc/int_matmul.cu",
             "replaces": "src/repro/kernels/int_matmul.py:300",
             "at": "one smollm-135m layer's 7 decode calls, M=8, int16 carry, fused scale",
             "max_abs_err": worst, "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"], "library_ms": None}
+            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"], "library_ms": dec["lib_ms"],
+            "library": "torch._int_mm on x zero-padded to 24 rows (its smallest legal M)"}
 
 
-def paged_case(dev, dtype, B=8, H=9, KV=3, Dh=64, bs=16, max_seq=96):
+SERVED_ROWS, SERVED_CONTEXT = 32, 2048  # SmolLM-135M's max_position_embeddings
+
+
+def paged_case(dev, dtype, B=8, H=9, KV=3, Dh=64, bs=16, max_seq=96, lengths=None):
     gen = torch.Generator(device=dev).manual_seed(2)
     MB = max_seq // bs
     NB = B * MB + 1
-    lengths = torch.tensor([0, 1, 17, 33, 64, 65, 80, 96], dtype=torch.int32, device=dev)[:B]
+    if lengths is None:
+        lengths = torch.tensor([0, 1, 17, 33, 64, 65, 80, 96], dtype=torch.int32, device=dev)[:B]
     perm = torch.randperm(NB - 1, generator=gen, device=dev).to(torch.int32) + 1
     bt = perm[: B * MB].reshape(B, MB).clone()
     used = (lengths[:, None] + bs - 1) // bs
@@ -355,6 +406,89 @@ def paged_case(dev, dtype, B=8, H=9, KV=3, Dh=64, bs=16, max_seq=96):
     kp = torch.randn((NB, bs, KV, Dh), generator=gen, device=dev).to(dtype)
     vp = torch.randn((NB, bs, KV, Dh), generator=gen, device=dev).to(dtype)
     return q, kp, vp, bt, lengths
+
+
+def served_case(dev):
+    """SmolLM-135M's 2048-token context: 32 rows of lengths drawn from the
+    seed in [1536, 2048], fp32 pools (B=32, H=9, KV=3, Dh=64, bs=16)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lengths = torch.randint(SERVED_CONTEXT * 3 // 4, SERVED_CONTEXT + 1, (SERVED_ROWS,),
+                            generator=gen, device=dev, dtype=torch.int32)
+    return paged_case(dev, torch.float32, B=SERVED_ROWS, max_seq=SERVED_CONTEXT, lengths=lengths)
+
+
+def paged_served(dev, kind: str) -> dict:
+    """``paged_attention`` at the 2048-token context on ``kind`` pools
+    (bf16, int8 or int4; bf16 q), over several table runs: within the
+    bf16 tolerance of the plain version with no host sync, two graph
+    replays equal to the eager call, then timed over 3 pool copies (past
+    the L2) beside SDPA on the (dequantized) gathered view and the K/V
+    bytes' bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+    from repro_torch.nn.attention import _unpack_nibbles
+
+    q, kp, vp, bt, lengths = served_case(dev)
+    q = q.to(torch.bfloat16)
+    B, H, Dh = q.shape
+    NB, bs, KV, _ = kp.shape
+    gen = torch.Generator(device=dev).manual_seed(17)
+    copies = []
+    for i in range(3):
+        k, v = (kp, vp) if i == 0 else (torch.randn(kp.shape, generator=gen, device=dev)
+                                        for _ in range(2))
+        if kind == "bf16":
+            copies.append((k.to(torch.bfloat16), v.to(torch.bfloat16), None, None))
+        else:
+            (kq, ks), (vq, vs) = (_quantize(t, 8 if kind == "int8" else 4) for t in (k, v))
+            copies.append((kq, vq, ks, vs))
+    k0, v0, ks0, vs0 = copies[0]
+    split = paged_attention_cuda.split_launches
+    with no_host_sync():
+        got = paged_attention_cuda(q, k0, v0, bt, lengths, ks0, vs0)
+    torch.cuda.synchronize()
+    if paged_attention_cuda.split_launches == split:
+        raise AssertionError("paged_attention at the 2048-token context ran one table run")
+    err = (got.float() - paged_attention_plain(q, k0, v0, bt, lengths, ks0, vs0).float()
+           ).abs().max().item()
+    if not err <= ATTN_TOL[torch.bfloat16] or not torch.isfinite(got).all():
+        raise AssertionError(f"paged_attention 2048-token context {kind}: max err {err}")
+    if not replays_equal(lambda: paged_attention_cuda(q, k0, v0, bt, lengths, ks0, vs0), got):
+        raise AssertionError(f"paged_attention 2048-token context {kind}: a graph replay differs")
+    it = iter(range(10**9))
+
+    def call():
+        k, v, ks, vs = copies[next(it) % 3]
+        return paged_attention_cuda(q, k, v, bt, lengths, ks, vs)
+
+    ms = graph_ms(call, 3 * LAYERS)
+    S = bt.shape[1] * bs
+    if kind == "bf16":
+        kd, vd = k0.float(), v0.float()
+    else:
+        kd, vd = ((_unpack_nibbles(c) if kind == "int4" else c).float() * sc[..., None]
+                  for c, sc in ((k0, ks0), (v0, vs0)))
+    G = H // KV
+    kg, vg = (d[bt.long()].reshape(B, S, KV, Dh).transpose(1, 2).to(torch.bfloat16)
+              .repeat_interleave(G, dim=1).contiguous() for d in (kd, vd))
+    del kd, vd
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask), LAYERS)
+    plain_ms = events_ms(lambda: paged_attention_plain(q, k0, v0, bt, lengths, ks0, vs0), 2)
+    toks = lengths.sum().item()
+    n_bytes = (2 * q.numel() * 2 + toks * KV * 2 * k0.shape[-1] * k0.element_size()
+               + (toks * KV * 2 * 4 if ks0 is not None else 0) + bt.numel() * 4 + B * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * toks * H * Dh, FP32_FLOPS_PER_S)
+    print(f"paged_attention {kind} pools, bf16 q, 2048-token context B={B} H={H} KV={KV} "
+          f"Dh={Dh} bs={bs} ({toks} keys): max_abs_err {err:.3g}, graph replays equal, "
+          f"kernel_ms {ms:.5f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by}), "
+          f"{b_ms / ms:.1%} of the bound, library_ms(sdpa, gathered) {lib_ms:.5f}", flush=True)
+    return {"at": f"B={B} H={H} KV={KV} Dh={Dh} bs={bs} {kind} pools, bf16 q, lengths in "
+                  f"[1536, 2048] ({toks} keys)", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "library_ms": lib_ms}
 
 
 def check_paged_attention(dev) -> dict:
@@ -369,7 +503,8 @@ def check_paged_attention(dev) -> dict:
         KV = kp.shape[2]
         worst = 0.0
         for window in (None, 20):
-            got = paged_attention_cuda(q, kp, vp, bt, lengths, window=window)
+            with no_host_sync():
+                got = paged_attention_cuda(q, kp, vp, bt, lengths, window=window)
             torch.cuda.synchronize()
             want = paged_attention_plain(q, kp, vp, bt, lengths, window=window)
             err = (got.float() - want.float()).abs().max().item()
@@ -378,6 +513,14 @@ def check_paged_attention(dev) -> dict:
             if not torch.isfinite(got).all() or got[0].abs().max().item() != 0.0:
                 raise AssertionError("paged_attention: non-finite output or nonzero empty row")
             worst = max(worst, err)
+        spare = sorted(set(range(1, kp.shape[0])) - set(bt.flatten().tolist()))[0]
+        kp_nan, vp_nan, bt_past = kp.clone(), vp.clone(), bt.clone()
+        kp_nan[spare] = vp_nan[spare] = float("nan")  # a block no live entry reaches...
+        bt_past[2, -1] = spare  # ...but an entry past row 2's length
+        past = paged_attention_cuda(q, kp_nan, vp_nan, bt_past, lengths)
+        torch.cuda.synchronize()
+        if not torch.equal(past, paged_attention_cuda(q, kp, vp, bt, lengths)):
+            raise AssertionError(f"paged_attention {dtype} read a table entry past the length")
         ms = graph_ms(lambda: paged_attention_cuda(q, kp, vp, bt, lengths), LAYERS)
         plain_ms = graph_ms(lambda: paged_attention_plain(q, kp, vp, bt, lengths), LAYERS)
         # yardstick: SDPA on the already-gathered view (the gather not timed)
@@ -405,7 +548,8 @@ def check_paged_attention(dev) -> dict:
                      "replaces": "src/repro/kernels/paged_attention.py:212",
                      "at": "B=8 H=9 KV=3 Dh=64 bs=16 bf16 pools, ragged lengths incl. 0",
                      "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms}
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "at_2048_context": paged_served(dev, "bf16")}
     return entry
 
 
@@ -429,9 +573,9 @@ def check_int_matmul_deepseek(dev) -> dict:
             torch.cuda.synchronize()
             if not torch.equal(got, int_matmul_plain(x, w, scale, **kw)):
                 raise AssertionError(f"int_matmul M={M} K={K} N={N}: kernel != plain")
-            ms = events_ms(lambda: int_matmul_cuda(x, w, scale, **kw), 5)
+            ms = graph_ms(lambda: int_matmul_cuda(x, w, scale, **kw), 5)
             plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, **kw), 2)
-            lib_ms = events_ms(lambda: torch._int_mm(x, w_cm), 5) if M > 16 else None
+            lib_ms = graph_ms(lambda: torch._int_mm(x, w_cm), 5) if M > 16 else None
             b_ms, b_by = bound_ms(M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N,
                                   INT8_OPS_PER_S)
             print(f"int_matmul deepseek {site} M={M} K={K} N={N}: equal, kernel_ms {ms:.4f} "
@@ -441,6 +585,105 @@ def check_int_matmul_deepseek(dev) -> dict:
                                          "bound_by": b_by, "library_ms": lib_ms}
         del w, w_cm
     return out
+
+
+RWKV_TM = (4096, 4096)  # rwkv6-7b's time-mix projections (K, N)
+DEEPSEEK_W_OUT = (18432, 7168)  # deepseek-v3's dense mlp.w_out (K, N), the largest K
+CROSSOVER_ROWS = (1, 8, 16, 24, 32)
+
+
+def check_int_matmul_decode(dev) -> dict:
+    """The split-K decode kernel at rwkv6-7b's 4096 x 4096 prologue shape
+    (M=8, fp32 x, int16 carry, fused scale), over several K splits: bit for
+    bit the plain version with no host sync, two CUDA-graph replays equal
+    (the splits' sums meet in the cluster, nothing is kept between launches),
+    timed over 4 weight copies
+    (67 MB, past the L2) against the weight bytes; then the crossover: both
+    kernels forced at M in {1, 8, 16, 24, 32} (int8 x, scale) at smollm's
+    layer (7 calls, 30 weight copies), rwkv6's 4096 x 4096 and deepseek's
+    18432 x 7168, with ``torch._int_mm`` (x padded to 24 rows below 17)."""
+    from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
+    from repro_torch.kernels.ops import int_matmul_block_k
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    K, N = RWKV_TM
+    ws = [a2q_bounded_weights(gen, K, N, dev) for _ in range(4)]
+    scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+    kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True,
+              aq_scale=torch.tensor([6.0 / 127], device=dev), q_lo=-128, q_hi=127, q_shift=0)
+    x = torch.randn((8, K), generator=gen, device=dev) * 3
+    split = int_matmul_cuda.split_launches
+    with no_host_sync():
+        got = int_matmul_cuda(x, ws[0], scale, **kw)
+    torch.cuda.synchronize()
+    if int_matmul_cuda.split_launches == split:
+        raise AssertionError("int_matmul at rwkv6's 4096 x 4096 ran one K split")
+    if not torch.equal(got, int_matmul_plain(x, ws[0], scale, **kw)):
+        raise AssertionError("int_matmul decode M=8 K=4096 N=4096: kernel != plain")
+    if not replays_equal(lambda: int_matmul_cuda(x, ws[0], scale, **kw), got):
+        raise AssertionError("int_matmul decode: a graph replay differs from the eager call")
+    it = iter(range(10**9))
+    ms = graph_ms(lambda: int_matmul_cuda(x, ws[next(it) % 4], scale, **kw), 8)
+    plain_ms = events_ms(lambda: int_matmul_plain(x, ws[0], scale, **kw), 3)
+    b_ms, b_by = bound_ms(4 * 8 * K + K * N + 4 * N + 4 * 8 * N, 2 * 8 * K * N, INT8_OPS_PER_S)
+    print(f"int_matmul decode prologue rwkv6 tm M=8 K={K} N={N}: equal to plain, graph replays "
+          f"equal, kernel_ms {ms:.5f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by}), "
+          f"{b_ms / ms:.1%} of the bound", flush=True)
+    out["at_rwkv6"] = {f"M=8 K={K} N={N} prologue": {"ms": ms, "plain_ms": plain_ms,
+                                                      "bound_ms": b_ms, "bound_by": b_by,
+                                                      "bound_share": b_ms / ms}}
+    del ws
+    # the crossover
+    shapes = [("smollm layer", [(K, N, c) for (K, N), c in SMOLLM_SITES.items()], LAYERS),
+              ("rwkv6 tm", [(*RWKV_TM, 1)], 4), ("deepseek w_out", [(*DEEPSEEK_W_OUT, 1)], 1)]
+    out["crossover"] = {}
+    for site, parts, copies in shapes:
+        mats = [([a2q_bounded_weights(gen, K, N, dev) for _ in range(copies)],
+                 torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4, K, N, c)
+                for K, N, c in parts]
+        for m in CROSSOVER_ROWS:
+            row = {"decode_ms": 0.0, "tc_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+            for ws, sc, K, N, c in mats:
+                x = torch.randint(-128, 128, (m, K), generator=gen, device=dev, dtype=torch.int8)
+                kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K),
+                          spill_int16=True)
+                want = int_matmul_plain(x, ws[0], sc, **kw)
+                for tc in (False, True):
+                    with int_matmul_route(tc):
+                        got = int_matmul_cuda(x, ws[0], sc, **kw)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"int_matmul {site} M={m} K={K} N={N} tc={tc}: "
+                                                 "kernel != plain")
+                        it = iter(range(10**9))
+                        row["tc_ms" if tc else "decode_ms"] += c * graph_ms(
+                            lambda: int_matmul_cuda(x, ws[next(it) % copies], sc, **kw),
+                            max(copies, 8))
+                xl = x if m > 16 else torch.cat([x, x.new_zeros((24 - m, K))])
+                cms = [w.t().contiguous().t() for w in ws]
+                it = iter(range(10**9))
+                row["library_ms"] += c * graph_ms(
+                    lambda: torch._int_mm(xl, cms[next(it) % copies]), max(copies, 8))
+                del cms
+                row["bytes"] += c * (m * K + K * N + 4 * N + 4 * m * N)
+                row["ops"] += c * 2 * m * K * N
+            row["bound_ms"], row["bound_by"] = bound_ms(row.pop("bytes"), row.pop("ops"),
+                                                        INT8_OPS_PER_S)
+            print(f"int_matmul crossover {site} M={m} (int8 x, scale): decode_ms "
+                  f"{row['decode_ms']:.5f} tc_ms {row['tc_ms']:.5f} library_ms(_int_mm"
+                  f"{', x padded to 24 rows' if m <= 16 else ''}) {row['library_ms']:.5f} "
+                  f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']}); the wrapper runs "
+                  f"{'tc' if m >= tc_min_rows() else 'decode'}", flush=True)
+            out["crossover"][f"{site} M={m}"] = row
+        del mats
+    return out
+
+
+def tc_min_rows() -> int:
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.int_matmul").TC_MIN_ROWS
 
 
 def mla_case(dev, dtype, B=8, H=128, R=512, P=64, bs=16, max_seq=96):
@@ -622,7 +865,7 @@ def check_int_matmul_prologue(dev) -> dict:
     for M in (8, 32):
         x = torch.randn((M, K), generator=gen, device=dev) * 3
         check(x, w, scale, kw, pro, f"M={M} K={K} N={N}")
-        ms = events_ms(lambda: int_matmul_cuda(x, w, scale, **kw, **pro), 5)
+        ms = graph_ms(lambda: int_matmul_cuda(x, w, scale, **kw, **pro), 5)
         plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, **kw, **pro), 2)
         b_ms, b_by = bound_ms(4 * M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N,
                               INT8_OPS_PER_S)
@@ -649,8 +892,9 @@ def check_int_matmul_requant(dev) -> dict:
     kernel, relu^2 replayed in bf16, unsigned 8-bit codes out for cm.wv), at
     cm.wk's shape (K=4096, N=14336) and a reduced one (K=N=64), M=8 (decode)
     and M=32 (a prefill chunk): bit for bit the plain version.  At cm.wk's
-    shape timed beside the prologue-only kernel (fp32 out) on the same
-    inputs and the weight-byte bound."""
+    shape timed (CUDA graphs over two weight copies) beside the
+    prologue-only kernel (fp32 out) on the same inputs and the weight-byte
+    bound."""
     from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain
     from repro_torch.kernels.ops import int_matmul_block_k
 
@@ -680,8 +924,12 @@ def check_int_matmul_requant(dev) -> dict:
                 print(f"int_matmul requant M={M} K={K} N={N}: equal ({codes} distinct codes)",
                       flush=True)
                 continue
-            ms = events_ms(lambda: int_matmul_cuda(x, w, scale, **kw, **req), 20)
-            pro_ms = events_ms(lambda: int_matmul_cuda(x, w, scale, **kw), 20)
+            ws = [w, a2q_bounded_weights(gen, K, N, dev)]  # two copies: past the L2
+            it = iter(range(10**9))
+            ms = graph_ms(lambda: int_matmul_cuda(x, ws[next(it) % 2], scale, **kw, **req), 20)
+            it = iter(range(10**9))
+            pro_ms = graph_ms(lambda: int_matmul_cuda(x, ws[next(it) % 2], scale, **kw), 20)
+            del ws
             plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, **kw, **req), 3)
             b_ms, b_by = bound_ms(4 * M * K + K * N + 8 * N + M * N, 2 * M * K * N,
                                   INT8_OPS_PER_S)
@@ -897,7 +1145,8 @@ def check_flash_attention(dev) -> dict:
     ``F.scaled_dot_product_attention`` on the same bf16 views (the library
     time; the port never calls it) and the bound: its operations at the
     bf16 tensor-core peak (the card's for bf16 inputs), with the share of
-    it reached."""
+    it reached; hubert's fp32 case timed likewise on the CUDA-core kernel,
+    beside SDPA in fp32 and its operations at the fp32 peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
@@ -935,6 +1184,19 @@ def check_flash_attention(dev) -> dict:
             worst_bf16 = max(worst_bf16, err)
         print(f"flash_attention {tag} (B={b} H={h} KV={kv} Tq={tq} Tk={tk} D={d}): kernel "
               f"{kernel}, max err {err:.3g} within tolerance", flush=True)
+        if tag == "hubert fp32":  # the CUDA-core kernel at hubert's shape, in fp32
+            ms = events_ms(lambda: flash_attention_cuda(q, k, v, **kw), 3)
+            plain_ms = events_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
+            lib_ms = events_ms(lambda: F.scaled_dot_product_attention(q, k, v), 3)
+            n_ops = 4 * b * h * tq * tk * d
+            b_ms, b_by = bound_ms(4 * (2 * b * h * tq * d + 2 * b * kv * tk * d), n_ops,
+                                  FP32_FLOPS_PER_S)
+            print(f"flash_attention {tag}: kernel cuda_cores ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"library_ms(sdpa, fp32) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by}, fp32 at "
+                  f"67 TFLOP/s), {b_ms / ms:.1%} of the bound", flush=True)
+            entry["fp32"] = {"at": "the same shape in fp32, on the CUDA cores", "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "bound_share": b_ms / ms, "library_ms": lib_ms}
         if tag != "hubert bf16":
             continue
         # the same values as unaligned views: the wrapper routes them to the CUDA cores
@@ -979,8 +1241,8 @@ def check_flash_attention(dev) -> dict:
 @contextlib.contextmanager
 def int_matmul_route(tc: bool):
     """Every ``int_matmul_cuda`` call inside the block on the tensor-core
-    kernel (``tc``) or on ``__dp4a``, whatever its rows: the crossover's
-    timings."""
+    kernel (``tc``) or on the decode kernel (at most 32 rows), whatever its
+    rows: the crossover's timings."""
     import importlib
 
     im = importlib.import_module("repro_torch.kernels.int_matmul")
@@ -1002,9 +1264,8 @@ def check_int_matmul_hubert(dev) -> list:
     same inputs; then the attention projections and the head (prologue,
     fp32 out) and mlp.w_out (int8 codes in), bit for bit.  Every shape timed
     beside ``torch._int_mm`` on the same int8 operands (the library time),
-    with the kernel that ran and the share of the bound it reached; then
-    the crossover: both kernels forced at w_in's and the projections' K, N
-    for M in {8, 16, 32, 64}.  Returns the ``int_matmul[gelu requant]`` and
+    with the kernel that ran and the share of the bound it reached.  Returns
+    the ``int_matmul[gelu requant]`` and
     ``int_matmul[tc]`` (mlp.w_out, int8 codes in) entries."""
     from repro_torch.kernels.int_matmul import (int_matmul_cuda, int_matmul_plain,
                                                 prologue_codes, requant_ties)
@@ -1019,7 +1280,7 @@ def check_int_matmul_hubert(dev) -> list:
     def timed(fn, reps=10):
         before = int_matmul_cuda.tc_launches
         ms = events_ms(fn, reps)
-        return ms, "tc" if int_matmul_cuda.tc_launches > before else "dp4a"
+        return ms, "tc" if int_matmul_cuda.tc_launches > before else "decode"
 
     for (K, N), site in (((1280, 5120), "mlp.w_in"), ((1280, 1280), "attn.wq/wk/wv/wo"),
                          ((5120, 1280), "mlp.w_out"), (HUBERT_HEAD, "head")):
@@ -1105,35 +1366,8 @@ def check_int_matmul_hubert(dev) -> list:
                               "M=8000 K=5120 N=1280: int8 codes in, int16 carry, scale + bias",
                         "kernel": kernel, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
-                        "library_ms": lib_ms, "crossover": {}}
+                        "library_ms": lib_ms}
         del w, w_cm, x, codes, y
-    # the crossover: both kernels on the same int8 operands at a few rows
-    for K, N in ((1280, 5120), (1280, 1280)):
-        w = a2q_bounded_weights(gen, K, N, dev)
-        w_cm = w.t().contiguous().t()
-        scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
-        kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
-        for m in (8, 16, 32, 64):
-            x = torch.randint(-128, 128, (m, K), generator=gen, device=dev, dtype=torch.int8)
-            row = {}
-            for tc in (False, True):
-                with int_matmul_route(tc):
-                    got = int_matmul_cuda(x, w, scale, **kw)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, int_matmul_plain(x, w, scale, **kw)):
-                        raise AssertionError(f"int_matmul M={m} K={K} N={N} tc={tc}: != plain")
-                    row["tc_ms" if tc else "dp4a_ms"] = graph_ms(
-                        lambda: int_matmul_cuda(x, w, scale, **kw), 20)
-            row["library_ms"] = graph_ms(lambda: torch._int_mm(x, w_cm), 20) if m > 16 else None
-            row["bound_ms"], row["bound_by"] = bound_ms(m * K + K * N + 4 * N + 4 * m * N,
-                                                        2 * m * K * N, INT8_OPS_PER_S)
-            lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
-            print(f"int_matmul crossover M={m} K={K} N={N} (int8 x, scale): dp4a_ms "
-                  f"{row['dp4a_ms']:.5f} tc_ms {row['tc_ms']:.5f} library_ms(_int_mm) {lib} "
-                  f"bound_ms {row['bound_ms']:.6f} ({row['bound_by']}); the wrapper runs "
-                  f"{'tc' if m > 16 else 'dp4a'}", flush=True)
-            tc_entry["crossover"][f"M={m} K={K} N={N}"] = row
-        del w, w_cm
     return [entry, tc_entry]
 
 
@@ -1165,7 +1399,8 @@ def check_paged_attention_int(dev) -> list:
         vq, vs = _quantize(vp, bits)
         worst = 0.0
         for window in (None, 20):
-            got = paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs, window=window)
+            with no_host_sync():
+                got = paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs, window=window)
             torch.cuda.synchronize()
             want = paged_attention_plain(q, kq, vq, bt, lengths, ks, vs, window=window)
             err = (got.float() - want.float()).abs().max().item()
@@ -1210,7 +1445,8 @@ def check_paged_attention_int(dev) -> list:
                         "at": f"B=8 H=9 KV=3 Dh=64 bs=16 int{bits} pools, bf16 q, ragged lengths "
                               "incl. 0",
                         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": lib_ms})
+                        "bound_by": b_by, "library_ms": lib_ms,
+                        "at_2048_context": paged_served(dev, f"int{bits}")})
     return entries
 
 
@@ -2294,6 +2530,7 @@ def main() -> int:
                *check_paged_mla_attention_int(dev), check_rwkv6_scan(dev),
                check_a2q_quantize(dev), check_flash_attention(dev), *check_int_matmul_hubert(dev)]
     entries[0]["at_deepseek"] = check_int_matmul_deepseek(dev)
+    entries[0].update(check_int_matmul_decode(dev))
     torch.cuda.empty_cache()
     by_path = serve(dev)
     torch.cuda.empty_cache()

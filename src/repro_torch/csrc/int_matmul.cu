@@ -44,26 +44,52 @@
 // Two kernels compute that one function; the wrapper picks by M (a constant,
 // `TC_MIN_ROWS` in kernels/int_matmul.py):
 //
-// (1) M <= 16 (decode): `int_matmul_kernel`, on __dp4a.  What bounds it: M is
-// the batch (1-8 rows), so each weight byte is read once for ~M
-// multiply-adds; the bound is the weight bytes over the 3.35 TB/s of HBM.
-// One block of 256 threads owns a 64-row x 64-column output tile and walks
-// K in 64-element steps staged in shared memory; the weight step is stored
-// transposed, so each thread holds its column's 64 weights of the step in
-// registers and runs each of its rows' inner product on `__dp4a` (four int8
-// products per instruction), with one guard per row so a row's products
-// issue back to back.  Each thread keeps one int32 partial per output for
-// the current reference K-tile and folds it into the carried accumulator at
-// the reference boundary.  Rows past M are skipped, which makes a 1-row
-// decode call cost one row of arithmetic; the next step's global loads are
-// issued into registers before the current step is multiplied.  With the
-// prologue a thread's x segment is 16 fp32 (or bf16) values, issued with the
-// weight loads a step ahead and divided only when the next step is staged
-// (an IEEE division is a branch to a slow path behind a convergence barrier,
-// so dividing between loads would serialise them).  With at most 16 live
-// rows the step goes through fp32 shared memory and all the threads quantize
-// it together after the next step's loads are issued.  Not yet done: split-K
-// for the few-column decode shapes.
+// (1) M <= 16 (decode): `int_matmul_decode_kernel`.  What bounds it: M is the
+// batch (1-16 rows), so each weight byte is used at most 16 times; the bound
+// is the weight bytes over the 3.35 TB/s of HBM, and on small matrices
+// (smollm's 576 x 192) the launch and the round trips to memory.  The design
+// keeps 16-byte weight loads in flight on every SM:
+//   * Split-K x column strips.  A block of 8 warps owns a 128-column strip
+//     and one K split; the warps take turns at its 32-deep k steps (warp w
+//     the steps w, w + 8, ...), each streaming its steps through its own
+//     3-deep ring of `cp.async.cg` 16-byte copies, waited on with
+//     `__syncwarp` only (no block barrier a step).  A copy instruction
+//     reads four k rows of 128 contiguous bytes.  Two blocks fit an SM; the
+//     wrapper picks the split count from N, K and the SM count alone (about
+//     4 blocks an SM, at most 4 splits; never from a device value), and
+//     every split starts on a reference K-tile boundary (`bk_ref`).
+//   * Products on the int8 tensor cores: `mma.sync.m16n8k32`, x as the
+//     16-row A operand (rows past M are zero), the N-major weight step
+//     turned K-major on its way to the tensor cores by the tensor-core
+//     kernel's `ldmatrix.trans` + `__byte_perm` trick and swizzle (below).
+//     Taken over `__dp4a` after a `__byte_perm` register transpose because
+//     the transpose's 8 permutes a 4 x 4 byte square plus M `__dp4a`s per
+//     4 k-rows x 4 columns come to ~2-4 integer instructions a weight byte
+//     at M = 8-16, on the edge of what an SM issues while it streams its
+//     share of HBM; the mma path needs ~0.03.
+//   * The prologue quantizes once a block: the block's x slice (at most 32
+//     rows x a 1024-deep window, re-staged for longer slices) becomes int8
+//     codes in shared memory, spread over all 256 threads while the first
+//     weight steps fly; all eight warps read it.  Where x * (1 / aq) is not
+//     within 2^-20 of a half-integer it rounds as the IEEE quotient does,
+//     so only those few values take the IEEE division (`act_code_fast`).
+//   * The warps' partial sums meet in shared memory (added with shared
+//     atomics over the rings, once the last step is multiplied).
+//   * Exact cross-split sum without a workspace: a strip's splits (at most
+//     4; clusters of 8 measured slower) are launched as one thread-block
+//     cluster.  After a cluster barrier the blocks share out the strip's
+//     outputs and each adds every split's raw int32 sums through
+//     distributed shared memory (integer addition is associative: the order
+//     does not matter), then applies the one fold (sign extension to
+//     min(acc_bits, 16) bits, see the carry below) and the epilogue; a
+//     second barrier keeps every block's shared memory alive until it has
+//     been read.  One launch a call, no global atomics, no ticket and no
+//     state left between calls (a CUDA graph replays it as it is).  `saturate` is no homomorphism: it keeps one split a strip
+//     and folds the block's sum at every reference K-tile.
+//
+// The wrapper's M < TC_MIN_ROWS sends it at most 16 rows; it takes up to 32
+// (two m16 tiles) so that both kernels can be timed on either side of the
+// edge.
 //
 // (2) M > 16 (prefill chunks, hubert's 8000-row encode): `int_matmul_tc_kernel`
 // on the int8 tensor cores.  What bounds it: operations (2 M K N against the
@@ -119,6 +145,7 @@
 // The requant epilogue adds a handful of instructions a flushed output and
 // writes a quarter of the fp32 output's bytes.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,16 +153,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int BM = 64;                   // output rows per block
-constexpr int BN = 64;                   // output columns per block
-constexpr int BKC = 64;                  // K elements per shared-memory step
-constexpr int THREADS = 256;
-constexpr int ROW_GROUPS = THREADS / BN; // 4: thread t owns column t % 64
-constexpr int RPT = BM / ROW_GROUPS;     // 16 rows per thread: t / 64 + 4 i
-constexpr int SPREAD_ROWS = 16;          // prologue: all threads quantize up to 16 rows
-constexpr int PITCH = BKC + 16;          // bytes per staged row: 16-byte aligned,
-                                         // 20 words -> conflict-free 16-byte reads
 
 enum Mode { kExact = 0, kWrap = 1, kSaturate = 2 };
 enum Act { kActNone = 0, kActRelu2 = 1, kActGelu = 2 };
@@ -182,50 +199,6 @@ __device__ __forceinline__ int4 load16(const int8_t* p, int valid) {
     v[j >> 2] |= static_cast<int>(static_cast<uint8_t>(p[j])) << (8 * (j & 3));
   }
   return make_int4(v[0], v[1], v[2], v[3]);
-}
-
-// 16 fp32 values from `p`, zero past `valid` values; four 16-byte loads when
-// aligned.
-struct F16 {
-  float4 v[4];
-};
-
-__device__ __forceinline__ F16 load16(const float* p, int valid) {
-  F16 r;
-  if (valid >= 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) r.v[q] = __ldg(reinterpret_cast<const float4*>(p) + q);
-    return r;
-  }
-  float f[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) f[j] = j < valid ? p[j] : 0.0f;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) r.v[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
-  return r;
-}
-
-// 16 bf16 values from `p` widened to fp32 (exactly), zero past `valid`;
-// two 16-byte loads when aligned.
-__device__ __forceinline__ F16 load16(const __nv_bfloat16* p, int valid) {
-  float f[16];
-  if (valid >= 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    const uint4 u[2] = {__ldg(reinterpret_cast<const uint4*>(p)),
-                        __ldg(reinterpret_cast<const uint4*>(p) + 1)};
-    const unsigned w[8] = {u[0].x, u[0].y, u[0].z, u[0].w, u[1].x, u[1].y, u[1].z, u[1].w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      f[2 * j] = __uint_as_float(w[j] << 16);
-      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) f[j] = j < valid ? __bfloat162float(p[j]) : 0.0f;
-  }
-  F16 r;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) r.v[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
-  return r;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -307,151 +280,30 @@ __device__ __forceinline__ void store_one(const Epi& e, const Col& c, size_t o, 
   }
 }
 
-// TX is int8_t (codes) or float / bf16 (the prologue quantizes while staging).
-template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-int_matmul_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
-                  int M, int N, int K, int bk_ref, int mode, int acc_bits,
-                  int spill16, const float* __restrict__ aq, int q_lo, int q_hi, int q_shift,
-                  Epi epi) {
-  constexpr bool kPrologue = !std::is_same<TX, int8_t>::value;
-  __shared__ __align__(16) int8_t xs[BM * PITCH];  // xs[r][k]
-  __shared__ __align__(16) int8_t ws[BN * PITCH];  // ws[n][k] (transposed)
-  __shared__ __align__(16) float xf[kPrologue ? BM * BKC : 4];  // the prologue's fp32 step
-
-  const int tid = threadIdx.x;
-  const int col = tid % BN;
-  const int rg = tid / BN;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int rows = min(BM, M - m0);
-
-  // staging roles: one 16-byte segment of x (16 int8 codes, or 16 fp32 /
-  // bf16 values for the prologue) and one of w per thread per step
-  const int xr = tid / (BKC / 16);        // x row 0..63
-  const int xk = (tid % (BKC / 16)) * 16; // x column offset within the step
-  const int wk = tid / (BN / 16);         // w row (k) 0..63
-  const int wn = (tid % (BN / 16)) * 16;  // w column offset within the tile
-
-  auto load_x = [&](int k0) {
-    const int valid = xr < rows ? K - (k0 + xk) : 0;
-    return load16(x + static_cast<size_t>(m0 + xr) * K + k0 + xk, valid);
-  };
-  // the prologue's quantizer (unused for int8 codes); with at most 16 live
-  // rows the step is quantized by all the threads from shared memory, else
-  // each thread quantizes its own segment (measured faster past ~16 rows)
-  const float s_aq = aq != nullptr ? *aq : 1.0f;
-  const bool spread = rows <= SPREAD_ROWS;
-  const float lo = static_cast<float>(q_lo);
-  const float hi = static_cast<float>(q_hi);
-  auto load_w = [&](int k0) {
-    const int valid = k0 + wk < K ? N - (n0 + wn) : 0;
-    return load16(w + static_cast<size_t>(k0 + wk) * N + n0 + wn, valid);
-  };
-
-  int carry[RPT];
-  int part[RPT];
+// Four neighbouring flushed accumulators of one row (columns `o` .. `o` + 3,
+// of which `left` are inside N) through the epilogue: one 16-byte (fp32,
+// int32) or 4-byte (int8) store when `vec` (N a multiple of 4), else one
+// store a column.
+__device__ __forceinline__ void store4(const Epi& e, const Col (&cols)[4], size_t o,
+                                       const int (&v)[4], bool vec, int left) {
+  if (vec) {
+    if (e.scale == nullptr) {
+      *reinterpret_cast<int4*>(e.out_i + o) = make_int4(v[0], v[1], v[2], v[3]);
+    } else if (e.osc != nullptr) {
+      unsigned u = 0;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    carry[i] = 0;
-    part[i] = 0;
-  }
-
-  auto xv = load_x(0);
-  int4 wv = load_w(0);
-  for (int k0 = 0; k0 < K; k0 += BKC) {
-    {
-      if constexpr (kPrologue) {
-        if (xr < rows && spread) {  // the fp32 step, quantized below by every thread
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            *reinterpret_cast<float4*>(xf + xr * BKC + xk + 4 * q) = xv.v[q];
-        } else if (xr < rows) {  // many rows: each thread quantizes its own segment
-          const float f[16] = {xv.v[0].x, xv.v[0].y, xv.v[0].z, xv.v[0].w,
-                               xv.v[1].x, xv.v[1].y, xv.v[1].z, xv.v[1].w,
-                               xv.v[2].x, xv.v[2].y, xv.v[2].z, xv.v[2].w,
-                               xv.v[3].x, xv.v[3].y, xv.v[3].z, xv.v[3].w};
-          int v[4] = {0, 0, 0, 0};
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const unsigned c = static_cast<uint8_t>(act_code(f[j], s_aq, lo, hi, q_shift));
-            v[j >> 2] |= static_cast<int>(c << (8 * (j & 3)));
-          }
-          *reinterpret_cast<int4*>(xs + xr * PITCH + xk) = make_int4(v[0], v[1], v[2], v[3]);
-        }
-      } else {
-        *reinterpret_cast<int4*>(xs + xr * PITCH + xk) = xr < rows ? xv : make_int4(0, 0, 0, 0);
-      }
-      const int words[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        ws[(wn + j) * PITCH + wk] =
-            static_cast<int8_t>((words[j >> 2] >> (8 * (j & 3))) & 0xff);
-      }
+      for (int c = 0; c < 4; ++c)
+        u |= static_cast<unsigned>(static_cast<uint8_t>(requant(e, cols[c], v[c]))) << (8 * c);
+      *reinterpret_cast<unsigned*>(e.out_q + o) = u;
+    } else {
+      *reinterpret_cast<float4*>(e.out_f + o) =
+          make_float4(scaled(e, cols[0], v[0]), scaled(e, cols[1], v[1]),
+                      scaled(e, cols[2], v[2]), scaled(e, cols[3], v[3]));
     }
-    __syncthreads();
-    if (k0 + BKC < K) {  // next step's loads fly while this one multiplies
-      xv = load_x(k0 + BKC);
-      wv = load_w(k0 + BKC);
-    }
-    if constexpr (kPrologue) {
-      if (spread) {  // block-uniform: every thread reaches the barrier or none
-        // the few live rows' values spread over all the threads (2 a thread
-        // at a decode M of 8): each IEEE division is a branch behind a
-        // convergence barrier, so the one warp holding 8 rows' segments,
-        // dividing 16 values a thread alone, would set the step's time
-        for (int e = tid; e < rows * BKC; e += THREADS)
-          xs[(e / BKC) * PITCH + e % BKC] = act_code(xf[e], s_aq, lo, hi, q_shift);
-        __syncthreads();
-      }
-    }
-    // this thread's column of the step: 64 int8 weights in 16 registers
-    const int4* wrow = reinterpret_cast<const int4*>(ws + col * PITCH);
-    int wq[BKC / 4];
+  } else {
 #pragma unroll
-    for (int q = 0; q < BKC / 16; ++q) {
-      const int4 v = wrow[q];
-      wq[4 * q] = v.x;
-      wq[4 * q + 1] = v.y;
-      wq[4 * q + 2] = v.z;
-      wq[4 * q + 3] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      if (rg + i * ROW_GROUPS < rows) {
-        const int4* xrow = reinterpret_cast<const int4*>(xs + (rg + i * ROW_GROUPS) * PITCH);
-        int acc = part[i];
-#pragma unroll
-        for (int q = 0; q < BKC / 16; ++q) {
-          const int4 v = xrow[q];
-          acc = __dp4a(v.x, wq[4 * q], acc);
-          acc = __dp4a(v.y, wq[4 * q + 1], acc);
-          acc = __dp4a(v.z, wq[4 * q + 2], acc);
-          acc = __dp4a(v.w, wq[4 * q + 3], acc);
-        }
-        part[i] = acc;
-      }
-    }
-    __syncthreads();
-    // bk_ref is a multiple of BKC, so a step never straddles a reference tile
-    const int next = k0 + BKC;
-    if (next % bk_ref == 0 || next >= K) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        carry[i] = fold(carry[i], part[i], mode, acc_bits, spill16);
-        part[i] = 0;
-      }
-    }
-  }
-
-  const int n = n0 + col;
-  if (n >= N) return;
-  const Col c = column(epi, n);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg + i * ROW_GROUPS;
-    if (r >= rows) continue;
-    store_one(epi, c, static_cast<size_t>(m0 + r) * N + n, carry[i]);
+    for (int c = 0; c < 4; ++c)
+      if (c < left) store_one(e, cols[c], o + c, v[c]);
   }
 }
 
@@ -750,27 +602,7 @@ int_matmul_tc_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           v[2] = sign_extend(acc[i][j][0][2 * h + 1], flush_bits);
           v[3] = sign_extend(acc[i][j][1][2 * h + 1], flush_bits);
         }
-        const size_t o = static_cast<size_t>(row) * N + col0;
-        if (vec) {
-          if (epi.scale == nullptr) {
-            *reinterpret_cast<int4*>(epi.out_i + o) = make_int4(v[0], v[1], v[2], v[3]);
-          } else if (epi.osc != nullptr) {
-            unsigned u = 0;
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              u |= static_cast<unsigned>(static_cast<uint8_t>(requant(epi, cols[c], v[c])))
-                   << (8 * c);
-            *reinterpret_cast<unsigned*>(epi.out_q + o) = u;
-          } else {
-            *reinterpret_cast<float4*>(epi.out_f + o) =
-                make_float4(scaled(epi, cols[0], v[0]), scaled(epi, cols[1], v[1]),
-                            scaled(epi, cols[2], v[2]), scaled(epi, cols[3], v[3]));
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (col0 + c < N) store_one(epi, cols[c], o + c, v[c]);
-        }
+        store4(epi, cols, static_cast<size_t>(row) * N + col0, v, vec, N - col0);
       }
   }
 }
@@ -792,6 +624,433 @@ int launch_tc(const int8_t* x, const int8_t* w, int M, int N, int K, int bk_ref,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The decode kernel (M <= 32 rows; the wrapper's route sends it M <= 16).
+
+namespace dec {
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MIN_BLOCKS = 2;            // blocks an SM (caps the registers at 128)
+constexpr int BN = 128;                  // columns a block (a strip); every warp takes all
+constexpr int RG = THREADS / BN;         // row groups: thread t owns column t % BN
+constexpr int BK = 32;                   // k rows a warp step: one mma depth
+constexpr int ROUND = WARPS * BK;        // 256 k: one step of each warp
+constexpr int STAGES = 3;                // a warp's ring: 2 steps in flight + 1 multiplied
+constexpr int STEP = BK * BN;            // 4 KB: one warp step of w
+constexpr int RING = WARPS * STAGES * STEP;
+constexpr int XWIN = 1024;               // k of x codes staged at a time (a multiple of ROUND)
+constexpr int MAX_ROWS = 32;
+constexpr int MAX_SPLITS = 4;            // a strip's splits form one cluster
+constexpr int RED_PITCH = BN + 8;        // ints a row of the block's sums in shared memory
+constexpr int XB = 4;                    // x words a thread loads before it quantizes them
+}  // namespace dec
+
+// The decode kernel's scalar arguments.
+struct Dec {
+  int M, N, K, bk_ref, acc_bits, spill16, flush_bits;
+  int k_split;      // k elements a split (a multiple of bk_ref); gridDim.y splits, one cluster
+  int x_rows;       // staged x rows: 8, 16 or 32 (rows past M are zero)
+  int x_win;        // staged x window: a multiple of dec::ROUND, at most dec::XWIN
+  const float* aq;  // the prologue's scale (null: x is int8 codes)
+  int q_lo, q_hi, q_shift;
+  int copy16;       // w's rows start on 16 bytes (N % 16 == 0, w aligned)
+};
+
+// The decode kernel's shared memory: the x window's codes, the warps' rings
+// of w steps, and the block's sums (over the rings once the steps are done;
+// apart from them for `saturate`, which sums at every K-tile).
+__host__ __device__ constexpr int dec_xs_bytes(int x_rows, int x_win) {
+  return x_rows * (x_win + 16);
+}
+__host__ __device__ constexpr int dec_red_bytes(int x_rows) {
+  return x_rows * dec::RED_PITCH * 4;
+}
+__host__ __device__ constexpr int dec_smem_bytes(int x_rows, int x_win, bool sat) {
+  return dec_xs_bytes(x_rows, x_win) +
+         (sat ? dec::RING + dec_red_bytes(x_rows)
+              : (dec::RING > dec_red_bytes(x_rows) ? dec::RING : dec_red_bytes(x_rows)));
+}
+
+// The prologue's code by the reciprocal where that is safe: x * (1 / aq)
+// lies within 2^-22 relative of x / aq (two roundings), so unless it is
+// within 2^-20 (relative, plus 2^-20 absolute for the fraction's own
+// rounding) of a half-integer, it rounds to the same integer as the IEEE
+// quotient; near one (and for NaN or inf) the IEEE division decides.  The
+// codes are act_code's, bit for bit.
+__device__ __forceinline__ int8_t act_code_fast(float x, float aq, float r, float lo, float hi,
+                                                int shift) {
+  const float q = __fmul_rn(x, r);
+  const float f = q - floorf(q);
+  if (fabsf(f - 0.5f) > fabsf(q) * 0x1p-20f + 0x1p-20f)
+    return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(q), lo), hi)) - shift);
+  return act_code(x, aq, lo, hi, shift);
+}
+
+// Four consecutive x elements as loaded: int8 codes in one word, or fp32.
+template <typename TX>
+struct X4 {
+  float f[4];
+};
+template <>
+struct X4<int8_t> {
+  unsigned u;
+};
+
+// Four consecutive x elements from `p`, zero past `valid`; one load when
+// `vec` (4-element aligned).
+template <typename TX>
+__device__ __forceinline__ X4<TX> x_load4(const TX* p, int valid, bool vec) {
+  X4<TX> r;
+  if constexpr (std::is_same<TX, int8_t>::value) {
+    r.u = 0;
+    if (vec && valid >= 4) {
+      r.u = __ldg(reinterpret_cast<const unsigned*>(p));
+    } else {
+      for (int j = 0; j < 4 && j < valid; ++j)
+        r.u |= static_cast<unsigned>(static_cast<uint8_t>(p[j])) << (8 * j);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r.f[j] = 0.0f;
+    if (vec && valid >= 4) {
+      if constexpr (std::is_same<TX, float>::value) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+        r.f[0] = v.x;
+        r.f[1] = v.y;
+        r.f[2] = v.z;
+        r.f[3] = v.w;
+      } else {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+        r.f[0] = __uint_as_float(v.x << 16);
+        r.f[1] = __uint_as_float(v.x & 0xffff0000u);
+        r.f[2] = __uint_as_float(v.y << 16);
+        r.f[3] = __uint_as_float(v.y & 0xffff0000u);
+      }
+    } else {
+      for (int j = 0; j < 4 && j < valid; ++j) r.f[j] = to_f32(p[j]);
+    }
+  }
+  return r;
+}
+
+// The loaded elements as four int8 codes in one word (the prologue's code of
+// each of the first `valid`, zero after).
+template <typename TX>
+__device__ __forceinline__ unsigned x_codes4(const X4<TX>& v, int valid, float aq, float r,
+                                             float lo, float hi, int shift) {
+  if constexpr (std::is_same<TX, int8_t>::value) {
+    return v.u;
+  } else {
+    unsigned u = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < valid)
+        u |= static_cast<unsigned>(static_cast<uint8_t>(act_code_fast(v.f[j], aq, r, lo, hi,
+                                                                      shift)))
+             << (8 * j);
+    return u;
+  }
+}
+
+// TX: int8_t codes, or fp32 / bf16 through the prologue.  MT: m16 tiles
+// (rows up to 16 MT).  kSat: `saturate` below 32 bits, folded at every
+// reference K-tile (one split; bk_ref a multiple of dec::ROUND).  w rows
+// that start on 16 bytes (`d.copy16`) are copied by cp.async, others staged
+// through registers.
+template <typename TX, int MT, bool kSat>
+__global__ void __launch_bounds__(dec::THREADS, dec::MIN_BLOCKS)
+int_matmul_decode_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w, Dec d, Epi epi) {
+  constexpr bool kPrologue = !std::is_same<TX, int8_t>::value;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int M = d.M, N = d.N, K = d.K;
+  const int splits = gridDim.y;
+  const int n0 = blockIdx.x * dec::BN;
+  const int k_begin = blockIdx.y * d.k_split;
+  const int k_end = min(K, k_begin + d.k_split);
+  const int nsteps = k_end > k_begin ? (k_end - k_begin + dec::BK - 1) / dec::BK : 0;
+  const int rounds = (nsteps + dec::WARPS - 1) / dec::WARPS;
+  const int xpitch = d.x_win + 16;  // (x_win / 4 + 4) words: conflict-free A reads
+  uint8_t* xs = smem;               // x_rows x xpitch codes of the current window
+  uint8_t* rings = smem + dec_xs_bytes(d.x_rows, d.x_win);
+  uint8_t* ring = rings + warp * dec::STAGES * dec::STEP;
+  int* red = reinterpret_cast<int*>(kSat ? rings + dec::RING : rings);  // [row][col] sums
+
+  // warp step s (k rows k_begin + 32 s ..) of the strip: 32 x 128 bytes, eight
+  // 16-byte chunks a lane, four rows of 128 contiguous bytes a copy
+  // instruction; rows past the split's end and columns past N are zero
+  auto load_step = [&](int slot, int s) {
+    uint8_t* dst = ring + slot * dec::STEP;
+    const int k0 = k_begin + s * dec::BK;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = lane + 32 * i;
+      const int kr = e >> 3, c = e & 7;
+      const int gk = k0 + kr, gn = n0 + 16 * c;
+      const int8_t* src = w + static_cast<size_t>(gk) * N + gn;
+      if (d.copy16) {
+        const bool in = gk < k_end && gn < N;
+        cp_async16(smem_u32(dst + ws_off(kr, c)), in ? src : w, in ? 16 : 0);
+      } else {
+        *reinterpret_cast<int4*>(dst + ws_off(kr, c)) = load16(src, gk < k_end ? N - gn : 0);
+      }
+    }
+  };
+
+  // the block's x window starting at k = kw0, as int8 codes, by all threads;
+  // each thread issues dec::XB loads before it quantizes any
+  const float s_aq = kPrologue ? __ldg(d.aq) : 1.0f;
+  const float r_aq = kPrologue ? __frcp_rn(s_aq) : 1.0f;
+  const float lo = static_cast<float>(d.q_lo);
+  const float hi = static_cast<float>(d.q_hi);
+  const bool xvec = (K & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  auto stage_x = [&](int kw0) {
+    const int words = d.x_win / 4;
+    const int total = d.x_rows * words;
+    for (int base = 0; base < total; base += dec::THREADS * dec::XB) {
+      X4<TX> v[dec::XB];
+      int valid[dec::XB];
+#pragma unroll
+      for (int u = 0; u < dec::XB; ++u) {
+        const int e = base + tid + u * dec::THREADS;
+        const int r = e / words, k = kw0 + 4 * (e - r * words);
+        valid[u] = e < total && r < M ? k_end - k : 0;
+        v[u] = x_load4(x + static_cast<size_t>(r < M ? r : 0) * K + k, valid[u], xvec);
+      }
+#pragma unroll
+      for (int u = 0; u < dec::XB; ++u) {
+        const int e = base + tid + u * dec::THREADS;
+        if (e >= total) break;
+        const int r = e / words, kq = e - r * words;
+        *reinterpret_cast<unsigned*>(xs + r * xpitch + 4 * kq) =
+            valid[u] > 0 ? x_codes4(v[u], valid[u], s_aq, r_aq, lo, hi, d.q_shift) : 0u;
+      }
+    }
+  };
+
+  int acc[MT][8][2][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][e][r] = 0;
+  constexpr int OWN = dec::MAX_ROWS / dec::RG;  // rows a thread owns: rg, rg + RG, ...
+  int carry[kSat ? OWN : 1];  // saturate: thread t's column, its rows
+#pragma unroll
+  for (int i = 0; i < (kSat ? OWN : 1); ++i) carry[i] = 0;
+  const int col = tid % dec::BN, rg = tid / dec::BN;
+
+  // this warp's fragments added into the block's zeroed sums (4 neighbouring
+  // columns of rows g, g + 8 of each m16 tile, per 16-column chunk, as the
+  // tensor-core kernel's flush holds them); shared-memory integer atomics,
+  // in any order: the sums are exact mod 2^32
+  auto dump = [&]() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * i + g + 8 * h;
+        if (row >= d.x_rows) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          int* p = red + row * dec::RED_PITCH + 16 * j + 4 * q;
+          atomicAdd(p, acc[i][j][0][2 * h]);
+          atomicAdd(p + 1, acc[i][j][1][2 * h]);
+          atomicAdd(p + 2, acc[i][j][0][2 * h + 1]);
+          atomicAdd(p + 3, acc[i][j][1][2 * h + 1]);
+        }
+      }
+  };
+  auto zero_red = [&]() {
+    for (int e = tid; e < d.x_rows * dec::RED_PITCH; e += dec::THREADS) red[e] = 0;
+  };
+  // the block's sum of row m in thread t's column (mod 2^32)
+  auto summed = [&](int m) { return red[m * dec::RED_PITCH + col]; };
+
+#pragma unroll
+  for (int r = 0; r < dec::STAGES - 1; ++r) {  // the first steps fly while x is quantized
+    const int s = warp + dec::WARPS * r;
+    if (s < nsteps) load_step(r, s);
+    cp_async_commit();
+  }
+  stage_x(k_begin);
+  if constexpr (kSat) zero_red();
+  __syncthreads();
+  const int wrounds = d.x_win / dec::ROUND;
+  for (int r = 0; r < rounds; ++r) {
+    if (r > 0 && r % wrounds == 0) {  // the next window of x codes
+      __syncthreads();
+      stage_x(k_begin + r * dec::ROUND);
+      __syncthreads();
+    }
+    cp_async_wait<dec::STAGES - 2>();  // this lane's copies of round r's step have landed
+    __syncwarp();                      // every lane's have; all are done with round r - 1
+    {
+      const int nr = r + dec::STAGES - 1;  // into round r - 1's slot
+      const int ns = warp + dec::WARPS * nr;
+      if (ns < nsteps) load_step(nr % dec::STAGES, ns);
+      cp_async_commit();
+    }
+    const int s = warp + dec::WARPS * r;
+    if (s < nsteps) {
+      const uint8_t* wst = ring + (r % dec::STAGES) * dec::STEP;
+      const int kx = (r % wrounds) * dec::ROUND + warp * dec::BK;  // in the window
+      // A (row layout): rows g, g + 8 of each m16 tile, k 4q..4q+3 and 16 + 4q..
+      unsigned a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const uint8_t* r0 = xs + (16 * i + g) * xpitch + kx + 4 * q;
+        a[i][0] = *reinterpret_cast<const unsigned*>(r0);
+        a[i][2] = *reinterpret_cast<const unsigned*>(r0 + 16);
+        if (d.x_rows > 16 * i + 8) {
+          a[i][1] = *reinterpret_cast<const unsigned*>(r0 + 8 * xpitch);
+          a[i][3] = *reinterpret_cast<const unsigned*>(r0 + 8 * xpitch + 16);
+        } else {
+          a[i][1] = 0u;
+          a[i][3] = 0u;
+        }
+      }
+      // B: the tensor-core kernel's transposing loads and byte permutes, one
+      // 16-column chunk j at a time
+      const int rr = lane & 7, mi = lane >> 3;
+      const int k = 16 * (mi >> 1) + 2 * (mi & 1) + 4 * (rr >> 1) + (rr & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        unsigned r0, r1, r2, r3;
+        ldsm_x4_t(smem_u32(wst + ws_off(k, j)), r0, r1, r2, r3);
+        const unsigned b00 = __byte_perm(r0, r1, 0x6420), b10 = __byte_perm(r0, r1, 0x7531);
+        const unsigned b01 = __byte_perm(r2, r3, 0x6420), b11 = __byte_perm(r2, r3, 0x7531);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_s8(acc[i][j][0], a[i], b00, b01);
+          mma_s8(acc[i][j][1], a[i], b10, b11);
+        }
+      }
+    }
+    if constexpr (kSat) {  // k_begin is 0: fold every K-tile's sum into the carry
+      const int next = (r + 1) * dec::ROUND;
+      if (next % d.bk_ref == 0 || r + 1 == rounds) {
+        dump();
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < OWN; ++i)
+          if (rg + dec::RG * i < M) {
+            carry[i] = fold(carry[i], summed(rg + dec::RG * i), kSaturate, d.acc_bits, d.spill16);
+            red[(rg + dec::RG * i) * dec::RED_PITCH + col] = 0;  // for the next tile
+          }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[i][j][e][c] = 0;
+        __syncthreads();  // the sums are read before the next tile's dump
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if constexpr (!kSat) {  // the rings become the block's sums
+    __syncthreads();
+    zero_red();
+    __syncthreads();
+    dump();
+  }
+  __syncthreads();
+
+  // thread t owns column n0 + t % BN of rows t / BN, + RG, ...
+  const int n = n0 + col;
+  const bool live = n < N;
+  auto total = [&](int i) {  // row rg + RG i
+    if constexpr (kSat) {
+#pragma unroll
+      for (int ii = 0; ii < OWN; ++ii)
+        if (ii == i) return carry[ii];
+      return 0;
+    } else {
+      return summed(rg + dec::RG * i);
+    }
+  };
+  if (splits == 1) {  // the block's sums are the whole sums: flush them
+    if (!live) return;
+    const Col cl = column(epi, n);
+    for (int i = 0, m = rg; m < M; ++i, m += dec::RG)
+      store_one(epi, cl, static_cast<size_t>(m) * N + n, sign_extend(total(i), d.flush_bits));
+    return;
+  }
+  // several splits: the strip's splits are one thread-block cluster; each
+  // holds its raw int32 sums in shared memory, and the cluster's blocks
+  // share out the outputs, each adding every split's sum (through
+  // distributed shared memory, mod 2^32: any order gives the same bits)
+  // before the one fold and the epilogue
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's sums are in its shared memory
+  const int* parts[dec::MAX_SPLITS];
+#pragma unroll
+  for (int r = 0; r < dec::MAX_SPLITS; ++r)
+    parts[r] = r < splits ? cluster.map_shared_rank(red, r) : red;
+  for (int e = blockIdx.y * dec::THREADS + tid; e < M * dec::BN; e += splits * dec::THREADS) {
+    const int m = e / dec::BN, c = e % dec::BN;
+    if (n0 + c >= N) continue;
+    int v[dec::MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < dec::MAX_SPLITS; ++r)  // every load in flight, then the sum
+      v[r] = r < splits ? parts[r][m * dec::RED_PITCH + c] : 0;
+    int sum = 0;
+#pragma unroll
+    for (int r = 0; r < dec::MAX_SPLITS; ++r) sum = add_wrap32(sum, v[r]);
+    store_one(epi, column(epi, n0 + c), static_cast<size_t>(m) * N + n0 + c,
+              sign_extend(sum, d.flush_bits));
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
+}
+
+template <typename TX, int MT, bool kSat>
+int launch_dec(const void* x, const int8_t* w, const Dec& d, int splits, const Epi& epi,
+               cudaStream_t s) {
+  auto kernel = int_matmul_decode_kernel<TX, MT, kSat>;
+  static bool sized = false;  // shared memory above 48 KB must be asked for once
+  if (!sized) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dec_smem_bytes(dec::MAX_ROWS, dec::XWIN, kSat));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((d.N + dec::BN - 1) / dec::BN, splits);
+  cfg.blockDim = dim3(dec::THREADS);
+  cfg.dynamicSmemBytes = dec_smem_bytes(d.x_rows, d.x_win, kSat);
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = splits;  // a strip's splits
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TX*>(x), w, d, epi);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename TX>
+int launch_dec_rows(const void* x, const int8_t* w, const Dec& d, int splits, bool sat,
+                    const Epi& epi, cudaStream_t s) {
+  if (d.M <= 16)
+    return sat ? launch_dec<TX, 1, true>(x, w, d, splits, epi, s)
+               : launch_dec<TX, 1, false>(x, w, d, splits, epi, s);
+  return sat ? launch_dec<TX, 2, true>(x, w, d, splits, epi, s)
+             : launch_dec<TX, 2, false>(x, w, d, splits, epi, s);
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).  Shapes
@@ -804,7 +1063,10 @@ int launch_tc(const int8_t* x, const int8_t* w, int M, int N, int K, int bk_ref,
 // the cast dtype, 2 tanh gelu in fp32) after a cast to bf16 when `cast_bf16`
 // (else fp32), and requantizes to [r_lo, r_hi] minus `r_shift`.  `tc` picks
 // the tensor-core kernel; with the prologue it then needs `codes`, an (M, K)
-// int8 scratch buffer for the prologue pass's codes.
+// int8 scratch buffer for the prologue pass's codes.  Otherwise the decode
+// kernel runs (M <= 32) over `splits` (at most 4) K splits of `k_split`
+// elements (a multiple of `bk_ref`; for `saturate` below 32 bits one split
+// and `bk_ref` a multiple of 256), a strip's splits one cluster.
 extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
                                  int K, int bk_ref, int mode, int acc_bits,
                                  int spill16, const void* scale,
@@ -812,7 +1074,8 @@ extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
                                  const void* aq, int q_lo, int q_hi, int q_shift,
                                  const void* osc, int r_lo, int r_hi, int r_shift, int act,
                                  int cast_bf16, void* out_f, void* out_i, void* out_q,
-                                 int x_bf16, int tc_route, void* codes, void* stream) {
+                                 int x_bf16, int tc_route, void* codes, void* stream,
+                                 int splits, int k_split) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* a = static_cast<const float*>(aq);
@@ -820,6 +1083,10 @@ extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
                 static_cast<const int*>(offset), static_cast<const float*>(osc),
                 r_lo, r_hi, r_shift, act, cast_bf16,
                 static_cast<float*>(out_f), static_cast<int*>(out_i), static_cast<int8_t*>(out_q)};
+  const bool sat = mode == kSaturate && acc_bits < 32;
+  // exact and wrap: the per-tile folds reduce mod 2^flush_bits, once at the flush
+  int flush_bits = mode == kWrap && acc_bits < 32 ? acc_bits : 32;
+  if (spill16) flush_bits = min(flush_bits, 16);
   if (tc_route) {
     const int8_t* xc = static_cast<const int8_t*>(x);
     if (aq != nullptr && K > 0) {
@@ -843,10 +1110,6 @@ extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
              (reinterpret_cast<uintptr_t>(xc) % bytes) == 0 &&
              (reinterpret_cast<uintptr_t>(wp) % bytes) == 0;
     };
-    const bool sat = mode == kSaturate && acc_bits < 32;
-    // exact and wrap: the per-tile folds reduce mod 2^flush_bits, once at the flush
-    int flush_bits = mode == kWrap && acc_bits < 32 ? acc_bits : 32;
-    if (spill16) flush_bits = min(flush_bits, 16);
 #define INT_MATMUL_TC(COPY)                                                                  \
   return sat ? launch_tc<COPY, true>(xc, wp, M, N, K, bk_ref, acc_bits, spill16, flush_bits, \
                                      epi, s)                                                 \
@@ -857,19 +1120,18 @@ extern "C" int int_matmul_launch(const void* x, const void* w, int M, int N,
     INT_MATMUL_TC(0);
 #undef INT_MATMUL_TC
   }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (aq == nullptr) {
-    int_matmul_kernel<int8_t><<<grid, THREADS, 0, s>>>(
-        static_cast<const int8_t*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, nullptr, 0,
-        0, 0, epi);
-  } else if (x_bf16) {
-    int_matmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, a,
-        q_lo, q_hi, q_shift, epi);
-  } else {
-    int_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), wp, M, N, K, bk_ref, mode, acc_bits, spill16, a, q_lo,
-        q_hi, q_shift, epi);
+  if (M > dec::MAX_ROWS || splits < 1 || k_split < bk_ref || k_split % bk_ref != 0 ||
+      splits > dec::MAX_SPLITS || (sat && (splits > 1 || bk_ref % dec::ROUND != 0)) ||
+      static_cast<long long>(splits - 1) * k_split >= (K > 0 ? K : 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int span = min(k_split, K > 0 ? K : 1);
+  const Dec d{M, N, K, bk_ref, acc_bits, spill16, flush_bits, k_split,
+              M <= 8 ? 8 : (M <= 16 ? 16 : 32),
+              min((span + dec::ROUND - 1) / dec::ROUND * dec::ROUND, dec::XWIN),
+              a, q_lo, q_hi, q_shift,
+              N % 16 == 0 && (reinterpret_cast<uintptr_t>(wp) & 15) == 0};
+  if (aq == nullptr) return launch_dec_rows<int8_t>(x, wp, d, splits, sat, epi, s);
+  if (x_bf16) return launch_dec_rows<__nv_bfloat16>(x, wp, d, splits, sat, epi, s);
+  return launch_dec_rows<float>(x, wp, d, splits, sat, epi, s);
 }

@@ -22,9 +22,10 @@ Both versions replay the carry at the reference's K-tile boundaries
 ``block_k`` (the public wrapper passes ``min(512, round_up(K, 128))``), so
 they agree bit for bit with each other and with ``repro.kernels.ref``.
 ``kernels/ops.int_matmul`` picks one by the tensors' device.  On the card
-``int_matmul_cuda`` runs the ``__dp4a`` kernel for at most ``TC_MIN_ROWS``
-rows (decode) and the int8 tensor-core kernel above (prefill chunks,
-encodes), where the prologue is a separate pass writing the codes once.
+``int_matmul_cuda`` runs the decode kernel below ``TC_MIN_ROWS`` rows (split
+over K, ``split_k``; ``int_matmul_split_plain`` is its arithmetic) and the
+int8 tensor-core kernel from there on (prefill chunks, encodes), where the
+prologue is a separate pass writing the codes once.
 """
 
 from __future__ import annotations
@@ -38,14 +39,20 @@ import torch
 from repro_torch.kernels.ref import (_SQRT_2_OVER_PI, exact_product, gelu_tanh, saturate_bits,
                                     wrap_bits)
 
-__all__ = ["MODES", "ACTS", "CAST_DTYPES", "TC_MIN_ROWS", "int_matmul_plain", "int_matmul_cuda",
-           "prologue_codes", "requant_codes", "requant_ties"]
+__all__ = ["MODES", "ACTS", "CAST_DTYPES", "TC_MIN_ROWS", "int_matmul_plain",
+           "int_matmul_split_plain", "int_matmul_cuda", "split_k", "flush_bits", "prologue_codes",
+           "requant_codes", "requant_ties"]
 
 MODES = {"exact": 0, "wrap": 1, "saturate": 2}
 ACTS = {None: 0, "relu2": 1, "gelu": 2}  # the requant epilogue's activation replays
 CAST_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # and the dtype they run in
 PROLOGUE_DTYPES = (torch.float32, torch.bfloat16)  # the prologue's activations
-TC_MIN_ROWS = 17  # from this many rows the tensor-core kernel runs, below it __dp4a
+TC_MIN_ROWS = 17  # from this many rows the tensor-core kernel runs, below it the decode kernel
+DECODE_MAX_ROWS = 32  # the decode kernel's two m16 tiles
+DECODE_ROUND = 256  # k of one step of each of the decode kernel's 8 warps
+STRIP = 128  # output columns a decode block owns
+BLOCKS_PER_SM = 4  # the decode grid's aim: about this many blocks an SM (measured best)
+MAX_SPLITS = 4  # a strip's K splits are one thread-block cluster (measured: 8 is slower)
 
 
 def prologue_codes(x: torch.Tensor, aq_scale: torch.Tensor, lo: int, hi: int,
@@ -121,6 +128,77 @@ def int_matmul_plain(x, w, scale=None, bias=None, offset=None, *, acc_bits: int 
             acc = saturate_bits(acc, acc_bits)
         if spill_int16:
             acc = wrap_bits(acc, 16)
+    return _epilogue(acc, scale, bias, offset, out_scale, r_lo, r_hi, r_shift, act_fn,
+                     cast_dtype)
+
+
+def flush_bits(mode: str, acc_bits: int, spill_int16: bool) -> int:
+    """The one fold that stands for every per-tile fold of ``exact`` and
+    ``wrap`` (with or without the int16 carry): sign extension to this many
+    bits.  Each fold is a reduction mod 2^n and commutes with addition, and
+    a tile's int8 products sum exactly in int32, so folding the int32 sum
+    of all tiles once gives the reference's carry bit for bit."""
+    bits = acc_bits if mode == "wrap" and acc_bits < 32 else 32
+    return min(bits, 16) if spill_int16 else bits
+
+
+def int_matmul_split_plain(x, w, scale=None, bias=None, offset=None, *, splits: int,
+                           acc_bits: int = 32, mode: str = "exact", block_k: int,
+                           spill_int16: bool = False, aq_scale=None, q_lo: int = 0,
+                           q_hi: int = 0, q_shift: int = 0, out_scale=None, r_lo: int = 0,
+                           r_hi: int = 0, r_shift: int = 0, act_fn=None,
+                           cast_dtype=torch.float32):
+    """The decode kernel's split-K arithmetic in PyTorch: K cut into
+    ``splits`` runs of whole ``block_k`` tiles (as ``_split_runs`` cuts it),
+    each run's int32 partial (each block adds its own), the partials added
+    mod 2^32 in the order given (any order gives the same sum), then the
+    one fold of ``flush_bits`` and the epilogue.  ``saturate`` below 32 bits
+    is no homomorphism: the kernel keeps one split and folds per tile, so
+    it goes through ``int_matmul_plain``."""
+    if mode == "saturate" and acc_bits < 32:
+        return int_matmul_plain(x, w, scale, bias, offset, acc_bits=acc_bits, mode=mode,
+                                block_k=block_k, spill_int16=spill_int16, aq_scale=aq_scale,
+                                q_lo=q_lo, q_hi=q_hi, q_shift=q_shift, out_scale=out_scale,
+                                r_lo=r_lo, r_hi=r_hi, r_shift=r_shift, act_fn=act_fn,
+                                cast_dtype=cast_dtype)
+    if aq_scale is not None:
+        x = prologue_codes(x, aq_scale, q_lo, q_hi, q_shift)
+    K = x.shape[1]
+    k_split, splits = _split_runs(K, block_k, splits)
+    parts = [wrap_bits(exact_product(x[:, lo:lo + k_split], w[lo:lo + k_split]), 32)
+             for lo in range(0, k_split * splits, k_split)]
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int64, device=x.device)
+    for part in parts:
+        acc = wrap_bits(acc + part, 32)
+    acc = wrap_bits(acc, flush_bits(mode, acc_bits, spill_int16))
+    return _epilogue(acc, scale, bias, offset, out_scale, r_lo, r_hi, r_shift, act_fn,
+                     cast_dtype)
+
+
+def _split_runs(K: int, block_k: int, splits: int) -> tuple[int, int]:
+    """``(k_split, splits)``: K's ``block_k`` tiles dealt into at most
+    ``splits`` (and ``MAX_SPLITS``) runs of equal whole tiles (the last may
+    be shorter), none empty."""
+    tiles = -(-max(K, 1) // block_k)
+    per = -(-tiles // max(1, min(splits, tiles, MAX_SPLITS)))
+    return per * block_k, -(-tiles // per)
+
+
+def split_k(N: int, K: int, block_k: int, mode: str, acc_bits: int, sms: int) -> int:
+    """How many K splits the decode kernel takes: enough blocks (one a
+    128-column strip and split) for about ``BLOCKS_PER_SM`` on each of
+    ``sms`` SMs, at most ``MAX_SPLITS``, at most one a reference K-tile, and
+    one for ``saturate`` below 32 bits.  From the static shapes alone, never
+    from a device value."""
+    if mode == "saturate" and acc_bits < 32:
+        return 1
+    strips = -(-N // STRIP)
+    return _split_runs(K, block_k, -(-(BLOCKS_PER_SM * sms) // strips))[1]
+
+
+def _epilogue(acc, scale, bias, offset, out_scale, r_lo, r_hi, r_shift, act_fn, cast_dtype):
+    """The flushed int64 accumulator through the fused epilogue (and the
+    requant epilogue with ``out_scale``)."""
     if scale is None:
         return acc.to(torch.int32)
     if offset is not None:
@@ -146,8 +224,13 @@ def _bind():
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2)
     return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
@@ -167,10 +250,15 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
     ``out_scale``, fp32 with ``scale``, else int32.  From ``TC_MIN_ROWS``
     rows on the int8 tensor-core kernel runs (the prologue then a separate
     pass into an ``(M, K)`` int8 scratch buffer allocated here), below it the
-    ``__dp4a`` kernel.  Every launch adds one to ``int_matmul_cuda.launches``,
-    one on the tensor cores also to ``int_matmul_cuda.tc_launches``, a launch
-    with the prologue to ``int_matmul_cuda.prologue_launches``, and one with
-    the requant epilogue to ``int_matmul_cuda.requant_launches``."""
+    decode kernel (at most ``DECODE_MAX_ROWS`` rows), over ``split_k``'s K
+    splits (at most ``MAX_SPLITS``), a strip's splits one thread-block
+    cluster that sums them in shared memory.
+    Nothing here reads a device value.  Every launch adds one to
+    ``int_matmul_cuda.launches``, one on the tensor cores also to
+    ``int_matmul_cuda.tc_launches``, one over several K splits to
+    ``int_matmul_cuda.split_launches``, a launch with the prologue to
+    ``int_matmul_cuda.prologue_launches``, and one with the requant epilogue
+    to ``int_matmul_cuda.requant_launches``."""
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
@@ -213,9 +301,18 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
-    tc = M >= TC_MIN_ROWS
+    sat = mode == "saturate" and acc_bits < 32
+    # the decode kernel folds saturate's sums at K-tiles of whole rounds
+    tc = M >= TC_MIN_ROWS or (sat and block_k % DECODE_ROUND != 0)
     codes = torch.empty((M, K), dtype=torch.int8, device=dev) if tc and aq_scale is not None \
         else None
+    k_split, splits = block_k, 1
+    if not tc:
+        if M > DECODE_MAX_ROWS:
+            raise ValueError(f"int_matmul_cuda: the decode kernel takes at most {DECODE_MAX_ROWS} "
+                             f"rows, got {M}")
+        want = 1 if sat else split_k(N, K, block_k, mode, acc_bits, _sm_count(dev.index))
+        k_split, splits = _split_runs(K, block_k, want)
     launch = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -228,11 +325,13 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
             _ptr(out) if out_dtype == torch.int32 else None,
             _ptr(out) if out_dtype == torch.int8 else None,
             int(x.dtype == torch.bfloat16), int(tc), _ptr(codes), ctypes.c_void_p(stream),
+            splits, k_split,
         )
     if err != 0:
         raise RuntimeError(f"int_matmul kernel launch failed: cudaError {err}")
     int_matmul_cuda.launches += 1
     int_matmul_cuda.tc_launches += tc
+    int_matmul_cuda.split_launches += splits > 1
     int_matmul_cuda.prologue_launches += aq_scale is not None
     int_matmul_cuda.requant_launches += out_scale is not None
     return out
@@ -240,5 +339,6 @@ def int_matmul_cuda(x, w, scale=None, bias=None, offset=None, *, acc_bits: int =
 
 int_matmul_cuda.launches = 0
 int_matmul_cuda.tc_launches = 0
+int_matmul_cuda.split_launches = 0
 int_matmul_cuda.prologue_launches = 0
 int_matmul_cuda.requant_launches = 0

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.a2q import _effective_gs
 from repro_torch.core.bounds import int_range
@@ -26,7 +27,7 @@ from repro_torch.kernels.paged_mla_attention import (
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
 
 __all__ = ["int_matmul", "a2q_quantize", "flash_attention", "paged_attention",
-           "paged_mla_attention", "rwkv6_scan", "int_matmul_block_k"]
+           "paged_mla_attention", "rwkv6_scan", "int_matmul_block_k", "symmetrization_offset"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -38,6 +39,31 @@ def int_matmul_block_k(K: int, block_k: int = 512) -> int:
     pads K to ``min(block_k, round_up(K, 128))`` multiples): the boundaries
     at which ``saturate`` clips and the int16 carry is stored."""
     return min(block_k, _round_up(max(K, 1), 128))
+
+
+_COLSUMS = WeakIdKeyDictionary()  # base weight -> {(offset, shape, stride): (_version, sums)}
+
+
+def symmetrization_offset(w: torch.Tensor) -> torch.Tensor:
+    """``128 * colsum(w)`` as int32 ``(N,)``: what the flush adds back for
+    symmetrized unsigned 8-bit codes.  Computed once per weight and kept
+    beside it, held weakly on the tensor that owns the weight's storage (a
+    layer's weight is a new view of its stack on every call, the stack is
+    not), so no leaf joins the parameter tree; computed again when the
+    weight was changed in place (``_version``, which a view shares with its
+    base, moved).  An inference tensor keeps no version, so its sum is not
+    kept."""
+    if w.is_inference():
+        return 128 * w.sum(0, dtype=torch.int32)
+    base = w if w._base is None else w._base
+    kept = _COLSUMS.setdefault(base, {})
+    key = (w.storage_offset(), tuple(w.shape), w.stride())
+    hit = kept.get(key)
+    if hit is not None and hit[0] == w._version:
+        return hit[1]
+    sym = 128 * w.sum(0, dtype=torch.int32)
+    kept[key] = (w._version, sym)
+    return sym
 
 
 def _vec(v, n: int, dtype, device) -> torch.Tensor:
@@ -122,7 +148,7 @@ def int_matmul(
     dev = x.device
     if not in_signed and in_bits == 8:
         # symmetrized unsigned operand: acc_true = acc_sym + 128 * colsum(w)
-        sym = 128 * w.sum(0, dtype=torch.int32)
+        sym = symmetrization_offset(w)
         offset = sym if offset is None else _vec(offset, N, torch.int32, dev) + sym
     if offset is not None and scale is None:
         raise ValueError("int_matmul: offset requires an epilogue scale")

@@ -78,7 +78,7 @@ def dev():
     ("saturate", 12, False), ("wrap", 20, False),
 ])
 def test_int_matmul_cuda_matches_plain(dev, mode, acc_bits, spill):
-    """Full-range weights, every carry mode, on the __dp4a kernel (M <= 16)
+    """Full-range weights, every carry mode, on the decode kernel (M <= 16)
     and the tensor-core kernel (M > 16): tiles crossed in M, ragged last
     reference K-tiles (K 100, 1000, 1280), N off the 128-column tile, rows
     16-byte aligned (cp.async) or not (K 100, 1000; N 200)."""
@@ -101,8 +101,9 @@ def test_int_matmul_cuda_matches_plain(dev, mode, acc_bits, spill):
 
 
 def test_int_matmul_cuda_picks_the_kernel_by_rows(dev):
-    """The wrapper's route: the tensor cores from TC_MIN_ROWS rows, __dp4a
-    below; both agree with the plain version on either side of the edge."""
+    """The wrapper's route: the tensor cores from TC_MIN_ROWS rows, the
+    split-K decode kernel below; both agree with the plain version on either
+    side of the edge."""
     from repro_torch.kernels.int_matmul import TC_MIN_ROWS
 
     rng = np.random.default_rng(9)
@@ -116,9 +117,86 @@ def test_int_matmul_cuda_picks_the_kernel_by_rows(dev):
         assert torch.equal(got, int_matmul_plain(x, w, block_k=512)), M
 
 
+def _int_matmul_module():
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.int_matmul")
+
+
+@pytest.mark.parametrize("mode,acc_bits,spill", [
+    ("exact", 32, False), ("exact", 16, True), ("wrap", 16, True), ("wrap", 20, False),
+    ("saturate", 16, True), ("saturate", 12, False),
+])
+@pytest.mark.parametrize("splits", [2, 3, 4])
+def test_int_matmul_cuda_decode_forced_splits(dev, monkeypatch, mode, acc_bits, spill, splits):
+    """The decode kernel at M = 1, 8, 16 with the split count forced above
+    one (``saturate`` keeps one split): bit for bit the plain version and the
+    split-K emulation, on int8 x, behind the prologue, and with the requant
+    epilogue; full-range weights, ragged K tiles and N off the 128-column
+    strip."""
+    im = _int_matmul_module()
+    monkeypatch.setattr(im, "split_k", lambda *shape: splits)
+    rng = np.random.default_rng(30 + splits)
+    for M, K, N in ((1, 1536, 576), (8, 1300, 200), (16, 2048, 336), (8, 576, 1536)):
+        x8 = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(dev)
+        xf = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32) * 3).to(dev)
+        w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(dev)
+        scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, N).astype(np.float32)).to(dev)
+        kw = dict(acc_bits=acc_bits, mode=mode, block_k=int_matmul_block_k(K), spill_int16=spill)
+        pro = dict(aq_scale=torch.tensor([2.0**-5], device=dev), q_lo=-128, q_hi=127, q_shift=0)
+        before = int_matmul_cuda.split_launches
+        for x, extra in ((x8, {}), (xf, pro), (xf.bfloat16(), pro)):
+            for sc in (None, scale):
+                got = int_matmul_cuda(x, w, sc, **kw, **extra)
+                torch.cuda.synchronize()
+                assert torch.equal(got, int_matmul_plain(x, w, sc, **kw, **extra)), (M, K, N)
+                assert torch.equal(got, im.int_matmul_split_plain(x, w, sc, splits=splits, **kw,
+                                                                  **extra)), (M, K, N)
+        if mode == "exact":
+            y = int_matmul_plain(xf, w, scale, **kw, **pro).clamp_min(0) ** 2
+            req = dict(out_scale=(y.amax(0) / 200 + 1e-6).float(), r_lo=0, r_hi=255, r_shift=128,
+                       act_fn="relu2", cast_dtype=torch.bfloat16)
+            got = int_matmul_cuda(xf, w, scale, **kw, **pro, **req)
+            torch.cuda.synchronize()
+            assert torch.equal(got, int_matmul_plain(xf, w, scale, **kw, **pro, **req))
+        split = mode != "saturate" or acc_bits >= 32
+        assert (int_matmul_cuda.split_launches > before) == split
+
+
+def test_int_matmul_cuda_decode_graph_replay_and_no_sync(dev):
+    """The decode kernel over several splits inside a CUDA graph: two
+    replays give the plain version's output both times (the splits meet in
+    a thread-block cluster; nothing is kept between launches), and the calls
+    make no host sync."""
+    rng = np.random.default_rng(41)
+    M, K, N = 8, 4096, 4096
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(dev)
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, N).astype(np.float32)).to(dev)
+    kw = dict(acc_bits=16, mode="wrap", block_k=int_matmul_block_k(K), spill_int16=True,
+              aq_scale=torch.tensor([2.0**-5], device=dev), q_lo=-128, q_hi=127, q_shift=0)
+    want = int_matmul_plain(x, w, scale, **kw)
+    before = int_matmul_cuda.split_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = int_matmul_cuda(x, w, scale, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int_matmul_cuda.split_launches > before
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = int_matmul_cuda(x, w, scale, **kw)
+    got = []
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        got.append(out.clone())
+    assert torch.equal(first, want) and torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
 @pytest.mark.parametrize("bits,signed", [(8, True), (8, False), (4, True)])
 def test_int_matmul_cuda_prologue_matches_plain(dev, bits, signed):
-    """fp32 and bf16 activations quantized on the card (in the __dp4a
+    """fp32 and bf16 activations quantized on the card (in the decode
     kernel's staging, or the tensor-core route's codes pass): the output
     equals the plain version's and the kernel run on the standalone
     act-quant's codes."""
@@ -202,6 +280,109 @@ def test_paged_attention_cuda_int_pools_match_plain(dev, bits, q_dtype, window):
     again = paged_attention_cuda(q, kq, vq, bt_past, lengths, ks_nan, vs, window=window)
     torch.cuda.synchronize()
     assert torch.equal(again, got)
+
+
+def _served_case(dev, dtype, B=32, H=9, KV=3, Dh=64, bs=16, MB=128, seed=14):
+    """SmolLM-135M's 2048-token context: B rows of lengths in [1536, 2048]
+    drawn from the seed, every table entry past a row's length pointing at
+    one block of NaN (never to be read)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1536, 2049, B).astype(np.int32)
+    NB = B * MB + 2
+    bt = rng.permutation(np.arange(1, NB - 1))[: B * MB].reshape(B, MB).astype(np.int32)
+    bt[np.arange(MB)[None, :] >= -(-lengths[:, None] // bs)] = NB - 1
+    q = torch.from_numpy(rng.normal(size=(B, H, Dh)).astype(np.float32)).to(dev, dtype)
+    kp, vp = (torch.from_numpy(rng.normal(size=(NB, bs, KV, Dh)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    return q, kp, vp, torch.from_numpy(bt).to(dev), torch.from_numpy(lengths).to(dev)
+
+
+@pytest.mark.parametrize("pool", ["fp32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("window", [None, 700])
+def test_paged_attention_cuda_served_context(dev, pool, window):
+    """The 2048-token context, split over several runs, for every pool type:
+    within the tolerance of the plain version, and the NaN block behind the
+    entries past each length (in the pool, or its scale pool) never read."""
+    from repro_torch.kernels.paged_attention import split_kv
+
+    q_dtype = torch.float32 if pool == "fp32" else torch.bfloat16
+    q, kp, vp, bt, lengths = _served_case(dev, q_dtype)
+    NB = kp.shape[0]
+    if pool in ("fp32", "bf16"):
+        kp, vp = kp.to(q_dtype), vp.to(q_dtype)
+        args = (kp, vp, bt, lengths)
+        poisoned = (kp.clone(), vp.clone(), bt, lengths)
+        poisoned[0][NB - 1] = poisoned[1][NB - 1] = float("nan")
+    else:
+        kq, vq, ks, vs = _quantize_pools(kp, vp, 8 if pool == "int8" else 4)
+        args = (kq, vq, bt, lengths, ks, vs)
+        poisoned = (kq, vq, bt, lengths, ks.clone(), vs.clone())
+        poisoned[4][NB - 1] = poisoned[5][NB - 1] = float("nan")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert split_kv(32, 3, 3, 128, 16, sms) > 1
+    before = paged_attention_cuda.split_launches
+    got = paged_attention_cuda(q, *args, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.split_launches == before + 1
+    want = paged_attention_plain(q, *args, window=window)
+    tol = 1e-5 if q_dtype == torch.float32 else 2.0**-6
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    again = paged_attention_cuda(q, *poisoned, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_paged_attention_cuda_forced_splits(dev, monkeypatch, G, splits):
+    """Forced split counts (empty runs included: short rows, a zero-length
+    row, a window) and G query heads a KV head, against the plain version and
+    the split-KV emulation."""
+    import importlib
+
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    monkeypatch.setattr(pa, "split_kv", lambda *shape: splits)
+    rng = np.random.default_rng(50 + G)
+    B, KV, Dh, bs, MB = 5, 2, 64, 16, 7
+    H = G * KV
+    NB = B * MB + 1
+    q = torch.from_numpy(rng.normal(size=(B, H, Dh)).astype(np.float32)).to(dev)
+    kp, vp = (torch.from_numpy(rng.normal(size=(NB, bs, KV, Dh)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    bt = torch.from_numpy(rng.permutation(np.arange(1, NB))[: B * MB].reshape(B, MB)
+                          .astype(np.int32)).to(dev)
+    lengths = torch.tensor([0, 1, 40, 97, 112], dtype=torch.int32, device=dev)
+    for window in (None, 30):
+        got = paged_attention_cuda(q, kp, vp, bt, lengths, window=window)
+        torch.cuda.synchronize()
+        want = paged_attention_plain(q, kp, vp, bt, lengths, window=window)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        emu = pa.paged_attention_split_plain(q, kp, vp, bt, lengths, splits=splits, window=window)
+        torch.testing.assert_close(got, emu, rtol=0, atol=1e-5)
+        assert (got[0] == 0).all()
+
+
+def test_paged_attention_cuda_graph_replay_and_no_sync(dev):
+    """The split kernel inside a CUDA graph: two replays give the same
+    output, bit for bit, as the eager call (nothing is kept between launches and
+    the splits merge in a fixed order), and the calls make no host sync."""
+    q, kp, vp, bt, lengths = _served_case(dev, torch.bfloat16, B=8, seed=15)
+    kq, vq, ks, vs = _quantize_pools(kp, vp, 8)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs)
+        second = paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = paged_attention_cuda(q, kq, vq, bt, lengths, ks, vs)
+    got = []
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        got.append(out.clone())
+    assert torch.equal(first, second) and torch.equal(got[0], first) and torch.equal(got[1], first)
 
 
 def _mla_case(dev, dtype, B, H, R, P, bs, lens):
