@@ -68,7 +68,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    eager call, SDPA on the gathered view as the library time; the fp32 and
    bf16 pools' entries past a length poisoned with NaN as the integer
    pools' scales are; every phase-3 call of those two kernels under
-   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails);
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails).  The
+   third decode slice's: ``a2q_quantize`` at every matrix shape a run
+   deploys (22 shapes, 1,525 matrices: deepseek-v3's experts, dense mlp,
+   MLA projections and head, rwkv6-7b's and smollm-135m's too), l1 and codes
+   bit for bit, timed on copies rotated past the L2 and summed by count into
+   the deploy kernel ms a run; ``paged_mla_attention`` on the tensor-core
+   kernel for bf16, int8 and int4 pools (fp32 pools and a 12-bit replay on
+   the CUDA-core kernel, each route checked by the wrapper's
+   ``tc_launches``), its bound the operations at the bf16 tensor-core peak
+   or the bytes, and at DeepSeek-V3's 4K pre-training context (B=8,
+   lengths from the seed in [3072, 4096]) on bf16, int8 and int4 pools with
+   the replay: within MLA_TOL, two graph replays equal to the eager call,
+   no host sync, SDPA on the gathered view as the library time;
 4. serve full-width smollm-135m (30 layers, random A2Q weights from seed 0,
    deployed to int8; in this phase and 4b, 4e and 4f every deployed
    matrix's codes recomputed on the card with the plain quantizer from the
@@ -147,9 +159,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``int_matmul[prologue]`` every launch with the prologue, the requant ones
    included; ``int_matmul`` the launches with int8 codes in;
    ``int_matmul[tc]`` every launch on the tensor cores; flash's
-   ``launches_tc``; and on ``a2q_quantize`` the deployed matrices held to
-   the plain quantizer and their code flips, refused if any), then the
-   result line.
+   ``launches_tc``; ``paged_mla_attention``'s ``launches_tc``, refused
+   unless every main-path launch ran on the tensor cores; and on
+   ``a2q_quantize`` the deployed matrices held to the plain quantizer and
+   their code flips, refused if any, and the deploy kernel ms a run), then
+   the result line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its launches on the main paths (counted from zero
@@ -185,9 +199,10 @@ SMOLLM_SITES = {  # (K, N) of the seven linears of one smollm-135m layer -> coun
 LAYERS = 30
 # plain vs kernel tolerances: int_matmul is bit-exact; paged attention is fp32
 # softmax summed in another order (fp32 pools), plus one bf16 rounding of the
-# output (bf16 pools: one ulp at |o| < 2).  The MLA kernel's output is fp32
-# whatever the pools, and bf16 pools convert to fp32 exactly, so both take
-# the fp32 tolerance.
+# output (bf16 pools: one ulp at |o| < 2).  The MLA kernels' output is fp32
+# whatever the pools: the CUDA-core kernel's fp32 sums, the tensor-core
+# kernel's with q in three bf16 terms and P in two (three with a token scale
+# folded in), so both take the fp32 tolerance.
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-6}
 MLA_TOL = 2e-5
 # deepseek-v3's largest int_matmul shapes on the served path: (K, N) -> site
@@ -702,9 +717,117 @@ def mla_case(dev, dtype, B=8, H=128, R=512, P=64, bs=16, max_seq=96):
     return q_lat, q_pe, ckvp, kpep, bt, lengths
 
 
-def check_paged_mla_attention(dev) -> dict:
+def mla_bound(toks, B, H, R, P, pool_row_bytes, scale_bytes):
+    """The least time for one call: the pools' bytes of the valid keys (and
+    their scales), the queries in and the output out at 3.35 TB/s, or the
+    2 H (R + P + R) operations a key (scores and PV) at the 989 TFLOP/s of
+    the bf16 tensor cores, whichever is larger.  The kernel's extra products
+    (q in three bf16 terms, P in two or three) are its own overhead, not the
+    bound's."""
+    n_bytes = toks * (pool_row_bytes + scale_bytes) + 4 * B * H * (R + P + R) + 8 * B
+    return bound_ms(n_bytes, 2 * H * toks * (R + P + R), BF16_FLOPS_PER_S)
+
+
+def mla_sdpa_ms(q_lat, q_pe, ckv_d, kpe_d, bt, lengths, scale, dtype) -> float:
+    """SDPA on the (dequantized) gathered view, one KV head shared by every
+    query head: the same function without the replay."""
     import torch.nn.functional as F
 
+    B, H, R = q_lat.shape
+    P, bs = q_pe.shape[-1], ckv_d.shape[1]
+    S = bt.shape[1] * bs
+    ckv_g = ckv_d[bt.long()].reshape(B, 1, S, R).to(dtype)
+    kpe_g = kpe_d[bt.long()].reshape(B, 1, S, P).to(dtype)
+    qs = torch.cat([q_lat, q_pe], dim=-1)[:, :, None, :].to(dtype)
+    kg = torch.cat([ckv_g, kpe_g], dim=-1).contiguous()
+    vg = ckv_g.contiguous()
+    mask = (torch.arange(S, device=q_lat.device)[None, :] < lengths[:, None])[:, None, None, :]
+    return graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), 5)
+
+
+MLA_SERVED = (3072, 4096)  # DeepSeek-V3's 4K pre-training context (arXiv:2412.19437)
+
+
+def mla_served(dev, kind: str) -> dict:
+    """paged_mla_attention at a served context: B=8 rows at DeepSeek-V3's 4K
+    pre-training length (lengths from the seed in [3072, 4096]), H=128,
+    R=512, P=64, bs=16, the replay at 8 bits, on bf16, int8 or int4 pools:
+    within MLA_TOL of the plain version, two CUDA-graph replays equal to
+    the eager call, no host sync; timed on pool copies that rotate past the
+    L2, beside the plain version, SDPA on the gathered view and the bound."""
+    from repro_torch.kernels.paged_mla_attention import (
+        paged_mla_attention_cuda,
+        paged_mla_attention_plain,
+    )
+    from repro_torch.nn.attention import _unpack_nibbles
+
+    B, H, R, P, bs, MB = 8, 128, 512, 64, 16, MLA_SERVED[1] // 16
+    scale = (128 + 64) ** -0.5
+    kw = {"aq_scale": torch.tensor([0.02], device=dev), "act_bits": 8}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    lengths = torch.randint(MLA_SERVED[0], MLA_SERVED[1] + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    NB = B * MB + 1
+    bt = (torch.randperm(NB - 1, generator=gen, device=dev).to(torch.int32) + 1)[: B * MB]
+    bt = bt.reshape(B, MB).clone()
+    bt[torch.arange(MB, device=dev)[None, :] >= (lengths[:, None] + bs - 1) // bs] = 0
+    q_lat = torch.randn((B, H, R), generator=gen, device=dev)
+    q_pe = torch.randn((B, H, P), generator=gen, device=dev)
+    copies = 3  # 3 x 37.8 MB of bf16 pools: past the 50 MB L2 for every pool type
+    pools = []
+    for _ in range(copies):
+        ckv = torch.randn((NB, bs, R), generator=gen, device=dev)
+        kpe = torch.randn((NB, bs, P), generator=gen, device=dev)
+        if kind == "bf16":
+            pools.append((ckv.bfloat16(), kpe.bfloat16(), None, None))
+        else:
+            (cq, cs), (kq, ks) = (_quantize(t, 8 if kind == "int8" else 4) for t in (ckv, kpe))
+            pools.append((cq, kq, cs, ks))
+    ckvp, kpep, ckvs, kpes = pools[0]
+    args = (q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs, kpes)
+    tc0 = paged_mla_attention_cuda.tc_launches
+    with no_host_sync():
+        got = paged_mla_attention_cuda(*args, scale=scale, **kw)
+    torch.cuda.synchronize()
+    if paged_mla_attention_cuda.tc_launches != tc0 + 1:
+        raise AssertionError(f"paged_mla_attention {kind}: not on the tensor-core kernel")
+    want = paged_mla_attention_plain(*args, scale=scale, **kw)
+    err = (got - want).abs().max().item()
+    replays = replays_equal(lambda: paged_mla_attention_cuda(*args, scale=scale, **kw), got)
+    if not err <= MLA_TOL or not torch.isfinite(got).all() or not replays:
+        raise AssertionError(f"paged_mla_attention 4K {kind}: max err {err}, graph replays equal "
+                             f"{replays}")
+    it = iter(range(10**9))
+
+    def call():
+        c, k, cs, ks = pools[next(it) % copies]
+        return paged_mla_attention_cuda(q_lat, q_pe, c, k, bt, lengths, cs, ks, scale=scale, **kw)
+
+    ms = graph_ms(call, 30)
+    plain_ms = graph_ms(lambda: paged_mla_attention_plain(*args, scale=scale, **kw), 3)
+    if kind == "bf16":
+        ckv_d, kpe_d = ckvp.float(), kpep.float()
+    else:
+        ckv_d, kpe_d = ((_unpack_nibbles(c) if kind == "int4" else c).float() * sc[..., None]
+                        for c, sc in ((ckvp, ckvs), (kpep, kpes)))
+    lib_ms = mla_sdpa_ms(q_lat, q_pe, ckv_d, kpe_d, bt, lengths, scale, torch.bfloat16)
+    toks = int(lengths.sum())
+    b_ms, b_by = mla_bound(toks, B, H, R, P, (ckvp.shape[-1] + kpep.shape[-1]) *
+                           ckvp.element_size(), 0 if ckvs is None else 8)
+    print(f"paged_mla_attention {kind} pools at the 4K context (B={B}, {toks} keys, lengths "
+          f"{lengths.tolist()}) act_bits=8: max_abs_err {err:.3g}, two graph replays equal, "
+          f"kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} library_ms(sdpa, gathered, gqa) "
+          f"{lib_ms:.5f} bound_ms {b_ms:.6f} ({b_by}, {b_ms / ms:.1%})", flush=True)
+    del pools, args, got, want
+    torch.cuda.empty_cache()
+    return {"at": f"B=8 H=128 R=512 P=64 bs=16, {toks} keys ([3072, 4096] a row), {kind} pools, "
+                  "act_bits=8 replay",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": lib_ms}
+
+
+def check_paged_mla_attention(dev) -> dict:
     from repro_torch.kernels.paged_mla_attention import (
         paged_mla_attention_cuda,
         paged_mla_attention_plain,
@@ -722,9 +845,17 @@ def check_paged_mla_attention(dev) -> dict:
         bt_past = bt.clone()
         bt_past[2, -1] = ckvp.shape[0] - 1  # ...but an entry past row 2's length
         worst = 0.0
-        for kw in ({}, {"aq_scale": aq, "act_bits": 8}):
-            got = paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths, scale=scale, **kw)
+        # fp32 pools (and replays over 9 bits) run on the CUDA cores, bf16 on the tensor cores
+        tc = dtype == torch.bfloat16
+        for kw in ({}, {"aq_scale": aq, "act_bits": 8}, {"aq_scale": aq, "act_bits": 12}):
+            tc0 = paged_mla_attention_cuda.tc_launches
+            with no_host_sync():
+                got = paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths, scale=scale,
+                                               **kw)
             torch.cuda.synchronize()
+            on_tc = paged_mla_attention_cuda.tc_launches > tc0
+            if on_tc != (tc and kw.get("act_bits", 0) <= 9):
+                raise AssertionError(f"paged_mla_attention {dtype} {kw}: tensor-core route {on_tc}")
             want = paged_mla_attention_plain(q_lat, q_pe, ckvp, kpep, bt, lengths, scale=scale, **kw)
             err = (got - want).abs().max().item()
             if not err <= MLA_TOL:
@@ -748,42 +879,35 @@ def check_paged_mla_attention(dev) -> dict:
                 note = (f" replay codes in [{codes.min().item():.0f}, {codes.max().item():.0f}], "
                         f"{int((codes.abs() >= 127).sum().item())} of {codes.numel()} clipped")
             print(f"paged_mla_attention {str(dtype).replace('torch.', '')} act_bits="
-                  f"{kw.get('act_bits')}: max_abs_err {err:.3g}, length-1 row exact, entry "
-                  f"past the length unread{note}", flush=True)
+                  f"{kw.get('act_bits')} ({'tensor cores' if on_tc else 'CUDA cores'}): "
+                  f"max_abs_err {err:.3g}, length-1 row exact, entry past the length "
+                  f"unread{note}", flush=True)
             worst = max(worst, err)
         kw = {"aq_scale": aq, "act_bits": 8}
         ms = graph_ms(lambda: paged_mla_attention_cuda(q_lat, q_pe, ckvp, kpep, bt, lengths,
                                                        scale=scale, **kw), LAYERS)
         plain_ms = graph_ms(lambda: paged_mla_attention_plain(q_lat, q_pe, ckvp, kpep, bt, lengths,
                                                               scale=scale, **kw), LAYERS)
-        # yardstick: SDPA on the already-gathered view, one KV head shared by
-        # every query head, the same function without the replay
-        S = bt.shape[1] * bs
-        ckv_g = ckvp[bt.long()].reshape(B, 1, S, R)
-        kpe_g = kpep[bt.long()].reshape(B, 1, S, P)
-        qs = torch.cat([q_lat, q_pe], dim=-1)[:, :, None, :].to(dtype)
-        kg = torch.cat([ckv_g, kpe_g], dim=-1).contiguous()
-        vg = ckv_g.contiguous()
-        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), LAYERS)
+        lib_ms = mla_sdpa_ms(q_lat, q_pe, ckvp.float(), kpep.float(), bt, lengths, scale, dtype)
         toks = lengths.sum().item()
-        n_bytes = (q_lat.numel() * 4 + q_pe.numel() * 4 + toks * (R + P) * ckvp.element_size()
-                   + bt.numel() * 4 + B * 4 + B * H * R * 4 + 4)
-        n_ops = 2 * H * toks * (R + P + R)  # scores over R + P, PV over R
-        b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
+        if tc:
+            b_ms, b_by = mla_bound(toks, B, H, R, P, (R + P) * ckvp.element_size(), 0)
+        else:  # fp32 inputs: the fp32 peak outside the tensor cores
+            n_bytes = 4 * B * H * (R + P + R) + toks * (R + P) * 4 + 8 * B
+            b_ms, b_by = bound_ms(n_bytes, 2 * H * toks * (R + P + R), FP32_FLOPS_PER_S)
         print(f"paged_mla_attention {str(dtype).replace('torch.', '')} B={B} H={H} R={R} P={P} "
               f"bs={bs} lengths={lengths.tolist()} act_bits=8: max_abs_err {worst:.3g} "
               f"kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by}) "
               f"library_ms(sdpa, gathered, gqa) {lib_ms:.5f}", flush=True)
-        if dtype == torch.bfloat16:  # the main path's pools
-            entry = {"name": "paged_mla_attention", "route": "cuda",
+        if tc:  # the main path's pools
+            entry = {"name": "paged_mla_attention", "route": "cuda", "kernel": "tc",
                      "source": "src/repro_torch/csrc/paged_mla_attention.cu",
                      "replaces": "src/repro/kernels/paged_attention.py:373",
                      "at": "B=8 H=128 R=512 P=64 bs=16 bf16 pools, act_bits=8 replay, "
                            "ragged lengths incl. 0 and 1",
                      "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms}
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "at_4k_context": mla_served(dev, "bf16")}
     return entry
 
 
@@ -1049,18 +1173,19 @@ def flash_within_tolerance(got, want) -> tuple[bool, float]:
 
 def check_a2q_quantize(dev) -> dict:
     """a2q_quantize against its plain version (``a2q_int_weights``'
-    arithmetic) at hubert-xlarge's four matrix shapes (1280x1280 for the
-    attention projections, 1280x5120, 5120x1280, the 1280x504 head) and at
-    rwkv6-7b's cm.wk (4096x14336), on the A2Q initializer's (v, t, d) at P=16,
-    8-bit signed inputs: l1, codes and dequantized weights equal (both sum
-    in ``core.a2q.pairwise_sum``'s fp32 order; flips counted with
-    ``code_flips_explained``, none allowed); and the A2Q bound exactly:
-    every column's ``sum |q|`` within ``l1_budget``; the
-    codes-only launch (``dequantize=False``, as ``deploy_linear`` calls it)
-    writes the same codes.  Each shape timed (CUDA events) as the deploy
-    calls it, beside the launch that also writes ``q * s``, the plain
-    version and the byte bound; no single PyTorch call computes the
-    quantizer (no library time)."""
+    arithmetic) at every matrix shape a run deploys (``DEPLOY_SHAPES`` of
+    ``tools/time_decode_kernels.py``: smollm-135m, deepseek-v3's experts,
+    dense mlp, MLA projections and head, rwkv6-7b, hubert-xlarge), on the A2Q
+    initializer's (v, t, d) at P=16, 8-bit signed inputs: l1 and codes equal
+    (both sum in ``core.a2q.pairwise_sum``'s fp32 order; flips counted with
+    ``code_flips_explained``, none allowed), and the A2Q bound exactly: every
+    column's ``sum |q|`` within ``l1_budget``; at hubert's four shapes and
+    rwkv6-7b's cm.wk also the launch that writes the dequantized weights,
+    equal to the plain version's.  Each shape timed as the deploy calls it
+    (codes only; CUDA graphs of back-to-back calls on copies that rotate past
+    the L2), beside the byte bound, and summed over the shapes' counts into
+    the deploy kernel ms a run; the plain version timed at hubert's shapes;
+    no single PyTorch call computes the quantizer (no library time)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.a2q import _effective_gs
     from repro_torch.core.bounds import l1_budget
@@ -1068,66 +1193,92 @@ def check_a2q_quantize(dev) -> dict:
                                                   code_flips_explained)
     from repro_torch.nn.linear import init_linear
 
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from time_decode_kernels import DEPLOY_SHAPES, copies_for
+
     quant = get_arch("hubert-xlarge").quant
     P, N = quant.acc_bits, quant.act_bits
     budget = l1_budget(P, N, True)
     gen = torch.Generator(device=dev).manual_seed(8)
     layer = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    run = {"ms": 0.0, "bound_ms": 0.0, "matrices": 0}
     at, worst, flips_total = {}, 0.0, 0
-    shapes = [((K, C), f"hubert x{n}", n) for (K, C), n in HUBERT_SITES.items()]
-    shapes += [(HUBERT_HEAD, "hubert head", 0), ((4096, 14336), "rwkv6-7b cm.wk", 0)]
-    for (K, C), site, count in shapes:
-        p = init_linear(gen, K, C, quant, boundary=site == "hubert head")
-        gs, s = _effective_gs(p, P, N, True)
-        v = p["v"]
-        deq, q, l1 = a2q_quantize_cuda(v, gs, s, n=-128, p=127)
+    with_deq = {(1280, 1280), (1280, 5120), (5120, 1280), (1280, 504), (4096, 14336)}
+    for site, K, C, count in DEPLOY_SHAPES:
+        n = copies_for(4 * K * C)
+        args = []
+        for _ in range(n):
+            p = init_linear(gen, K, C, quant, boundary=site == "hubert head")
+            gs, s = _effective_gs(p, P, N, True)
+            args.append((p["v"], gs, s))
+            del p
+        v, gs, s = args[0]
+        with no_host_sync():
+            _, q, l1 = a2q_quantize_cuda(v, gs, s, n=-128, p=127, dequantize=False)
         torch.cuda.synchronize()
-        deq_p, q_p, l1_p = a2q_quantize_plain(v, gs, s, n=-128, p=127)
+        deq_p, q_p, l1_p = a2q_quantize_plain(v, gs, s, n=-128, p=127,
+                                              dequantize=(K, C) in with_deq)
         l1_rel = ((l1 - l1_p).abs() / l1_p).max().item()
         flips, explained = code_flips_explained(q, q_p, v, gs, l1, l1_p)
         col_l1 = q.to(torch.int64).abs().sum(0)
-        err = (deq - deq_p).abs().max().item()
-        if not torch.equal(l1, l1_p) or flips or not torch.equal(deq, deq_p) or \
-                not (col_l1 <= budget).all():
-            raise AssertionError(f"a2q_quantize K={K} C={C}: l1 rel err {l1_rel}, {flips} code "
-                                 f"flips (explained {explained}), or a column's l1 "
+        if not torch.equal(l1, l1_p) or flips or not (col_l1 <= budget).all():
+            raise AssertionError(f"a2q_quantize {site} K={K} C={C}: l1 rel err {l1_rel}, {flips} "
+                                 f"code flips (explained {explained}), or a column's l1 "
                                  f"{col_l1.max().item()} above the budget {budget}")
-        worst = max(worst, err)
+        deq_ms = err = plain_ms = None
+        if (K, C) in with_deq:
+            deq, q_d, _ = a2q_quantize_cuda(v, gs, s, n=-128, p=127)
+            torch.cuda.synchronize()
+            err = (deq - deq_p).abs().max().item()
+            if not torch.equal(deq, deq_p) or not torch.equal(q_d, q):
+                raise AssertionError(f"a2q_quantize K={K} C={C}: dequantized weights or codes "
+                                     "with deq differ")
+            worst = max(worst, err)
+            deq_ms = events_ms(lambda: a2q_quantize_cuda(v, gs, s, n=-128, p=127), 10)
+            plain_ms = events_ms(lambda: a2q_quantize_plain(v, gs, s, n=-128, p=127,
+                                                             dequantize=False), 3)
+            del deq, q_d
         flips_total += flips
-        _, q_n, _ = a2q_quantize_cuda(v, gs, s, n=-128, p=127, dequantize=False)
-        if not torch.equal(q_n, q):
-            raise AssertionError(f"a2q_quantize K={K} C={C}: codes without deq != with deq")
-        # timed as deploy_linear calls it: codes only (the dequantized weights are q * s)
-        kw = dict(n=-128, p=127, dequantize=False)
-        ms = events_ms(lambda: a2q_quantize_cuda(v, gs, s, **kw), 10)
-        deq_ms = events_ms(lambda: a2q_quantize_cuda(v, gs, s, n=-128, p=127), 10)
-        plain_ms = events_ms(lambda: a2q_quantize_plain(v, gs, s, **kw), 3)
+        it = iter(range(10**9))
+        ms = graph_ms(lambda: a2q_quantize_cuda(*args[next(it) % n], n=-128, p=127,
+                                                dequantize=False), 2 * n)
         n_bytes = 5 * K * C + 12 * C  # v read once, q written; gs, s in, l1 out
         b_ms, b_by = bound_ms(n_bytes, 4 * K * C, FP32_FLOPS_PER_S)
-        print(f"a2q_quantize {site} K={K} C={C}: l1 max rel err {l1_rel:.3g}, {flips} code flips, "
-              f"max |deq - plain| {err:.3g}, largest column "
-              f"l1 {col_l1.max().item()} <= budget {budget:.2f}, kernel_ms {ms:.5f} (with deq "
-              f"written {deq_ms:.5f}) plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by})",
-              flush=True)
-        at[f"{site} K={K} C={C}"] = {"ms": ms, "deq_ms": deq_ms, "plain_ms": plain_ms,
-                                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                                     "code_flips": flips, "l1_max_rel_err": l1_rel}
-        layer["ms"] += count * ms
-        layer["plain_ms"] += count * plain_ms
-        layer["bytes"] += count * n_bytes
-        layer["ops"] += count * 4 * K * C
-        del p, v, deq, q, deq_p, q_p, q_n
+        extra = "" if deq_ms is None else (f" (with deq written {deq_ms:.5f}, max |deq - plain| "
+                                           f"{err:.3g}) plain_ms {plain_ms:.5f}")
+        print(f"a2q_quantize {site} K={K} C={C} (x{count} a run): l1 max rel err {l1_rel:.3g}, "
+              f"{flips} code flips, largest column l1 {col_l1.max().item()} <= budget "
+              f"{budget:.2f}, kernel_ms {ms:.5f}{extra} bound_ms {b_ms:.6f} ({b_by}, "
+              f"{b_ms / ms:.1%})", flush=True)
+        at[f"{site} K={K} C={C}"] = {"count": count, "ms": ms, "deq_ms": deq_ms,
+                                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                     "library_ms": None, "code_flips": flips,
+                                     "l1_max_rel_err": l1_rel}
+        run["ms"] += count * ms
+        run["bound_ms"] += count * b_ms
+        run["matrices"] += count
+        if site.startswith("hubert") and site != "hubert head":
+            per_layer = count // 48
+            layer["ms"] += per_layer * ms
+            layer["plain_ms"] += per_layer * plain_ms
+            layer["bytes"] += per_layer * n_bytes
+            layer["ops"] += per_layer * 4 * K * C
+        del args, v, gs, s, q, q_p, l1, l1_p, deq_p
+        torch.cuda.empty_cache()
     b_ms, b_by = bound_ms(layer["bytes"], layer["ops"], FP32_FLOPS_PER_S)
     print(f"a2q_quantize one hubert-xlarge layer's 6 matrices: kernel_ms {layer['ms']:.5f} "
           f"plain_ms {layer['plain_ms']:.5f} bound_ms {b_ms:.6f} ({b_by}); {flips_total} code "
           f"flips in all shapes", flush=True)
+    print(f"a2q_quantize deploy kernel ms a run ({run['matrices']} matrices): {run['ms']:.3f} ms, "
+          f"bound {run['bound_ms']:.3f} ms ({run['bound_ms'] / run['ms']:.1%})", flush=True)
     return {"name": "a2q_quantize", "route": "cuda", "source": "src/repro_torch/csrc/a2q_quantize.cu",
             "replaces": "src/repro/kernels/a2q_quantize.py:101",
             "at": "one hubert-xlarge layer's 6 deploys (4 x 1280x1280, 1280x5120, 5120x1280), "
                   "A2Q P=16 M=8 N=8",
             "max_abs_err": worst, "code_flips": flips_total, "ms": layer["ms"],
             "plain_ms": layer["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "at_shapes": at}
+            "library_ms": None, "deploy_kernel_ms_a_run": run["ms"],
+            "deploy_bound_ms_a_run": run["bound_ms"], "at_shapes": at}
 
 
 def check_flash_attention(dev) -> dict:
@@ -1452,11 +1603,10 @@ def check_paged_attention_int(dev) -> list:
 
 def check_paged_mla_attention_int(dev) -> list:
     """paged_mla_attention on int8 and packed-int4 latent pools at
-    deepseek-v3's decode shape with the act-quant replay on: against the
-    plain version (the length-1 row exactly), with a NaN scale block behind
-    a table entry past a row's length."""
-    import torch.nn.functional as F
-
+    deepseek-v3's decode shape, with and without the act-quant replay, on
+    the tensor-core kernel: against the plain version (the length-1 row
+    exactly), with a NaN scale block behind a table entry past a row's
+    length; then at the 4K context (``mla_served``)."""
     from repro_torch.kernels.paged_mla_attention import (
         paged_mla_attention_cuda,
         paged_mla_attention_plain,
@@ -1475,8 +1625,13 @@ def check_paged_mla_attention_int(dev) -> list:
         args = (q_lat, q_pe, ckvq, kpeq, bt, lengths, ckvs, kpes)
         worst = 0.0
         for kwi in ({}, kw):
-            got = paged_mla_attention_cuda(*args, scale=scale, **kwi)
+            tc0 = paged_mla_attention_cuda.tc_launches
+            with no_host_sync():
+                got = paged_mla_attention_cuda(*args, scale=scale, **kwi)
             torch.cuda.synchronize()
+            if paged_mla_attention_cuda.tc_launches != tc0 + 1:
+                raise AssertionError(f"paged_mla_attention int{bits} {kwi}: not on the tensor "
+                                     "cores")
             want = paged_mla_attention_plain(*args, scale=scale, **kwi)
             err = (got - want).abs().max().item()
             if not err <= MLA_TOL:
@@ -1496,33 +1651,24 @@ def check_paged_mla_attention_int(dev) -> list:
             raise AssertionError(f"paged_mla_attention int{bits} read a table entry past the length")
         ms = graph_ms(lambda: paged_mla_attention_cuda(*args, scale=scale, **kw), LAYERS)
         plain_ms = graph_ms(lambda: paged_mla_attention_plain(*args, scale=scale, **kw), LAYERS)
-        S = bt.shape[1] * bs
         ckv_d, kpe_d = ((_unpack_nibbles(c) if bits == 4 else c).float() * sc[..., None]
                         for c, sc in ((ckvq, ckvs), (kpeq, kpes)))
-        ckv_g = ckv_d[bt.long()].reshape(B, 1, S, R)
-        kpe_g = kpe_d[bt.long()].reshape(B, 1, S, P)
-        qs = torch.cat([q_lat, q_pe], dim=-1)[:, :, None, :]
-        kg = torch.cat([ckv_g, kpe_g], dim=-1).contiguous()
-        vg = ckv_g.contiguous()
-        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), LAYERS)
+        lib_ms = mla_sdpa_ms(q_lat, q_pe, ckv_d, kpe_d, bt, lengths, scale, torch.float32)
         toks = lengths.sum().item()
-        n_bytes = (q_lat.numel() * 4 + q_pe.numel() * 4 + toks * (ckvq.shape[-1] + kpeq.shape[-1])
-                   + toks * 2 * 4 + bt.numel() * 4 + B * 4 + B * H * R * 4 + 4)
-        n_ops = 2 * H * toks * (R + P + R)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
-        print(f"paged_mla_attention int{bits} pools B={B} H={H} R={R} P={P} bs={bs} act_bits=8: "
-              f"max_abs_err {worst:.3g} (tol {MLA_TOL:.3g}), length-1 row exact, entry past the "
-              f"length unread, kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} "
-              f"({b_by}) library_ms(sdpa, dequantized gathered, gqa) {lib_ms:.5f}", flush=True)
-        entries.append({"name": f"paged_mla_attention[int{bits}]", "route": "cuda",
+        b_ms, b_by = mla_bound(toks, B, H, R, P, ckvq.shape[-1] + kpeq.shape[-1], 8)
+        print(f"paged_mla_attention int{bits} pools B={B} H={H} R={R} P={P} bs={bs} act_bits=8 "
+              f"(tensor cores): max_abs_err {worst:.3g} (tol {MLA_TOL:.3g}), length-1 row exact, "
+              f"entry past the length unread, kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} "
+              f"bound_ms {b_ms:.6f} ({b_by}) library_ms(sdpa, dequantized gathered, gqa) "
+              f"{lib_ms:.5f}", flush=True)
+        entries.append({"name": f"paged_mla_attention[int{bits}]", "route": "cuda", "kernel": "tc",
                         "source": "src/repro_torch/csrc/paged_mla_attention.cu",
                         "replaces": "src/repro/kernels/paged_attention.py:373",
                         "at": f"B=8 H=128 R=512 P=64 bs=16 int{bits} latent pools, act_bits=8 "
                               "replay, ragged lengths incl. 0 and 1",
                         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": lib_ms})
+                        "bound_by": b_by, "library_ms": lib_ms,
+                        "at_4k_context": mla_served(dev, f"int{bits}")})
     return entries
 
 
@@ -1714,12 +1860,14 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         int_matmul_cuda.launches = int_matmul_cuda.prologue_launches = 0
-        int_matmul_cuda.tc_launches = attn.launches = 0
+        int_matmul_cuda.tc_launches = attn.launches = paged_mla_attention_cuda.tc_launches = 0
         outs = engine.generate(prompts, max_new=32)
         torch.cuda.synchronize()
         launches = {"int_matmul": int_matmul_cuda.launches,
                     "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
                     "int_matmul[tc]": int_matmul_cuda.tc_launches, name: attn.launches}
+        if mla:
+            launches[f"{name}[tc]"] = paged_mla_attention_cuda.tc_launches
         tp = engine.throughput()
         peak = torch.cuda.max_memory_allocated() / 1e9
         print(f"[{tag}] prefill {tp['prefill_tok_s']:.2f} tok/s | decode {tp['decode_tok_s']:.2f} "
@@ -1747,6 +1895,7 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
         if launches["int_matmul"] != per_forward * (ticks + chunks) or \
                 launches["int_matmul[prologue]"] != launches["int_matmul"] or \
                 launches[name] != n_attn * ticks or ticks < 31 or \
+                (mla and launches[f"{name}[tc]"] != launches[name]) or \
                 tp["int_chain_requant_dispatches"] != 0 or tp["int_chain_folded"] != per_forward:
             raise AssertionError(f"int{bits} KV: launches {launches}, chain report {tp} do not "
                                  f"show {per_forward} folded int_matmul per forward and {n_attn} "
@@ -1754,6 +1903,8 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
         counts["int_matmul[prologue]"] += launches["int_matmul[prologue]"]
         counts["int_matmul[tc]"] += launches["int_matmul[tc]"]
         counts[f"{name}[int{bits}]"] = launches[name]
+        if mla:
+            counts[f"{name}[int{bits}][tc]"] = launches[f"{name}[tc]"]
         # chaining is a pure dispatch fusion: the unchained run on the same pools
         l_q = _prompt_logits(params, arch, toks, chained, dev, bits)
         l_u = _prompt_logits(params, arch, toks, Runtime(int_forward=True, mla_absorb=mla), dev, bits)
@@ -1976,12 +2127,13 @@ def serve_deepseek(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     int_matmul_cuda.launches = int_matmul_cuda.tc_launches = 0
-    paged_mla_attention_cuda.launches = 0
+    paged_mla_attention_cuda.launches = paged_mla_attention_cuda.tc_launches = 0
     outs = engine.generate(prompts, max_new=32)
     torch.cuda.synchronize()
     launches = {"int_matmul": int_matmul_cuda.launches,
                 "int_matmul[tc]": int_matmul_cuda.tc_launches,
-                "paged_mla_attention": paged_mla_attention_cuda.launches}
+                "paged_mla_attention": paged_mla_attention_cuda.launches,
+                "paged_mla_attention[tc]": paged_mla_attention_cuda.tc_launches}
     tp = engine.throughput()
     ticks = tp["decode_dispatches"]
     launches_deploy = {"a2q_quantize": deploys, "a2q_quantize[flips]": held["flips"]}
@@ -1995,9 +2147,11 @@ def serve_deepseek(dev):
           f"(routed experts)", flush=True)
     n_mla = sum(s.count for s in arch.stacks)
     if launches["int_matmul"] != per_forward * (ticks + chunks) or \
-            launches["paged_mla_attention"] != n_mla * ticks or ticks < 31:
+            launches["paged_mla_attention"] != n_mla * ticks or ticks < 31 or \
+            launches["paged_mla_attention[tc]"] != launches["paged_mla_attention"]:
         raise AssertionError(f"launch counts {launches} do not show {per_forward} int_matmul "
-                             f"per forward and {n_mla} paged_mla_attention per decode tick")
+                             f"per forward and {n_mla} paged_mla_attention per decode tick, all "
+                             "on the tensor cores")
     for r, o in zip(engine.last_requests, outs):
         if len(o) != 32 or not all(0 <= t < arch.vocab for t in o) or \
                 not np.isfinite(r.margins).all():
@@ -2547,6 +2701,11 @@ def main() -> int:
             raise AssertionError(f"{e['name']} was never launched on the main paths")
         if e["name"] == "flash_attention":
             e["launches_tc"] = sum(n.get("flash_attention[tc]", 0) for n in by_path.values())
+        if e["name"].startswith("paged_mla_attention"):  # every main-path launch on the tensor cores
+            e["launches_tc"] = sum(n.get(f"{e['name']}[tc]", 0) for n in by_path.values())
+            if e["launches_tc"] != e["launches"]:
+                raise AssertionError(f"{e['name']}: {e['launches_tc']} of {e['launches']} "
+                                     "launches on the tensor cores")
         if e["name"] == "a2q_quantize":  # each phase held every deploy launch (check_held)
             e["deploy_matrices_checked"] = e["launches"]
             e["deploy_code_flips"] = sum(n.get("a2q_quantize[flips]", 0) for n in by_path.values())

@@ -15,8 +15,10 @@ in another order; integer codes dequantize exactly as in the plain version),
 one bf16 rounding of the output (2^-6, one ulp at |o| < 2) with bf16 pools
 or a bf16 query; MLA latent attention — 2e-5 (fp32 output; bf16 pools and
 dequantized codes convert to fp32 exactly, so only the summation order
-differs), and exactly on a row of length 1, whose output is the staged
-latent itself (the activation fake-quant replay's codes times its scale).
+differs; the tensor-core kernel for bf16, int8 and int4 pools keeps fp32
+precision with q in three bf16 terms), and exactly on a row of length 1,
+whose output is the staged latent itself (the activation fake-quant
+replay's codes times its scale), on every run split the cluster takes.
 A block past a row's length holds NaN (in the pool, or in the scale pool of
 an integer pool) and must not be read.  rwkv6_scan — 1e-5 of the largest
 |y| and |S| with fp32 y (the same fp32 recurrence, its 64-deep sums split
@@ -26,7 +28,8 @@ requant epilogue — codes exact, or one apart only where a ``tanh`` 4 ulps
 off PyTorch's could move the code (``requant_ties``: the kernel's ``tanhf``
 against PyTorch's ``tanh``).  a2q_quantize — l1, codes and dequantized
 weights exact (both sides sum in ``core.a2q.pairwise_sum``'s fp32 order),
-and every column within the A2Q l1 budget.  flash_attention — 2e-5 in
+on every strip width and cluster split the kernel takes, and every column
+within the A2Q l1 budget.  flash_attention — 2e-5 in
 fp32 (the softmax summed in another order), plus one bf16 ulp of the output
 in bf16, on the CUDA cores (fp32) and the tensor cores (bf16).
 """
@@ -730,3 +733,169 @@ def test_flash_attention_cuda_bf16_tensor_cores(dev, D, case):
     _flash_close(got, flash_attention_plain(q, k, v, **kw))
     if Tq > Tk:
         assert not got[:, :, :Tq - Tk].float().abs().any()
+
+
+def _a2q_module():
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.a2q_quantize")
+
+
+@pytest.mark.parametrize("K,C", [(7168, 2048), (2048, 7168), (1280, 1280), (300, 130)])
+def test_a2q_quantize_cuda_forced_splits(dev, monkeypatch, K, C):
+    """deepseek's expert shapes (and hubert's projection, a ragged one) on
+    every strip width and cluster size the kernel takes, resident or not:
+    l1, codes and dequantized weights bit for bit the plain version's."""
+    aq = _a2q_module()
+    quant = get_arch("hubert-xlarge").quant
+    p = init_linear(torch.Generator(device=dev).manual_seed(K + 2 * C), K, C, quant)
+    gs, s = _effective_gs(p, quant.acc_bits, quant.act_bits, True)
+    deq_p, q_p, l1_p = a2q_quantize_plain(p["v"], gs, s, n=-128, p=127)
+    tried = 0
+    for strip in aq.STRIPS:
+        for target in (1, 2, 3, 5, 8):
+            chunk, cpb, splits = aq.cluster_shape(K, target, strip)
+            for resident in (True, False):
+                if resident and aq.resident_bytes(K, strip, chunk, cpb) > 200 * 1024:
+                    continue
+                monkeypatch.setattr(aq, "a2q_split",
+                                    lambda *a, c=(strip, splits, chunk, resident): c)
+                deq, q, l1 = a2q_quantize_cuda(p["v"], gs, s, n=-128, p=127)
+                torch.cuda.synchronize()
+                assert torch.equal(l1, l1_p) and torch.equal(q, q_p) and torch.equal(deq, deq_p)
+                tried += 1
+    assert tried >= 20
+
+
+def test_a2q_quantize_cuda_graph_replay_and_no_sync(dev):
+    """The split kernel keeps no state between launches: two CUDA-graph
+    replays equal the eager call, and a launch makes no host sync."""
+    quant = get_arch("hubert-xlarge").quant
+    p = init_linear(torch.Generator(device=dev).manual_seed(5), 7168, 2048, quant)
+    gs, s = _effective_gs(p, quant.acc_bits, quant.act_bits, True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, want, l1 = a2q_quantize_cuda(p["v"], gs, s, n=-128, p=127, dequantize=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        _, out, out_l1 = a2q_quantize_cuda(p["v"], gs, s, n=-128, p=127, dequantize=False)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(out_l1, l1)
+
+
+def _mla_module():
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.paged_mla_attention")
+
+
+def _mla_int_pools(ckv, kpe, bits):
+    from repro_torch.nn.attention import _kv_quantize, _pack_nibbles
+
+    out = []
+    for p in (ckv, kpe):
+        codes, sc = _kv_quantize(p, bits=bits)
+        out.append((_pack_nibbles(codes) if bits == 4 else codes, sc))
+    (ckvq, ckvs), (kpeq, kpes) = out
+    return ckvq, kpeq, ckvs, kpes
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("act_quant", [False, True], ids=["plain", "act_quant"])
+def test_paged_mla_attention_cuda_forced_splits(dev, monkeypatch, pool, act_quant):
+    """deepseek's widths on the tensor-core kernel, each row's table cut into
+    1 to 8 runs (a cluster): within 2e-5 of the plain version, the length-1
+    row exact, a zero row for length 0, the block past a length unread."""
+    mla = _mla_module()
+    B, H, R, P, bs = 8, 128, 512, 64, 16
+    lens = [7, 1, 0, 2 * bs + 3, 3 * bs, bs - 1, 1, 4 * bs]
+    q_lat, q_pe, ckv, kpe, bt, lengths = _mla_case(dev, torch.float32, B, H, R, P, bs, lens)
+    if pool == "bf16":
+        pools = (ckv.bfloat16(), kpe.bfloat16(), None, None)
+    else:
+        pools = _mla_int_pools(ckv, kpe, 8 if pool == "int8" else 4)
+    kw = dict(scale=192**-0.5)
+    if act_quant:
+        kw.update(aq_scale=torch.tensor([0.02], device=dev), act_bits=8)
+    args = (q_lat, q_pe, pools[0], pools[1], bt, lengths, pools[2], pools[3])
+    want = paged_mla_attention_plain(*args, **kw)
+    for splits in range(1, 9):
+        monkeypatch.setattr(mla, "mla_splits", lambda *a, n=splits: n)
+        tc0 = paged_mla_attention_cuda.tc_launches
+        got = paged_mla_attention_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert paged_mla_attention_cuda.tc_launches == tc0 + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        assert (got[2] == 0).all() and torch.equal(got[1], want[1])
+        poisoned = list(args)
+        if pool == "bf16":
+            poisoned[2] = args[2].clone()
+            poisoned[2][-1] = float("nan")  # the block past row 0's length
+        else:
+            poisoned[6] = args[6].clone()
+            poisoned[6][-1] = float("nan")
+        again = paged_mla_attention_cuda(*poisoned, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype,act_bits", [(torch.float32, None), (torch.float32, 8),
+                                            (torch.bfloat16, 12), (torch.bfloat16, 16)])
+def test_paged_mla_attention_cuda_core_route_is_counted_apart(dev, dtype, act_bits):
+    """fp32 pools and replays over 9 bits (a latent not exact in bf16) run
+    on the CUDA-core kernel: counted in ``launches`` and not in
+    ``tc_launches``, within 2e-5 of the plain version."""
+    B, H, R, P, bs = 8, 128, 512, 64, 16
+    lens = [7, 1, 0, 2 * bs + 3, 3 * bs, bs - 1, 1, 4 * bs]
+    args = _mla_case(dev, dtype, B, H, R, P, bs, lens)
+    kw = dict(scale=192**-0.5)
+    if act_bits is not None:
+        kw.update(aq_scale=torch.tensor([0.002], device=dev), act_bits=act_bits)
+    n0, tc0 = paged_mla_attention_cuda.launches, paged_mla_attention_cuda.tc_launches
+    got = paged_mla_attention_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_mla_attention_cuda.launches == n0 + 1
+    assert paged_mla_attention_cuda.tc_launches == tc0
+    torch.testing.assert_close(got, paged_mla_attention_plain(*args, **kw), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "int4"])
+def test_paged_mla_attention_cuda_4k_context_graph_replay_and_no_sync(dev, pool):
+    """DeepSeek-V3's 4K context (B=8, lengths in [3072, 4096]) with the
+    replay at 8 bits: within 2e-5 of the plain version, no host sync, two
+    CUDA-graph replays equal to the eager call."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, H, R, P, bs, MB = 8, 128, 512, 64, 16, 256
+    lengths = torch.randint(3072, 4097, (B,), generator=g, device=dev, dtype=torch.int32)
+    NB = B * MB + 1
+    bt = (torch.randperm(NB - 1, generator=g, device=dev).to(torch.int32) + 1)[: B * MB]
+    bt = bt.reshape(B, MB).clone()
+    q_lat = torch.randn((B, H, R), generator=g, device=dev)
+    q_pe = torch.randn((B, H, P), generator=g, device=dev)
+    ckv = torch.randn((NB, bs, R), generator=g, device=dev)
+    kpe = torch.randn((NB, bs, P), generator=g, device=dev)
+    if pool == "bf16":
+        pools = (ckv.bfloat16(), kpe.bfloat16(), None, None)
+    else:
+        pools = _mla_int_pools(ckv, kpe, 8 if pool == "int8" else 4)
+    args = (q_lat, q_pe, pools[0], pools[1], bt, lengths, pools[2], pools[3])
+    kw = dict(scale=192**-0.5, aq_scale=torch.tensor([0.02], device=dev), act_bits=8)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want = paged_mla_attention_cuda(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(want, paged_mla_attention_plain(*args, **kw), rtol=0, atol=2e-5)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_mla_attention_cuda(*args, **kw)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)

@@ -16,12 +16,17 @@ written-out tanh gelu and ``jax.nn.gelu`` differ in the last fp32 bits).
 The decode kernels' split arithmetic (``int_matmul_split_plain``,
 ``paged_attention_split_plain``) is held to the same oracles: integers
 exact, attention to 1e-5; and the unsigned operand's column sums are kept
-per weight (``ops.symmetrization_offset``).
+per weight (``ops.symmetrization_offset``).  ``a2q_quantize``'s
+cluster-split l1 order (``a2q_l1_split_plain``) is ``pairwise_sum`` bit for
+bit and its codes the JAX oracle's; the tensor-core MLA kernel's arithmetic
+(``paged_mla_attention_tc_plain``) is held at deepseek-v3's widths to the
+plain version and the jnp oracle within 2e-5 (chip_smoke's MLA_TOL).
 
 ``test_torch_cuda.py`` holds the CUDA kernels against their plain versions
 on a card; ``chip_smoke.py`` does the same at the main path's shapes.
 """
 
+import functools
 import importlib
 
 import jax
@@ -29,6 +34,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:  # pragma: no cover - exercised only without hypothesis
+    from _hypothesis_fallback import given, settings
+    from _hypothesis_fallback import strategies as st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -677,3 +689,214 @@ def test_unsigned_int_matmul_uses_the_kept_sums(monkeypatch):
                                      block_k=int_matmul_block_k(200),
                                      offset=128 * jnp.asarray(w, jnp.int32).sum(0))
     np.testing.assert_array_equal(first.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# a2q_quantize's split of each column strip's rows across a thread-block
+# cluster: the l1 sum in the kernel's order, and the choice of split
+# ---------------------------------------------------------------------------
+
+aq = importlib.import_module("repro_torch.kernels.a2q_quantize")
+
+
+def _l1_case(K, C, seed):
+    """Weights with a wide spread of magnitudes (the sums' rounding shows)."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(K, C)) * rng.uniform(0.0, 1.0, size=(K, C)) ** 3
+    return torch.from_numpy(v.astype(np.float32))
+
+
+@pytest.mark.parametrize("K", [1, 3, 7, 8, 9, 100, 1280, 5000])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_a2q_l1_split_plain_is_pairwise_sum(K, splits):
+    """The kernel's chunked, cluster-split order of the l1 sum is
+    ``core.a2q.pairwise_sum``'s tree bit for bit, for every strip width."""
+    from repro_torch.core.a2q import pairwise_sum
+
+    v = _l1_case(K, 37, K + 11 * splits)
+    want = pairwise_sum(v.abs())
+    for strip in aq.STRIPS:
+        assert torch.equal(aq.a2q_l1_split_plain(v, splits, strip), want)
+
+
+@settings(max_examples=40, deadline=None)
+@given(K=st.integers(1, 4000), splits=st.sampled_from([1, 2, 4, 8]),
+       strip=st.sampled_from([8, 16, 32]))
+def test_a2q_l1_split_plain_is_pairwise_sum_for_any_shape(K, splits, strip):
+    from repro_torch.core.a2q import pairwise_sum
+
+    v = _l1_case(K, 5, K)
+    assert torch.equal(aq.a2q_l1_split_plain(v, splits, strip), pairwise_sum(v.abs()))
+
+
+@pytest.mark.parametrize("K,C", [(300, 130), (512, 256), (17, 5), (1024, 64)])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_a2q_split_codes_match_jax_oracle(K, C, splits):
+    """Codes from the split l1 (``clip(trunc(g/s * v / l1))``) equal the JAX
+    package's ``ref_a2q_quantize`` codes on the reference's cases (P=16,
+    unsigned 8-bit inputs), and the plain quantizer's."""
+    v, t, d = _a2q_case(np.random.default_rng(K * C + 16), K, C)
+    jv, jt, jd = jnp.asarray(v), jnp.asarray(t), jnp.asarray(d)
+    _, q_r = jref.ref_a2q_quantize(jv, jt, jd, 8, 16, 8, False)
+    T = jnp.log2(jnp.float32(2.0**15 - 1.0)) + jd - 8
+    gs = torch.from_numpy(np.asarray(jnp.exp2(jnp.minimum(jt, T) - jd)))
+    tv = torch.from_numpy(v)
+    l1 = torch.clamp_min(aq.a2q_l1_split_plain(tv, splits), 1e-12)
+    q = torch.clamp(torch.trunc(gs * tv / l1), -128, 127)
+    np.testing.assert_array_equal(q.numpy().astype(np.int32), np.asarray(q_r))
+    _, q_p, l1_p = a2q_quantize_plain(tv, gs, torch.ones_like(gs), n=-128, p=127)
+    assert torch.equal(l1, l1_p) and torch.equal(q.to(torch.int8), q_p)
+
+
+@pytest.mark.parametrize("K,C", [
+    (576, 576), (576, 192), (1536, 576),  # smollm-135m
+    (7168, 2048), (2048, 7168), (7168, 18432), (18432, 7168), (7168, 576), (512, 32768),
+    (16384, 7168), (7168, 129280),  # deepseek-v3: experts, dense mlp, MLA projections, head
+    (4096, 4096), (14336, 4096),  # rwkv6-7b
+    (1280, 1280), (5120, 1280), (1280, 504),  # hubert-xlarge
+    (1, 40), (17, 5), (300000, 64),  # tiny, ragged, and rows past every shared memory
+])
+def test_a2q_split_from_static_shapes(K, C):
+    """The kernel's launch choice on a 132-SM card is one it takes: a strip
+    width and a cluster size it has, a power-of-two chunk of at least 8 rows
+    whose chunks fit the block's slots, resident rows within a block's shared
+    memory; wide matrices fill the card with two blocks an SM."""
+    strip, splits, chunk, resident = aq.a2q_split(K, C, 132)
+    S, cpb, blocks = aq.cluster_shape(K, splits, strip)
+    assert strip in aq.STRIPS and 1 <= splits <= aq.MAX_SPLITS and (S, blocks) == (chunk, splits)
+    assert chunk >= aq.PIECE and chunk & (chunk - 1) == 0
+    assert cpb & (cpb - 1) == 0 and cpb <= aq.THREADS * 4 // strip
+    assert (splits - 1) * cpb * chunk < K <= splits * cpb * chunk or K <= chunk
+    if resident:
+        assert aq.resident_bytes(K, strip, chunk, cpb) <= aq.PAIR_SMEM
+    else:
+        assert strip == 32 and K >= 14336
+    if resident and C * K >= 2**22:
+        assert -(-C // strip) * splits >= aq.BLOCKS_PER_SM * 132
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernel's arithmetic (paged_mla_attention_tc_plain) at
+# deepseek-v3's widths, against the plain version and the jnp oracle
+# ---------------------------------------------------------------------------
+
+_MLA_TOL = 2e-5  # chip_smoke.py's MLA_TOL: the kernels against the plain version
+_DS_SCALE = (128 + 64) ** -0.5
+_DS_AQ = np.float32(0.02)
+
+
+@functools.cache
+def _deepseek_mla_case(pools: str, act_quant: bool):
+    """B=2 rows of 1 and 45 keys (at most 48 key slots) at H=128, R=512,
+    P=64, bs=16; the torch inputs, the plain version's and the jnp oracle's
+    outputs."""
+    from repro_torch.nn.attention import _kv_quantize, _pack_nibbles
+
+    B, H, R, P, bs, MB = 2, 128, 512, 64, 16, 3
+    NB = B * MB + 2
+    rng = np.random.default_rng(60 + len(pools) + act_quant)
+    bt = rng.permutation(np.arange(1, NB))[: B * MB].reshape(B, MB).astype(np.int32)
+    lengths = np.asarray([1, 45], np.int32)
+    q_lat = rng.normal(size=(B, H, R)).astype(np.float32)
+    q_pe = rng.normal(size=(B, H, P)).astype(np.float32)
+    ckv = torch.from_numpy(rng.normal(size=(NB, bs, R)).astype(np.float32))
+    kpe = torch.from_numpy(rng.normal(size=(NB, bs, P)).astype(np.float32))
+    scales = []
+    if pools == "bf16":
+        ckv, kpe = ckv.bfloat16(), kpe.bfloat16()
+        jpools = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (ckv, kpe)]
+    else:
+        bits = 8 if pools == "int8" else 4
+        (ckv, cs), (kpe, ks) = (_kv_quantize(t, bits=bits) for t in (ckv, kpe))
+        if bits == 4:
+            ckv, kpe = _pack_nibbles(ckv), _pack_nibbles(kpe)
+        scales = [cs, ks]
+        jpools = [jnp.asarray(t.numpy()) for t in (ckv, kpe)]
+    targs = [torch.from_numpy(q_lat), torch.from_numpy(q_pe), ckv, kpe, torch.from_numpy(bt),
+             torch.from_numpy(lengths), *scales]
+    kw = {"aq_scale": torch.tensor(_DS_AQ), "act_bits": 8} if act_quant else {}
+    plain = ops.paged_mla_attention(*targs[:6], scale=_DS_SCALE,
+                                    **dict(zip(("ckvs", "kpes"), scales)), **kw)
+    jkw = {"aq_scale": jnp.asarray(_DS_AQ), "act_bits": 8} if act_quant else {}
+    want = jref.ref_paged_mla_attention(
+        jnp.asarray(q_lat), jnp.asarray(q_pe), *jpools, jnp.asarray(bt), jnp.asarray(lengths),
+        *(jnp.asarray(t.numpy()) for t in scales), scale=_DS_SCALE, **jkw)
+    return targs, kw, plain, np.asarray(want)
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("act_quant", [False, True], ids=["plain", "act_quant"])
+@pytest.mark.parametrize("splits", [1, 2, 3])
+def test_paged_mla_attention_tc_plain_matches_plain_and_jnp_oracle(pools, act_quant, splits):
+    """The tensor-core kernel's arithmetic (q in three bf16 terms, the
+    latent operand exact in bf16 with its per-key factors, 64-key steps of
+    online softmax, P in bf16 terms, runs merged in order) within ``_MLA_TOL``
+    of the plain version and of the jnp oracle; the length-1 row exactly the
+    plain version's."""
+    mla = importlib.import_module("repro_torch.kernels.paged_mla_attention")
+    targs, kw, plain, want = _deepseek_mla_case(pools, act_quant)
+    got = mla.paged_mla_attention_tc_plain(*targs, scale=_DS_SCALE, splits=splits, **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=_MLA_TOL)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_MLA_TOL)
+    assert torch.equal(got[0], plain[0])
+
+
+@pytest.mark.parametrize("dtype,act_bits,want", [
+    (torch.bfloat16, None, True), (torch.int8, 8, True), (torch.uint8, 9, True),
+    (torch.int8, None, True), (torch.float32, None, False), (torch.float32, 8, False),
+    (torch.bfloat16, 10, False), (torch.uint8, 16, False),
+])
+def test_paged_mla_attention_route(dtype, act_bits, want):
+    """bf16, int8 and int4 pools run on the tensor cores unless the replay's
+    codes (more than 9 bits) are not exact in bf16; fp32 pools never do."""
+    mla = importlib.import_module("repro_torch.kernels.paged_mla_attention")
+    assert mla.tensor_core_route(dtype, act_bits) is want
+
+
+@pytest.mark.parametrize("B,MB,want", [
+    (8, 6, 2),  # the smoke shape: 96 key slots, 64 head tiles
+    (8, 256, 2),  # DeepSeek-V3's 4K context: 128 blocks, one wave
+    (1, 256, 8),  # one long row: at most 8 runs (a cluster)
+    (8, 1, 1),  # one table entry: one run
+])
+def test_mla_splits_from_static_shapes(B, MB, want):
+    """The runs a row's table is cut into on a 132-SM card (H=128),
+    from B and the table width alone."""
+    mla = importlib.import_module("repro_torch.kernels.paged_mla_attention")
+    splits = mla.mla_splits(B, 128, MB, 132)
+    assert splits == want
+    eps, used = mla._split_entries(MB, splits)
+    assert used == splits and (used - 1) * eps < MB
+
+
+def _round_f32(x) -> np.float32:
+    """A rational rounded once to the nearest fp32 (ties to even)."""
+    from fractions import Fraction
+
+    c = np.float32(float(x))
+    cands = (np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf)))
+    return min(cands, key=lambda f: (abs(Fraction(float(f)) - x), int(f.view(np.uint32)) & 1))
+
+
+def test_fma_corrected_quotient_is_the_ieee_quotient():
+    """The kernels' division-free quotient (``codes4`` in a2q_quantize.cu,
+    ``replay8`` in paged_mla_attention.cu): with inv = RN(1 / y) and q =
+    RN(x inv), ``fma(fma(-y, q, x), inv, q)`` is the IEEE quotient x / y
+    (Markstein's correction), on values like the deploys' (gs v against l1)
+    and the replay's (codes times scales against s_aq)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(19)
+    for i in range(2000):
+        if i % 2:
+            x = np.float32(rng.normal() * 10 ** rng.uniform(-3, 3))
+            y = np.float32(10 ** rng.uniform(-4, 2))
+        else:
+            x = np.float32(np.float32(rng.integers(-127, 128)) * np.float32(rng.uniform(1e-3, 0.05)))
+            y = np.float32(rng.choice([0.02, 0.017, 0.03, 1 / 127, 0.0123]))
+        fx, fy = Fraction(float(x)), Fraction(float(y))
+        inv = _round_f32(1 / fy)
+        q = np.float32(x * inv)
+        r = _round_f32(fx - fy * Fraction(float(q)))
+        got = _round_f32(Fraction(float(r)) * Fraction(float(inv)) + Fraction(float(q)))
+        assert got == np.float32(x / y), (x, y, got)

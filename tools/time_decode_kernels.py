@@ -1,8 +1,10 @@
 """Time the decode kernels of one source tree on a CUDA card: ``int_matmul``
-at the decoders' few-row shapes and ``paged_attention`` at the smoke shape
-and at a served 2048-token context, each held to its plain version first.
+at the decoders' few-row shapes, ``paged_attention`` at the smoke shape and
+at a served 2048-token context, ``paged_mla_attention`` at the smoke shape
+and at DeepSeek-V3's 4K pre-training context, and ``a2q_quantize`` at every
+matrix shape ``chip_smoke.py`` deploys, each held to its plain version first.
 
-    python3 tools/time_decode_kernels.py [--src DIR] [--tag NAME]
+    python3 tools/time_decode_kernels.py [--src DIR] [--tag NAME] [--only KERNEL]
 
 ``--src`` is the ``src`` directory of the tree to time (default: this
 checkout's), so two commits can be timed in one process-per-tree call on one
@@ -14,6 +16,9 @@ line per shape and, last, a JSON object of every time under ``--tag``.
 Times: CUDA graphs of back-to-back calls timed with CUDA events.  Weights
 and pools rotate over enough copies that the calls stream them from HBM
 (more than the 50 MB L2), as a model whose layers each hold their own do.
+``a2q_quantize``'s line "deploy kernel ms a run" sums count x ms over the
+1,525 matrices one ``chip_smoke.py`` run deploys, beside the same sum of
+the byte bounds.
 """
 
 from __future__ import annotations
@@ -208,6 +213,168 @@ def time_paged_attention(dev) -> dict:
     return out
 
 
+# (site, K, C, matrices a chip_smoke.py run deploys at that shape): all 1,525
+# deploys of smollm-135m (210), deepseek-v3 cut to 3 dense + 1 MoE layer
+# (801), rwkv6-7b (225) and hubert-xlarge (289)
+DEPLOY_SHAPES = [
+    ("smollm wq/wo", 576, 576, 60), ("smollm wk/wv", 576, 192, 60),
+    ("smollm w_in/w_gate", 576, 1536, 60), ("smollm w_out", 1536, 576, 30),
+    ("deepseek expert w_in/w_gate", 7168, 2048, 514), ("deepseek expert w_out", 2048, 7168, 257),
+    ("deepseek dense w_in/w_gate", 7168, 18432, 6), ("deepseek dense w_out", 18432, 7168, 3),
+    ("deepseek wq_a", 7168, 1536, 4), ("deepseek wq_b", 1536, 24576, 4),
+    ("deepseek wkv_a", 7168, 576, 4), ("deepseek wkv_b", 512, 32768, 4),
+    ("deepseek wo", 16384, 7168, 4), ("deepseek head", 7168, 129280, 1),
+    ("rwkv6 tm 4096x4096", 4096, 4096, 160), ("rwkv6 cm.wk", 4096, 14336, 32),
+    ("rwkv6 cm.wv", 14336, 4096, 32), ("rwkv6 head", 4096, 65536, 1),
+    ("hubert attn", 1280, 1280, 192), ("hubert w_in", 1280, 5120, 48),
+    ("hubert w_out", 5120, 1280, 48), ("hubert head", 1280, 504, 1),
+]
+
+
+def time_a2q_quantize(dev) -> dict:
+    """Every deploy shape, codes only as ``deploy_linear`` calls it, on the
+    A2Q initializer's (v, t, d) (P=16, 8-bit signed inputs), held to the
+    plain quantizer first (l1 and codes equal)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.a2q import _effective_gs
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda, a2q_quantize_plain
+    from repro_torch.nn.linear import init_linear
+
+    quant = get_arch("hubert-xlarge").quant
+    gen = torch.Generator(device=dev).manual_seed(24)
+    out, run_ms, run_bound = {}, 0.0, 0.0
+    for site, K, C, count in DEPLOY_SHAPES:
+        n = copies_for(4 * K * C)
+        args = []
+        for _ in range(n):
+            p = init_linear(gen, K, C, quant)
+            gs, s = _effective_gs(p, quant.acc_bits, quant.act_bits, True)
+            args.append((p["v"], gs, s))
+            del p
+        v, gs, s = args[0]
+        _, q, l1 = a2q_quantize_cuda(v, gs, s, n=-128, p=127, dequantize=False)
+        torch.cuda.synchronize()
+        _, q_p, l1_p = a2q_quantize_plain(v, gs, s, n=-128, p=127, dequantize=False)
+        if not (torch.equal(q, q_p) and torch.equal(l1, l1_p)):
+            raise AssertionError(f"a2q_quantize {site} K={K} C={C}: kernel != plain")
+        del q, l1, q_p, l1_p
+        it = iter(range(10**9))
+        ms = graph_ms(lambda: a2q_quantize_cuda(*args[next(it) % n], n=-128, p=127,
+                                                dequantize=False), 2 * n)
+        b_ms = (5 * K * C + 12 * C) / HBM_BYTES_PER_S * 1e3
+        run_ms += count * ms
+        run_bound += count * b_ms
+        out[f"{site} K={K} C={C}"] = {"count": count, "ms": ms, "bound_ms": b_ms}
+        print(f"a2q_quantize {site} K={K} C={C} (x{count} a run): {ms:.5f} ms, bound "
+              f"{b_ms:.5f} ms ({b_ms / ms:.1%})", flush=True)
+        del args, v, gs, s
+        torch.cuda.empty_cache()
+    out["deploy kernel ms a run"] = {"ms": run_ms, "bound_ms": run_bound}
+    print(f"a2q_quantize deploy kernel ms a run (1,525 matrices): {run_ms:.3f} ms, bound "
+          f"{run_bound:.3f} ms ({run_bound / run_ms:.1%})", flush=True)
+    return out
+
+
+MLA_TOL = 2e-5
+
+
+def time_paged_mla_attention(dev) -> dict:
+    """The absorbed MLA decode at deepseek-v3's widths (H=128, R=512, P=64,
+    bs=16) with the act-quant replay at 8 bits, on bf16, int8 and int4
+    pools: the smoke shape (B=8, <= 96 keys) and the 4K context DeepSeek-V3
+    was pre-trained at (B=8, lengths from the seed in [3072, 4096]); SDPA
+    on the (dequantized) gathered view as the library time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_mla_attention import (
+        paged_mla_attention_cuda,
+        paged_mla_attention_plain,
+    )
+    from repro_torch.nn.attention import _kv_quantize, _pack_nibbles, _unpack_nibbles
+
+    H, R, P, bs = 128, 512, 64, 16
+    scale = (128 + 64) ** -0.5
+    kw = {"aq_scale": torch.tensor([0.02], device=dev), "act_bits": 8}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    smoke = torch.tensor([0, 1, 17, 33, 64, 65, 80, 96], dtype=torch.int32, device=dev)
+    served = torch.randint(3072, 4097, (8,), generator=gen, device=dev, dtype=torch.int32)
+    out = {}
+    for case, MB, lengths in (("smoke", 6, smoke), ("4K context", 256, served)):
+        B = lengths.numel()
+        NB = B * MB + 1
+        perm = torch.randperm(NB - 1, generator=gen, device=dev).to(torch.int32) + 1
+        bt = perm[: B * MB].reshape(B, MB).clone()
+        used = (lengths[:, None] + bs - 1) // bs
+        bt[torch.arange(MB, device=dev)[None, :] >= used] = 0
+        q_lat = torch.randn((B, H, R), generator=gen, device=dev)
+        q_pe = torch.randn((B, H, P), generator=gen, device=dev)
+        copies = copies_for(NB * bs * (R + P) * 2)
+        pools = [(torch.randn((NB, bs, R), generator=gen, device=dev),
+                  torch.randn((NB, bs, P), generator=gen, device=dev)) for _ in range(copies)]
+        toks = int(lengths.sum())
+        S = MB * bs
+        for kind in ("bf16", "int8", "int4"):
+            args = []
+            for ckv, kpe in pools:
+                if kind == "bf16":
+                    args.append((ckv.bfloat16(), kpe.bfloat16(), None, None))
+                else:
+                    bits = 8 if kind == "int8" else 4
+                    (cc, cs), (kc, ks) = (_kv_quantize(t, bits=bits) for t in (ckv, kpe))
+                    if bits == 4:
+                        cc, kc = _pack_nibbles(cc), _pack_nibbles(kc)
+                    args.append((cc, kc, cs, ks))
+            ckv0, kpe0, cs0, ks0 = args[0]
+            got = paged_mla_attention_cuda(q_lat, q_pe, ckv0, kpe0, bt, lengths, cs0, ks0,
+                                           scale=scale, **kw)
+            torch.cuda.synchronize()
+            want = paged_mla_attention_plain(q_lat, q_pe, ckv0, kpe0, bt, lengths, cs0, ks0,
+                                             scale=scale, **kw)
+            err = (got - want).abs().max().item()
+            if not err <= MLA_TOL:
+                raise AssertionError(f"paged_mla_attention {case} {kind}: max err {err}")
+            it = iter(range(10**9))
+
+            def call():
+                c, k, cs, ks = args[next(it) % copies]
+                return paged_mla_attention_cuda(q_lat, q_pe, c, k, bt, lengths, cs, ks,
+                                                scale=scale, **kw)
+
+            ms = graph_ms(call, 30)
+            if kind == "bf16":
+                ckv_d, kpe_d = ckv0.float(), kpe0.float()
+            else:
+                ckv_d, kpe_d = ((_unpack_nibbles(c) if kind == "int4" else c).float()
+                                * sc[..., None] for c, sc in ((ckv0, cs0), (kpe0, ks0)))
+            ckv_g = ckv_d[bt.long()].reshape(B, 1, S, R).bfloat16()
+            kpe_g = kpe_d[bt.long()].reshape(B, 1, S, P).bfloat16()
+            qs = torch.cat([q_lat, q_pe], dim=-1)[:, :, None, :].bfloat16()
+            kg = torch.cat([ckv_g, kpe_g], dim=-1).contiguous()
+            vg = ckv_g.contiguous()
+            mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), 5)
+            elt = ckv0.element_size()
+            n_bytes = (toks * (ckv0.shape[-1] + kpe0.shape[-1]) * elt
+                       + (toks * 8 if cs0 is not None else 0) + 4 * B * H * (2 * R + P))
+            b_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            b_ops = 2 * H * toks * (R + P + R) / 989e12 * 1e3  # the bf16 tensor-core peak
+            b_ms = max(b_bytes, b_ops)
+            out[f"{case} {kind}"] = {"ms": ms, "sdpa_ms": lib_ms, "bound_ms": b_ms,
+                                     "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                                     "max_abs_err": err}
+            print(f"paged_mla_attention {case} {kind} B={B} MB={MB} keys={toks} act_bits=8: "
+                  f"{ms:.5f} ms, SDPA on the gathered view {lib_ms:.5f} ms, bound {b_ms:.5f} ms "
+                  f"({b_ms / ms:.1%}), max err {err:.3g}", flush=True)
+            del args, kg, vg, ckv_g, kpe_g
+        del pools
+        torch.cuda.empty_cache()
+    return out
+
+
+KERNELS = ("int_matmul", "paged_attention", "paged_mla_attention", "a2q_quantize")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
@@ -217,7 +384,8 @@ def main() -> int:
                     help="force int_matmul's decode K splits (trees with split_k)")
     ap.add_argument("--split-kv", type=int, default=None,
                     help="force paged_attention's table runs (trees with split_kv)")
-    ap.add_argument("--only", choices=("int_matmul", "paged_attention"), default=None)
+    ap.add_argument("--only", default=None,
+                    help=f"comma-separated subset of {','.join(KERNELS)}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_decode_kernels: needs a CUDA card", file=sys.stderr)
@@ -230,7 +398,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"{args.tag}: {args.src}; {smi}", flush=True)
-    _build.build_all(("int_matmul", "paged_attention"))
+    only = KERNELS if args.only is None else tuple(args.only.split(","))
+    if not set(only) <= set(KERNELS):
+        ap.error(f"--only takes a subset of {','.join(KERNELS)}")
+    _build.build_all(only)
     import importlib
 
     for module, choice, value in (("int_matmul", "split_k", args.split_k),
@@ -244,10 +415,14 @@ def main() -> int:
     print(f"launch floor: a one-element PyTorch add in the same graph timing {floor_ms:.5f} ms",
           flush=True)
     res = {"tag": args.tag, "card": smi, "launch_floor_ms": floor_ms}
-    if args.only in (None, "int_matmul"):
+    if "int_matmul" in only:
         res["int_matmul"] = time_int_matmul(dev, rows)
-    if args.only in (None, "paged_attention"):
+    if "paged_attention" in only:
         res["paged_attention"] = time_paged_attention(dev)
+    if "paged_mla_attention" in only:
+        res["paged_mla_attention"] = time_paged_mla_attention(dev)
+    if "a2q_quantize" in only:
+        res["a2q_quantize"] = time_a2q_quantize(dev)
     print(json.dumps(res), flush=True)
     return 0
 
