@@ -41,9 +41,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prologue (relu^2 replayed in bf16, unsigned 8-bit codes out) at rwkv6-7b's
    cm.wk shape (K=4096, N=14336) and K=N=64, M in {8, 32}, bit for bit the
    plain version and timed beside the prologue-only kernel; ``rwkv6_scan`` at
-   decode (B=8, H=64, T=1, bf16 r/k/v, fp32 y, the state updated in place),
-   a prefill chunk (B=1, T=32, carried state) and a T=64 chunk with the
-   decay floored at e^-8, within ``RWKV_TOL`` of the plain version.  The
+   decode (B=8, H=64, T=1, bf16 r/k/v, fp32 y, the state updated in place)
+   on the step kernel, and on the chunked tensor-core kernel a prefill chunk
+   (B=1, T=32, carried state), a T=64 chunk with the decay floored at e^-8,
+   a long prompt's engine chunk (T=512, carried, floored), a whole
+   4096-token prompt (cacheless, floored) and 8 x 64 tokens (floored), each
+   within ``RWKV_TOL`` and 1e-5 of the largest |S| of the plain version, the
+   kernel that ran read from the wrapper's counters.  The
    hubert slice's: ``a2q_quantize`` at hubert-xlarge's four matrix shapes
    and rwkv6-7b's cm.wk (l1, codes and dequantized weights bit for bit,
    every column within the A2Q l1 budget); ``flash_attention``
@@ -130,7 +134,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rwkv6_scan, chain report 225 folded / 32 chained / 0 standalone; the
    recurrent state bytes a slot, host ops a decode tick, a profiled decode;
    the unchained int-forward run gives bitwise-equal prompt logits and
-   identical tokens and margins;
+   identical tokens and margins; the prefill chunks' recurrences on the
+   chunked ``rwkv6_scan`` kernel, the ticks' on the step kernel;
+4e-long. on the same params, one 4096-token prompt (seed 0, RWKV-6's
+   training context) in prefill chunks of 1024 (four chunked-form calls a
+   layer, the slot's state carried) and 8 new tokens: prefill and decode
+   tok/s, the launch counts (32 x 4 on the chunked kernel, 32 a tick on the
+   step kernel), the host ops of each prefill chunk, one profiled prefill
+   chunk's device ms by kernel (``rwkv6_scan``, ``int_matmul``, the rest);
+   in-vocab tokens and finite margins;
 5e. the dequant path (``Runtime()``) as in phase 5 (logits within two bf16
    ulps of the largest, ``parity_up_to_ties`` at that eps); reduced rwkv6
    on the card (int-chain, prefill chunks of the ssm chunk, so chunked and
@@ -153,7 +165,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. print the ``kernels`` line (every kernel and its int-chain variants:
    ``int_matmul[prologue]``, ``int_matmul[requant]``,
    ``int_matmul[gelu requant]``, ``paged_attention[int8|int4]``,
-   ``paged_mla_attention[int8|int4]``, ``rwkv6_scan``, ``a2q_quantize``,
+   ``paged_mla_attention[int8|int4]``, ``rwkv6_scan`` (the step kernel),
+   ``rwkv6_scan[chunked]`` (the tensor-core kernel), ``a2q_quantize``,
    ``flash_attention``, ``int_matmul[tc]`` (the tensor-core kernel), each
    with its launches on its main paths, counted by the wrappers:
    ``int_matmul[prologue]`` every launch with the prologue, the requant ones
@@ -1090,32 +1103,44 @@ def _rwkv6_inputs(dev, B, H, T, D, dtype, seed):
         torch.randn((B, H, D, D), generator=g, device=dev)
 
 
-def check_rwkv6_scan(dev) -> dict:
+def check_rwkv6_scan(dev) -> list:
     """rwkv6_scan at rwkv6-7b's shapes against its plain version: decode
-    (B=8, H=64, T=1, bf16 r/k/v, fp32 y, the carried state updated in
-    place), a prefill chunk (B=1, T=32, carried state, bf16 y) and a T=64
-    chunk with the decay floored at e^-8 (some decays below it), each timed
-    (CUDA graphs of back-to-back calls) beside the plain version and its
-    bound.  No single PyTorch call computes this recurrence (no library
-    time)."""
+    (B=8, H=64, T=1, bf16 r/k/v, fp32 y, the carried state updated in place)
+    on the step kernel; on the chunked kernel a prefill chunk (B=1, T=32,
+    carried state, bf16 y), a T=64 chunk with the decay floored at e^-8
+    (some decays below it), a long prompt's engine chunk (B=1, T=512,
+    carried, floored), a whole 4096-token prompt (cacheless, floored) and 8
+    x 64 tokens (the 4e gates' cacheless forward, floored); each timed (CUDA
+    graphs of back-to-back calls; the plain version from T=512 on with CUDA
+    events around one call) beside the plain version and its bound.  The
+    wrappers' counters show which kernel ran.  No single PyTorch call
+    computes this recurrence (no library time).  Returns the step kernel's
+    entry and the chunked kernel's."""
     import math
 
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
 
-    entry, worst = None, 0.0
+    entries = {}
     for tag, (B, T, out_dtype, floor, carried) in {
             "decode": (8, 1, torch.float32, False, True),
             "prefill T=32": (1, 32, torch.bfloat16, False, True),
-            "chunk T=64, floored": (1, 64, torch.bfloat16, True, False)}.items():
+            "chunk T=64, floored": (1, 64, torch.bfloat16, True, False),
+            "engine chunk T=512, floored": (1, 512, torch.bfloat16, True, True),
+            "prompt T=4096, cacheless, floored": (1, 4096, torch.bfloat16, True, False),
+            "cacheless 8 x 64, floored": (8, 64, torch.bfloat16, True, False)}.items():
         H, D = 64, 64
-        r, k, v, w, u, s0 = _rwkv6_inputs(dev, B, H, T, D, torch.bfloat16, seed=T)
+        r, k, v, w, u, s0 = _rwkv6_inputs(dev, B, H, T, D, torch.bfloat16, seed=T + B)
         if floor:
             w[..., ::7] = 1e-5
         kw = dict(out_dtype=out_dtype, min_w=math.exp(-8.0) if floor else None)
         init = s0 if carried else None
         state = s0.clone() if carried else None
+        chunked0 = rwkv6_scan_cuda.chunked_launches
         y, s = rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state, **kw)
         torch.cuda.synchronize()
+        kernel = "chunked" if rwkv6_scan_cuda.chunked_launches > chunked0 else "step"
+        if kernel != ("step" if T == 1 else "chunked"):
+            raise AssertionError(f"rwkv6_scan {tag}: ran the {kernel} kernel")
         y_p, s_p = rwkv6_scan_plain(r, k, v, w, u, init, **kw)
         err_y = (y.float() - y_p.float()).abs().max().item()
         err_s = (s - s_p).abs().max().item()
@@ -1124,29 +1149,35 @@ def check_rwkv6_scan(dev) -> dict:
         if not (err_y <= tol_y and err_s <= tol_s) or (carried and s is not state):
             raise AssertionError(f"rwkv6_scan {tag}: y err {err_y} > {tol_y} or state err "
                                  f"{err_s} > {tol_s}")
-        worst = max(worst, err_y)
         reps = 30 if T == 1 else 10
         ms = graph_ms(lambda: rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state, **kw), reps)
-        plain_ms = graph_ms(lambda: rwkv6_scan_plain(r, k, v, w, u, init, **kw), reps)
+        plain_ms = (graph_ms(lambda: rwkv6_scan_plain(r, k, v, w, u, init, **kw), reps) if T < 512
+                    else events_ms(lambda: rwkv6_scan_plain(r, k, v, w, u, init, **kw), 1))
         n = B * H * T * D
         n_bytes = 3 * 2 * n + 4 * n + 4 * H * D + out_dtype.itemsize * n + \
             4 * B * H * D * D * (2 if carried else 1)
-        b_ms, b_by = bound_ms(n_bytes, 7 * n * D, FP32_FLOPS_PER_S)
-        print(f"rwkv6_scan {tag} B={B} H={H} T={T} D={D}: y err {err_y:.3g} (tol {tol_y:.3g}), "
-              f"state err {err_s:.3g} (tol {tol_s:.3g}), kernel_ms {ms:.5f} plain_ms "
-              f"{plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by})", flush=True)
+        # the recurrence's operations, at the peak of the units that run them:
+        # the step kernel's fp32 FMAs, the chunked kernel's bf16 tensor cores
+        b_ms, b_by = bound_ms(n_bytes, 7 * n * D,
+                              FP32_FLOPS_PER_S if kernel == "step" else BF16_FLOPS_PER_S)
+        print(f"rwkv6_scan {tag} B={B} H={H} T={T} D={D} ({kernel} kernel): y err {err_y:.3g} "
+              f"(tol {tol_y:.3g}), state err {err_s:.3g} (tol {tol_s:.3g}), kernel_ms {ms:.5f} "
+              f"plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by})", flush=True)
         at = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
               "library_ms": None}
-        if entry is None:
-            entry = {"name": "rwkv6_scan", "route": "cuda",
-                     "source": "src/repro_torch/csrc/rwkv6_scan.cu",
-                     "replaces": "src/repro/kernels/rwkv6_scan.py:100",
-                     "at": "rwkv6-7b decode, B=8 H=64 T=1 D=64, bf16 r/k/v, fp32 y, state in place",
-                     **at}
+        name = "rwkv6_scan" if kernel == "step" else "rwkv6_scan[chunked]"
+        if name not in entries:
+            entries[name] = {
+                "name": name, "route": "cuda", "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+                "replaces": "src/repro/kernels/rwkv6_scan.py:100",
+                "kernel": "rwkv6_scan_kernel (step)" if kernel == "step" else
+                          "chunk::rwkv6_chunk_kernel (bf16 tensor cores, mma.sync m16n8k16)",
+                "at": f"rwkv6-7b {tag}, B={B} H={H} T={T} D={D}, bf16 r/k/v", "max_abs_err": 0.0,
+                **at}
         else:
-            entry[f"at {tag}"] = at
-    entry["max_abs_err"] = worst
-    return entry
+            entries[name][f"at {tag}"] = at
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err_y)
+    return [entries["rwkv6_scan"], entries["rwkv6_scan[chunked]"]]
 
 
 HUBERT_SITES = {  # (K, N) of the six deployed linears of one hubert-xlarge layer -> count
@@ -1786,30 +1817,36 @@ def serve(dev):
                                                per_forward=7 * arch.n_layers, mla=False)}
 
 
-def tick_ops(engine, prompts) -> int:
-    """Host-dispatched PyTorch operators in one decode tick of ``engine``
-    (every request admitted and prefilled first): the host work a tick
-    issues, each a kernel launch unless it is a view.  The CUDA kernels'
-    own launches go through ctypes and are not among them."""
+def op_counter():
+    """A context that counts the PyTorch operators dispatched inside it (its
+    ``n``): the host work they issue, each a kernel launch unless it is a
+    view.  The CUDA kernels' own launches go through ctypes and are not
+    among them."""
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from repro_torch.serve.engine import Request
 
     class Count(TorchDispatchMode):
         n = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
+            self.n += 1
             return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def tick_ops(engine, prompts) -> int:
+    """Host-dispatched PyTorch operators in one decode tick of ``engine``
+    (every request admitted and prefilled first)."""
+    from repro_torch.serve.engine import Request
 
     for i, p in enumerate(prompts):
         engine.submit(Request(uid=2000 + i, prompt=p, max_new=3))
     engine.step()
-    with Count():
+    with op_counter() as count:
         engine.tick()
     while not engine.sched.idle():
         engine.step()
-    return Count.n
+    return count.n
 
 
 def _prompt_logits(params, arch, toks, rt, dev, kv_bits=None):
@@ -2048,12 +2085,25 @@ def _stack_layers(*layers):
     return layers[0].unsqueeze(0) if len(layers) == 1 else torch.stack(layers)
 
 
+def kernel_ms(prof) -> dict:
+    """Device ms by kernel name in a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:  # an op's entry repeats its kernels' time
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
+        dev[e.key] = dev.get(e.key, 0.0) + t / 1e3
+    return dev
+
+
 def profile_decode(engine, prompts, ticks: int = 4) -> None:
     """Device time of ``ticks`` decode ticks by kernel, from a torch.profiler
     trace (CUPTI): every request is admitted and prefilled first, then only
     the decode ticks run under the profiler.  Prints the device time a tick
     spends in each kernel and in all of them together."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
@@ -2070,13 +2120,7 @@ def profile_decode(engine, prompts, ticks: int = 4) -> None:
     wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
     while not engine.sched.idle():
         engine.step()
-    dev = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # an op's entry repeats its kernels' time
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
-        dev[e.key] = dev.get(e.key, 0.0) + t / 1e3 / ticks
+    dev = {k: ms / ticks for k, ms in kernel_ms(prof).items()}
     total = sum(dev.values())
     print(f"profiled decode: {ticks} ticks, kernels' device time {total:.3f} ms a tick, "
           f"{wall_ms:.1f} ms a tick of wall time under the profiler ({len(dev)} kernels)",
@@ -2246,6 +2290,129 @@ def build_rwkv6(dev, arch) -> dict:
     return params
 
 
+LONG_PROMPT, LONG_CHUNK, LONG_NEW = 4096, 1024, 8  # RWKV-6's training context (arXiv:2404.05892)
+
+
+def chunk_host_ops(engine) -> list:
+    """Wraps ``engine._prefill_fn`` so each prefill chunk's host-dispatched
+    PyTorch operators are counted (as ``tick_ops`` counts a tick's); returns
+    the list the counts go into."""
+    counts, inner = [], engine._prefill_fn
+
+    def counted(*args):
+        with op_counter() as count:
+            out = inner(*args)
+        counts.append(count.n)
+        return out
+
+    engine._prefill_fn = counted
+    return counts
+
+
+def profile_prefill_chunk(engine, prompt) -> dict:
+    """Device time of one prefill chunk (the second of the prompt's, past any
+    first-call work) by kernel, from a torch.profiler trace: ``rwkv6_scan``
+    (both kernels), ``int_matmul`` and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+
+    inner, seen, dev_ms = engine._prefill_fn, [], {}
+
+    def profiled(*args):
+        seen.append(1)
+        if len(seen) != 2:
+            return inner(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = inner(*args)
+            torch.cuda.synchronize()
+        for name, ms in kernel_ms(prof).items():
+            part = ("rwkv6_scan" if "rwkv6_" in name else
+                    "int_matmul" if "int_matmul" in name else "rest")
+            dev_ms[part] = dev_ms.get(part, 0.0) + ms
+        return out
+
+    engine._prefill_fn = profiled
+    engine.submit(Request(uid=3000, prompt=prompt, max_new=2))
+    while not engine.sched.idle():
+        engine.step()
+    engine._prefill_fn = inner
+    return dev_ms
+
+
+def serve_rwkv6_long(dev, arch, params) -> dict:
+    """Phase 4e-long: the same deployed rwkv6-7b on ``--int-chain`` serves one
+    4096-token prompt (seed 0) in prefill chunks of 1024 (four chunked-form
+    calls a layer, each carrying the slot's state) and 8 new tokens.  Checks
+    the launch counts (the prefill chunks' recurrences on the chunked
+    kernel, the ticks' on the step kernel) and the outputs (in-vocab tokens,
+    finite margins); prints prefill and decode tok/s, the host ops of one
+    prefill chunk, and one profiled prefill chunk's device ms by kernel.
+    Returns the run's launches by kernel variant."""
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    from repro_torch.models.lm import Runtime
+    from repro_torch.serve.engine import PagedServeEngine
+
+    phase(f"4e-long: rwkv6-7b serves one {LONG_PROMPT}-token prompt in prefill chunks of "
+          f"{LONG_CHUNK} (--int-chain)")
+    n = arch.n_layers
+    per_forward = 7 * n + 1
+    prompt = np.random.default_rng(0).integers(0, arch.vocab, (LONG_PROMPT,)).astype(np.int32)
+    engine = PagedServeEngine(arch, params, rt=Runtime(int_chain=True), batch=1,
+                              max_seq=LONG_PROMPT + LONG_NEW, block_size=16,
+                              prefill_chunk=LONG_CHUNK, device=dev)
+    engine.generate([prompt[:LONG_CHUNK]], max_new=2)  # warm-up
+    engine.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops = chunk_host_ops(engine)
+    int_matmul_cuda.launches = int_matmul_cuda.prologue_launches = 0
+    int_matmul_cuda.requant_launches = int_matmul_cuda.tc_launches = 0
+    rwkv6_scan_cuda.launches = rwkv6_scan_cuda.chunked_launches = 0
+    outs = engine.generate([prompt], max_new=LONG_NEW)
+    torch.cuda.synchronize()
+    chunks = -(-LONG_PROMPT // LONG_CHUNK)
+    tp = engine.throughput()
+    ticks = tp["decode_dispatches"]
+    forwards = chunks + ticks
+    launches = {"int_matmul": int_matmul_cuda.launches,
+                "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
+                "int_matmul[requant]": int_matmul_cuda.requant_launches,
+                "rwkv6_scan": rwkv6_scan_cuda.launches,
+                "rwkv6_scan[chunked]": rwkv6_scan_cuda.chunked_launches}
+    want = {"int_matmul": per_forward * forwards,
+            "int_matmul[prologue]": (per_forward - n) * forwards,
+            "int_matmul[requant]": n * forwards, "rwkv6_scan": n * forwards,
+            "rwkv6_scan[chunked]": n * chunks}
+    tc = int_matmul_cuda.tc_launches
+    req = engine.last_requests[0]
+    print(f"[long prompt] prefill {tp['prefill_tokens']} tok in {tp['prefill_s']:.3f}s "
+          f"({tp['prefill_tok_s']:.2f} tok/s) | decode {tp['decode_tokens']} tok in "
+          f"{tp['decode_s']:.3f}s ({tp['decode_tok_s']:.2f} tok/s, {ticks} ticks) | peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | launches {launches} (expected "
+          f"{want}) | host ops a prefill chunk {ops} | tokens {outs[0]}", flush=True)
+    if launches != want or ticks != LONG_NEW - 1 or len(outs[0]) != LONG_NEW or \
+            not all(0 <= t < arch.vocab for t in outs[0]) or not np.isfinite(req.margins).all():
+        raise AssertionError(f"long prompt: launches {launches} (expected {want}) over {ticks} "
+                             f"ticks, tokens {outs[0]}, margins {req.margins}")
+    dev_ms = profile_prefill_chunk(engine, prompt)
+    total = sum(dev_ms.values())
+    print(f"[long prompt] one profiled prefill chunk of {LONG_CHUNK} tokens: {total:.3f} ms of "
+          f"kernels; " + ", ".join(f"{k} {v:.3f} ms ({v / max(total, 1e-9):.1%})"
+                                   for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return {"int_matmul[requant]": launches["int_matmul[requant]"],
+            "int_matmul[prologue]": launches["int_matmul[prologue]"],
+            "int_matmul": launches["int_matmul"] - launches["int_matmul[prologue]"],  # int8 x in
+            "int_matmul[tc]": tc,
+            "rwkv6_scan": launches["rwkv6_scan"] - launches["rwkv6_scan[chunked]"],  # step kernel
+            "rwkv6_scan[chunked]": launches["rwkv6_scan[chunked]"]}
+
+
 def serve_rwkv6(dev) -> dict:
     """Phases 4e and 5e: full-width rwkv6-7b served on ``--int-chain`` (every
     deployed linear on int_matmul, cm.wk through the requant epilogue, every
@@ -2296,13 +2463,14 @@ def serve_rwkv6(dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         int_matmul_cuda.launches = int_matmul_cuda.requant_launches = 0
         int_matmul_cuda.prologue_launches = rwkv6_scan_cuda.launches = 0
-        int_matmul_cuda.tc_launches = 0
+        int_matmul_cuda.tc_launches = rwkv6_scan_cuda.chunked_launches = 0
         outs = engine.generate(prompts, max_new=32)
         torch.cuda.synchronize()
         launches = {"int_matmul": int_matmul_cuda.launches,
                     "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
                     "int_matmul[requant]": int_matmul_cuda.requant_launches,
-                    "rwkv6_scan": rwkv6_scan_cuda.launches}
+                    "rwkv6_scan": rwkv6_scan_cuda.launches,
+                    "rwkv6_scan[chunked]": rwkv6_scan_cuda.chunked_launches}
         tc = int_matmul_cuda.tc_launches
         tp = engine.throughput()
         print(f"[{tag}] prefill {tp['prefill_tokens']} tok in {tp['prefill_s']:.3f}s "
@@ -2323,17 +2491,19 @@ def serve_rwkv6(dev) -> dict:
     forwards = ticks + chunks
     if launches != {"int_matmul": per_forward * forwards,
                     "int_matmul[prologue]": (per_forward - n) * forwards,
-                    "int_matmul[requant]": n * forwards, "rwkv6_scan": n * forwards} or \
+                    "int_matmul[requant]": n * forwards, "rwkv6_scan": n * forwards,
+                    "rwkv6_scan[chunked]": n * chunks} or \
             ticks < 31 or \
             (tp["int_chain_folded"], tp["int_chain_chained"],
              tp["int_chain_requant_dispatches"], tp["int_chain_fallback"]) != (per_forward, n, 0, 0):
         raise AssertionError(f"launches {launches} over {forwards} forwards, chain report {tp}: "
                              f"expected {per_forward} int_matmul ({per_forward - n} prologue, {n} "
-                             f"requant) and {n} rwkv6_scan a forward, {per_forward} folded / {n} "
-                             "chained / 0 standalone")
+                             f"requant) and {n} rwkv6_scan a forward (the prefill chunks' on the "
+                             f"chunked kernel), {per_forward} folded / {n} chained / 0 standalone")
     cache = main.cache
     print(f"launches on the main path: {launches} over {ticks} decode ticks and {chunks} prefill "
-          f"chunks = {per_forward} int_matmul ({n} requant) and {n} rwkv6_scan a forward; "
+          f"chunks = {per_forward} int_matmul ({n} requant) and {n} rwkv6_scan a forward (the "
+          f"prefill chunks' {n * chunks} on the chunked kernel, the ticks' on the step kernel); "
           f"{cache.kv_bytes_per_token()} KV bytes/token, {cache.state_bytes_per_slot()} recurrent "
           f"state bytes a slot ({4 * n * cache.pools['0']['tm']['S'][0, 0].numel()} of them the "
           f"fp32 state)", flush=True)
@@ -2352,6 +2522,7 @@ def serve_rwkv6(dev) -> dict:
     if not torch.equal(l_c, l_u) or outs_u != outs or not same_margins:
         raise AssertionError("rwkv6-7b: chained and unchained runs differ")
     del unchained, l_u
+    long_counts = serve_rwkv6_long(dev, arch, params)
 
     phase("5e: rwkv6-7b on the dequant path; reduced rwkv6 card vs CPU")
     l_deq = apply_lm(params, arch, tokens=toks)[0].float()
@@ -2399,7 +2570,9 @@ def serve_rwkv6(dev) -> dict:
         "int_matmul[prologue]": launches["int_matmul[prologue]"],
         "int_matmul": launches["int_matmul"] - launches["int_matmul[prologue]"],  # int8 x in
         "int_matmul[tc]": tc,
-        "rwkv6_scan": launches["rwkv6_scan"]}}
+        "rwkv6_scan": launches["rwkv6_scan"] - launches["rwkv6_scan[chunked]"],  # step kernel
+        "rwkv6_scan[chunked]": launches["rwkv6_scan[chunked]"]},
+        "rwkv6-7b long prompt": long_counts}
 
 
 def build_hubert(dev, arch) -> dict:
@@ -2430,20 +2603,13 @@ def profile_forward(fn) -> float:
     """Device time of one call of ``fn`` by kernel, from a torch.profiler
     trace (CUPTI).  Prints the kernels' device time and the largest kernels;
     returns the total in ms."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
-        dev[e.key] = dev.get(e.key, 0.0) + t / 1e3
+    dev = kernel_ms(prof)
     total = sum(dev.values())
     print(f"profiled forward: kernels' device time {total:.3f} ms ({len(dev)} kernels)",
           flush=True)
@@ -2681,7 +2847,7 @@ def main() -> int:
     entries = [check_int_matmul(dev), check_int_matmul_prologue(dev),
                check_int_matmul_requant(dev), check_paged_attention(dev),
                *check_paged_attention_int(dev), check_paged_mla_attention(dev),
-               *check_paged_mla_attention_int(dev), check_rwkv6_scan(dev),
+               *check_paged_mla_attention_int(dev), *check_rwkv6_scan(dev),
                check_a2q_quantize(dev), check_flash_attention(dev), *check_int_matmul_hubert(dev)]
     entries[0]["at_deepseek"] = check_int_matmul_deepseek(dev)
     entries[0].update(check_int_matmul_decode(dev))

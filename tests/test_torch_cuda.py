@@ -21,8 +21,10 @@ whose output is the staged latent itself (the activation fake-quant
 replay's codes times its scale), on every run split the cluster takes.
 A block past a row's length holds NaN (in the pool, or in the scale pool of
 an integer pool) and must not be read.  rwkv6_scan — 1e-5 of the largest
-|y| and |S| with fp32 y (the same fp32 recurrence, its 64-deep sums split
-in four and contracted into FMAs), 2^-7 of the largest |y| with bf16 y (one
+|y| and |S| with fp32 y (the step kernel: the same fp32 recurrence, its
+64-deep sums split in four and contracted into FMAs; the chunked kernel:
+Finch's matrix form, its products on the bf16 tensor cores in hi / mid /
+lo terms, ~2^-16 of each term), 2^-7 of the largest |y| with bf16 y (one
 bf16 rounding of values that differ in their last fp32 bits).  The gelu
 requant epilogue — codes exact, or one apart only where a ``tanh`` 4 ulps
 off PyTorch's could move the code (``requant_ties``: the kernel's ``tanhf``
@@ -63,7 +65,7 @@ from repro_torch.kernels.paged_mla_attention import (
     paged_mla_attention_cuda,
     paged_mla_attention_plain,
 )
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
+from repro_torch.kernels.rwkv6_scan import CHUNK_MIN_T, rwkv6_scan_cuda, rwkv6_scan_plain
 from repro_torch.nn.linear import init_linear
 
 pytestmark = pytest.mark.cuda
@@ -541,24 +543,45 @@ def _rwkv6_close(got, want, out_dtype):
 
 
 @pytest.mark.parametrize("case", [
-    # (B, H, T, D, in dtype, out dtype, floor, carried): rwkv6-7b's decode,
-    # prefill chunk and chunked T=64, then reduced and ragged shapes
-    (8, 64, 1, 64, torch.bfloat16, torch.float32, False, True),
-    (1, 64, 32, 64, torch.bfloat16, torch.bfloat16, False, True),
-    (1, 64, 64, 64, torch.bfloat16, torch.bfloat16, True, False),
-    (2, 4, 8, 16, torch.float32, torch.float32, True, True),
-    (3, 5, 37, 24, torch.float32, torch.float32, False, False),
-], ids=["decode", "prefill32", "chunk64_floor", "reduced", "ragged"])
+    # (B, H, T, D, in dtype, out dtype, floor, carried, zero decays): rwkv6-7b's
+    # decode, prefill chunk and chunked T=64, then reduced and ragged shapes;
+    # the step kernel's last T and the chunked kernel's first; a long
+    # prompt's engine chunk and a whole 4096-token prompt; decays of exactly
+    # 0 in some channels, floored and not
+    (8, 64, 1, 64, torch.bfloat16, torch.float32, False, True, False),
+    (1, 64, 32, 64, torch.bfloat16, torch.bfloat16, False, True, False),
+    (1, 64, 64, 64, torch.bfloat16, torch.bfloat16, True, False, False),
+    (2, 4, 8, 16, torch.float32, torch.float32, True, True, False),
+    (3, 5, 37, 24, torch.float32, torch.float32, False, False, False),
+    (1, 64, CHUNK_MIN_T - 1, 64, torch.bfloat16, torch.float32, False, True, False),
+    (1, 64, CHUNK_MIN_T, 64, torch.bfloat16, torch.float32, False, True, False),
+    (1, 64, 512, 64, torch.bfloat16, torch.bfloat16, True, True, False),
+    (1, 64, 4096, 64, torch.bfloat16, torch.bfloat16, True, False, False),
+    (2, 3, 45, 24, torch.bfloat16, torch.float32, False, True, False),
+    (1, 8, 200, 64, torch.bfloat16, torch.float32, False, True, True),
+    (1, 8, 200, 64, torch.bfloat16, torch.float32, True, True, True),
+], ids=["decode", "prefill32", "chunk64_floor", "reduced", "ragged", "below_threshold",
+        "threshold", "t512", "t4096", "ragged_bf16", "zero_decays", "zero_decays_floor"])
 def test_rwkv6_scan_cuda_matches_plain(dev, case):
-    B, H, T, D, dt, out_dtype, floor, carried = case
+    """Both kernels against the plain recurrence: T below ``CHUNK_MIN_T`` on
+    the step kernel, from it on the chunked one (read from the wrapper's
+    counters); strided head views, then contiguous inputs through ops with
+    the state updated in place."""
+    B, H, T, D, dt, out_dtype, floor, carried, zero_w = case
     r, k, v, w, u, s0 = _rwkv6_case(dev, B, H, T, D, dt, seed=T + D)
     if floor:
         w[..., ::7] = 1e-5  # below e^-8, where the floor acts
+    if zero_w:
+        w[..., 1::5] = 0.0
     kw = dict(out_dtype=out_dtype, min_w=math.exp(-8.0) if floor else None)
     init = s0 if carried else None
     want = rwkv6_scan_plain(r, k, v, w, u, init, **kw)
+    launches, chunked = rwkv6_scan_cuda.launches, rwkv6_scan_cuda.chunked_launches
     got = rwkv6_scan_cuda(r, k, v, w, u, init, **kw)
     torch.cuda.synchronize()
+    assert rwkv6_scan_cuda.launches == launches + 1
+    assert rwkv6_scan_cuda.chunked_launches == chunked + (T >= CHUNK_MIN_T)
+    assert torch.isfinite(got[0].float()).all()
     _rwkv6_close(got, want, out_dtype)
     # the same through ops, contiguous inputs, the state updated in place
     rc, kc, vc, wc = (t.contiguous() for t in (r, k, v, w))

@@ -1,8 +1,10 @@
 """Time the decode kernels of one source tree on a CUDA card: ``int_matmul``
 at the decoders' few-row shapes, ``paged_attention`` at the smoke shape and
 at a served 2048-token context, ``paged_mla_attention`` at the smoke shape
-and at DeepSeek-V3's 4K pre-training context, and ``a2q_quantize`` at every
-matrix shape ``chip_smoke.py`` deploys, each held to its plain version first.
+and at DeepSeek-V3's 4K pre-training context, ``a2q_quantize`` at every
+matrix shape ``chip_smoke.py`` deploys, and ``rwkv6_scan`` at rwkv6-7b's
+decode, prefill and long-prompt shapes (``chip_smoke.py`` phase 3's), each
+held to its plain version first.
 
     python3 tools/time_decode_kernels.py [--src DIR] [--tag NAME] [--only KERNEL]
 
@@ -372,7 +374,66 @@ def time_paged_mla_attention(dev) -> dict:
     return out
 
 
-KERNELS = ("int_matmul", "paged_attention", "paged_mla_attention", "a2q_quantize")
+# (case, B, T, y dtype, decay floored at e^-8, carried state): chip_smoke.py's
+# phase-3 shapes of rwkv6-7b's recurrence (H=64, D=64, bf16 r/k/v)
+RWKV_CASES = [("decode", 8, 1, torch.float32, False, True),
+              ("prefill T=32", 1, 32, torch.bfloat16, False, True),
+              ("chunk T=64, floored", 1, 64, torch.bfloat16, True, False),
+              ("engine chunk T=512, floored", 1, 512, torch.bfloat16, True, True),
+              ("engine chunk T=1024, floored", 1, 1024, torch.bfloat16, True, True),
+              ("prompt T=4096, cacheless, floored", 1, 4096, torch.bfloat16, True, False),
+              ("cacheless 8 x 64, floored", 8, 64, torch.bfloat16, True, False)]
+
+
+def time_rwkv6_scan(dev) -> dict:
+    """rwkv6_scan through the wrapper's public arguments (every version of the
+    port takes them) at ``RWKV_CASES``: held to the plain version (1e-5 of
+    the largest |y| with fp32 y, 2^-7 with bf16 y, 1e-5 of the largest |S|),
+    then timed; the bound is the bytes (each input read once, each output
+    written once) at 3.35 TB/s."""
+    import math
+
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
+
+    out = {}
+    H, D = 64, 64
+    for case, B, T, out_dtype, floor, carried in RWKV_CASES:
+        gen = torch.Generator(device=dev).manual_seed(T + B)
+        heads = lambda t: t.reshape(B, T, H, D).transpose(1, 2)  # noqa: E731
+        r, k, v = (heads(torch.randn((B, T, H * D), generator=gen, device=dev).bfloat16())
+                   for _ in range(3))
+        w = heads(torch.exp(-torch.exp(
+            torch.randn((B, T, H * D), generator=gen, device=dev) - 0.6)))
+        if floor:
+            w[..., ::7] = 1e-5
+        u = torch.randn((H, D), generator=gen, device=dev) * 0.5
+        s0 = torch.randn((B, H, D, D), generator=gen, device=dev)
+        kw = dict(out_dtype=out_dtype, min_w=math.exp(-8.0) if floor else None)
+        init = s0 if carried else None
+        state = s0.clone() if carried else None
+        y, s = rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state, **kw)
+        torch.cuda.synchronize()
+        y_p, s_p = rwkv6_scan_plain(r, k, v, w, u, init, **kw)
+        err_y = (y.float() - y_p.float()).abs().max().item()
+        err_s = (s - s_p).abs().max().item()
+        rel = 1e-5 if out_dtype == torch.float32 else 2.0**-7
+        if not (err_y <= rel * y_p.float().abs().max().item()
+                and err_s <= 1e-5 * s_p.abs().max().item()):
+            raise AssertionError(f"rwkv6_scan {case}: y err {err_y}, state err {err_s}")
+        ms = graph_ms(lambda: rwkv6_scan_cuda(r, k, v, w, u, state, state_out=state, **kw),
+                      30 if T < 512 else 5)
+        n = B * H * T * D
+        n_bytes = 10 * n + out_dtype.itemsize * n + 4 * H * D + \
+            4 * B * H * D * D * (2 if carried else 1)
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        out[case] = {"ms": ms, "bound_ms": b_ms, "max_abs_err": err_y}
+        print(f"rwkv6_scan {case} B={B} H={H} T={T} D={D}: {ms:.5f} ms, bound {b_ms:.5f} ms "
+              f"({b_ms / ms:.1%}), y err {err_y:.3g}, state err {err_s:.3g}", flush=True)
+        del r, k, v, w, y, y_p
+    return out
+
+
+KERNELS = ("int_matmul", "paged_attention", "paged_mla_attention", "a2q_quantize", "rwkv6_scan")
 
 
 def main() -> int:
@@ -423,6 +484,8 @@ def main() -> int:
         res["paged_mla_attention"] = time_paged_mla_attention(dev)
     if "a2q_quantize" in only:
         res["a2q_quantize"] = time_a2q_quantize(dev)
+    if "rwkv6_scan" in only:
+        res["rwkv6_scan"] = time_rwkv6_scan(dev)
     print(json.dumps(res), flush=True)
     return 0
 
