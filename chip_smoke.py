@@ -147,6 +147,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ulps of the largest, ``parity_up_to_ties`` at that eps); reduced rwkv6
    on the card (int-chain, prefill chunks of the ssm chunk, so chunked and
    sequential forms) against the CPU, token for token;
+4m. the decode megastep (``decode_steps=8``, every window one replay of a
+   CUDA graph captured at the engine's first step) on each decoder's own
+   params, right after its per-tick phases: smollm-135m on 4c's
+   ``--int-chain`` int8 KV with 12 requests over 8 slots (a slot recycled
+   between windows), deepseek-v3 on 4b's ``mla_absorb`` bf16 latent pools,
+   rwkv6-7b on 4e's ``--int-chain``; prompts of 64 tokens, 32 new, batch 8:
+   tokens identical to the per-tick engine's (the largest margin difference
+   printed), ``graph_replays`` one a window, every tick of every window
+   through the kernels (their launches a tick and a prefill chunk, the
+   replays' counted: each adds the capture's counts), the EOS rerun (request
+   0's per-tick token at step 16) identical with request 0 ended early and
+   every block freed, at most 50 host ops a window, one eager window under
+   ``torch.cuda.set_sync_debug_mode("error")``; decode tok/s per-tick vs
+   megastep (median of 3 alternating runs), host ops a tick vs a window,
+   capture seconds, the graph pool's bytes, one window's launches by kernel;
 4f. deploy full-size hubert-xlarge (48 layers, d_model 1280, d_ff 5120, 504
    classes, random A2Q weights from seed 0, block by block: 289
    ``a2q_quantize`` launches) and encode 8 clips of 1000 bf16 frames (seed
@@ -180,8 +195,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its launches on the main paths (counted from zero
-just before each path's run and read just after; int_matmul's is the sum of
-both paths'), its error against the plain version, and its time beside the
+just before each path's run and read just after, the 4m paths' graph
+replays included; int_matmul's is the sum of every path's), its error
+against the plain version, and its time beside the
 plain version's, a PyTorch library call's and the card's bound.
 """
 
@@ -1812,9 +1828,21 @@ def serve(dev):
         raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
     del engine, ref
     phase("4c: smollm-135m full size on --int-chain --kv-int8 [--kv-bits 4] --decode-kernel")
-    return {"smollm-135m": launches,
-            "smollm-135m int-chain": serve_int(dev, arch, params, prompts,
-                                               per_forward=7 * arch.n_layers, mla=False)}
+    by_path = {"smollm-135m": launches,
+               "smollm-135m int-chain": serve_int(dev, arch, params, prompts,
+                                                  per_forward=7 * arch.n_layers, mla=False)}
+    phase("4m: smollm-135m (4c's --int-chain --kv-int8) on the megastep, 12 requests over 8 slots")
+    more = np.random.default_rng(1)
+    prompts12 = prompts + [more.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(4)]
+    n = 7 * arch.n_layers
+    by_path["smollm-135m megastep"] = serve_megastep(
+        dev, arch, params, prompts12, rt=Runtime(int_chain=True, decode_kernel=True), kv_bits=8,
+        per_call={"int_matmul_cuda.launches": (n, n), "int_matmul_cuda.prologue_launches": (n, n),
+                  "paged_attention_cuda.launches": (arch.n_layers, 0)},
+        names={"int_matmul[prologue]": "int_matmul_cuda.prologue_launches",
+               "int_matmul[tc]": "int_matmul_cuda.tc_launches",
+               "paged_attention[int8]": "paged_attention_cuda.launches"})
+    return by_path
 
 
 def op_counter():
@@ -2000,6 +2028,122 @@ def serve_int(dev, arch, params, prompts, *, per_forward: int, mla: bool) -> dic
         del main, unchained, gathered, l_q, l_u
         torch.cuda.empty_cache()
     return counts
+
+
+MEGASTEP_N = 8  # decode_steps of phase 4m: 31 decode tokens = three full windows and one partial
+MEGASTEP_MAX_WINDOW_OPS = 50
+
+
+def window_ops(engine, prompts) -> int:
+    """Host-dispatched PyTorch operators in one megastep window of
+    ``engine`` (every request admitted and prefilled, and one window run,
+    first); then one window of the decode forward run eagerly on the same
+    live slots under ``no_host_sync`` (the forward the graph holds reads no
+    device value back).  Drains the requests and returns the window's ops."""
+    from repro_torch.serve.engine import Request
+
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=4000 + i, prompt=p, max_new=2 * engine.decode_steps + 2))
+    engine.step()
+    with op_counter() as count:
+        engine.megastep()
+    inp = torch.as_tensor(engine._window_inputs(engine.sched.live), device=engine.device)
+    torch.cuda.synchronize()
+    with no_host_sync():
+        engine._window(inp)
+    torch.cuda.synchronize()
+    while not engine.sched.idle():
+        engine.step()
+    return count.n
+
+
+def serve_megastep(dev, arch, params, prompts, *, rt, kv_bits, per_call: dict,
+                   names: dict) -> dict:
+    """Phase 4m on one decoder's params: the megastep (``decode_steps=8``, a
+    CUDA-graph replay a window) against the per-tick engine on the same
+    prompts (64 tokens, 32 new, batch 8).  Gates: tokens identical (the
+    largest margin difference printed), ``graph_replays`` one a window and
+    at least one, every tick of every window through the kernels (each
+    ``ops.launch_counts`` counter of ``per_call`` counts ``(a, b)``: ``a`` a
+    decode tick, ``b`` a prefill chunk), the EOS rerun (``eos_id`` = request 0's
+    per-tick token at step 16) identical with request 0 ended early and every
+    block freed, at most ``MEGASTEP_MAX_WINDOW_OPS`` host ops a window.
+    Prints decode tok/s per-tick vs megastep (median of 3 alternating runs),
+    host ops a tick vs a window, capture seconds, the graph pool's bytes and
+    one window's launches by kernel.  Returns the main run's launches by
+    kernel entry (``names``: entry -> ``ops.launch_counts`` key, or a pair
+    (key, key subtracted))."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import PagedServeEngine
+
+    tag = f"4m {arch.name}"
+    kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev, rt=rt,
+              kv_quant=kv_bits is not None, kv_bits=kv_bits or 8)
+    tick = PagedServeEngine(arch, params, **kw)
+    mega = PagedServeEngine(arch, params, decode_steps=MEGASTEP_N, **kw)
+    for e in (tick, mega):  # warm-up; the megastep engine captures its window here
+        e.generate(prompts[:1], max_new=2)
+
+    def run(engine):
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        outs = engine.generate(prompts, max_new=32)
+        torch.cuda.synchronize()
+        return outs, engine.throughput()
+
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    outs, tp = run(mega)
+    after = ops.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    windows = tp["decode_dispatches"]
+    chunks = sum(-(-len(p) // 32) for p in prompts)
+    ticks = MEGASTEP_N * windows  # a window runs all N ticks, coasting ones too
+    want = {k: a * ticks + b * chunks for k, (a, b) in per_call.items()}
+    got = {k: delta[k] for k in want}
+    if got != want or tp["graph_replays"] != windows or windows < 1:
+        raise AssertionError(f"[{tag}] launches {got} (expected {want}) over {windows} windows "
+                             f"and {tp['graph_replays']} graph replays")
+    ref, ttp = run(tick)
+    tps = {"per-tick": [ttp["decode_tok_s"]], "megastep": [tp["decode_tok_s"]]}
+    marg = max(abs(a - b) for r, g in zip(tick.last_requests, mega.last_requests)
+               for a, b in zip(r.margins, g.margins))
+    print(f"[{tag}] {len(prompts)} requests over 8 slots: {windows} windows = {windows} graph "
+          f"replays, {tp['decode_tokens']} decode tokens; tokens identical to the per-tick "
+          f"engine's {outs == ref}; largest margin difference {marg!r}", flush=True)
+    if outs != ref or len(outs[0]) != 32:
+        raise AssertionError(f"[{tag}] megastep tokens differ from the per-tick engine's")
+    for which in ("per-tick", "megastep", "megastep", "per-tick"):
+        tps[which].append(run(tick if which == "per-tick" else mega)[1]["decode_tok_s"])
+    # EOS: request 0's per-tick token at step 16 ends it early in both engines
+    eos = int(ref[0][16])
+    for e in (tick, mega):
+        e.eos_id = eos
+    eos_outs = [run(e)[0] for e in (tick, mega)]
+    for e in (tick, mega):
+        e.eos_id = None
+    freed = [e.cache.free_blocks == e.cache.num_blocks - 1 for e in (tick, mega)]
+    print(f"[{tag}] eos_id {eos}: tokens identical {eos_outs[0] == eos_outs[1]}, request 0 "
+          f"ends after {len(eos_outs[1][0])} tokens, lengths {[len(o) for o in eos_outs[1]]}, "
+          f"every block freed {freed}", flush=True)
+    if eos_outs[0] != eos_outs[1] or len(eos_outs[1][0]) >= 32 or not all(freed):
+        raise AssertionError(f"[{tag}] the EOS rerun differs or did not end request 0 early")
+    n_tick = tick_ops(tick, prompts[:8])
+    n_window = window_ops(mega, prompts[:8])
+    info = mega.graph_info
+    print(f"[{tag}] decode tok/s in turns (M T T M M T): " + "; ".join(
+        f"{k} {[round(v, 2) for v in vs]} median {np.median(vs):.2f}" for k, vs in tps.items())
+        + f" ({np.median(tps['megastep']) / np.median(tps['per-tick']):.2f}x); host ops a tick "
+        f"{n_tick}, a window of {MEGASTEP_N} ticks {n_window} (no host sync in an eager window); "
+        f"capture {info['capture_s']:.3f} s; graph pool {info['pool_bytes']} bytes "
+        f"({info['pool_bytes'] / 2**20:.1f} MiB); one window's launches {info['launches']}",
+        flush=True)
+    if n_window > MEGASTEP_MAX_WINDOW_OPS:
+        raise AssertionError(f"[{tag}] {n_window} host ops a window > {MEGASTEP_MAX_WINDOW_OPS}")
+    del tick, mega
+    torch.cuda.empty_cache()
+    return {entry: delta[key] if isinstance(key, str) else delta[key[0]] - delta[key[1]]
+            for entry, key in names.items()}
 
 
 DEEPSEEK_INT_MATMUL_PER_FORWARD = 29  # see deepseek_int_matmul_per_forward
@@ -2240,6 +2384,16 @@ def serve_deepseek(dev):
     phase("4d: deepseek-v3 (phase 4b's params) on --int-chain --kv-int8 [--kv-bits 4] "
           "--decode-kernel, mla_absorb")
     int_counts = serve_int(dev, arch, params, prompts, per_forward=per_forward, mla=True)
+    phase("4m: deepseek-v3 (4b's mla_absorb, bf16 latent pools) on the megastep")
+    mega_counts = serve_megastep(
+        dev, arch, params, prompts, rt=rt, kv_bits=None,
+        per_call={"int_matmul_cuda.launches": (per_forward, per_forward),
+                  "paged_mla_attention_cuda.launches": (n_mla, 0),
+                  "paged_mla_attention_cuda.tc_launches": (n_mla, 0)},
+        names={"int_matmul": "int_matmul_cuda.launches",
+               "int_matmul[tc]": "int_matmul_cuda.tc_launches",
+               "paged_mla_attention": "paged_mla_attention_cuda.launches",
+               "paged_mla_attention[tc]": "paged_mla_attention_cuda.tc_launches"})
     del params
     torch.cuda.empty_cache()
     small = reduced(get_arch("deepseek-v3-671b"))
@@ -2261,7 +2415,8 @@ def serve_deepseek(dev):
           f"launches on the card", flush=True)
     if not ok or ties or marg > 1e-4 or paged_mla_attention_cuda.launches == 0:
         raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
-    return {"deepseek-v3": {**launches, **launches_deploy}, "deepseek-v3 int-chain": int_counts}
+    return {"deepseek-v3": {**launches, **launches_deploy}, "deepseek-v3 int-chain": int_counts,
+            "deepseek-v3 megastep": mega_counts}
 
 
 def build_rwkv6(dev, arch) -> dict:
@@ -2542,7 +2697,22 @@ def serve_rwkv6(dev) -> dict:
           f"ties={ties} identical_requests={same}/{len(outs)}", flush=True)
     if not ok:
         raise AssertionError(f"parity failed: {detail}")
-    del main, ref, params
+    del main, ref
+    torch.cuda.empty_cache()
+    phase("4m: rwkv6-7b (4e's --int-chain) on the megastep")
+    mega_counts = serve_megastep(
+        dev, arch, params, prompts, rt=Runtime(int_chain=True), kv_bits=None,
+        per_call={"int_matmul_cuda.launches": (per_forward, per_forward),
+                  "int_matmul_cuda.prologue_launches": (per_forward - n, per_forward - n),
+                  "int_matmul_cuda.requant_launches": (n, n),
+                  "rwkv6_scan_cuda.launches": (n, n), "rwkv6_scan_cuda.chunked_launches": (0, n)},
+        names={"int_matmul[requant]": "int_matmul_cuda.requant_launches",
+               "int_matmul[prologue]": "int_matmul_cuda.prologue_launches",
+               "int_matmul": ("int_matmul_cuda.launches", "int_matmul_cuda.prologue_launches"),
+               "int_matmul[tc]": "int_matmul_cuda.tc_launches",
+               "rwkv6_scan": ("rwkv6_scan_cuda.launches", "rwkv6_scan_cuda.chunked_launches"),
+               "rwkv6_scan[chunked]": "rwkv6_scan_cuda.chunked_launches"})
+    del params
     torch.cuda.empty_cache()
     small = reduced(arch)
     sp = deploy_params(init_lm(torch.Generator().manual_seed(0), small, device="cpu"), small.quant)
@@ -2572,7 +2742,7 @@ def serve_rwkv6(dev) -> dict:
         "int_matmul[tc]": tc,
         "rwkv6_scan": launches["rwkv6_scan"] - launches["rwkv6_scan[chunked]"],  # step kernel
         "rwkv6_scan[chunked]": launches["rwkv6_scan[chunked]"]},
-        "rwkv6-7b long prompt": long_counts}
+        "rwkv6-7b long prompt": long_counts, "rwkv6-7b megastep": mega_counts}
 
 
 def build_hubert(dev, arch) -> dict:

@@ -42,7 +42,8 @@ _EPS = 1e-12
 
 def a2q_norm_cap(d: torch.Tensor, acc_bits: int, input_bits: int, input_signed: bool) -> torch.Tensor:
     """Eq. 23: ``T = 1_signed(x) + log2(2**(P-1) - 1) + d - N`` (per channel)."""
-    log2_amax = torch.log2(torch.tensor(2.0 ** (acc_bits - 1) - 1.0, dtype=d.dtype, device=d.device))
+    # filled on the device: no host-to-device copy in a forward
+    log2_amax = torch.log2(d.new_full((), 2.0 ** (acc_bits - 1) - 1.0))
     return int(input_signed) + log2_amax + d - input_bits
 
 

@@ -27,7 +27,30 @@ from repro_torch.kernels.paged_mla_attention import (
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
 
 __all__ = ["int_matmul", "a2q_quantize", "flash_attention", "paged_attention",
-           "paged_mla_attention", "rwkv6_scan", "int_matmul_block_k", "symmetrization_offset"]
+           "paged_mla_attention", "rwkv6_scan", "int_matmul_block_k", "symmetrization_offset",
+           "launch_counts", "set_launch_counts"]
+
+# the CUDA wrappers, each counting its launches in ``<wrapper>.*launches``
+_WRAPPERS = {fn.__name__: fn for fn in (int_matmul_cuda, paged_attention_cuda,
+                                        paged_mla_attention_cuda, rwkv6_scan_cuda,
+                                        a2q_quantize_cuda, flash_attention_cuda)}
+
+
+def launch_counts() -> dict:
+    """Every launch counter of the CUDA wrappers, ``{"int_matmul_cuda.launches":
+    n, "int_matmul_cuda.tc_launches": n, ...}``.  A wrapper counts when its
+    Python code runs, so a launch captured into a CUDA graph counts at
+    capture and never at a replay: whoever replays a graph adds the
+    capture's increase itself (``set_launch_counts``)."""
+    return {f"{name}.{k}": v for name, fn in _WRAPPERS.items() for k, v in vars(fn).items()
+            if k.endswith("launches")}
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Set the counters named in ``counts`` (keys as ``launch_counts``)."""
+    for key, n in counts.items():
+        name, attr = key.split(".")
+        setattr(_WRAPPERS[name], attr, n)
 
 
 def _round_up(x: int, m: int) -> int:

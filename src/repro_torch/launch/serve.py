@@ -4,7 +4,8 @@
         --paged --int-chain --kv-int8 [--kv-bits 4] --decode-kernel \\
         --requests 8 --prompt-len 64 --max-new 32 --batch 8 [--reduced] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
-        --paged --int-chain --requests 8 --prompt-len 64 --max-new 32 --batch 8
+        --paged --int-chain --decode-steps 8 [--eos-id N] --requests 8 \\
+        --prompt-len 64 --max-new 32 --batch 8
 
 Port of ``repro.launch.serve`` for the paged engine: ``--deploy-int8`` swaps
 the A2Q params for int8 weights + scales, ``--int-forward`` (implies it)
@@ -12,11 +13,15 @@ runs the deployed linears through the fused W8A8 kernel, ``--int-chain``
 (implies ``--int-forward``) folds their act-quant into the kernel's
 prologue, ``--kv-int8`` keeps the paged KV as int8 codes with per-slot
 scales (``--kv-bits 4``: two codes a byte), ``--decode-kernel`` reads the
-paged KV pools through the paged-attention kernel.  An attention-free model
+paged KV pools through the paged-attention kernel, ``--decode-steps N``
+fuses N decode ticks into one window (the megastep; one CUDA-graph replay
+on the card), ``--eos-id`` ends a request the step it emits that token.  An
+attention-free model
 (rwkv6) keeps a recurrent state per slot instead of KV; its bytes a slot are
 printed beside the KV bytes a token.  ``--device`` defaults to
 ``cuda``.  Throughput is reported split into prefill and decode.  The
-reference's other flags are refused as not ported yet.
+reference's other flags are refused as not ported yet; ``--eos-auto``
+among them, whose probe is the contiguous ``ServeEngine``.
 """
 
 from __future__ import annotations
@@ -33,10 +38,9 @@ from repro_torch.models.lm import Runtime, init_lm
 from repro_torch.serve.engine import PagedServeEngine, deploy_params
 
 NOT_PORTED = (
-    "--prefix-share", "--shared-prefix",
-    "--pin-prompt", "--spec-k", "--spec-draft", "--decode-steps", "--eos-id",
-    "--eos-auto", "--sample", "--temperature", "--top-k", "--parity-check",
-    "--parity-eps", "--trace", "--metrics-json",
+    "--prefix-share", "--shared-prefix", "--pin-prompt", "--spec-k", "--spec-draft",
+    "--sample", "--temperature", "--top-k", "--parity-check", "--parity-eps", "--trace",
+    "--metrics-json",
 )
 
 
@@ -74,6 +78,12 @@ def main(argv=None):
                     help="KV code width with --kv-int8 (4 packs two codes per byte)")
     ap.add_argument("--decode-kernel", action="store_true",
                     help="route paged decode through the paged-attention kernel")
+    ap.add_argument("--decode-steps", type=int, default=1,
+                    help="paged decode ticks fused per window (the megastep, one CUDA-graph "
+                         "replay on the card; 1 = per-tick decode)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="end-of-sequence token id: requests finish the step they emit it "
+                         "instead of decoding to --max-new")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=12)
@@ -86,12 +96,16 @@ def main(argv=None):
     ap.add_argument("--json", default=None, help="write the stats report to this path")
     ap.add_argument("--seed", type=int, default=0)
     given = list(sys.argv[1:] if argv is None else argv)
+    if any(a == "--eos-auto" for a in given):
+        ap.error("--eos-auto is not ported yet: its probe is the contiguous ServeEngine")
     for flag in NOT_PORTED:
         if any(a == flag or a.startswith(flag + "=") for a in given):
             ap.error(f"{flag} is not ported yet")
     args = ap.parse_args(given)
     if not args.paged:
         ap.error("the contiguous ServeEngine is not ported yet; add --paged")
+    if args.decode_steps < 1:
+        ap.error(f"--decode-steps must be >= 1, got {args.decode_steps}")
     if args.kv_bits != 8 and not args.kv_int8:
         ap.error("--kv-bits only affects integer KV blocks; add --kv-int8")
 
@@ -118,7 +132,8 @@ def main(argv=None):
     engine = PagedServeEngine(
         arch, params, batch=args.batch, max_seq=args.max_seq, block_size=args.block_size,
         prefill_chunk=args.prefill_chunk, num_blocks=args.num_blocks, device=args.device,
-        kv_quant=args.kv_int8, kv_bits=args.kv_bits,
+        kv_quant=args.kv_int8, kv_bits=args.kv_bits, eos_id=args.eos_id,
+        decode_steps=args.decode_steps,
         rt=Runtime(decode_kernel=args.decode_kernel, int_forward=args.int_forward,
                    int_chain=args.int_chain),
     )
@@ -127,6 +142,7 @@ def main(argv=None):
               "int_chain": args.int_chain, "kv_int8": args.kv_int8,
               "kv_bits": args.kv_bits if args.kv_int8 else None,
               "decode_kernel": args.decode_kernel, "device": args.device,
+              "decode_steps": args.decode_steps, "eos_id": args.eos_id,
               "paged_engine": _report("paged", engine)}
     cache = engine.cache
     print(f"paged KV: peak {cache.peak_blocks} blocks "

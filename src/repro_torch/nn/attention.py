@@ -8,7 +8,8 @@ MLA down/up projections) as to any other matmul.  Ported from
   sliding window, chunked-local), grouped KV heads and query chunking;
 * the paged cache view: pools ``(NB, bs, KV, Dh)`` indexed through a
   per-sequence block table ``view["bt"] (B, MB)``; ``_paged_write``
-  scatters, ``_paged_gather`` materialises the contiguous view;
+  scatters (a position past the table into the trash block, where the
+  reference drops it), ``_paged_gather`` materialises the contiguous view;
 * the decode-kernel dispatch: with ``decode_kernel=True`` the paged
   ``T == 1`` read goes through ``kernels/ops.paged_attention`` instead of the
   gathered-view ``_sdpa``;
@@ -55,6 +56,7 @@ from repro_torch.nn.norms import apply_norm, init_norm
 __all__ = ["init_attention", "apply_attention"]
 
 _NEG = -1e30
+TRASH_BLOCK = 0  # the pools' reserved block: dead rows write there, nothing reads it as valid
 
 
 def _sdpa(
@@ -137,16 +139,21 @@ def _paged_write(pool: torch.Tensor, val: torch.Tensor, bt: torch.Tensor,
                  abs_pos: torch.Tensor) -> torch.Tensor:
     """Scatter ``val (B, T, ...)`` into ``pool (NB, bs, ...)`` in place: the
     token at absolute position p lands in ``pool[bt[b, p // bs], p % bs]``.
-    A position whose block index falls outside the table is dropped, as the
-    reference's ``take_along_axis`` fill + ``mode="drop"`` scatter drops it.
-    Rows never share live blocks, so writes collide only in the trash block
-    that dead slots point at."""
+    A position whose block index falls outside the table goes to slot 0 of
+    the trash block instead, so every other block ends as the reference's
+    ``take_along_axis`` fill + ``mode="drop"`` scatter leaves it, with no
+    mask read back to the host (the write is one plain ``index_put_``,
+    capturable in a CUDA graph).  Rows never share live blocks, so writes
+    collide only in the trash block, which is never read as valid."""
     bs = pool.shape[1]
     MB = bt.shape[1]
-    bidx = abs_pos.long() // bs
+    pos = abs_pos.long()
+    bidx = pos // bs
     keep = (bidx >= 0) & (bidx < MB)
     blk = torch.gather(bt.long(), 1, bidx.clamp(0, MB - 1))
-    pool[blk[keep], (abs_pos.long() % bs)[keep]] = val.to(pool.dtype)[keep]
+    blk = torch.where(keep, blk, torch.full_like(blk, TRASH_BLOCK))
+    off = torch.where(keep, pos % bs, torch.zeros_like(pos))
+    pool.index_put_((blk, off), val.to(pool.dtype))
     return pool
 
 

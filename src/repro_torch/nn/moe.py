@@ -12,20 +12,28 @@ path; its expert-parallel ``shard_map`` branches are not ported).  No
 3. each expert keeps its first ``capacity = max(int(T * k * cf / E), 1)``
    assignments, packed into one buffer; the rest are dropped (standard
    token-dropping semantics, in the reference's order);
-4. each expert's FFN (SiLU-gated, in the compute dtype) runs on its packed
-   rows — the reference's ``ragged_dot``;
+4. the experts' FFN (SiLU-gated, in the compute dtype) runs in a static
+   form, the same in prefill and decode, with no value read back to the
+   host: ``S = min(E, T * k)`` expert slots, each slot's expert id chosen
+   on the device (the routed ids in ascending order, then unrouted ids,
+   whose rows are empty), each slot ``capacity`` rows of the packed buffer
+   gathered from its expert's offset with the rows past the kept count
+   masked out, and one batched product per weight over the slots — the
+   reference's ``ragged_dot`` on the same rows;
 5. gate-weighted outputs are summed back per token, over its k slots in a
    fixed order (no atomics, so a run on the card repeats itself).
 
 Expert weights are ``(E, d_in, d_out)`` with per-(expert, channel) A2Q
 ``t``/``d``, so each expert output channel is its own accumulator (float
-``mode="none"`` experts too; baseline-QAT experts are not ported yet).  The
-quantized (or deployed ``q8 * s8``) view of an expert weight is built one
-expert at a time, never for all experts at once: at deepseek-v3's width one
-expert leaf is 3.8 G values.  The routed experts have no fused integer path
-(as in the reference): under ``int_forward`` they run on the dequantized
-view and are booked as a ``fallback`` in the chain report, while the shared
-experts are plain linears and take the fused W8A8 kernel.
+``mode="none"`` experts too; baseline-QAT experts are not ported yet).  Each
+slot's quantized (or deployed ``q8 * s8``) weight view is built on the
+device from its expert id (``index_select`` on the stacked leaves), a few
+slots at a time (``SLOT_CHUNK_ELEMS``), never for all experts at once: at
+deepseek-v3's width one expert leaf is 3.8 G values.  The routed experts
+have no fused integer path (as in the reference): under ``int_forward`` they
+run on the dequantized view and are booked as a ``fallback`` in the chain
+report, while the shared experts are plain linears and take the fused W8A8
+kernel.
 """
 
 from __future__ import annotations
@@ -65,23 +73,27 @@ def _init_expert_weight(gen, e: int, d_in: int, d_out: int, q: QuantConfig) -> d
     return {"v": v, "t": t, "d": d}
 
 
-def _expert_weight_view(p: dict, q: QuantConfig, e: int, dtype) -> torch.Tensor:
-    """Quantized (fake-quant) view ``(d_in, d_out)`` of expert ``e`` of an
-    ``(E, d_in, d_out)`` expert weight in ``dtype`` — the reference's fp32
-    whole-leaf view, sliced at ``e`` and cast."""
+def _expert_weight_view(p: dict, q: QuantConfig, ids: torch.Tensor, dtype) -> torch.Tensor:
+    """Quantized (fake-quant) views ``(s, d_in, d_out)`` of the experts
+    ``ids (s,)`` (a device tensor) of an ``(E, d_in, d_out)`` expert weight in
+    ``dtype`` — the reference's fp32 whole-leaf view, gathered at ``ids`` and
+    cast."""
     if "q8" in p:  # deployed int8 storage
         # one kernel: q8 * s8 in fp32, rounded once into `dtype`, the same
         # values as (q8.float() * s8).to(dtype) without the fp32 round trip
         # through device memory
-        q8 = p["q8"][e]
-        return torch.mul(q8, p["s8"][e][None, :],
+        q8 = p["q8"].index_select(0, ids)
+        s8 = p["s8"].index_select(0, ids)
+        return torch.mul(q8, s8[:, None, :],
                          out=torch.empty(q8.shape, dtype=dtype, device=q8.device))
     if q.mode == "none":
-        return p["w"][e].to(dtype)
+        return p["w"].index_select(0, ids).to(dtype)
     if q.mode == "qat":
         raise NotImplementedError("QAT expert weights are not ported yet")
-    return apply_a2q({"v": p["v"][e], "t": p["t"][e], "d": p["d"][e]}, q.weight_bits,
-                     q.acc_bits, q.act_bits, True).to(dtype)
+    # A2Q's norms are per (expert, channel): one expert at a time
+    v, t, d = (p[k].index_select(0, ids) for k in ("v", "t", "d"))
+    return torch.stack([apply_a2q({"v": v[i], "t": t[i], "d": d[i]}, q.weight_bits, q.acc_bits,
+                                  q.act_bits, True) for i in range(ids.shape[0])]).to(dtype)
 
 
 def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig, q: QuantConfig) -> dict:
@@ -101,24 +113,46 @@ def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig, q: QuantConfig)
     return p
 
 
-def _local_expert_ffn(x_buf: torch.Tensor, params: dict, group_sizes: list, q: QuantConfig,
-                      compute_dtype) -> torch.Tensor:
+SLOT_CHUNK_ELEMS = 1 << 28  # weight elements a batch of expert slots dequantizes at once
+
+
+def _local_expert_ffn(x_buf: torch.Tensor, params: dict, group_sizes: torch.Tensor,
+                      q: QuantConfig, compute_dtype, n_slots: int) -> torch.Tensor:
     """Packed ragged FFN: rows ``[off_e, off_e + group_sizes[e])`` of
-    ``x_buf (L, d)`` go through expert ``e``; rows past the last group give
-    zeros, as ``ragged_dot`` leaves them."""
+    ``x_buf (L, d)`` go through expert ``e`` (``group_sizes (E,)`` on the
+    device, each at most ``capacity = L // E``); rows past the last group
+    give zeros, as ``ragged_dot`` leaves them.
+
+    Static shapes only: ``n_slots`` slots, each an expert id chosen on the
+    device (the ids with rows first, ascending, then ids without), each
+    ``capacity`` rows gathered from its expert's offset with the rows past
+    its count masked to zero, one batched product per weight; the slots'
+    rows are scattered back to the packed order (a masked row into a spare
+    row past ``L``)."""
     cd = compute_dtype
-    y = torch.zeros(x_buf.shape, dtype=cd, device=x_buf.device)  # w_out maps back to d
-    off = 0
-    for e, n in enumerate(group_sizes):
-        if n == 0:
-            continue
-        xe = x_buf[off:off + n].to(cd)
-        h_in = xe @ _expert_weight_view(params["w_in"], q, e, cd)
-        h_gate = xe @ _expert_weight_view(params["w_gate"], q, e, cd)
+    L, d = x_buf.shape
+    E = group_sizes.shape[0]
+    C = L // E
+    dev = x_buf.device
+    offsets = torch.cumsum(group_sizes, 0) - group_sizes
+    ar = torch.arange(E, device=dev)
+    ids = torch.argsort(torch.where(group_sizes > 0, ar, ar + E))[:n_slots]  # (S,)
+    rows = torch.arange(C, device=dev)[None, :]
+    valid = rows < group_sizes[ids][:, None]  # (S, C)
+    src = offsets[ids][:, None] + rows  # within [0, L): offsets[e] + C <= (e + 1) C
+    xs = torch.where(valid[..., None], x_buf[src].to(cd), torch.zeros((), dtype=cd, device=dev))
+    leaf = next(iter(params["w_in"].values()))  # q8, w or v: (E, d, d_ff)
+    step = max(1, SLOT_CHUNK_ELEMS // (leaf.shape[-2] * leaf.shape[-1]))
+    ys = []
+    for lo in range(0, ids.shape[0], step):
+        sl, xc = ids[lo:lo + step], xs[lo:lo + step]
+        h_in = torch.bmm(xc, _expert_weight_view(params["w_in"], q, sl, cd))
+        h_gate = torch.bmm(xc, _expert_weight_view(params["w_gate"], q, sl, cd))
         h = F.silu(h_gate.to(torch.float32)).to(cd) * h_in
-        y[off:off + n] = h @ _expert_weight_view(params["w_out"], q, e, cd)
-        off += n
-    return y
+        ys.append(torch.bmm(h, _expert_weight_view(params["w_out"], q, sl, cd)))
+    y = torch.zeros((L + 1, d), dtype=cd, device=dev)  # w_out maps back to d
+    y[torch.where(valid, src, L)] = torch.cat(ys)
+    return y[:L]
 
 
 def _dispatch_compute_combine(x2d: torch.Tensor, probs: torch.Tensor, params: dict,
@@ -134,24 +168,24 @@ def _dispatch_compute_combine(x2d: torch.Tensor, probs: torch.Tensor, params: di
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     flat_e = top_e.reshape(-1)
     flat_p = top_p.reshape(-1)
-    flat_tok = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_tok = torch.arange(T * k, device=dev) // k
 
     order = torch.argsort(flat_e, stable=True)  # by expert, token order within
     se, st, sp = flat_e[order], flat_tok[order], flat_p[order]
 
-    counts = torch.bincount(se, minlength=E)[:E]
+    # each expert's segment of the sorted ids (no bincount: its CUDA form
+    # reads the largest id back to the host)
+    seg_start = torch.searchsorted(se, torch.arange(E + 1, device=dev))
+    counts = seg_start[1:] - seg_start[:-1]
     capped = torch.clamp_max(counts, capacity)
-    zero = torch.zeros((1,), dtype=counts.dtype, device=dev)
-    offsets = torch.cat([zero, torch.cumsum(capped, 0)[:-1]])
-    seg_start = torch.cat([zero, torch.cumsum(counts, 0)])
+    offsets = torch.cumsum(capped, 0) - capped
     pos_in_group = torch.arange(se.shape[0], device=dev) - seg_start[se]
     keep = pos_in_group < capacity
     dest = torch.where(keep, offsets[se] + pos_in_group, torch.full_like(se, L))
 
     x_buf = torch.zeros((L + 1, d), dtype=x2d.dtype, device=dev)
     x_buf[dest] = x2d[st]  # dropped rows all land in row L, which is cut off
-    # the group sizes drive a per-expert loop on the host: one sync per layer
-    y_buf = _local_expert_ffn(x_buf[:L], params, capped.tolist(), q, compute_dtype)
+    y_buf = _local_expert_ffn(x_buf[:L], params, capped, q, compute_dtype, min(E, T * k))
     y_buf = torch.cat([y_buf, torch.zeros((1, d), dtype=y_buf.dtype, device=dev)])
     contrib = y_buf[dest] * sp[:, None].to(y_buf.dtype)  # dropped rows read zeros
     contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))

@@ -18,12 +18,22 @@ fused W8A8 kernel and the paged-attention kernel (for MLA models with
 prologue.  ``kv_quant=True`` keeps the KV pools as int8 codes, or with
 ``kv_bits=4`` packed int4, beside fp32 scale pools.
 
+``decode_steps=N > 1`` fuses N decode ticks into one window (the
+reference's megastep, ``_megastep_fn``): position advance and the EOS /
+``max_new`` finish mask run on the device, finished rows coast in the trash
+block, and the host uploads one block of inputs and reads back ``(B, N)``
+tokens, margins and emitted flags once a window.  On the CPU the window
+runs eagerly; on a CUDA device it is captured once per engine into a
+``torch.cuda.CUDAGraph`` and every window is one replay (``_capture``).
+
 The engine keeps the reference's ``stats`` = {prefill_tokens, decode_tokens,
 prefill_s, decode_s, decode_dispatches} and ``throughput()`` contract (first
-generated token booked under prefill).  Not ported yet: the contiguous
-``ServeEngine``, the decode megastep (``decode_steps > 1``), lockstep
-admission, prefix sharing, disaggregated handoff, non-greedy sampling and
-the observability bundle.
+generated token booked under prefill; one decode dispatch a tick or a
+window), plus ``graph_replays``.  Not ported yet: the contiguous
+``ServeEngine`` (and with it ``--eos-auto``'s probe), lockstep admission,
+prefix sharing (and the megastep's copy-on-write preflight), the
+speculative engine, disaggregated handoff, non-greedy sampling and the
+observability bundle.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, QuantConfig
+from repro_torch.kernels.ops import launch_counts, set_launch_counts
 from repro_torch.models.lm import Runtime, apply_lm
 from repro_torch.nn.linear import deploy_linear
 from repro_torch.nn.transformer import COMPUTE_DTYPES
@@ -127,7 +138,7 @@ def _normalize_prompt(prompt, bos_id: int) -> np.ndarray:
 def _fresh_stats() -> dict:
     return {
         "prefill_tokens": 0, "decode_tokens": 0, "prefill_s": 0.0, "decode_s": 0.0,
-        "decode_dispatches": 0,
+        "decode_dispatches": 0, "graph_replays": 0,
     }
 
 
@@ -146,7 +157,13 @@ class PagedServeEngine:
     (default: every slot at ``max_seq``); admission stalls, never crashes,
     when blocks run out.  ``kv_quant`` stores the KV pools as integer codes
     (``kv_bits`` 8, or 4 packed two a byte) with per-slot fp32 scales.  The KV
-    pools are updated in place."""
+    pools are updated in place.
+
+    ``decode_steps > 1`` advances the live slots ``decode_steps`` ticks a
+    round in one fused window (``megastep``); 1 keeps the per-tick path.  On
+    a CUDA device the window is a CUDA graph captured at the first
+    ``step()``; ``graph_info`` then holds the capture's seconds, the graph
+    pool's bytes and the kernel launches one window replays."""
 
     def __init__(
         self,
@@ -167,8 +184,9 @@ class PagedServeEngine:
         kv_bits: int = 8,
         device="cuda",
     ):
-        if decode_steps != 1:
-            raise NotImplementedError("the decode megastep (decode_steps > 1) is not ported yet")
+        if decode_steps < 1:
+            raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
+        self.decode_steps = int(decode_steps)
         self.device = resolve_device(device)
         _check_device(params, self.device)
         self.arch = arch
@@ -189,6 +207,8 @@ class PagedServeEngine:
         self.sched = Scheduler(batch, prefill_chunk=prefill_chunk)
         self.stats = _fresh_stats()
         self.last_requests: list = []
+        self._graph: Optional[dict] = None  # the captured window (CUDA, decode_steps > 1)
+        self.graph_info: dict = {}
 
     # -- stats contract -------------------------------------------------------
 
@@ -234,6 +254,146 @@ class PagedServeEngine:
 
     def _decode_fn(self, tokens: torch.Tensor, bt: torch.Tensor, pos: torch.Tensor):
         return self._forward(tokens, self.cache.pools, bt, pos, 0)
+
+    def _megastep_fn(self, tok0, bt, lens, active, rem, eos):
+        """``decode_steps`` decode ticks fused into one window (the
+        reference's ``lax.scan``; here a Python loop, captured whole into one
+        CUDA graph on the card).  All bookkeeping the per-tick path does on
+        the host runs on the device instead:
+
+        * position advance — each row's ``pos`` advances while it is active,
+          and its sampled token feeds the next tick's forward without a host
+          round-trip;
+        * finish masking — a row goes inactive the tick it emits its ``eos``
+          id (``-1`` = no EOS for that row) or exhausts ``rem`` (remaining
+          ``max_new`` budget), exactly mirroring ``Scheduler.record_token``.
+          Inactive rows coast: their block table is swapped for the all-trash
+          table (``where(act, bt, 0)``), so their KV writes land in the trash
+          block and their real cache is never touched, and they ride as the
+          per-tick path's dead rows do, token 0 at position 0 — the MoE router
+          sees every row, so a coasting row fed anything else could take a
+          live row's expert capacity and the window would drift from the
+          per-tick path.  Per-slot recurrent leaves keep advancing for
+          coasting rows, harmless because ``reset_slot`` zeroes them on the
+          slot's next admission.
+
+        Returns ``(B, N)`` token ids (int32), greedy margins (fp32) and
+        emitted flags: ``emitted[i, j]`` is True iff row i was active entering
+        tick j; the host replays exactly those flags through
+        ``record_token``, so greedy output is token-identical to the per-tick
+        path."""
+        tok, pos, act, remaining = tok0, lens, active, rem
+        toks, margs, emitted = [], [], []
+        for _ in range(self.decode_steps):
+            zero = torch.zeros_like(tok)
+            bte = torch.where(act[:, None], bt, torch.zeros_like(bt))
+            cache = {**self.cache.pools, "_paged": {"bt": bte}}
+            logits, _ = apply_lm(self.params, self.arch,
+                                 tokens=torch.where(act, tok, zero)[:, None], cache=cache,
+                                 start_pos=torch.where(act, pos, zero), rt=self.rt)
+            row = logits[:, 0]
+            nxt = sample_tokens(row, self.sample_cfg)
+            toks.append(nxt)
+            margs.append(_greedy_margin(row))
+            emitted.append(act)
+            adv = act.to(torch.int32)
+            pos = pos + adv
+            remaining = remaining - adv
+            act = act & (nxt != eos) & (remaining > 0)
+            tok = nxt
+        return torch.stack(toks, 1), torch.stack(margs, 1), torch.stack(emitted, 1)
+
+    def _window(self, inp: torch.Tensor) -> torch.Tensor:
+        """One megastep window on the packed inputs ``inp (B, 5 + MB)`` int32
+        (columns: last token, length, active, remaining budget, eos id, then
+        the block table), returning the packed ``(3, B, N)`` int32 outputs:
+        token ids, the margins' fp32 bits, emitted flags."""
+        toks, margs, emitted = self._megastep_fn(
+            inp[:, 0], inp[:, 5:], inp[:, 1], inp[:, 2] != 0, inp[:, 3], inp[:, 4])
+        return torch.stack([toks, margs.view(torch.int32), emitted.to(torch.int32)])
+
+    def _capture(self) -> None:
+        """Capture the megastep window into a CUDA graph, once per engine, at
+        the first ``step()``: before any admission, so every row is
+        inactive, every KV write lands in the trash block and the recurrent
+        rows that move belong to empty slots (zeroed at admission).  One
+        eager warm-up window first, on the capture's stream, fills what is
+        filled at first use (kernel builds, the kept u8 column sums, library
+        handles and workspaces); then the window is captured on the same
+        static input buffer.  The pools, the recurrent leaves and the params
+        are the tensors the graph reads and writes: every write to them is in
+        place, so their addresses hold across the prefills between windows.
+        The kernel wrappers count their launches at capture: those counts are
+        taken back (the capture ran nothing) and each replay adds them.  A
+        failed capture raises; there is no eager fallback on the card."""
+        dev = self.device
+        B, MB, N = self.batch, self.cache.max_blocks_per_seq, self.decode_steps
+        stage = torch.zeros((B, 5 + MB), dtype=torch.int32).pin_memory()
+        host_out = torch.empty((3, B, N), dtype=torch.int32).pin_memory()
+        inp = torch.zeros((B, 5 + MB), dtype=torch.int32, device=dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._window(inp)  # warm-up: every row inactive
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # so the reserved bytes below grow by the graph's pool alone
+        reserved = torch.cuda.memory_stats(dev).get("reserved_bytes.all.current", 0)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=stream):
+            out = self._window(inp)
+        torch.cuda.synchronize(dev)
+        capture_s = time.perf_counter() - t0
+        after = launch_counts()
+        set_launch_counts(before)
+        self._graph = {"graph": graph, "inp": inp, "out": out, "stage": stage,
+                       "host_out": host_out,
+                       "launches": {k: v - before[k] for k, v in after.items() if v != before[k]}}
+        self.graph_info = {
+            "capture_s": capture_s,
+            "pool_bytes": torch.cuda.memory_stats(dev).get("reserved_bytes.all.current", 0)
+            - reserved,
+            "launches": dict(self._graph["launches"]),
+        }
+
+    def _window_inputs(self, live: list) -> np.ndarray:
+        """The packed window inputs (``_window``) of the ``live`` slots: last
+        token, length, active, remaining ``max_new`` budget and EOS id (-1:
+        none; token ids are >= 0) per row, then the block tables; every other
+        row inactive."""
+        inp = np.zeros((self.batch, 5 + self.cache.max_blocks_per_seq), np.int32)
+        inp[:, 4] = -1
+        for i in live:
+            req = self.sched.slots[i]
+            inp[i, :4] = (req.last_token, self.cache.lens[i], 1, req.max_new - len(req.generated))
+            if req.eos_id is not None:
+                inp[i, 4] = req.eos_id
+        inp[:, 5:] = self.cache.tables
+        return inp
+
+    def _run_window(self, inp: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The window on the host's packed inputs: eager on the CPU; on a CUDA
+        device one upload through the pinned staging tensor, one replay of
+        the captured graph, one read-back.  Returns ``(B, N)`` token ids,
+        margins and emitted flags as numpy."""
+        if self.device.type != "cuda":
+            out = self._window(torch.from_numpy(inp)).numpy()
+        else:
+            if self._graph is None:
+                raise RuntimeError("the megastep's CUDA graph is captured at the first step(), "
+                                   "before any slot is live")
+            g = self._graph
+            g["stage"].numpy()[...] = inp
+            g["inp"].copy_(g["stage"], non_blocking=True)
+            g["graph"].replay()
+            g["host_out"].copy_(g["out"], non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            set_launch_counts({k: v + g["launches"][k] for k, v in launch_counts().items()
+                               if k in g["launches"]})
+            self.stats["graph_replays"] += 1
+            out = g["host_out"].numpy()
+        return out[0], out[1].view(np.float32), out[2] != 0
 
     # -- request lifecycle ----------------------------------------------------
 
@@ -308,12 +468,62 @@ class PagedServeEngine:
                 self.cache.release(i)
         return len(live)
 
+    def megastep(self) -> int:
+        """Up to ``decode_steps`` decode ticks for every live slot in ONE
+        window (``_megastep_fn``; one CUDA-graph replay on the card); returns
+        the number of live slots advanced.  The per-tick host work is hoisted
+        to window entry: **one upload** of tokens, lengths, masks, budgets,
+        EOS ids and block tables, **one read-back** of ``(B, N)`` token ids,
+        margins and emitted flags.  Every write a window makes stays inside
+        each slot's admission-time allocation: ``rem`` caps it at
+        ``max_new``, and the final emitted token is never consumed.
+
+        The host then replays the emitted flags through
+        ``Scheduler.record_token`` in tick order; because the device finish
+        mask mirrors ``record_token`` exactly (EOS emit or ``max_new``
+        reached), a finished row's later flags are False and the replay
+        releases each slot at the same tick the per-tick path would have."""
+        live = self.sched.live
+        if not live:
+            return 0
+        N = self.decode_steps
+        inp = self._window_inputs(live)
+        t0 = time.perf_counter()
+        out, marg, em = self._run_window(inp)
+        dt = time.perf_counter() - t0
+        total = 0
+        for j in range(N):
+            for i in live:
+                if not em[i, j]:
+                    continue
+                total += 1
+                self.cache.lens[i] += 1
+                self.sched.slots[i].margins.append(float(marg[i, j]))
+                if self.sched.record_token(i, int(out[i, j])):
+                    self.cache.release(i)
+        self.stats["decode_s"] += dt
+        self.stats["decode_tokens"] += total
+        self.stats["decode_dispatches"] += 1
+        return len(live)
+
+    def _advance(self) -> int:
+        """One decode round.  ``decode_steps > 1`` routes to the fused
+        megastep; 1 keeps the per-tick path (and its per-token parity
+        role)."""
+        if self.decode_steps > 1:
+            return self.megastep()
+        return self.tick()
+
     def step(self) -> int:
-        """Admit what fits, then advance one decode tick."""
+        """Admit what fits, then advance one decode round.  With
+        ``decode_steps > 1`` on a CUDA device the first step captures the
+        window's graph before it admits anything (``_capture``)."""
+        if self.decode_steps > 1 and self.device.type == "cuda" and self._graph is None:
+            self._capture()
         admitted = self.sched.admissions(self._admission_gate())
         for slot, req in admitted:
             self._admit(slot, req)
-        n = self.tick()
+        n = self._advance()
         if n == 0 and not admitted and self.sched.queue:
             raise RuntimeError("scheduler stalled: queued work but nothing admittable")
         return n

@@ -47,11 +47,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, AttnConfig, StackConfig
+from repro_torch.nn.attention import TRASH_BLOCK
 
 __all__ = ["PagedKVCache", "init_paged_attn_cache", "init_paged_stack_cache", "POOL_KEYS",
            "TRASH_BLOCK"]
 
-TRASH_BLOCK = 0
 # leaves indexed by block (shared by all slots); every other leaf is per slot
 POOL_KEYS = frozenset({"kp", "vp", "ckvp", "kpep", "kps", "vps", "ckvs", "kpes"})
 

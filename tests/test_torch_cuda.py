@@ -922,3 +922,85 @@ def test_paged_mla_attention_cuda_4k_context_graph_replay_and_no_sync(dev, pool)
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+# -- the decode megastep on a CUDA graph ---------------------------------------
+
+MEGASTEP_CASES = {  # reduced archs on the card's phase 4m paths
+    "smollm-135m": dict(kv_quant=True, rt=dict(int_chain=True, decode_kernel=True)),
+    "deepseek-v3-671b": dict(rt=dict(int_forward=True, decode_kernel=True, mla_absorb=True)),
+    "rwkv6-7b": dict(rt=dict(int_chain=True)),
+}
+
+
+def _megastep_engine(dev, name, **kw):
+    from repro_torch.configs import reduced
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.nn.module import tree_to
+    from repro_torch.serve.engine import PagedServeEngine, deploy_params
+
+    arch = reduced(get_arch(name))
+    params = deploy_params(init_lm(torch.Generator().manual_seed(0), arch, device="cpu"),
+                           arch.quant)
+    case = dict(MEGASTEP_CASES[name])
+    rt = Runtime(**case.pop("rt"))
+    return arch, PagedServeEngine(arch, tree_to(params, dev), device=dev, rt=rt, batch=2,
+                                  max_seq=64, block_size=4, prefill_chunk=4, **case, **kw)
+
+
+def _megastep_prompts(vocab):
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, vocab, (n,)).astype(np.int32) for n in (5, 7, 4)]
+
+
+@pytest.mark.parametrize("name", list(MEGASTEP_CASES))
+def test_megastep_graph_replay_matches_eager_window_and_per_tick(dev, name):
+    """Every window a replay of the graph captured at the first step: tokens
+    and margins equal, bit for bit, an engine running the same windows
+    eagerly on the card and the per-tick engine; every kernel of the window
+    counted once a replay."""
+    arch, mega = _megastep_engine(dev, name, decode_steps=4)
+    prompts = _megastep_prompts(arch.vocab)
+    got = mega.generate(prompts, max_new=6)
+    assert mega.stats["graph_replays"] == mega.stats["decode_dispatches"] >= 2
+    assert mega.graph_info["capture_s"] > 0 and mega.graph_info["launches"]
+    _, eager = _megastep_engine(dev, name, decode_steps=4)
+
+    def eager_window(inp):
+        out = eager._window(torch.from_numpy(inp).to(dev)).cpu().numpy()
+        return out[0], out[1].view(np.float32), out[2] != 0
+
+    eager._capture = lambda: None
+    eager._run_window = eager_window
+    _, tick = _megastep_engine(dev, name)
+    for other in (eager, tick):
+        assert other.generate(prompts, max_new=6) == got
+        assert [r.margins for r in other.last_requests] == \
+            [r.margins for r in mega.last_requests]
+    before = ops.launch_counts()
+    mega._run_window(mega._window_inputs([]))  # one replay, every row inactive
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == \
+        mega.graph_info["launches"]
+
+
+@pytest.mark.parametrize("name", list(MEGASTEP_CASES))
+def test_megastep_eager_window_makes_no_host_sync(dev, name):
+    """One window of the decode forward run eagerly on live slots under
+    ``set_sync_debug_mode("error")``: no op reads a device value back or
+    copies from pageable host memory (what a CUDA graph cannot capture)."""
+    arch, engine = _megastep_engine(dev, name, decode_steps=4)
+    from repro_torch.serve.engine import Request
+
+    for i, p in enumerate(_megastep_prompts(arch.vocab)[:2]):
+        engine.submit(Request(uid=i, prompt=p, max_new=9))
+    engine.step()  # captures, admits and prefills both, one window
+    inp = torch.from_numpy(engine._window_inputs(engine.sched.live)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = engine._window(inp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out.shape == (3, 2, 4) and bool((out[2] != 0).all())

@@ -98,8 +98,12 @@ def _pools(rng, count, NB, bs, KV, Dh):
 def test_paged_attention_layer_matches(T):
     """One GQA layer over paged pools (prefill chunk T=5, decode T=1 through
     the decode kernel's plain version), including a write whose position
-    falls past the block table (dropped, not raised): output rtol 1e-5 and
-    the written pools exact."""
+    falls past the block table (not raised; into the trash block 0, where
+    the reference drops it): output rtol 1e-5 and the written pools exact
+    outside the trash block.  At T=5 row 2's table maps its positions 4-7
+    to the trash block, which those writes fill (a live row's table never
+    maps a position below its length there), so its output is not held to
+    the reference's."""
     a = jreduced(jget_arch("yi-6b")).stacks[0].attn  # H=4 over KV=1
     cfg = JQuantConfig(**A2Q)
     jp = unbox(jinit_attention(jax.random.PRNGKey(5), 64, a, cfg))
@@ -119,9 +123,11 @@ def test_paged_attention_layer_matches(T):
                               QuantConfig(**A2Q), torch.from_numpy(pos), tc,
                               compute_dtype=torch.float32, view={"bt": torch.from_numpy(bt)},
                               decode_kernel=True)
-    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5, atol=1e-5)
+    rows = slice(None) if T == 1 else slice(0, 2)
+    np.testing.assert_allclose(to.numpy()[rows], np.asarray(jo)[rows], rtol=1e-5, atol=1e-5)
     for k in ("kp", "vp"):
-        np.testing.assert_allclose(tc2[k].numpy(), np.asarray(jc[k]), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(tc2[k].numpy()[1:], np.asarray(jc[k])[1:], rtol=1e-5,
+                                   atol=1e-6)
 
 
 @functools.cache

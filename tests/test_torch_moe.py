@@ -6,7 +6,9 @@ deployed to int8, and unquantized, on the same numpy activations.  Besides the o
 tests compare what each side packs for its experts — the group sizes and the
 packed rows, captured at each side's ``_local_expert_ffn`` — so both keep
 and drop the same (token, expert) pairs.  A tight capacity factor makes
-drops the normal case, as they are at decode at full width (capacity 1).
+drops the normal case, as they are at decode at full width (capacity 1); the
+decode shape (3 tokens, top-2 of 8 experts) gives the static expert-slot
+form fewer slots than experts.
 
 Tolerance 1e-5: the same fp32 arithmetic summed in another order; the
 packed rows are activation codes times one scale and agree to the ``exp2``
@@ -75,8 +77,9 @@ def _spy(monkeypatch, module, sink):
 
 
 @pytest.mark.parametrize("kind", ["float", "deployed", "none"])
-@pytest.mark.parametrize("cf", [2.0, 0.5], ids=["cf2", "cf0.5"])
-def test_apply_moe_matches_jax_with_same_drops(moe_params, monkeypatch, kind, cf):
+@pytest.mark.parametrize("cf,shape", [(2.0, (2, 6)), (0.5, (2, 6)), (2.0, (3, 1)), (0.5, (3, 1))],
+                         ids=["cf2", "cf0.5", "cf2-decode", "cf0.5-decode"])
+def test_apply_moe_matches_jax_with_same_drops(moe_params, monkeypatch, kind, cf, shape):
     jarch, arch = jreduced(jget_arch(NAME)), reduced(get_arch(NAME))
     if kind == "none":
         jarch = dataclasses.replace(jarch, quant=dataclasses.replace(jarch.quant, mode="none"))
@@ -84,7 +87,9 @@ def test_apply_moe_matches_jax_with_same_drops(moe_params, monkeypatch, kind, cf
     jcfg = dataclasses.replace(jarch.stacks[1].moe, capacity_factor=cf)
     cfg = dataclasses.replace(arch.stacks[1].moe, capacity_factor=cf)
     params = moe_params[kind]
-    x = np.random.default_rng(17).normal(size=(2, 6, arch.d_model)).astype(np.float32)
+    x = np.random.default_rng(17).normal(size=(*shape, arch.d_model)).astype(np.float32)
+    if shape[1] == 1:  # a repeated token routes as its twin: capacity 1 drops one of them
+        x[2] = x[0]
     jseen, seen = [], []
     _spy(monkeypatch, jmoe, jseen)
     _spy(monkeypatch, moe, seen)

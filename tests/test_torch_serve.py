@@ -106,8 +106,27 @@ def test_launcher_runs_and_refuses_unported_flags(capsys):
     outs = launch_serve.main(base)
     assert [len(o) for o in outs] == [3, 3]
     assert "decode:" in capsys.readouterr().out
-    for extra in (["--prefix-share"], ["--decode-steps", "4"], ["--spec-k=2"]):
+    for extra in (["--prefix-share"], ["--eos-auto"], ["--spec-k=2"], ["--decode-steps", "0"]):
         with pytest.raises(SystemExit):
             launch_serve.main(base + extra)
     with pytest.raises(SystemExit):
         launch_serve.main([a for a in base if a != "--paged"])
+
+
+def test_launcher_megastep_with_eos_id(capsys):
+    """``--decode-steps 4 --eos-id N``: the megastep windows give the per-tick
+    launcher's tokens, each request cut at its first N (EOS included), in
+    fewer decode dispatches than tokens."""
+    base = ["--arch", "yi-6b", "--reduced", "--paged", "--int-chain", "--decode-kernel",
+            "--device", "cpu", "--requests", "3", "--prompt-len", "5", "--max-new", "6",
+            "--batch", "2", "--max-seq", "16", "--block-size", "4", "--prefill-chunk", "4"]
+    full = launch_serve.main(base)
+    eos = full[1][2]
+    want = [o[: o.index(eos) + 1] if eos in o else o for o in full]
+    assert len(want[1]) < 6  # request 1 ends early
+    capsys.readouterr()
+    outs = launch_serve.main(base + ["--decode-steps", "4", "--eos-id", str(eos)])
+    assert outs == want
+    out = capsys.readouterr().out
+    dispatches = int(out.split(" dispatches = ")[0].rsplit("(", 1)[1].split(", ")[-1])
+    assert 0 < dispatches < sum(len(o) - 1 for o in outs)
