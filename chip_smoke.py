@@ -2,7 +2,8 @@
 PERF.md): builds the kernels, holds each against its plain PyTorch version at
 the main paths' shapes, serves full-width smollm-135m, full-width deepseek-v3
 (depth cut) and full-size rwkv6-7b through the paged engine on the kernels,
-encodes full-size hubert-xlarge, and checks the results.  Every model is
+encodes full-size hubert-xlarge, trains full-size smollm-135m with A2Q and
+serves the trained model, and checks the results.  Every model is
 deployed on the card through the ``a2q_quantize`` kernel, and every deployed
 matrix's codes are held to the plain quantizer's on the card.
 
@@ -177,6 +178,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    equal where none differs, else within two bf16 ulps; the dequant path
    (logits within two bf16 ulps of the largest, framewise argmax
    agreement), reduced hubert on the card against the CPU to 1e-4;
+4t. train full-size smollm-135m (30 layers, d_model 576, vocab 49152; bf16
+   compute, fp32 params, ``remat="block"``, A2Q M=8 N=8 P=16) from seed 0
+   with ``adamw`` and ``cosine_with_warmup`` on ``TokenStream(vocab=49152,
+   seq_len=512, global_batch=8, seed=0)`` for ``TRAIN_STEPS`` steps through
+   ``build_train_step`` and the ``Trainer`` (a checkpoint at the midpoint):
+   median step ms, train tok/s, peak memory, first-10 and last-10 mean
+   loss / ce / penalty, the largest grad norm; every loss finite and the
+   last-10 mean at least 0.5 nat below the first-10; 0 kernel launches while
+   training (the cacheless attention differentiates ``_sdpa``, the linears
+   their fake-quant); the mid-run checkpoint restored into a fresh
+   ``Trainer`` and run to the end, its first loss bit for bit and every loss
+   within ``RESUME_TOL`` of the uninterrupted run's; the trained params
+   deployed through ``a2q_quantize`` (every matrix held to the plain
+   quantizer: 0 code flips), every column's ``Σ|q|`` within the P=16 l1
+   budget, the largest column's share of it and the share of zero codes,
+   untrained against trained; 8 prompts of 64 tokens from the same stream
+   (step 10000) served for 32 new tokens through ``PagedServeEngine`` with
+   ``Runtime(int_forward=True, decode_kernel=True)`` on bf16 KV, held with
+   ``parity_up_to_ties`` against the dequant path; the share of served
+   tokens that follow the stream's bigram ``(31 * prev + 17) mod 49152`` and
+   the largest |logit|;
 6. print the ``kernels`` line (every kernel and its int-chain variants:
    ``int_matmul[prologue]``, ``int_matmul[requant]``,
    ``int_matmul[gelu requant]``, ``paged_attention[int8|int4]``,
@@ -2979,6 +3001,207 @@ def encode_hubert(dev) -> dict:
         "flash_attention[tc]": launches["flash_attention[tc]"]}}
 
 
+TRAIN_STEPS = 100  # with the resumed half, about 1.5 minutes at full size
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 512, 3e-3
+# the resumed run's losses against the uninterrupted run's: the first step
+# bit for bit (same state, same batch, a deterministic forward), the rest
+# within RESUME_TOL nat — the embedding's and the CE gather's backward add
+# with atomics on the card, so each step's gradient differs in its last bits
+# and Adam carries that on
+RESUME_TOL = 0.05
+
+
+def _bigram(prev: int, vocab: int) -> int:
+    """``TokenStream``'s grammar: ``next = (a * prev + 17) % V``."""
+    return ((31 if vocab % 31 else 37) * prev + 17) % vocab
+
+
+def code_stats(params, arch) -> dict:
+    """Over every deployed matrix: the largest column's ``Σ|q|`` as a share
+    of the Eq. 15 budget (the accumulator guarantee: must be <= 1) and the
+    share of zero codes (A2Q's unstructured sparsity)."""
+    from repro_torch.core.bounds import l1_budget
+
+    budget = l1_budget(arch.quant.acc_bits, arch.quant.act_bits, True)
+    worst, zeros, total = 0.0, 0, 0
+    for node in _deployed(params):
+        q = node["q8"].to(torch.int32)  # (..., K, C)
+        worst = max(worst, float(q.abs().sum(-2).max()) / budget)
+        zeros += int((q == 0).sum())
+        total += q.numel()
+    return {"max_column_budget_share": worst, "zero_code_share": zeros / total,
+            "budget": budget}
+
+
+def _deployed(tree):
+    if isinstance(tree, dict):
+        if "q8" in tree:
+            yield tree
+        else:
+            for v in tree.values():
+                yield from _deployed(v)
+
+
+def train_smollm(dev) -> dict:
+    """Phase 4t: A2Q training of full-width smollm-135m on the card, resumed
+    from a mid-run checkpoint, deployed through a2q_quantize and served on
+    the int path.  Returns the deploy + serve path's launches by kernel."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.models.lm import Runtime, apply_lm, init_lm
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.serve.engine import PagedServeEngine, deploy_params, parity_up_to_ties
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.state import init_state
+    from repro_torch.train.trainer import Trainer
+
+    phase(f"4t: train full-width smollm-135m ({TRAIN_STEPS} steps), resume, deploy, serve")
+    arch = get_arch("smollm-135m")
+    q = arch.quant
+    if (arch.compute_dtype, arch.param_dtype, arch.remat) != ("bfloat16", "float32", "block") or \
+            (q.mode, q.weight_bits, q.act_bits, q.acc_bits) != ("a2q", 8, 8, 16):
+        raise AssertionError(f"smollm-135m's config moved: {arch}")
+    N, mid = TRAIN_STEPS, TRAIN_STEPS // 2
+    stream = TokenStream(vocab=arch.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    sched = cosine_with_warmup(TRAIN_LR, warmup=max(N // 20, 1), total=N)
+    d = str(Path(__file__).resolve().parent / "build" / "smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+
+    def fresh():
+        params = init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev)
+        opt = adamw()
+        return params, init_state(params, opt).tree(), build_train_step(
+            arch, opt, Runtime(), lr_schedule=sched)
+
+    untrained, state, step_fn = fresh()
+    ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = Trainer(step_fn, stream.batch, ckpt_dir=d, ckpt_every=mid, keep=2,
+                  log_every=1).run(state, N)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = res.history
+    losses = np.array([r["loss"] for r in hist])
+    if len(hist) != N or not np.isfinite(losses).all():
+        raise AssertionError(f"training: {len(hist)} logged steps, finite {np.isfinite(losses).all()}")
+    step_ms = float(np.median([r["step_time"] for r in hist[1:]])) * 1e3
+    head = {k: float(np.mean([r[k] for r in hist[:10]])) for k in ("loss", "ce", "penalty")}
+    tail = {k: float(np.mean([r[k] for r in hist[-10:]])) for k in ("loss", "ce", "penalty")}
+    print(f"train: {N} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {train_s:.1f}s; median step "
+          f"{step_ms:.2f} ms ({TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.0f} train tok/s; first "
+          f"step {hist[0]['step_time'] * 1e3:.0f} ms); peak memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"first-10 mean {head}; last-10 mean {tail}; largest grad norm "
+          f"{max(r['grad_norm'] for r in hist):.4g}", flush=True)
+    if not tail["loss"] <= head["loss"] - 0.5:
+        raise AssertionError(f"loss fell {head['loss'] - tail['loss']:.3f} nat, less than 0.5")
+
+    phase("4t: resume from the mid-run checkpoint in a fresh Trainer")
+    _, like, step_fn2 = fresh()
+    restored, start = ckpt.restore(d, like, step=mid)
+    del like
+    res2 = Trainer(step_fn2, stream.batch, log_every=1).run(restored, N - start, start_step=start)
+    resumed = np.array([r["loss"] for r in res2.history])
+    diff = np.abs(resumed - losses[start:])
+    print(f"resumed at step {start}: {len(resumed)} steps, largest |loss - uninterrupted| "
+          f"{diff.max():.4g} nat (first step {diff[0]:.3g}); tolerance {RESUME_TOL}", flush=True)
+    if start != mid or resumed[0] != losses[mid] or not diff.max() <= RESUME_TOL:
+        raise AssertionError(f"resume off the uninterrupted run: {diff}")
+    shutil.rmtree(d, ignore_errors=True)
+    train_launches = sum(ops.launch_counts().values())
+    print(f"kernel launches while training and resuming: {train_launches}", flush=True)
+    if train_launches:
+        raise AssertionError(f"training launched kernels: {ops.launch_counts()}")
+    trained = res.state["params"]
+    del res, res2, restored
+    torch.cuda.empty_cache()
+    probe = TokenStream(vocab=arch.vocab, seq_len=64, global_batch=8, seed=0).batch(10_000)["tokens"]
+    with torch.no_grad():  # the trained model as training computes it (fake-quant, bf16)
+        l_train = apply_lm(trained, arch, tokens=torch.as_tensor(probe, device=dev))[0]
+    train_hits = float((l_train[:, :-1].argmax(-1).cpu().numpy() ==
+                        _bigram(probe[:, :-1], arch.vocab)).mean())
+    del l_train
+
+    phase("4t: deploy the trained model; serve it on the kernels")
+    with held_deploys(f"{arch.name} untrained") as held0:
+        before = code_stats(deploy_params(untrained, q), arch)
+    del untrained
+    a2q_quantize_cuda.launches = 0
+    with held_deploys(f"{arch.name} trained") as held:
+        params = deploy_params(trained, q)
+    torch.cuda.synchronize()
+    deploys = a2q_quantize_cuda.launches
+    check_held(f"{arch.name} trained", held, deploys)
+    after = code_stats(params, arch)
+    print(f"codes untrained -> trained: largest column's share of the P=16 budget "
+          f"({after['budget']:.2f}) {before['max_column_budget_share']:.4f} -> "
+          f"{after['max_column_budget_share']:.4f}; zero codes {before['zero_code_share']:.4f} -> "
+          f"{after['zero_code_share']:.4f}", flush=True)
+    if max(before["max_column_budget_share"], after["max_column_budget_share"]) > 1.0 or \
+            deploys != 7 * arch.n_layers or held0["flips"] or held["flips"]:
+        raise AssertionError(f"deploy: {deploys} launches, untrained {before}, trained {after}, "
+                             f"flips {held0['flips']} / {held['flips']}")
+    prompts = list(probe)
+    kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev)
+    engine = PagedServeEngine(arch, params, rt=Runtime(int_forward=True, decode_kernel=True), **kw)
+    engine.generate(prompts[:1], max_new=2)  # warm-up
+    engine.reset_stats()
+    torch.cuda.synchronize()
+    int_matmul_cuda.launches = int_matmul_cuda.tc_launches = paged_attention_cuda.launches = 0
+    outs = engine.generate(prompts, max_new=32)
+    torch.cuda.synchronize()
+    launches = {"int_matmul": int_matmul_cuda.launches,
+                "int_matmul[tc]": int_matmul_cuda.tc_launches,
+                "paged_attention": paged_attention_cuda.launches,
+                "a2q_quantize": deploys, "a2q_quantize[flips]": held["flips"]}
+    tp = engine.throughput()
+    print(f"serve trained: prefill {tp['prefill_tok_s']:.1f} tok/s | decode "
+          f"{tp['decode_tok_s']:.1f} tok/s; launches {launches}", flush=True)
+    ticks, chunks = tp["decode_dispatches"], sum(-(-len(p) // 32) for p in prompts)
+    if launches["int_matmul"] != 7 * arch.n_layers * (ticks + chunks) or \
+            launches["paged_attention"] != arch.n_layers * ticks:
+        raise AssertionError(f"launch counts {launches} over {ticks} ticks, {chunks} chunks")
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    l_int = apply_lm(params, arch, tokens=toks, rt=Runtime(int_forward=True))[0].float()
+    l_deq = apply_lm(params, arch, tokens=toks)[0].float()
+    scale = l_deq.abs().max().item()
+    eps = 2.0**-6 * scale  # two bf16 ulps at the top of the logit range
+    ref = PagedServeEngine(arch, params, rt=Runtime(), **kw)
+    ref_outs = ref.generate(prompts, max_new=32)
+    ok, ties, detail = parity_up_to_ties(ref.last_requests, outs, eps)
+    hits = [t == _bigram(p, arch.vocab) for prompt, o in zip(prompts, outs)
+            for p, t in zip([int(prompt[-1])] + list(o[:-1]), o)]
+    ref_hits = [t == _bigram(p, arch.vocab) for prompt, o in zip(prompts, ref_outs)
+                for p, t in zip([int(prompt[-1])] + list(o[:-1]), o)]
+    prompt_hits = float((l_deq[:, :-1].argmax(-1).cpu().numpy() ==
+                         _bigram(np.stack(prompts)[:, :-1], arch.vocab)).mean())
+    print(f"served tokens, int path vs dequant path: parity_up_to_ties eps={eps:.4g}: ok={ok} "
+          f"ties={ties} identical_requests={sum(a == b for a, b in zip(ref_outs, outs))}/8; "
+          f"largest |logit| {scale:.4g}, int vs dequant max |diff| "
+          f"{(l_int - l_deq).abs().max().item():.4g}", flush=True)
+    print(f"bigram agreement: served tokens equal to (31 * prev + 17) mod {arch.vocab}: "
+          f"{np.mean(hits):.4f} int path, {np.mean(ref_hits):.4f} dequant path; the prompts' "
+          f"next-token argmax {prompt_hits:.4f} deployed, {train_hits:.4f} as trained "
+          "(fake-quant)", flush=True)
+    print(f"req 0 tokens: {outs[0]}", flush=True)
+    if not ok:
+        raise AssertionError(f"parity failed: {detail}")
+    for o in outs:
+        if len(o) != 32 or not all(0 <= t < arch.vocab for t in o):
+            raise AssertionError(f"bad output {o}")
+    del engine, ref, params, trained
+    return {"smollm-135m trained": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3029,6 +3252,8 @@ def main() -> int:
     by_path.update(serve_rwkv6(dev))
     torch.cuda.empty_cache()
     by_path.update(encode_hubert(dev))
+    torch.cuda.empty_cache()
+    by_path.update(train_smollm(dev))
     for e in entries:
         counts = {path: n[e["name"]] for path, n in by_path.items() if e["name"] in n}
         e["launches"] = sum(counts.values())

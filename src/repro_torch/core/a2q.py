@@ -48,17 +48,17 @@ def a2q_norm_cap(d: torch.Tensor, acc_bits: int, input_bits: int, input_signed: 
 
 
 def pairwise_sum(a: torch.Tensor) -> torch.Tensor:
-    """Sum of a 2-D tensor over its rows in one fixed order: a perfect
+    """Sum of ``a (..., R, C)`` over its rows in one fixed order: a perfect
     binary tree over the rows zero-padded to a power of two (``((r0 + r1) +
-    (r2 + r3)) + ...``), one rounded fp32 add a node.  Every device and the
-    ``a2q_quantize`` kernel compute it bit for bit alike, so the deployed
-    codes on the card equal the plain quantizer's (``torch.sum``'s order is
-    its own on each device)."""
-    while a.shape[0] > 1:
-        if a.shape[0] % 2:
-            a = torch.cat([a, torch.zeros_like(a[:1])])
-        a = a[0::2] + a[1::2]
-    return a.sum(0)  # one row (or none): the row itself
+    (r2 + r3)) + ...``), one rounded fp32 add a node; leading axes are
+    batch axes.  Every device and the ``a2q_quantize`` kernel compute it bit
+    for bit alike, so the deployed codes on the card equal the plain
+    quantizer's (``torch.sum``'s order is its own on each device)."""
+    while a.shape[-2] > 1:
+        if a.shape[-2] % 2:
+            a = torch.cat([a, torch.zeros_like(a[..., :1, :])], dim=-2)
+        a = a[..., 0::2, :] + a[..., 1::2, :]
+    return a.sum(-2)  # one row (or none): the row itself
 
 
 def _channel_sum(w: torch.Tensor) -> torch.Tensor:
@@ -100,11 +100,18 @@ def _effective_gs(params: dict, acc_bits: int, input_bits: int, input_signed: bo
 def apply_a2q(params: dict, bits: int, acc_bits: int, input_bits: int, input_signed: bool,
               dtype=torch.float32) -> torch.Tensor:
     """Eq. 20: ``q(w; s) = clip(rtz(g/s * v/||v||_1); n, p) * s`` (fake-quant).
-    STE through rtz, clipped-STE through clip; gradients reach v, t and d."""
+    STE through rtz, clipped-STE through clip; gradients reach v, t and d.
+    Leading axes that ``t``/``d`` share with ``v`` (a stack's layers) are
+    batch axes: each layer's weights are, bit for bit, those of its own
+    call, in one set of operators for the whole stack."""
     v = params["v"]
     n, p = int_range(bits, signed=True)
     g_over_s, s = _effective_gs(params, acc_bits, input_bits, input_signed)
-    l1_v = torch.clamp_min(_channel_sum(v.abs()), _EPS)
+    lead = params["t"].ndim - 1
+    l1_v = torch.clamp_min(pairwise_sum(v.abs().reshape(*v.shape[:lead], -1, v.shape[-1])), _EPS)
+    # per-column values broadcast over each layer's rows
+    g_over_s, l1_v, s = (x.reshape(*x.shape[:lead], *[1] * (v.ndim - lead - 1), x.shape[-1])
+                         for x in (g_over_s, l1_v, s))
     q = clip(ste_round_to_zero(g_over_s * v / l1_v), n, p)
     return (q * s).to(dtype)
 
@@ -126,9 +133,11 @@ def a2q_codes(v: torch.Tensor, g_over_s: torch.Tensor, n: int, p: int):
 
 
 def a2q_penalty(params: dict, acc_bits: int, input_bits: int, input_signed: bool) -> torch.Tensor:
-    """Per-layer regularizer ``R_l = sum_i max(t_i - T_i, 0)`` (Sec. 4.1)."""
+    """Per-layer regularizer ``R_l = sum_i max(t_i - T_i, 0)`` (Sec. 4.1).
+    ``torch.maximum`` splits the gradient at a tie ``t == T`` (0.5 to ``t``),
+    as ``jnp.maximum`` does; ``init_a2q`` starts every capped column there."""
     T = a2q_norm_cap(params["d"], acc_bits, input_bits, input_signed)
-    return torch.clamp_min(params["t"] - T, 0.0).sum()
+    return torch.maximum(params["t"] - T, T.new_zeros(())).sum()
 
 
 def a2q_channel_l1(params: dict, bits: int, acc_bits: int, input_bits: int, input_signed: bool):

@@ -1,0 +1,103 @@
+"""Training launcher: A2Q training of a dense decoder on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --steps 200 --batch 8 --seq 512 [--ckpt-dir DIR --ckpt-every 50] \\
+        [--reduced] [--device cpu]
+
+Port of ``repro.launch.train`` for one device: params from the port's
+``init_lm`` with a ``torch.Generator`` seeded from ``--seed``, the
+``TokenStream`` bigram data, ``build_train_step`` with ``--optimizer`` and a
+cosine schedule with warmup peaking at ``--lr``, the ``Trainer`` with
+checkpoints (a rerun with the same ``--ckpt-dir`` resumes, printing
+``resumed from step N``) and an emergency save on SIGTERM.  ``--device``
+defaults to ``cuda``.  The reference's multi-device flags are refused as
+not ported yet: ``--grad-compress-bits``/``--grad-compress-scale``, and
+``--mesh auto`` when more than one device is visible.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_arch, reduced
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.models.lm import Runtime, init_lm
+from repro_torch.models.steps import build_train_step
+from repro_torch.optim.optimizers import adafactor, adamw, sgdm
+from repro_torch.optim.schedules import cosine_with_warmup
+from repro_torch.train.checkpoint import install_signal_handler
+from repro_torch.train.elastic import StragglerWatchdog
+from repro_torch.train.state import init_state
+from repro_torch.train.trainer import Trainer
+
+_OPTS = {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}
+NOT_PORTED = ("--grad-compress-bits", "--grad-compress-scale")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", help="CPU-runnable reduced config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--optimizer", choices=sorted(_OPTS), default="adamw")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", choices=["auto", "none"], default="auto")
+    ap.add_argument("--json-out", default=None)
+    ap.add_argument("--device", default="cuda")
+    given = list(sys.argv[1:] if argv is None else argv)
+    for flag in NOT_PORTED:
+        if any(a == flag or a.startswith(flag + "=") for a in given):
+            ap.error(f"{flag} is not ported yet (the compressed all-reduce belongs to "
+                     "distribution)")
+    args = ap.parse_args(given)
+
+    dev = resolve_device(args.device)
+    if args.mesh == "auto" and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        ap.error(f"--mesh auto over {torch.cuda.device_count()} devices is not ported yet; "
+                 "run on one device (CUDA_VISIBLE_DEVICES) or pass --mesh none")
+
+    arch = get_arch(args.arch)
+    if args.reduced:
+        arch = reduced(arch)
+    params = init_lm(torch.Generator().manual_seed(args.seed), arch, device=dev)
+    optimizer = _OPTS[args.optimizer]()
+    state = init_state(params, optimizer).tree()
+
+    sched = cosine_with_warmup(args.lr, warmup=max(args.steps // 20, 1), total=args.steps)
+    step_fn = build_train_step(arch, optimizer, Runtime(), lr_schedule=sched)
+
+    stream = TokenStream(vocab=arch.vocab, seq_len=args.seq, global_batch=args.batch,
+                         seed=args.seed)
+    trainer = Trainer(step_fn, stream.batch, ckpt_dir=args.ckpt_dir,
+                      ckpt_every=args.ckpt_every, watchdog=StragglerWatchdog())
+    state, start = trainer.maybe_restore(state)
+    if start:
+        print(f"resumed from step {start}")
+    if args.ckpt_dir:
+        install_signal_handler(trainer.emergency_save)
+
+    result = trainer.run(state, args.steps, start_step=start)
+    for rec in result.history[:3] + result.history[-3:]:
+        print({k: round(v, 4) if isinstance(v, float) else v for k, v in rec.items()})
+    if result.straggler_events:
+        print(f"straggler events: {len(result.straggler_events)}")
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(result.history, f, indent=1)
+    first, last = result.history[0]["loss"], result.history[-1]["loss"]
+    print(f"loss {first:.4f} -> {last:.4f}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -6,9 +6,10 @@ positions), and for audio encoders (``family="audio"``, hubert): no token
 embedding, precomputed frame embeddings in (the conv feature frontend is a
 stub in the reference too), a boundary ``head`` of ``n_classes`` over every
 frame.  The reference's sharding constraints have no counterpart on one
-device and are dropped; training losses (and with them the
-multi-token-prediction head's forward, which only the loss reads), hymba's
-blocks and the vision-language family are not ported yet.
+device and are dropped.  ``lm_loss`` is the training loss of the dense
+``attn_mlp`` token decoders (smollm, yi, ...); the multi-token-prediction
+head's loss, MoE, rwkv6 and audio training, hymba's blocks and the
+vision-language family are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,12 +22,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, StackConfig
 from repro_torch.nn.embedding import apply_embedding, init_embedding
-from repro_torch.nn.linear import apply_linear, chain_report_scope, init_linear
+from repro_torch.nn.linear import apply_linear, chain_report_scope, init_linear, linear_penalty
 from repro_torch.nn.module import tree_to
 from repro_torch.nn.norms import apply_norm, init_norm
-from repro_torch.nn.transformer import COMPUTE_DTYPES, apply_stack, init_stack
+from repro_torch.nn.transformer import COMPUTE_DTYPES, apply_stack, init_stack, tree_a2q_penalty
 
-__all__ = ["Runtime", "init_lm", "apply_lm"]
+__all__ = ["Runtime", "init_lm", "apply_lm", "lm_loss", "a2q_penalty_of"]
 
 
 class Runtime:
@@ -114,8 +115,9 @@ def apply_lm(
     ``cm.shift``, one row per batch row) are updated in place; the returned
     cache holds the per-stack leaves without the view.
 
-    Returns ``(logits, new_cache)``; the reference's third output, the A2Q
-    training penalty, belongs to the training path, which is not ported."""
+    Returns ``(logits, new_cache)``.  The reference's third output, the A2Q
+    penalty, depends on the params alone: ``a2q_penalty_of(params, arch)``
+    computes it (``lm_loss`` adds it to the task loss)."""
     rt = rt or Runtime()
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     parts = []
@@ -152,3 +154,48 @@ def apply_lm(
     if cache is None:
         return logits, None
     return logits, {k: v for k, v in cache.items() if k != "_paged"}
+
+
+def a2q_penalty_of(params: dict, arch: ArchConfig) -> torch.Tensor:
+    """The A2Q regularizer ``L_reg`` of a model: every stack's
+    ``tree_a2q_penalty`` (its layers summed) plus the untied head's — the sum
+    the reference's ``apply_lm`` accumulates through its scan (each term
+    depends only on a layer's ``t`` and ``d``)."""
+    penalty = torch.zeros((), dtype=torch.float32)
+    for i in range(len(arch.stacks)):
+        penalty = penalty + tree_a2q_penalty(params["stacks"][str(i)], arch.quant)
+    if "head" in params:
+        penalty = penalty + linear_penalty(params["head"], arch.quant, True, True)
+    return penalty
+
+
+def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor, z_loss: float = 1e-4):
+    """Mean CE over all positions, fp32, with MaxText-style z-loss."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    ce = (lse - gold).mean()
+    zl = z_loss * torch.square(lse).mean()
+    return ce + zl, ce
+
+
+def lm_loss(params: dict, arch: ArchConfig, batch: dict, rt: Optional[Runtime] = None):
+    """Training loss ``task CE (+ z-loss) + reg_lambda * L_reg`` and its
+    metrics ``{"ce", "penalty", "loss"}``, as ``repro.models.lm.lm_loss``
+    computes them for a dense decoder.  ``batch`` = ``{tokens, targets}``,
+    targets aligned to the tokens.  Only the ``lm`` family's ``attn_mlp``
+    stacks train here; the rest raise (``ROADMAP.md`` queue 1, training)."""
+    if arch.family != "lm" or any(s.kind != "attn_mlp" for s in arch.stacks):
+        raise NotImplementedError(
+            f"training {arch.name} ({arch.family}, stacks "
+            f"{[s.kind for s in arch.stacks]}) is not ported yet: only the lm family's "
+            "attn_mlp stacks train (ROADMAP.md queue 1, training)")
+    if arch.mtp_depth > 0 and "mtp" in params:
+        raise NotImplementedError("the multi-token-prediction loss is not ported yet "
+                                  "(ROADMAP.md queue 1, training)")
+    rt = rt or Runtime()
+    logits, _ = apply_lm(params, arch, tokens=batch["tokens"], rt=rt)
+    loss, ce = _cross_entropy(logits, batch["targets"])
+    penalty = a2q_penalty_of(params, arch)
+    loss = loss + arch.quant.reg_lambda * penalty
+    return loss, {"ce": ce, "penalty": penalty, "loss": loss}

@@ -1,19 +1,70 @@
-"""Step builders over ``models.lm``.
+"""Step builders over ``models.lm``, ported from ``repro.models.steps``:
 
-Port of ``repro.models.steps``'s ``build_prefill_step``: one forward over a
-prompt or an utterance, returning the last position's logits.  It is the
-reference's entry point for an encoder (hubert), which has no serving
-engine.  The training steps wait for the port of the training stack.
+* ``build_train_step`` — forward + backward of ``lm_loss``, grad clip and
+  the optimizer update, uncompressed (the reference's compressed
+  data-parallel step belongs to distribution, not ported);
+* ``build_prefill_step`` — one forward over a prompt or an utterance,
+  returning the last position's logits: the reference's entry point for an
+  encoder (hubert), which has no serving engine.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.lm import Runtime, apply_lm
+from repro_torch.models.lm import Runtime, apply_lm, lm_loss
+from repro_torch.nn.module import tree_map
+from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 
-__all__ = ["build_prefill_step"]
+__all__ = ["build_train_step", "build_prefill_step"]
+
+
+def build_train_step(
+    arch: ArchConfig,
+    optimizer: Optimizer,
+    rt: Optional[Runtime] = None,
+    lr_schedule: Optional[Callable] = None,
+    grad_clip: float = 1.0,
+    grad_compress=None,
+):
+    """``train_step(state, batch) -> (new_state, metrics)`` over ``state =
+    {"params", "opt_state", "step"}`` (``step`` an int32 0-dim tensor) and a
+    batch of ``tokens``/``targets`` tensors on the params' device.  The
+    params are differentiated as detached copies that require grad, so the
+    state's tensors never do (and a deploy of them reaches the kernels);
+    the update runs under ``no_grad``.  ``metrics`` (``loss``, ``ce``,
+    ``penalty``, ``grad_norm``, ``lr``) are 0-dim device tensors: nothing is
+    read back to the host.  ``grad_compress`` (the reference's compressed
+    all-reduce) raises: it is not ported (``ROADMAP.md`` queue 1,
+    distribution)."""
+    if grad_compress is not None:
+        raise NotImplementedError("the compressed gradient all-reduce is not ported yet "
+                                  "(ROADMAP.md queue 1, distribution)")
+    rt = rt or Runtime()
+    lr_schedule = lr_schedule or (lambda step: torch.full((), 3e-4, dtype=torch.float32))
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params, opt_state, step = state["params"], state["opt_state"], state["step"]
+        with torch.enable_grad():
+            live = tree_map(lambda t: t.detach().requires_grad_(), params)
+            loss, metrics = lm_loss(live, arch, batch, rt=rt)
+            leaves = []
+            tree_map(leaves.append, live)  # in tree_map's order, for the rebuild below
+            # a leaf the loss does not reach gets zeros, as jax.grad gives it
+            got = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
+        grads = tree_map(lambda _: next(got), live)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            lr = lr_schedule(step)
+            new_params, new_opt = optimizer.update(grads, opt_state, params, lr)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(grad_norm=gnorm, lr=lr)
+        return {"params": new_params, "opt_state": new_opt, "step": step + 1}, metrics
+
+    return train_step
 
 
 def build_prefill_step(arch: ArchConfig, rt: Optional[Runtime] = None):

@@ -16,7 +16,11 @@ MLA down/up projections) as to any other matmul.  Ported from
 * the cacheless GQA step (a whole utterance through hubert's bidirectional
   encoder, a prompt scored without a cache) goes through
   ``kernels/ops.flash_attention`` (the reference computes it with ``_sdpa``;
-  chunk-local masks are not ported there and raise);
+  chunk-local masks are not ported there and raise) — unless autograd
+  records the forward: training differentiates ``_sdpa``, as the
+  reference's training does (its layers never call the Pallas flash
+  kernel), and the flash kernel has no backward.  This route follows the
+  reference's semantics; it is not a fallback on a failure;
 * MLA (deepseek-v3): low-rank compressed q and kv with a shared rope key,
   cached as the latent ``ckvp (NB, bs, kv_lora_rank)`` and rope-key ``kpep
   (NB, bs, qk_rope_dim)`` pools.  The materialized path up-projects the
@@ -92,7 +96,7 @@ def _sdpa(
             mask = mask & ((kp // chunk) == (qp // chunk))
         m4 = mask[:, :, None, None, :]
         s = torch.where(m4, s, torch.full_like(s, _NEG))
-        s_max = s.amax(dim=-1, keepdim=True)
+        s_max = s.amax(dim=-1, keepdim=True).detach()  # the reference's stop_gradient
         p = torch.exp(s - s_max)
         p = torch.where(m4, p, torch.zeros_like(p))
         denom = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
@@ -259,7 +263,13 @@ def apply_attention(
         qh = apply_rope(qh, positions, a.rope_theta)
         kh = apply_rope(kh, positions, a.rope_theta)
 
-    if cache is None:
+    if cache is None and torch.is_grad_enabled() and \
+            (qh.requires_grad or kh.requires_grad or vh.requires_grad):
+        # training: the reference differentiates its own _sdpa; flash has no backward
+        out = _sdpa(qh, kh, vh, positions, positions, causal=a.causal, window=a.window,
+                    chunk=a.chunk, q_chunk=q_chunk)
+        new_cache = None
+    elif cache is None:
         if a.chunk is not None:
             raise NotImplementedError("chunk-local attention is not ported yet (llama4's local "
                                       "layers)")

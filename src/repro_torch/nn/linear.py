@@ -48,7 +48,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import QuantConfig
-from repro_torch.core.a2q import apply_a2q, init_a2q
+from repro_torch.core.a2q import a2q_penalty, apply_a2q, init_a2q
 from repro_torch.core.quantizers import (
     act_quant_int,
     apply_act_quant,
@@ -63,6 +63,7 @@ __all__ = [
     "init_linear",
     "apply_linear",
     "deploy_linear",
+    "linear_penalty",
     "IntAct",
     "chain_out_aq",
     "chain_report_scope",
@@ -171,6 +172,8 @@ def init_linear(
 
 def _quant_weights(params: dict, cfg: QuantConfig, boundary: bool, input_signed: bool):
     M, N = _bits(cfg, boundary)
+    if "fq" in params:  # fake-quant weights computed ahead for a whole stack (training)
+        return params["fq"]
     if "q8" in params:  # deployed int8 storage; s8 is per output channel
         return params["q8"].to(torch.float32) * params["s8"][..., None, :]
     if cfg.mode == "none":
@@ -302,6 +305,16 @@ def apply_linear(
     if "b" in params:
         y = y + params["b"].to(compute_dtype)
     return y
+
+
+def linear_penalty(params: dict, cfg: QuantConfig, boundary: bool,
+                   input_signed: bool) -> torch.Tensor:
+    """This layer's ``R_l = sum_i max(t_i - T_i, 0)`` (zero unless a2q); any
+    leading axes of ``t``/``d`` (a stack's layers, experts) are summed too."""
+    if cfg.mode != "a2q" or "t" not in params:
+        return torch.zeros((), dtype=torch.float32)
+    _, N = _bits(cfg, boundary)
+    return a2q_penalty(params, cfg.acc_bits, N, input_signed)
 
 
 def deploy_linear(params: dict, cfg: QuantConfig, *, boundary: bool = False,

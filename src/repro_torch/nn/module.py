@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["kaiming", "normal_init", "tree_to"]
+__all__ = ["kaiming", "normal_init", "tree_to", "tree_map", "tree_leaves_with_path"]
 
 
 def kaiming(gen: torch.Generator, shape, fan_in: Optional[int] = None, dtype=torch.float32):
@@ -31,3 +31,19 @@ def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts that share ``tree``'s keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves_with_path(tree, path=()):
+    """``[(keys, leaf), ...]`` of nested dicts, keys sorted at every level:
+    the order ``jax.tree_util`` flattens a dict in, so sums over leaves and
+    checkpoint manifests follow the reference's order."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in tree_leaves_with_path(tree[k], path + (k,))]
+    return [(path, tree)]

@@ -7,6 +7,16 @@ them in order.  Ported block kinds: ``attn_mlp`` (pre-norm GQA or MLA + gated
 or plain MLP, optionally command-r's parallel attention+FFN), ``moe`` (the
 same attention + the mixture-of-experts FFN) and ``rwkv6`` (pre-norm RWKV-6
 time-mix + channel-mix, attention-free); ``hymba`` and ``conv`` raise.
+
+When autograd records the forward (training), each block runs under
+``torch.utils.checkpoint`` unless ``arch.remat == "none"``, as the
+reference wraps its scanned block in ``jax.checkpoint``: a block's
+activations are recomputed in the backward instead of kept.  The A2Q
+fake-quant weights of an ``attn_mlp`` stack are then computed once for all
+its layers (``apply_a2q`` over the stacked leaves, the same values as layer
+by layer) and kept through the backward, outside the recompute: layer by
+layer, forward, recompute and backward, they were most of a step's
+operators.
 """
 
 from __future__ import annotations
@@ -16,11 +26,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, QuantConfig, StackConfig
+from repro_torch.core.a2q import apply_a2q
 from repro_torch.nn.attention import apply_attention, init_attention
 from repro_torch.kernels.ref import gelu_tanh
-from repro_torch.nn.linear import IntAct, apply_linear, chain_out_aq, init_linear
+from repro_torch.nn.linear import IntAct, apply_linear, chain_out_aq, init_linear, linear_penalty
+from repro_torch.nn.module import tree_leaves_with_path
 from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.norms import apply_norm, init_norm
 from repro_torch.nn.ssm import (
@@ -30,7 +43,7 @@ from repro_torch.nn.ssm import (
     init_rwkv6_timemix,
 )
 
-__all__ = ["init_stack", "apply_stack", "COMPUTE_DTYPES"]
+__all__ = ["init_stack", "apply_stack", "tree_a2q_penalty", "COMPUTE_DTYPES"]
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -133,6 +146,58 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def tree_a2q_penalty(p: dict, q: QuantConfig) -> torch.Tensor:
+    """Sum of every A2Q layer's regularizer in a params tree (a block's, or
+    a stack's with its ``(count, ...)`` leaves: the penalty is elementwise
+    over ``t``/``d``, so a stacked leaf sums its layers, and stacked experts'
+    ``(E, C)`` caps need nothing of their own).  The channel-mix ``cm.wv``
+    (post-relu^2, unsigned input) is the one layer whose cap uses
+    ``1_signed = 0``; every other matmul sees signed inputs."""
+    total = torch.zeros((), dtype=torch.float32)
+    if q.mode != "a2q":
+        return total
+
+    def walk(node, path):
+        nonlocal total
+        if "t" in node and "d" in node and "v" in node:
+            signed = path[-2:] != ("cm", "wv")
+            total = total + linear_penalty(node, q, False, signed)
+            return
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+
+    walk(p, ())
+    return total
+
+
+def _fake_quant_layers(p: dict, q: QuantConfig, compute_dtype) -> dict:
+    """A stack's params with each A2Q linear's ``v``/``t``/``d`` replaced by
+    ``fq``, its fake-quant weights for every layer ``(count, K, C)`` in
+    ``compute_dtype`` (what ``nn.linear._quant_weights`` would compute
+    layer by layer); the activation quantizers and biases stay."""
+    def walk(node, path):
+        if "v" in node and "t" in node and "d" in node:
+            out = {k: v for k, v in node.items() if k not in ("v", "t", "d")}
+            out["fq"] = apply_a2q(node, q.weight_bits, q.acc_bits, q.act_bits,
+                                  path[-2:] != ("cm", "wv"), dtype=compute_dtype)
+            return out
+        return {k: walk(v, path + (k,)) if isinstance(v, dict) else v for k, v in node.items()}
+
+    return walk(p, ())
+
+
+def _unbind_layers(tree, count: int) -> list:
+    """The per-layer trees of stacked ``(count, ...)`` leaves, each leaf
+    unbound once (its backward stacks the layers' gradients in one
+    operator, where a per-layer index would scatter each into a zeroed
+    stack)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_layers(v, count) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(count)]
+    return tree.unbind(0)
+
+
 def init_stack(gen: torch.Generator, arch: ArchConfig, s: StackConfig) -> dict:
     """Stacked (leading ``count`` axis) params for one stack."""
     layers = [_init_block(gen, arch, s) for _ in range(s.count)]
@@ -151,13 +216,27 @@ def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                 decode_kernel: bool = False, int_forward: bool = False,
                 int_chain: bool = False):
     """Apply ``s.count`` blocks in order and return ``x``; a paged cache's
-    pools and recurrent leaves (``(count, ...)``) are updated in place."""
+    pools and recurrent leaves (``(count, ...)``) are updated in place.  A
+    cacheless forward that autograd records runs each block under
+    ``checkpoint`` unless ``arch.remat == "none"``."""
     _check_kind(s)
+    training = cache is None and torch.is_grad_enabled() and \
+        any(leaf.requires_grad for _, leaf in tree_leaves_with_path(params))
+    if training:
+        if s.kind == "attn_mlp" and arch.quant.mode == "a2q":
+            params = _fake_quant_layers(params, arch.quant, COMPUTE_DTYPES[arch.compute_dtype])
+        layers = _unbind_layers(params, s.count)
     for i in range(s.count):
-        x = _apply_block(
-            _layer(params, i), x, arch, s, positions,
-            _layer(cache, i) if cache is not None else None,
+        block = functools.partial(
+            _apply_block, arch=arch, s=s, positions=positions,
+            cache=_layer(cache, i) if cache is not None else None,
             mla_absorb=mla_absorb, view=view, decode_kernel=decode_kernel,
             int_forward=int_forward, int_chain=int_chain,
         )
+        if not training:
+            x = block(_layer(params, i), x)
+        elif arch.remat != "none":
+            x = checkpoint(block, layers[i], x, use_reentrant=False)
+        else:
+            x = block(layers[i], x)
     return x
