@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100 for the numbers in
 PERF.md): builds the kernels, holds each against its plain PyTorch version at
 the main paths' shapes, serves full-width smollm-135m, full-width deepseek-v3
-(depth cut) and full-size rwkv6-7b through the paged engine on the kernels,
-encodes full-size hubert-xlarge, trains full-size smollm-135m with A2Q and
-serves the trained model, and checks the results.  Every model is
+(depth cut), full-size rwkv6-7b and full-size h2o-danube-1.8b (past its
+4096-token window) through the paged engine on the kernels, holds the paged
+engine against the contiguous ``ServeEngine`` through the launcher's
+``--parity-check``, encodes full-size hubert-xlarge, trains full-size
+smollm-135m with A2Q and serves the trained model, and checks the results.  Every model is
 deployed on the card through the ``a2q_quantize`` kernel, and every deployed
 matrix's codes are held to the plain quantizer's on the card.
 
@@ -114,6 +116,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5b. compare with ``Runtime(mla_absorb=True)`` (dequant bf16 matmuls,
    gathered-view latent attention) on the same weights, as in phase 5; then
    reduced deepseek-v3 on the card against the same model on the CPU;
+4p. the contiguous ``ServeEngine`` (per-token prefill into a slot's lane,
+   host argmax) and the reference's parity gate, through ``launch/serve.py
+   --paged --parity-check`` on full-size smollm-135m (2 requests, prompt 64,
+   32 new, batch 8, seed 0): with ``--deploy-int8`` the contiguous dequant
+   engine against the paged one, token for token; with ``--int-forward
+   --kv-int8`` the paged int path (int_matmul, int8 KV) against the
+   contiguous float path under ``parity_up_to_ties`` at eps 0.05, the
+   sub-margin ties printed; then the contiguous engine alone on
+   ``--int-chain`` (1 request, 8 new) on int_matmul's prologue; every
+   deploy held to the plain quantizer, both engines' tok/s, the host ops of
+   a contiguous tick, the contiguous engines' params and caches on the card;
 4c. on phase 4's smollm-135m, the ``--int-chain --kv-int8 [--kv-bits 4]
    --decode-kernel`` path: ``Runtime(int_chain=True, decode_kernel=True)``
    on int8, then int4 KV pools; launch counts (210 int_matmul per forward, 30
@@ -163,6 +176,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``torch.cuda.set_sync_debug_mode("error")``; decode tok/s per-tick vs
    megastep (median of 3 alternating runs), host ops a tick vs a window,
    capture seconds, the graph pool's bytes, one window's launches by kernel;
+4h. h2o-danube-1.8b at full width (24 layers, d_model 2560, 32 heads over 8
+   KV heads of 80, window 4096, vocab 32000; random A2Q weights from seed 0
+   deployed through ``a2q_quantize``: 169 matrices, each held) served with
+   ``Runtime(int_chain=True, decode_kernel=True)``: 4 requests over 4 slots,
+   prompts of 4,100-4,300 tokens (seed 0) in prefill chunks of 256, so the
+   per-slot rings wrap in prefill and again in decode, 64 new tokens; per
+   tick, then on the megastep (``decode_steps=8``) on the same params and
+   batches, tokens and margins bit for bit, then the EOS rerun (request
+   0's token at step 32); 169 int_matmul prologue launches a forward and no
+   ``paged_attention`` launch (ring layers take ``_sdpa``, as in the
+   reference); prefill and decode tok/s, host ops a tick and a window, ring
+   state bytes a slot, peak memory; then the contiguous check: the same
+   widths cut to 2 layers, one 4,128-token prompt and 16 new tokens through
+   ``launch/serve.py --paged --parity-check --deploy-int8`` (the paged
+   engine's ring against the contiguous ``ServeEngine``'s, past the window:
+   token for token);
 4f. deploy full-size hubert-xlarge (48 layers, d_model 1280, d_ff 5120, 504
    classes, random A2Q weights from seed 0, block by block: 289
    ``a2q_quantize`` launches) and encode 8 clips of 1000 bf16 frames (seed
@@ -2767,6 +2796,301 @@ def serve_rwkv6(dev) -> dict:
         "rwkv6-7b long prompt": long_counts, "rwkv6-7b megastep": mega_counts}
 
 
+# phase 4p: phase 4's prompts and budget, 2 requests of its 8 (the contiguous engine
+# prefills a token a forward, 0.1-0.15 s a forward at full size; PERF.md section 4)
+CONTIG_PROMPTS, CONTIG_PROMPT_LEN, CONTIG_NEW = 2, 64, 32
+
+
+def contig_tick_ops(engine, prompt) -> int:
+    """Host-dispatched PyTorch operators in one tick of a contiguous
+    ``ServeEngine`` (a request admitted and prefilled token by token first,
+    then drained)."""
+    from repro_torch.serve.engine import Request
+
+    engine.admit(Request(uid=3000, prompt=prompt, max_new=3))
+    with op_counter() as count:
+        engine.tick()
+    while engine.tick():
+        pass
+    return count.n
+
+
+def launcher(argv: list, **patch):
+    """``repro_torch.launch.serve`` run in this process on ``argv`` (its
+    ``run``: tokens, report and engines); ``patch`` replaces names of the
+    launcher's module for the call (a depth-cut config behind ``get_arch``)."""
+    from unittest import mock
+
+    from repro_torch.launch import serve as launch_serve
+
+    with contextlib.ExitStack() as stack:
+        for name, value in patch.items():
+            stack.enter_context(mock.patch.object(launch_serve, name, value))
+        return launch_serve.run(argv)
+
+
+def on_card(engine) -> bool:
+    """Every parameter and cache leaf of a contiguous ``ServeEngine`` is a
+    CUDA tensor."""
+    return all(t.is_cuda for t in (*_leaves(engine.params), *_leaves(engine.cache)))
+
+
+def serve_contiguous(dev) -> dict:
+    """Phase 4p: the contiguous ``ServeEngine`` and the reference's parity
+    gate, through ``launch/serve.py --paged --parity-check`` on full-size
+    smollm-135m (2 requests of 64 prompt tokens, 32 new, batch 8): with
+    ``--deploy-int8`` the contiguous dequant engine against the paged one,
+    token for token; with ``--int-forward --kv-int8`` the paged int path
+    (int_matmul, int8 KV) against the contiguous float path under
+    ``parity_up_to_ties`` at eps 0.05, the sub-margin ties printed; then the
+    contiguous engine on ``--int-chain`` (no ``--paged``; 1 request, 8
+    new) on int_matmul's prologue.  Every launcher run deploys through
+    ``a2q_quantize``, held to the plain quantizer.  Prints both engines'
+    prefill and decode tok/s and the host ops of a contiguous tick; checks
+    that the contiguous engines ran on the card.  Returns the phase's
+    launches by kernel entry."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+
+    phase("4p: the contiguous ServeEngine and --parity-check on full-size smollm-135m")
+    arch = get_arch("smollm-135m")
+    t_phase = time.perf_counter()
+    base = ["--arch", arch.name, "--device", str(dev), "--requests", str(CONTIG_PROMPTS),
+            "--prompt-len", str(CONTIG_PROMPT_LEN), "--max-new", str(CONTIG_NEW), "--batch", "8",
+            "--max-seq", "96", "--block-size", "16", "--prefill-chunk", "32"]
+    n = 7 * arch.n_layers
+    torch.cuda.synchronize()
+    a2q_quantize_cuda.launches = int_matmul_cuda.launches = 0
+    int_matmul_cuda.prologue_launches = int_matmul_cuda.tc_launches = 0
+    flips, deploys, expect, expect_prologue = 0, 0, 0, 0
+    runs = (("--deploy-int8", ["--paged", "--parity-check", "--deploy-int8"]),
+            ("--int-forward --kv-int8", ["--paged", "--parity-check", "--int-forward",
+                                         "--kv-int8"]),
+            ("contiguous --int-chain", ["--int-chain"]))
+    for tag, flags in runs:
+        argv = base + flags
+        if tag.startswith("contiguous"):  # a shorter run: per-token prefill is the slow part
+            argv[argv.index("--requests") + 1], argv[argv.index("--max-new") + 1] = "1", "8"
+        t0 = time.perf_counter()
+        with held_deploys(f"4p {tag}") as held:
+            out = launcher(argv)
+        torch.cuda.synchronize()
+        flips += held["flips"]
+        deploys += held["matrices"]
+        rep, engines = out["report"], out["engines"]
+        contig = engines["contiguous"]
+        if not on_card(contig):
+            raise AssertionError(f"[4p {tag}] the contiguous engine did not run on the card")
+        ctp = contig.throughput()
+        line = (f"[4p {tag}] {time.perf_counter() - t0:.1f} s; contiguous: prefill "
+                f"{ctp['prefill_tok_s']:.2f} tok/s, decode {ctp['decode_tok_s']:.2f} tok/s")
+        if "paged" in engines:
+            ptp = engines["paged"].throughput()
+            chunks = sum(-(-CONTIG_PROMPT_LEN // 32) for _ in range(CONTIG_PROMPTS))
+            if rep["int_forward"]:
+                expect += n * (ptp["decode_dispatches"] + chunks)
+            line += (f"; paged: prefill {ptp['prefill_tok_s']:.2f} tok/s, decode "
+                     f"{ptp['decode_tok_s']:.2f} tok/s")
+            if "parity_sub_margin_ties" in rep:
+                line += (f"; parity_up_to_ties eps {rep['parity_eps']}: "
+                         f"{rep['parity_sub_margin_ties']} sub-margin ties")
+            else:
+                line += "; tokens identical across engines (exact parity)"
+        else:
+            expect_prologue += n * (ctp["prefill_tokens"] + ctp["decode_dispatches"])
+            counted = ops.launch_counts()  # the op count's own launches are not the path's
+            line += (f"; host ops a contiguous tick {contig_tick_ops(contig, out['outs'][0][:4])}"
+                     f" (int-chain)")
+            ops.set_launch_counts(counted)
+        for r, o in zip(contig.last_requests, out["outs"]):
+            if len(o) != int(argv[argv.index("--max-new") + 1]) or \
+                    not all(0 <= t < arch.vocab for t in o) or not np.isfinite(r.margins).all():
+                raise AssertionError(f"[4p {tag}] bad output {o}")
+        print(line, flush=True)
+        del out, engines, contig
+        torch.cuda.empty_cache()
+    launches = {"int_matmul": int_matmul_cuda.launches - int_matmul_cuda.prologue_launches,
+                "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
+                "int_matmul[tc]": int_matmul_cuda.tc_launches,
+                "a2q_quantize": a2q_quantize_cuda.launches, "a2q_quantize[flips]": flips}
+    check_held("4p", {"matrices": deploys}, a2q_quantize_cuda.launches)
+    print(f"[4p] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if launches["int_matmul"] != expect or launches["int_matmul[prologue]"] != expect_prologue \
+            or not 0 < launches["int_matmul[tc]"] < expect or deploys != 3 * n:
+        raise AssertionError(f"[4p] launches {launches}: expected {expect} int_matmul on the "
+                             f"paged int side, {expect_prologue} prologue launches on the "
+                             f"contiguous int-chain run, {3 * n} deploys")
+    return {"smollm-135m contiguous": launches}
+
+
+H2O_REQUESTS, H2O_NEW, H2O_CHUNK = 4, 64, 256  # phase 4h (PERF.md section 4)
+H2O_PROMPTS = (4100, 4300)  # prompt lengths drawn in this range: past the 4096-token window
+H2O_CUT_LAYERS, H2O_CUT_PROMPT, H2O_CUT_NEW = 2, 4128, 16  # the contiguous check's cut
+
+
+def serve_h2o(dev) -> dict:
+    """Phase 4h: h2o-danube-1.8b at full width (24 layers, d_model 2560, 32
+    heads over 8 KV heads of 80, window 4096, vocab 32000), random A2Q
+    weights from seed 0 deployed through ``a2q_quantize`` (169 matrices,
+    every one held to the plain quantizer), served on the paged engine with
+    ``Runtime(int_chain=True, decode_kernel=True)``: 4 requests over 4
+    slots, prompts of 4,100-4,300 tokens in prefill chunks of 256 (the ring
+    wraps in prefill and again in decode), 64 new tokens; per tick, then on
+    the megastep (``decode_steps=8``) on the same params and batches, tokens
+    and margins bit for bit, then the EOS rerun.  Ring layers take
+    ``_sdpa``, as in the reference: no ``paged_attention`` launch.  Then the
+    contiguous check: the same widths cut to 2 layers, one 4,128-token
+    prompt and 16 new tokens through ``launch/serve.py --paged
+    --parity-check --deploy-int8`` (the paged engine's ring against the
+    contiguous ``ServeEngine``'s, past the window).  Returns the launches by
+    kernel entry."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.serve.engine import PagedServeEngine, deploy_params
+
+    arch = get_arch("h2o-danube-1.8b")
+    a = arch.stacks[0].attn
+    phase(f"4h: h2o-danube-1.8b full width ({arch.n_layers} layers, d_model {arch.d_model}, "
+          f"window {a.window}) on --int-chain --decode-kernel, prompts past the window; "
+          f"{H2O_REQUESTS} requests, {H2O_NEW} new tokens")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a2q_quantize_cuda.launches = 0
+    t0 = time.perf_counter()
+    with held_deploys(arch.name) as held:
+        params = deploy_params(init_lm(torch.Generator(device=dev).manual_seed(0), arch,
+                                       device=dev), arch.quant)
+    torch.cuda.synchronize()
+    deploys = a2q_quantize_cuda.launches
+    check_held(arch.name, held, deploys)
+    per_forward = 7 * arch.n_layers + 1  # the untied head too
+    print(f"init + deploy: {time.perf_counter() - t0:.2f} s, {deploys} a2q_quantize launches, "
+          f"{held['flips']} code flips", flush=True)
+    if deploys != per_forward:
+        raise AssertionError(f"{deploys} a2q_quantize launches at deploy, expected {per_forward}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(H2O_PROMPTS[0], H2O_PROMPTS[1] + 1, H2O_REQUESTS)
+    prompts = [rng.integers(0, arch.vocab, (int(n),)).astype(np.int32) for n in lens]
+    short = [p[:300] for p in prompts]  # warm-ups and host-op counts
+    max_seq = -(-(H2O_PROMPTS[1] + H2O_NEW) // 16) * 16
+    kw = dict(batch=H2O_REQUESTS, max_seq=max_seq, block_size=16, prefill_chunk=H2O_CHUNK,
+              device=dev, rt=Runtime(int_chain=True, decode_kernel=True))
+    tick = PagedServeEngine(arch, params, **kw)
+    mega = PagedServeEngine(arch, params, decode_steps=MEGASTEP_N, **kw)
+    for e in (tick, mega):  # warm-up; the megastep engine captures its window here
+        e.generate(short[:1], max_new=2)
+    chunks = sum(-(-len(p) // H2O_CHUNK) for p in prompts)
+
+    def run(engine):
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        outs = engine.generate(prompts, max_new=H2O_NEW)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        return outs, engine.throughput(), {k: after[k] - before[k] for k in after}
+
+    outs, ttp, tl = run(tick)
+    mouts, mtp, ml = run(mega)
+    windows = mtp["decode_dispatches"]
+    want = {"int_matmul_cuda.prologue_launches": (per_forward * (ttp["decode_dispatches"] + chunks),
+                                                  per_forward * (MEGASTEP_N * windows + chunks)),
+            "paged_attention_cuda.launches": (0, 0)}
+    got = {k: (tl[k], ml[k]) for k in want}
+    for r, o in zip(tick.last_requests, outs):
+        if len(o) != H2O_NEW or not all(0 <= t < arch.vocab for t in o) or \
+                not np.isfinite(r.margins).all():
+            raise AssertionError(f"[4h] bad output {o}")
+    same_margins = [r.margins for r in tick.last_requests] == \
+        [r.margins for r in mega.last_requests]
+    marg = max(abs(x - y) for r, g in zip(tick.last_requests, mega.last_requests)
+               for x, y in zip(r.margins, g.margins))
+    print(f"[4h] prompts {[len(p) for p in prompts]} (ring {a.window}); per tick: prefill "
+          f"{ttp['prefill_tok_s']:.2f} tok/s, decode {ttp['decode_tok_s']:.2f} tok/s "
+          f"({ttp['decode_dispatches']} ticks); megastep: prefill {mtp['prefill_tok_s']:.2f} "
+          f"tok/s, decode {mtp['decode_tok_s']:.2f} tok/s ({windows} windows, "
+          f"{mtp['graph_replays']} graph replays); tokens identical {mouts == outs}, margins "
+          f"bit for bit {same_margins} (largest difference {marg!r})", flush=True)
+    if got != want or mtp["graph_replays"] != windows or mouts != outs or not same_margins:
+        raise AssertionError(f"[4h] launches {got} (expected {want}), or the megastep differs "
+                             "from the per-tick engine")
+    eos = int(outs[0][H2O_NEW // 2])
+    for e in (tick, mega):
+        e.eos_id = eos
+    eos_runs = [run(e) for e in (tick, mega)]
+    for e in (tick, mega):
+        e.eos_id = None
+    eos_same = eos_runs[0][0] == eos_runs[1][0] and \
+        [r.margins for r in tick.last_requests] == [r.margins for r in mega.last_requests]
+    freed = all(e.cache.free_blocks == e.cache.num_blocks - 1 for e in (tick, mega))
+    print(f"[4h] eos_id {eos}: tokens and margins identical {eos_same}, request 0 ends after "
+          f"{len(eos_runs[1][0][0])} tokens, every block freed {freed}", flush=True)
+    if not eos_same or len(eos_runs[1][0][0]) >= H2O_NEW or not freed:
+        raise AssertionError("[4h] the EOS rerun differs or did not end request 0 early")
+    n_tick, n_window = tick_ops(tick, short), window_ops(mega, short)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tc = tl["int_matmul_cuda.tc_launches"]
+    decode_k = tl["int_matmul_cuda.launches"] - tc
+    print(f"[4h] host ops a tick {n_tick}, a window of {MEGASTEP_N} ticks {n_window}; ring state "
+          f"{tick.cache.state_bytes_per_slot()} bytes a slot ({tick.cache.kv_bytes_per_token()} "
+          f"KV bytes a token: no pools); peak allocated {peak:.2f} GiB; per-tick run's int_matmul "
+          f"launches: {decode_k} on the split-K decode kernel, {tc} on the tensor-core kernel; "
+          f"paged_attention launches 0 (ring layers take _sdpa, as in the reference: its decode "
+          f"kernel reads paged pools only); graph pool {mega.graph_info['pool_bytes']} bytes",
+          flush=True)
+    if n_window > MEGASTEP_MAX_WINDOW_OPS:
+        raise AssertionError(f"[4h] {n_window} host ops a window > {MEGASTEP_MAX_WINDOW_OPS}")
+    profile_decode(tick, short)
+    chunk = profile_prefill_chunk(tick, prompts[0][:2 * H2O_CHUNK + 88])
+    print(f"[4h] profiled prefill chunk of {H2O_CHUNK} tokens (device ms by part): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in chunk.items() if k != "rwkv6_scan"), flush=True)
+    launches = {"int_matmul[prologue]": tl["int_matmul_cuda.prologue_launches"]
+                + ml["int_matmul_cuda.prologue_launches"],
+                "int_matmul[tc]": tc + ml["int_matmul_cuda.tc_launches"],
+                "paged_attention": 0, "a2q_quantize": deploys,
+                "a2q_quantize[flips]": held["flips"]}
+    del tick, mega, params
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(arch, stacks=(dataclasses.replace(arch.stacks[0],
+                                                                count=H2O_CUT_LAYERS),))
+    print(f"[4h] the contiguous check, depth cut to {H2O_CUT_LAYERS} layers (the contiguous "
+          f"engine prefills a token a forward): 1 request of {H2O_CUT_PROMPT} prompt tokens, "
+          f"{H2O_CUT_NEW} new, --paged --parity-check --deploy-int8", flush=True)
+    t0 = time.perf_counter()
+    a2q_quantize_cuda.launches = 0
+    with held_deploys("4h cut") as held_cut:
+        out = launcher(["--arch", arch.name, "--device", str(dev), "--paged", "--parity-check",
+                        "--deploy-int8", "--requests", "1", "--prompt-len", str(H2O_CUT_PROMPT),
+                        "--max-new", str(H2O_CUT_NEW), "--batch", "1", "--max-seq",
+                        str(H2O_CUT_PROMPT + H2O_CUT_NEW), "--block-size", "16",
+                        "--prefill-chunk", str(H2O_CHUNK)], get_arch=lambda name: cut)
+    torch.cuda.synchronize()
+    check_held("4h cut", held_cut, a2q_quantize_cuda.launches)
+    contig = out["engines"]["contiguous"]
+    ctp, ptp = contig.throughput(), out["engines"]["paged"].throughput()
+    ring = contig.cache["0"]["attn"]["kpos"]
+    print(f"[4h] contiguous check: tokens identical across engines {out['outs']}; ring "
+          f"{tuple(contig.cache['0']['attn']['k'].shape)}, kpos from {int(ring.min())} to "
+          f"{int(ring.max())}; contiguous prefill {ctp['prefill_tok_s']:.2f} tok/s, decode "
+          f"{ctp['decode_tok_s']:.2f} tok/s; paged prefill {ptp['prefill_tok_s']:.2f} tok/s; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not on_card(contig) or len(out["outs"][0]) != H2O_CUT_NEW or int(ring.min()) <= 0 or \
+            held_cut["matrices"] != 7 * H2O_CUT_LAYERS + 1:
+        raise AssertionError("[4h] the contiguous check did not run past the window on the card")
+    launches["a2q_quantize"] += held_cut["matrices"]
+    launches["a2q_quantize[flips]"] += held_cut["flips"]
+    print(f"[4h] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del out, contig
+    torch.cuda.empty_cache()
+    return {"h2o-danube-1.8b": launches}
+
+
 def build_hubert(dev, arch) -> dict:
     """Full-size random A2Q params of ``arch`` (hubert-xlarge), each block
     drawn with the package's own initializer and deployed to int8 (on the
@@ -3247,9 +3571,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path = serve(dev)
     torch.cuda.empty_cache()
+    by_path.update(serve_contiguous(dev))
+    torch.cuda.empty_cache()
     by_path.update(serve_deepseek(dev))
     torch.cuda.empty_cache()  # deepseek's params are gone before rwkv6 is built
     by_path.update(serve_rwkv6(dev))
+    torch.cuda.empty_cache()
+    by_path.update(serve_h2o(dev))
     torch.cuda.empty_cache()
     by_path.update(encode_hubert(dev))
     torch.cuda.empty_cache()

@@ -1,6 +1,6 @@
 """Core A2Q library: accumulator bounds, quantizers and the A2Q operator."""
 
-from repro_torch.core import a2q, bounds, quantizers  # noqa: F401
+from repro_torch.core import a2q, bounds, integer, quantizers  # noqa: F401
 from repro_torch.core.a2q import (  # noqa: F401
     a2q_channel_l1,
     a2q_int_weights,

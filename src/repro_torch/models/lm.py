@@ -25,9 +25,15 @@ from repro_torch.nn.embedding import apply_embedding, init_embedding
 from repro_torch.nn.linear import apply_linear, chain_report_scope, init_linear, linear_penalty
 from repro_torch.nn.module import tree_to
 from repro_torch.nn.norms import apply_norm, init_norm
-from repro_torch.nn.transformer import COMPUTE_DTYPES, apply_stack, init_stack, tree_a2q_penalty
+from repro_torch.nn.transformer import (
+    COMPUTE_DTYPES,
+    apply_stack,
+    init_stack,
+    init_stack_cache,
+    tree_a2q_penalty,
+)
 
-__all__ = ["Runtime", "init_lm", "apply_lm", "lm_loss", "a2q_penalty_of"]
+__all__ = ["Runtime", "init_lm", "init_cache", "apply_lm", "lm_loss", "a2q_penalty_of"]
 
 
 class Runtime:
@@ -95,6 +101,14 @@ def _head_logits(params, arch: ArchConfig, h: torch.Tensor, rt: Runtime) -> torc
                         int_forward=rt.int_forward, int_chain=rt.int_chain, site="head")
 
 
+def init_cache(arch: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device="cuda") -> dict:
+    """Contiguous decode caches of every stack on ``device``, keyed like
+    ``params["stacks"]`` (``nn.transformer.init_stack_cache``)."""
+    return {str(i): init_stack_cache(arch, s, batch, max_seq, dtype, device)
+            for i, s in enumerate(arch.stacks)}
+
+
 def apply_lm(
     params: dict,
     arch: ArchConfig,
@@ -108,12 +122,13 @@ def apply_lm(
     """Forward pass over ``tokens (B, T)``, precomputed ``frontend_embeds
     (B, S, d_model)`` (hubert's frames), or both (the embeddings first, then
     the tokens', along the sequence).  ``cache`` given => a cached step
-    over paged pools (``T == 1`` decode or ``T > 1`` chunked prefill), written
-    at each row's ``start_pos`` (an int or a ``(B,)`` tensor); the cache
-    carries its block-table view under the reserved key ``"_paged"``.  The
-    pools and the recurrent per-slot leaves (rwkv6's ``tm.S``, ``tm.shift``,
-    ``cm.shift``, one row per batch row) are updated in place; the returned
-    cache holds the per-stack leaves without the view.
+    (``T == 1`` decode or ``T > 1`` chunked prefill) written at each row's
+    ``start_pos`` (an int or a ``(B,)`` tensor): over a contiguous cache
+    (``init_cache``), or over paged pools, when the cache carries its
+    block-table view under the reserved key ``"_paged"``.  The caches, the
+    pools and the per-row leaves (rings, rwkv6's ``tm.S``, ``tm.shift``,
+    ``cm.shift``) are updated in place; the returned cache holds the
+    per-stack leaves without the view.
 
     Returns ``(logits, new_cache)``.  The reference's third output, the A2Q
     penalty, depends on the params alone: ``a2q_penalty_of(params, arch)``

@@ -5,7 +5,8 @@
   data-parallel step belongs to distribution, not ported);
 * ``build_prefill_step`` — one forward over a prompt or an utterance,
   returning the last position's logits: the reference's entry point for an
-  encoder (hubert), which has no serving engine.
+  encoder (hubert), which has no serving engine;
+* ``build_serve_step`` — one cached decode step over a contiguous cache.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from repro_torch.models.lm import Runtime, apply_lm, lm_loss
 from repro_torch.nn.module import tree_map
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 
-__all__ = ["build_train_step", "build_prefill_step"]
+__all__ = ["build_train_step", "build_prefill_step", "build_serve_step"]
 
 
 def build_train_step(
@@ -78,3 +79,15 @@ def build_prefill_step(arch: ArchConfig, rt: Optional[Runtime] = None):
         return logits[:, -1:, :]
 
     return prefill_step
+
+
+def build_serve_step(arch: ArchConfig, rt: Optional[Runtime] = None):
+    """``serve_step(params, tokens (B, 1), cache, pos) -> (logits (B, 1, V),
+    cache)``: one cached step over a contiguous cache (``models.lm.init_cache``),
+    written in place at each row's position ``pos``."""
+    rt = rt or Runtime()
+
+    def serve_step(params: dict, tokens: torch.Tensor, cache: dict, pos):
+        return apply_lm(params, arch, tokens=tokens, cache=cache, start_pos=pos, rt=rt)
+
+    return serve_step

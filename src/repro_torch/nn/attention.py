@@ -1,4 +1,5 @@
-"""Attention layers over paged KV caches: GQA (+RoPE) and MLA.
+"""Attention layers: GQA (+RoPE, sliding window) and MLA, over contiguous,
+ring or paged KV caches.
 
 All projections are quantized linears, so A2Q attaches to q/k/v/o (and the
 MLA down/up projections) as to any other matmul.  Ported from
@@ -6,6 +7,14 @@ MLA down/up projections) as to any other matmul.  Ported from
 
 * ``_sdpa`` — scaled dot-product with absolute-position masking (causal,
   sliding window, chunked-local), grouped KV heads and query chunking;
+* the contiguous cache (``init_attn_cache``): per layer ``k``/``v`` ``(B,
+  S, KV, Dh)`` and the keys' absolute positions ``kpos (B, S)`` (-1 = empty
+  slot); ``S = max_seq``, or for a sliding-window / chunk-local layer a
+  ring of ``min(window or chunk, max_seq)`` slots written at ``pos % S``
+  (what keeps h2o-danube's window-4096 decode at 4096 slots however long
+  the context); MLA caches the latent ``ckv (B, S, R)`` and rope key ``kpe
+  (B, S, P)``.  ``_write_cache`` writes a ``T``-token update at each row's
+  start position in place;
 * the paged cache view: pools ``(NB, bs, KV, Dh)`` indexed through a
   per-sequence block table ``view["bt"] (B, MB)``; ``_paged_write``
   scatters (a position past the table into the trash block, where the
@@ -23,7 +32,8 @@ MLA down/up projections) as to any other matmul.  Ported from
   reference's semantics; it is not a fallback on a failure;
 * MLA (deepseek-v3): low-rank compressed q and kv with a shared rope key,
   cached as the latent ``ckvp (NB, bs, kv_lora_rank)`` and rope-key ``kpep
-  (NB, bs, qk_rope_dim)`` pools.  The materialized path up-projects the
+  (NB, bs, qk_rope_dim)`` pools, or in the contiguous ``ckv``/``kpe``
+  lanes (never a ring).  The materialized path up-projects the
   latent through ``wkv_b`` and runs ``_sdpa``; the absorbed path
   (``mla_absorb=True``, every cached step) folds ``wkv_b`` into the query and
   the output and attends in latent space, through
@@ -38,9 +48,16 @@ byte into uint8 pools of half the width (``_pack_nibbles``); reads go through
 the kernels, which dequantize in registers, or through the dequantized
 gathered view (``_paged_gather_deq``).
 
-Writes update the pools in place (the reference returns new arrays); the
-returned cache holds the same tensors.  Contiguous and ring caches are not
-ported yet.
+Every layout shares one ``_sdpa``: keys carry absolute positions, so the
+masks (causal, window, chunk, empty slot) read the same for all of them.  A
+chunked prefill over a ring attends the ring as it was before the chunk's
+writes plus the chunk's own K/V, since a chunk's later tokens overwrite
+slots its earlier queries still see.  Ring-layer attention takes ``_sdpa``
+in every step, as in the reference (its decode kernel reads paged pools
+only).
+
+Writes update the caches in place (the reference returns new arrays); the
+returned cache holds the same tensors.
 """
 
 from __future__ import annotations
@@ -50,6 +67,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import AttnConfig, QuantConfig
 from repro_torch.core.quantizers import apply_act_quant
 from repro_torch.kernels.ref import _unpack_nibbles
@@ -57,7 +75,7 @@ from repro_torch.nn.embedding import apply_rope
 from repro_torch.nn.linear import _quant_weights, apply_linear, init_linear
 from repro_torch.nn.norms import apply_norm, init_norm
 
-__all__ = ["init_attention", "apply_attention"]
+__all__ = ["init_attention", "apply_attention", "init_attn_cache"]
 
 _NEG = -1e30
 TRASH_BLOCK = 0  # the pools' reserved block: dead rows write there, nothing reads it as valid
@@ -137,6 +155,65 @@ def init_attention(gen: torch.Generator, d_model: int, a: AttnConfig, q: QuantCo
     if a.kind == "mla":
         return _init_mla(gen, d_model, a, q)
     return _init_gqa(gen, d_model, a, q, use_bias)
+
+
+def init_attn_cache(batch: int, a: AttnConfig, max_seq: int, dtype=torch.bfloat16,
+                    device="cuda") -> dict:
+    """The contiguous decode cache of one attention layer on ``device``:
+    ``k``/``v`` ``(batch, slots, KV, Dh)`` with ``slots = max_seq``, or a ring
+    of ``min(window or chunk, max_seq)`` slots for a sliding-window or
+    chunk-local layer; MLA's latent ``ckv (batch, max_seq, R)`` and rope key
+    ``kpe (batch, max_seq, P)``; and ``kpos (batch, slots)`` int32, every
+    slot -1 (empty)."""
+    dev = resolve_device(device)
+    if a.kind == "mla":
+        lanes = {"ckv": (batch, max_seq, a.kv_lora_rank), "kpe": (batch, max_seq, a.qk_rope_dim)}
+        slots = max_seq
+    else:
+        ring = a.window or a.chunk
+        slots = max_seq if ring is None else min(ring, max_seq)
+        lanes = {"k": (batch, slots, a.kv_heads, a.head_dim),
+                 "v": (batch, slots, a.kv_heads, a.head_dim)}
+    cache = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, shape in lanes.items()}
+    cache["kpos"] = torch.full((batch, slots), -1, dtype=torch.int32, device=dev)
+    return cache
+
+
+def _write_cache(cache: dict, updates: dict, pos: torch.Tensor, ring: bool) -> dict:
+    """Write a ``T``-token update (``updates[name] (B, T, ...)``; decode at
+    ``T == 1``, a prefill chunk above) into a contiguous cache in place, at
+    each row's start position ``pos`` (``(B,)``, or one for every row), and
+    the tokens' absolute positions into ``kpos``.
+
+    A non-ring cache takes the span ``[pos, pos + T)``, its start clamped to
+    ``[0, S - T]`` as ``jax.lax.dynamic_update_slice`` clamps it (the
+    contiguous engine's per-token prefill feeds every row at its current
+    position, freed rows included): no index falls out of range and nothing
+    raises.  A ring takes slot ``(pos + t) % S``; a chunk longer than the
+    ring (``T > S``) would map tokens ``t`` and ``t + S`` to one slot, so the
+    writes a later token of the chunk supersedes are dropped before the
+    scatter (duplicate indices of ``index_put_`` land in no defined order)
+    and the last ``S`` tokens are written.  The tensors are never rebound:
+    a captured CUDA graph reads them at fixed addresses."""
+    B, S = cache["kpos"].shape
+    T = next(iter(updates.values())).shape[1]
+    dev = cache["kpos"].device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(-1).expand(B)
+    steps = torch.arange(T, dtype=torch.int32, device=dev)[None, :]
+    abs_pos = pos[:, None] + steps  # (B, T)
+    if ring:
+        keep = slice(max(T - S, 0), T)  # the tokens no later one of the chunk supersedes
+        abs_pos = abs_pos[:, keep]
+        updates = {k: v[:, keep] for k, v in updates.items()}
+        idx = abs_pos % S
+    else:
+        idx = pos.clamp(0, max(S - T, 0))[:, None] + steps
+    rows = torch.arange(B, device=dev)[:, None].expand_as(idx)
+    idx = idx.long()
+    for name, val in updates.items():
+        cache[name].index_put_((rows, idx), val.to(cache[name].dtype))
+    cache["kpos"].index_put_((rows, idx), abs_pos)
+    return cache
 
 
 def _paged_write(pool: torch.Tensor, val: torch.Tensor, bt: torch.Tensor,
@@ -239,12 +316,13 @@ def apply_attention(
     int_forward: bool = False,
     int_chain: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
-    """Returns (output, updated cache).  ``cache`` given => a paged step over
-    ``T >= 1`` new tokens (decode or chunked prefill) through the block-table
-    ``view`` (pools ``kp``/``vp``, or ``ckvp``/``kpep`` for MLA, with scale
-    pools when integer); ``decode_kernel=True`` routes the ``T == 1`` read
-    through the paged attention kernel (for MLA only on the absorbed path,
-    ``mla_absorb``).  ``int_forward`` routes deployed projections through the
+    """Returns (output, updated cache).  ``cache`` given => a cached step
+    over ``T >= 1`` new tokens (decode or chunked prefill): a contiguous or
+    ring cache (``k``/``v``/``kpos``, MLA ``ckv``/``kpe``/``kpos``), or paged
+    pools (``kp``/``vp``, or ``ckvp``/``kpep`` for MLA, with scale pools when
+    integer) through the block-table ``view``; ``decode_kernel=True`` routes
+    a paged ``T == 1`` read through the paged attention kernel (for MLA only
+    on the absorbed path, ``mla_absorb``).  ``int_forward`` routes deployed projections through the
     fused W8A8 path; every attention projection is a chain break, so
     ``int_chain`` folds each act-quant into the kernel's prologue."""
     if a.kind == "mla":
@@ -311,7 +389,23 @@ def apply_attention(
             out = _sdpa(qh, k_all, v_all, positions, kpos,
                         causal=a.causal, window=a.window, chunk=a.chunk, q_chunk=q_chunk)
     else:
-        raise NotImplementedError("contiguous and ring KV caches are not ported yet")
+        ring = (a.window or a.chunk) is not None
+        snapshot = ring and T > 1
+        if snapshot:
+            # a chunked prefill over a ring: the chunk's writes overwrite
+            # slots its early queries still need, so attend the ring as it
+            # was before them (copied before the in-place write) plus the
+            # chunk's fresh K/V; the absolute positions mask stale and
+            # out-of-window entries, and the ring's positions, all below the
+            # chunk's, never collide with them
+            k_all = torch.cat([cache["k"], kh.to(cache["k"].dtype)], dim=1)
+            v_all = torch.cat([cache["v"], vh.to(cache["v"].dtype)], dim=1)
+            kpos = torch.cat([cache["kpos"], positions], dim=1)
+        new_cache = _write_cache(cache, {"k": kh, "v": vh}, positions[:, 0], ring)
+        if not snapshot:
+            k_all, v_all, kpos = new_cache["k"], new_cache["v"], new_cache["kpos"]
+        out = _sdpa(qh, k_all, v_all, positions, kpos,
+                    causal=a.causal, window=a.window, chunk=a.chunk, q_chunk=q_chunk)
     out = out.reshape(B, T, H * Dh)
     return lin(params["wo"], x=out, site="attn.wo"), new_cache
 
@@ -376,7 +470,8 @@ def _apply_mla(
         if not use_kernel:
             kpos = _paged_kpos(positions, ckv_all.shape[1])
     else:
-        raise NotImplementedError("contiguous MLA caches are not ported yet")
+        cache = _write_cache(cache, {"ckv": ckv, "kpe": kpe}, positions[:, 0], ring=False)
+        ckv_all, kpe_all, kpos = cache["ckv"], cache["kpe"], cache["kpos"]
 
     wkv_b = params["wkv_b"]
     if absorb and cache is not None:

@@ -30,7 +30,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, QuantConfig, StackConfig
 from repro_torch.core.a2q import apply_a2q
-from repro_torch.nn.attention import apply_attention, init_attention
+from repro_torch import resolve_device
+from repro_torch.nn.attention import apply_attention, init_attention, init_attn_cache
 from repro_torch.kernels.ref import gelu_tanh
 from repro_torch.nn.linear import IntAct, apply_linear, chain_out_aq, init_linear, linear_penalty
 from repro_torch.nn.module import tree_leaves_with_path
@@ -43,7 +44,8 @@ from repro_torch.nn.ssm import (
     init_rwkv6_timemix,
 )
 
-__all__ = ["init_stack", "apply_stack", "tree_a2q_penalty", "COMPUTE_DTYPES"]
+__all__ = ["init_stack", "apply_stack", "init_stack_cache", "tree_a2q_penalty",
+           "COMPUTE_DTYPES"]
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -240,3 +242,29 @@ def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
         else:
             x = block(layers[i], x)
     return x
+
+
+def init_stack_cache(arch: ArchConfig, s: StackConfig, batch: int, max_seq: int,
+                     dtype=torch.bfloat16, device="cuda") -> dict:
+    """The contiguous decode cache of one stack on ``device``, every leaf with
+    a leading ``count`` axis (the layers' caches, stacked): attention
+    layers' ``init_attn_cache`` (a ring for sliding-window / chunk-local
+    layers), rwkv6's fp32 state ``tm.S (count, batch, H, Dk, Dk)`` and its
+    token-shift carries ``tm.shift``/``cm.shift (count, batch, 1, d)``.
+    Each leaf is its own tensor (updated in place), not a broadcast view."""
+    dev = resolve_device(device)
+    if s.kind in ("attn_mlp", "moe"):
+        one = init_attn_cache(batch, s.attn, max_seq, dtype, device=dev)
+        return {"attn": {k: torch.stack([v] * s.count) for k, v in one.items()}}
+    if s.kind == "rwkv6":
+        H, Dk = arch.d_model // s.ssm.head_dim, s.ssm.head_dim
+
+        def shift():
+            return torch.zeros((s.count, batch, 1, arch.d_model), dtype=dtype, device=dev)
+
+        return {"tm": {"S": torch.zeros((s.count, batch, H, Dk, Dk), dtype=torch.float32,
+                                        device=dev),
+                       "shift": shift()},
+                "cm": {"shift": shift()}}
+    raise NotImplementedError(f"caches for {s.kind!r} stacks are not ported yet (ROADMAP.md "
+                              "queue 1)")

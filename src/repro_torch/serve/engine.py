@@ -1,13 +1,24 @@
-"""Paged serving engine: continuous batching over block-table KV pools.
+"""Serving engines: continuous batching over contiguous or paged KV caches.
 
-Port of ``repro.serve.engine`` for the paged engine's per-tick greedy path:
-scheduler-driven continuous batching (``serve/scheduler.py``), chunked
-prefill of each admitted request on an isolated one-row view of the block
-tables and of the per-slot recurrent leaves (zeroed at admission), and a
-full-batch decode step per tick whose dead rows write into the trash block
-(their recurrent rows advance and are zeroed on the slot's next admission).
-The forward runs eagerly; the pools and recurrent leaves are updated in
-place.
+Port of ``repro.serve.engine``.  Two engines share the scheduler's request
+type and the stats contract:
+
+* ``ServeEngine`` — the reference's measured baseline and parity oracle: one
+  contiguous ``max_seq`` cache lane a slot (a ring for sliding-window
+  layers), prompts prefilled one token a forward into the slot's lane,
+  logits read back to the host for the argmax and the top-2 margin every
+  tick.  Recurrent stacks (rwkv6) run in lockstep: equal-length groups
+  prefilled together into a cache rebuilt per group.  Eager.
+* ``PagedServeEngine`` — scheduler-driven continuous batching over
+  block-table pools: chunked prefill of each admitted request on an
+  isolated one-row view of the block tables and of the per-slot leaves
+  (rings and recurrent state, emptied at admission), and a full-batch
+  decode step per tick whose dead rows write into the trash block (their
+  per-slot rows advance and are emptied on the slot's next admission).
+  ``lockstep=True`` admits equal-length groups into an empty engine and
+  prefills them together (``_admit_group``), the scheduler's fallback
+  mode.  The forward runs eagerly; the pools and per-slot leaves are
+  updated in place.
 
 ``deploy_params`` swaps trained A2Q params for int8 weights + per-channel
 scales — the artifact whose l1 norms provably fit the target accumulator —
@@ -26,11 +37,11 @@ tokens, margins and emitted flags once a window.  On the CPU the window
 runs eagerly; on a CUDA device it is captured once per engine into a
 ``torch.cuda.CUDAGraph`` and every window is one replay (``_capture``).
 
-The engine keeps the reference's ``stats`` = {prefill_tokens, decode_tokens,
-prefill_s, decode_s, decode_dispatches} and ``throughput()`` contract (first
-generated token booked under prefill; one decode dispatch a tick or a
-window), plus ``graph_replays``.  Not ported yet: the contiguous
-``ServeEngine`` (and with it ``--eos-auto``'s probe), lockstep admission,
+Both engines keep the reference's ``stats`` = {prefill_tokens,
+decode_tokens, prefill_s, decode_s, decode_dispatches} and ``throughput()``
+contract (first generated token booked under prefill; one decode dispatch a
+tick or a window), plus ``graph_replays``.  ``parity_up_to_ties`` is the
+reference's gate between two engines' greedy streams.  Not ported yet:
 prefix sharing (and the megastep's copy-on-write preflight), the
 speculative engine, disaggregated handoff, non-greedy sampling and the
 observability bundle.
@@ -47,14 +58,15 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, QuantConfig
 from repro_torch.kernels.ops import launch_counts, set_launch_counts
-from repro_torch.models.lm import Runtime, apply_lm
+from repro_torch.models.lm import Runtime, apply_lm, init_cache
 from repro_torch.nn.linear import deploy_linear
 from repro_torch.nn.transformer import COMPUTE_DTYPES
 from repro_torch.serve.paged_cache import PagedKVCache
 from repro_torch.serve.sampling import SampleConfig, sample_tokens
 from repro_torch.serve.scheduler import Scheduler, ServeRequest
 
-__all__ = ["PagedServeEngine", "Request", "deploy_params", "parity_up_to_ties"]
+__all__ = ["ServeEngine", "PagedServeEngine", "Request", "deploy_params",
+           "parity_up_to_ties"]
 
 Request = ServeRequest
 
@@ -147,7 +159,215 @@ def _greedy_margin(logits: torch.Tensor) -> torch.Tensor:
     return top2[:, 0] - top2[:, 1]
 
 
-class PagedServeEngine:
+class _StatsMixin:
+    """The engines' shared ``stats`` contract."""
+
+    def reset_stats(self) -> None:
+        """Zero the throughput counters (after a warm-up pass, so first-call
+        set-up stays out of steady-state numbers)."""
+        self.stats = _fresh_stats()
+
+    def throughput(self) -> dict:
+        """Derived tok/s split (prefill vs decode) from ``stats``, and the
+        chain report of the last forward when the integer path runs."""
+        st = self.stats
+        total_s = st["prefill_s"] + st["decode_s"]
+        total_tok = st["prefill_tokens"] + st["decode_tokens"]
+        out = {
+            **st,
+            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"] if st["prefill_s"] > 0 else 0.0,
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"] if st["decode_s"] > 0 else 0.0,
+            "tok_s": total_tok / total_s if total_s > 0 else 0.0,
+            "dispatches_per_token": (
+                st["decode_dispatches"] / st["decode_tokens"] if st["decode_tokens"] > 0 else 0.0
+            ),
+        }
+        if self.rt.int_forward:
+            rep = self.rt.chain_report
+            out["int_chain_requant_dispatches"] = len(rep.get("standalone", ()))
+            out["int_chain_folded"] = len(rep.get("folded", ()))
+            out["int_chain_chained"] = len(rep.get("chained", ()))
+            out["int_chain_fallback"] = len(rep.get("fallback", ()))
+        return out
+
+
+class ServeEngine(_StatsMixin):
+    """Contiguous-cache baseline: per-token prefill into the slot's lane and a
+    host-side argmax every tick (the reference's parity oracle).
+
+    ``params`` must already live on ``device`` (default ``"cuda"``; a CUDA
+    device without a usable card raises).  The cache (``models.lm.init_cache``,
+    rings for sliding-window layers) is written in place.  Every forward
+    feeds all ``batch`` rows: rows other than the one being prefilled, and
+    free rows, take token 0 at their current position, and their own next
+    real token overwrites that write before it is ever attended (a free
+    row's write is clamped into its lane as the reference's
+    ``dynamic_update_slice`` clamps it).  Recurrent stacks advance every
+    row's state on every call, so they serve in lockstep: equal-length
+    groups of at most ``batch`` prompts, the cache rebuilt per group."""
+
+    def __init__(
+        self,
+        arch: ArchConfig,
+        params: dict,
+        *,
+        batch: int = 4,
+        max_seq: int = 512,
+        rt: Optional[Runtime] = None,
+        bos_id: int = 0,
+        eos_id: Optional[int] = None,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        _check_device(params, self.device)
+        self.arch = arch
+        self.params = params
+        self.batch = batch
+        self.max_seq = max_seq
+        self.rt = rt or Runtime()
+        self.bos_id = bos_id
+        self.eos_id = eos_id  # default for requests that do not set their own
+        self.cache = self._fresh_cache()
+        self.pos = np.zeros((batch,), np.int32)  # each slot's next position
+        self.slots: list[Optional[Request]] = [None] * batch
+        self.recurrent = any(s.kind in ("rwkv6", "hymba") for s in arch.stacks)
+        self.stats = _fresh_stats()
+        self.last_requests: list = []
+
+    def _fresh_cache(self) -> dict:
+        return init_cache(self.arch, self.batch, self.max_seq,
+                          dtype=COMPUTE_DTYPES[self.arch.compute_dtype], device=self.device)
+
+    def _decode(self, tokens: np.ndarray) -> torch.Tensor:
+        """One cached forward of ``tokens (B, 1)`` at every row's position;
+        the ``(B, V)`` logits, on the device (read back only where a token is
+        taken from them)."""
+        logits, _ = apply_lm(self.params, self.arch,
+                             tokens=torch.as_tensor(tokens, device=self.device),
+                             cache=self.cache,
+                             start_pos=torch.as_tensor(self.pos, device=self.device), rt=self.rt)
+        return logits[:, 0]
+
+    @staticmethod
+    def _host(logits: torch.Tensor) -> np.ndarray:
+        return logits.to(torch.float32).cpu().numpy()
+
+    def admit(self, req: Request) -> bool:
+        req.prompt = _normalize_prompt(req.prompt, self.bos_id)
+        if req.eos_id is None:
+            req.eos_id = self.eos_id
+        for i, s in enumerate(self.slots):
+            if s is None:
+                self.slots[i] = req
+                self._prefill_slot(i, req)
+                return True
+        return False
+
+    def _emit_token(self, slot: int, req: Request, logits_row: np.ndarray) -> bool:
+        """Host argmax and top-2 margin of one fresh token; True (and the slot
+        freed) when the request just completed (``max_new`` reached, or the
+        token is its ``eos_id``)."""
+        nxt = int(np.argmax(logits_row))
+        top2 = np.partition(logits_row.astype(np.float32), -2)[-2:]
+        req.margins.append(float(top2[1] - top2[0]))
+        if not req.generated:
+            req.first_token_at = time.perf_counter()
+        req.generated.append(nxt)
+        req.last_token = nxt
+        if len(req.generated) >= req.max_new or (req.eos_id is not None and nxt == req.eos_id):
+            req.done = True
+            req.finished_at = time.perf_counter()
+            self.slots[slot] = None
+            return True
+        return False
+
+    def _prefill_slot(self, slot: int, req: Request) -> None:
+        """Feed the prompt one token a forward into this slot's lane; the last
+        step's logits give the first generated token, booked under prefill."""
+        t0 = time.perf_counter()
+        self.pos[slot] = 0
+        for t in req.prompt:
+            tok = np.zeros((self.batch, 1), np.int32)
+            tok[slot, 0] = t
+            logits = self._decode(tok)
+            self.pos[slot] += 1
+        last = self._host(logits[slot])
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self.stats["prefill_tokens"] += len(req.prompt)
+        self._emit_token(slot, req, last)
+
+    def tick(self) -> int:
+        """Advance every live slot one token at its own position; returns the
+        number of live slots."""
+        live = [i for i, s in enumerate(self.slots) if s is not None]
+        if not live:
+            return 0
+        t0 = time.perf_counter()
+        tok = np.zeros((self.batch, 1), np.int32)
+        for i in live:
+            tok[i, 0] = self.slots[i].last_token
+        logits = self._host(self._decode(tok))
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_tokens"] += len(live)
+        self.stats["decode_dispatches"] += 1
+        for i in live:
+            req = self.slots[i]
+            self.pos[i] += 1
+            self._emit_token(i, req, logits[i])
+        return len(live)
+
+    def generate(self, prompts: list, max_new: int = 16) -> list[list[int]]:
+        """Admit all, tick until drained (recurrent stacks: one lockstep
+        group)."""
+        reqs = [Request(uid=i, prompt=_normalize_prompt(p, self.bos_id), max_new=max_new,
+                        submitted_at=time.perf_counter())
+                for i, p in enumerate(prompts)]
+        self.last_requests = reqs  # parity gates read tokens + margins here
+        if self.recurrent:
+            return self._generate_lockstep(reqs)
+        pending = list(reqs)
+        while pending or any(s is not None for s in self.slots):
+            while pending and self.admit(pending[0]):
+                pending.pop(0)
+            if self.tick() == 0 and not pending:
+                break
+        return [r.generated for r in reqs]
+
+    def _generate_lockstep(self, reqs: list) -> list[list[int]]:
+        """One equal-length group of at most ``batch`` prompts, prefilled
+        together from a fresh cache (whatever state the previous group's
+        drain left is dropped), then decoded until it drains."""
+        if len(reqs) > self.batch:
+            raise ValueError(f"lockstep serves one group of at most {self.batch} requests")
+        lens = {len(r.prompt) for r in reqs}
+        if len(lens) != 1:
+            raise ValueError("recurrent stacks need equal-length prompt groups")
+        for r in reqs:
+            if r.eos_id is None:
+                r.eos_id = self.eos_id
+        T = lens.pop()
+        t0 = time.perf_counter()
+        self.cache = self._fresh_cache()
+        self.pos[:] = 0
+        for i, r in enumerate(reqs):
+            self.slots[i] = r
+        for t in range(T):
+            tok = np.zeros((self.batch, 1), np.int32)
+            for i, r in enumerate(reqs):
+                tok[i, 0] = r.prompt[t]
+            logits = self._decode(tok)
+            self.pos[: len(reqs)] += 1
+        logits = self._host(logits)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self.stats["prefill_tokens"] += T * len(reqs)
+        for i, r in enumerate(reqs):
+            self._emit_token(i, r, logits[i])
+        while any(s is not None for s in self.slots):
+            self.tick()
+        return [r.generated for r in reqs]
+
+
+class PagedServeEngine(_StatsMixin):
     """Paged-KV serving engine: scheduler-driven continuous batching, chunked
     prefill on isolated one-row views, greedy on-device sampling (only token
     ids and greedy margins reach the host).
@@ -155,7 +375,9 @@ class PagedServeEngine:
     ``params`` must already live on ``device`` (default ``"cuda"``; a CUDA
     device without a usable card raises).  ``num_blocks`` bounds KV memory
     (default: every slot at ``max_seq``); admission stalls, never crashes,
-    when blocks run out.  ``kv_quant`` stores the KV pools as integer codes
+    when blocks run out.  ``lockstep=True`` admits equal-length groups into
+    an empty engine and prefills them together (the scheduler's fallback
+    mode); the default admits continuously.  ``kv_quant`` stores the KV pools as integer codes
     (``kv_bits`` 8, or 4 packed two a byte) with per-slot fp32 scales.  The KV
     pools are updated in place.
 
@@ -177,6 +399,7 @@ class PagedServeEngine:
         num_blocks: Optional[int] = None,
         rt: Optional[Runtime] = None,
         sample: Optional[SampleConfig] = None,
+        lockstep: Optional[bool] = None,
         bos_id: int = 0,
         eos_id: Optional[int] = None,
         decode_steps: int = 1,
@@ -204,40 +427,16 @@ class PagedServeEngine:
             dtype=COMPUTE_DTYPES[arch.compute_dtype], device=self.device, kv_quant=kv_quant,
             kv_bits=kv_bits,
         )
-        self.sched = Scheduler(batch, prefill_chunk=prefill_chunk)
+        self.sched = Scheduler(batch, prefill_chunk=prefill_chunk, lockstep=bool(lockstep))
         self.stats = _fresh_stats()
         self.last_requests: list = []
         self._graph: Optional[dict] = None  # the captured window (CUDA, decode_steps > 1)
         self.graph_info: dict = {}
 
-    # -- stats contract -------------------------------------------------------
-
     def reset_stats(self) -> None:
         """Zero the throughput counters and the cache's counters together."""
-        self.stats = _fresh_stats()
+        super().reset_stats()
         self.cache.reset_counters()
-
-    def throughput(self) -> dict:
-        """Derived tok/s split (prefill vs decode) from ``stats``."""
-        st = self.stats
-        total_s = st["prefill_s"] + st["decode_s"]
-        total_tok = st["prefill_tokens"] + st["decode_tokens"]
-        out = {
-            **st,
-            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"] if st["prefill_s"] > 0 else 0.0,
-            "decode_tok_s": st["decode_tokens"] / st["decode_s"] if st["decode_s"] > 0 else 0.0,
-            "tok_s": total_tok / total_s if total_s > 0 else 0.0,
-            "dispatches_per_token": (
-                st["decode_dispatches"] / st["decode_tokens"] if st["decode_tokens"] > 0 else 0.0
-            ),
-        }
-        if self.rt.int_forward:
-            rep = self.rt.chain_report
-            out["int_chain_requant_dispatches"] = len(rep.get("standalone", ()))
-            out["int_chain_folded"] = len(rep.get("folded", ()))
-            out["int_chain_chained"] = len(rep.get("chained", ()))
-            out["int_chain_fallback"] = len(rep.get("fallback", ()))
-        return out
 
     # -- steps (sampling on device: only ids and margins reach the host) ------
 
@@ -444,6 +643,35 @@ class PagedServeEngine:
         if self.sched.record_token(slot, int(tok[0])):
             self.cache.release(slot)
 
+    def _admit_group(self, group: list) -> None:
+        """Lockstep admission: an equal-length group prefilled together in
+        one batched chunked pass over the full tables (every row shares
+        every position; the engine is empty, so the other rows write into
+        the trash block)."""
+        L = len(group[0][1].prompt)
+        if any(len(r.prompt) != L for _, r in group):
+            raise ValueError("lockstep admission needs equal prompt lengths")
+        toks = np.zeros((self.batch, L), np.int32)
+        for slot, req in group:
+            self.cache.reset_slot(slot)
+            self.cache.allocate(slot, L + req.max_new)
+            toks[slot] = req.prompt
+            req.prefilled = L
+        t0 = time.perf_counter()
+        bt = self.cache.bt()
+        tok = marg = None
+        for lo in range(0, L, self.sched.prefill_chunk):
+            hi = min(lo + self.sched.prefill_chunk, L)
+            tokens = torch.as_tensor(toks[:, lo:hi], device=self.device)
+            tok, marg = self._prefill_fn(tokens, self.cache.pools, bt, lo)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self.stats["prefill_tokens"] += L * len(group)
+        for slot, req in group:
+            self.cache.lens[slot] = L
+            req.margins.append(float(marg[slot]))
+            if self.sched.record_token(slot, int(tok[slot])):
+                self.cache.release(slot)
+
     def tick(self) -> int:
         """One decode step for every live slot (dead rows ride along writing
         into the trash block); returns the number of live slots advanced."""
@@ -521,8 +749,12 @@ class PagedServeEngine:
         if self.decode_steps > 1 and self.device.type == "cuda" and self._graph is None:
             self._capture()
         admitted = self.sched.admissions(self._admission_gate())
-        for slot, req in admitted:
-            self._admit(slot, req)
+        if self.sched.lockstep:
+            if admitted:
+                self._admit_group(admitted)
+        else:
+            for slot, req in admitted:
+                self._admit(slot, req)
         n = self._advance()
         if n == 0 and not admitted and self.sched.queue:
             raise RuntimeError("scheduler stalled: queued work but nothing admittable")

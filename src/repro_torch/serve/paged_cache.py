@@ -1,7 +1,7 @@
 """Paged KV cache: fixed-size token blocks + per-sequence block tables.
 
-Port of ``repro.serve.paged_cache`` for full-attention GQA and MLA stacks
-(``attn_mlp`` and ``moe`` blocks) and RWKV-6 stacks.  Seq-indexed K/V lives in pools of
+Port of ``repro.serve.paged_cache`` for GQA and MLA stacks (``attn_mlp``
+and ``moe`` blocks) and RWKV-6 stacks.  Seq-indexed K/V lives in pools of
 ``block_size``-token blocks shared by all slots, per stack ``kp``/``vp`` of
 shape ``(count, NB, bs, KV, Dh)``, or for MLA the latent ``ckvp (count, NB,
 bs, kv_lora_rank)`` and rope key ``kpep (count, NB, bs, qk_rope_dim)``.
@@ -22,10 +22,15 @@ write into trash and attend to garbage that is never read).  All layers
 share one block table.  The device-facing view is attached to the cache tree
 under the reserved key ``"_paged"``; the layers write the pools in place.
 
-Recurrent stacks keep per-slot leaves instead of pools: rwkv6's ``tm.S
-(count, slots, H, Dk, Dv)`` fp32 state and the token-shift carries
-``tm.shift``/``cm.shift (count, slots, 1, d)`` in the compute dtype.
-``reset_slot`` zeroes a slot's rows at admission; ``slice_slot`` gives the
+Ring layers (sliding-window or chunk-local attention, h2o-danube's) and
+recurrent stacks keep per-slot leaves instead of pools, as the reference
+does: a ring is already bounded by its window, so it stays in the
+contiguous ring layout ``k``/``v (count, slots, W, KV, Dh)`` with ``kpos
+(count, slots, W)`` (``nn.attention.init_attn_cache``; float whatever
+``kv_quant`` says), and rwkv6 keeps its ``tm.S (count, slots, H, Dk, Dv)``
+fp32 state and the token-shift carries ``tm.shift``/``cm.shift (count,
+slots, 1, d)`` in the compute dtype.  ``reset_slot`` empties a slot's rows
+at admission (``kpos`` to -1, everything else to 0); ``slice_slot`` gives the
 one-row view an isolated prefill reads and writes.  The layers write the
 slot's row in place through that view, so no merge follows (the reference
 returns new leaves and merges them back).  Dead rows ride along in decode:
@@ -35,8 +40,8 @@ Invariants: a sequence's blocks appear in its table row in logical order
 (so the gathered view equals the contiguous layout); unowned table entries
 stay 0 (trash); the trash block is never freed; ``lens[slot]`` counts tokens
 written for the slot.  Not ported yet: refcounts and copy-on-write, the
-radix prompt cache, rollback/truncate, KV-block export/import, ring caches
-and hymba's per-slot leaves.
+radix prompt cache, rollback/truncate, KV-block export/import and hymba's
+per-slot leaves.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, AttnConfig, StackConfig
-from repro_torch.nn.attention import TRASH_BLOCK
+from repro_torch.nn.attention import TRASH_BLOCK, init_attn_cache
 
 __all__ = ["PagedKVCache", "init_paged_attn_cache", "init_paged_stack_cache", "POOL_KEYS",
            "TRASH_BLOCK"]
@@ -70,10 +75,12 @@ def _code_shape(dim: int, kv_bits: int) -> tuple[int, ...]:
 
 def init_paged_attn_cache(a: AttnConfig, num_blocks: int, block_size: int, dtype,
                           device, count: int = 1, kv_quant: bool = False,
-                          kv_bits: int = 8) -> dict:
+                          kv_bits: int = 8, slots: int = 1, max_seq: int = 512) -> dict:
     """Paged pools for ``count`` stacked GQA or MLA layers: ``dtype`` pools,
     or with ``kv_quant`` integer code pools (int8, or packed int4 in uint8)
-    and their fp32 scale pools."""
+    and their fp32 scale pools.  A sliding-window or chunk-local GQA layer
+    keeps its per-slot ring instead, ``dtype`` whatever ``kv_quant`` says
+    (``init_attn_cache`` for ``slots`` rows, stacked ``count`` times)."""
     lead = (count, num_blocks, block_size)
     code = (torch.int8 if kv_bits == 8 else torch.uint8) if kv_quant else dtype
 
@@ -90,7 +97,8 @@ def init_paged_attn_cache(a: AttnConfig, num_blocks: int, block_size: int, dtype
             pools.update(ckvs=scales(), kpes=scales())
         return pools
     if (a.window or a.chunk) is not None:
-        raise NotImplementedError("ring (sliding-window / chunked-local) caches are not ported yet")
+        ring = init_attn_cache(slots, a, max_seq, dtype, device=device)
+        return {k: torch.stack([v] * count) for k, v in ring.items()}
     pools = {"kp": pool(a.kv_heads, dim=a.head_dim), "vp": pool(a.kv_heads, dim=a.head_dim)}
     if kv_quant:
         pools.update(kps=scales(a.kv_heads), vps=scales(a.kv_heads))
@@ -99,12 +107,14 @@ def init_paged_attn_cache(a: AttnConfig, num_blocks: int, block_size: int, dtype
 
 def init_paged_stack_cache(arch: ArchConfig, s: StackConfig, slots: int, num_blocks: int,
                            block_size: int, dtype, device, kv_quant: bool = False,
-                           kv_bits: int = 8) -> dict:
+                           kv_bits: int = 8, max_seq: int = 512) -> dict:
     """One stack's cache leaves, each with a leading ``count`` axis: paged
-    attention pools, or rwkv6's per-slot recurrent leaves."""
+    attention pools or per-slot rings, or rwkv6's per-slot recurrent
+    leaves."""
     if s.kind in ("attn_mlp", "moe"):
         return {"attn": init_paged_attn_cache(s.attn, num_blocks, block_size, dtype, device,
-                                              count=s.count, kv_quant=kv_quant, kv_bits=kv_bits)}
+                                              count=s.count, kv_quant=kv_quant, kv_bits=kv_bits,
+                                              slots=slots, max_seq=max_seq)}
     if s.kind == "rwkv6":
         H, Dk = arch.d_model // s.ssm.head_dim, s.ssm.head_dim
 
@@ -159,7 +169,8 @@ class PagedKVCache:
         self.num_blocks = num_blocks
         self.pools = {
             str(i): init_paged_stack_cache(arch, s, slots, num_blocks, block_size, dtype,
-                                           self.device, kv_quant=kv_quant, kv_bits=kv_bits)
+                                           self.device, kv_quant=kv_quant, kv_bits=kv_bits,
+                                           max_seq=max_seq)
             for i, s in enumerate(arch.stacks)
         }
         # LIFO free list; low ids handed out first so fresh tables are ordered
@@ -215,22 +226,34 @@ class PagedKVCache:
 
     def kv_bytes_per_token(self) -> int:
         """Device bytes one cached token costs across every pool (all layers;
-        codes and scale pools); 0 for a stack without pools (rwkv6)."""
+        codes and scale pools); 0 for a stack without pools (rwkv6, or one
+        whose every layer is a ring).  Rings and recurrent leaves do not
+        grow with tokens and are left out, as the reference leaves them."""
         return sum(leaf[0, 0, 0].numel() * leaf.element_size() * leaf.shape[0]
                    for leaf in self._leaves(pools=True))
 
     def state_bytes_per_slot(self) -> int:
-        """Device bytes of one slot's per-slot leaves across all layers (rwkv6's
-        fp32 state and token-shift carries); they do not grow with tokens."""
+        """Device bytes of one slot's per-slot leaves across all layers (rings'
+        ``k``/``v``/``kpos``; rwkv6's fp32 state and token-shift carries);
+        they do not grow with tokens."""
         return sum(leaf[:, 0].numel() * leaf.element_size() for leaf in self._leaves(pools=False))
 
     # -- per-slot state (recurrent leaves) ------------------------------------
 
     def reset_slot(self, slot: int) -> None:
-        """Zero ``slot``'s rows of every per-slot leaf, so a fresh sequence
-        starts from a zero state whatever the slot's previous occupant left."""
-        for leaf in self._leaves(pools=False):
-            leaf[:, slot].zero_()
+        """Empty ``slot``'s rows of every per-slot leaf, so a fresh sequence
+        starts from an empty ring and a zero recurrent state whatever the
+        slot's previous occupant (or a dead row's ride through decode) left:
+        a ring's ``kpos`` to -1 (a zero there would make a stale key valid at
+        position 0), every other leaf to 0."""
+        def walk(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v)
+                elif k not in POOL_KEYS:
+                    v[:, slot].fill_(-1 if k == "kpos" else 0)
+
+        walk(self.pools)
 
     def slice_slot(self, slot: int) -> dict:
         """The cache tree an isolated prefill of ``slot`` runs on: pools whole

@@ -70,8 +70,8 @@ def test_default_device_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from repro_torch.configs import get_arch, reduced
-    from repro_torch.models.lm import init_lm
-    from repro_torch.serve.engine import PagedServeEngine
+    from repro_torch.models.lm import init_cache, init_lm
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
 
     arch = reduced(get_arch("smollm-135m"))
     with pytest.raises(RuntimeError, match="cuda"):
@@ -79,3 +79,7 @@ def test_default_device_refuses_without_cuda():
     params = init_lm(torch.Generator().manual_seed(0), arch, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         PagedServeEngine(arch, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(arch, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_cache(arch, 1, 16)

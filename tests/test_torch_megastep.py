@@ -11,8 +11,10 @@ path and MoE.  The reference's cases on prefix sharing and the speculative
 engine are not here: neither is ported.
 
 Against the JAX package: one module-scoped run of the reference's
-``PagedServeEngine(decode_steps=4)`` on reduced yi-6b (bf16 and int8 KV)
-and rwkv6-7b, with the same params loaded into the port, under
+``PagedServeEngine(decode_steps=4)`` on reduced yi-6b (bf16 and int8 KV),
+rwkv6-7b and deepseek-v3 with ``mla_absorb`` (MLA + MoE: the router sees
+every row, and the two engines batch the same requests alike), with the
+same params loaded into the port, under
 ``parity_up_to_ties`` at eps 1e-4, and the reference's 0.05 on integer KV
 (a last-bit difference flips a KV code, ``ROADMAP.md`` queue 3).
 """
@@ -26,6 +28,7 @@ import torch
 import repro.nn.attention as jattention
 from repro.configs import get_arch as jget_arch
 from repro.configs import reduced as jreduced
+from repro.models.lm import Runtime as JRuntime
 from repro.models.lm import init_lm as jinit_lm
 from repro.nn.module import unbox
 from repro.serve.engine import PagedServeEngine as JPagedServeEngine
@@ -201,7 +204,9 @@ def test_decode_steps_below_one_is_refused():
 
 # -- against the JAX package -------------------------------------------------
 
-JAX_CASES = {"yi-6b": dict(), "yi-6b int8 KV": dict(kv_quant=True), "rwkv6-7b": dict()}
+JAX_CASES = {"yi-6b": dict(), "yi-6b int8 KV": dict(kv_quant=True), "rwkv6-7b": dict(),
+             # MLA + MoE: the router sees every row, and both engines batch alike
+             "deepseek-v3-671b absorbed": dict(mla_absorb=True)}
 JAX_KW = dict(batch=2, max_seq=64, block_size=4, prefill_chunk=4)
 
 
@@ -214,6 +219,9 @@ def jax_megastep():
         name = case.split()[0]
         arch = jreduced(jget_arch(name))
         params = unbox(jinit_lm(jax.random.PRNGKey(0), arch))
+        kw = {k: v for k, v in kw.items() if k != "mla_absorb"}
+        if JAX_CASES[case].get("mla_absorb"):
+            kw["rt"] = JRuntime(mla_absorb=True)
         e = JPagedServeEngine(arch, params, decode_steps=4, **JAX_KW, **kw)
         e.generate(_prompts(arch.vocab, seed=9), max_new=5)
         out[case] = (jax.tree.map(np.asarray, params), e.last_requests)
@@ -225,8 +233,10 @@ def test_megastep_matches_jax_megastep(jax_megastep, case):
     params_np, ref_reqs = jax_megastep[case]
     name = case.split()[0]
     arch = _arch(name)
-    e = PagedServeEngine(arch, from_jax_numpy(params_np), decode_steps=4, **KW,
-                         **JAX_CASES[case])
+    kw = {k: v for k, v in JAX_CASES[case].items() if k != "mla_absorb"}
+    if JAX_CASES[case].get("mla_absorb"):
+        kw["rt"] = Runtime(mla_absorb=True)
+    e = PagedServeEngine(arch, from_jax_numpy(params_np), decode_steps=4, **KW, **kw)
     outs = e.generate(_prompts(arch.vocab, seed=9), max_new=5)
     eps = KV_EPS if JAX_CASES[case].get("kv_quant") else EPS
     ok, ties, detail = parity_up_to_ties(ref_reqs, outs, eps)

@@ -106,11 +106,12 @@ def test_launcher_runs_and_refuses_unported_flags(capsys):
     outs = launch_serve.main(base)
     assert [len(o) for o in outs] == [3, 3]
     assert "decode:" in capsys.readouterr().out
-    for extra in (["--prefix-share"], ["--eos-auto"], ["--spec-k=2"], ["--decode-steps", "0"]):
+    for extra in (["--prefix-share"], ["--trace=t.json"], ["--spec-k=2"],
+                  ["--decode-steps", "0"], ["--eos-auto", "--eos-id", "3"]):
         with pytest.raises(SystemExit):
             launch_serve.main(base + extra)
-    with pytest.raises(SystemExit):
-        launch_serve.main([a for a in base if a != "--paged"])
+    with pytest.raises(SystemExit):  # a paged-only flag without --paged
+        launch_serve.main([a for a in base if a != "--paged"] + ["--kv-int8"])
 
 
 def test_launcher_megastep_with_eos_id(capsys):
