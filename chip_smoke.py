@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100 for the numbers in
 PERF.md): builds the kernels, holds each against its plain PyTorch version at
-the main paths' shapes, serves full-width smollm-135m, full-width deepseek-v3
+the main paths' shapes, serves full-width smollm-135m (also with prefix
+sharing and speculative decoding), full-width deepseek-v3
 (depth cut), full-size rwkv6-7b and full-size h2o-danube-1.8b (past its
 4096-token window) through the paged engine on the kernels, holds the paged
 engine against the contiguous ``ServeEngine`` through the launcher's
@@ -104,6 +105,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    path's under ``parity_up_to_ties`` at that ``eps``; then a reduced model
    on the card against the same model on the CPU (plain versions), token for
    token and margin for margin;
+4s. on phase 4's smollm-135m params (``serve_shared``), 10 requests of a
+   64-token shared prefix and a 4-24-token tail (seed 2), 16 new, batch 8,
+   blocks of 16, on ``Runtime(int_forward=True, decode_kernel=True)``:
+   ``prefix_share`` per tick (tokens and margins bit for bit with the engine
+   without sharing, 9 hits, the prefill tokens saved), at prefill chunk 40
+   (adopters copy a shared block: ``cow_copies`` > 0 in place, every pool's
+   ``data_ptr`` kept), on the megastep (bit for bit with per tick), and a
+   pinned 32-token preamble on the megastep in 21 blocks (evictions, the
+   pin kept, bit for bit with plain per tick); ``SpecServeEngine(spec_k=4)``
+   with the self-int8 drafter on bf16 and int8 KV (``parity_up_to_ties`` at
+   1e-3 / 0.05 against the plain engine, the launches exact: 210
+   int_matmul and 30 paged_attention a draft step, 210 tensor-core
+   int_matmul a verify), a 4-layer smollm ``ModelDrafter`` (both free lists
+   whole) and the megastep fallback (no round, graph replays, bit for bit);
+   acceptance, tokens a row a round, host ops a spec round, decode tok/s
+   against plain per tick;
 4b. serve full-width deepseek-v3 with its depth cut to the 3 dense MLA layers
    and 1 MoE layer (256 routed experts top-8 + 1 shared), no MTP head
    (serving never reads it), random A2Q weights from seed 0 built and
@@ -247,7 +264,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every ported kernel with its launches on the main paths (counted from zero
 just before each path's run and read just after, the 4m paths' graph
-replays included; int_matmul's is the sum of every path's), its error
+replays included; 4s's sharing and spec runs, not their baselines;
+int_matmul's is the sum of every path's), its error
 against the plain version, and its time beside the
 plain version's, a PyTorch library call's and the card's bound.
 """
@@ -1893,6 +1911,7 @@ def serve(dev):
         names={"int_matmul[prologue]": "int_matmul_cuda.prologue_launches",
                "int_matmul[tc]": "int_matmul_cuda.tc_launches",
                "paged_attention[int8]": "paged_attention_cuda.launches"})
+    by_path["smollm-135m shared and spec"] = serve_shared(dev, arch, params)
     return by_path
 
 
@@ -2195,6 +2214,262 @@ def serve_megastep(dev, arch, params, prompts, *, rt, kv_bits, per_call: dict,
     torch.cuda.empty_cache()
     return {entry: delta[key] if isinstance(key, str) else delta[key[0]] - delta[key[1]]
             for entry, key in names.items()}
+
+
+# phase 4s (PERF.md section 4): phase 4m's batch, blocks and prefill chunk; a
+# 64-token shared prefix and a 4-24-token tail a request, 16 new tokens
+SHARE_REQUESTS, SHARE_PREFIX, SHARE_TAIL, SHARE_NEW = 10, 64, (4, 24), 16
+SHARE_COW_CHUNK = 40  # resumes adopters at 40, inside the shared block 32..47
+SHARE_PIN, SHARE_PIN_BLOCKS = 32, 21  # the pinned preamble; 2 pinned + 2 x 9 blocks + trash
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 4
+SPEC_EPS, SPEC_KV_EPS = 1e-3, 0.05  # bf16 pools; the reference's int8-KV eps
+
+
+def spec_round_ops(engine, prompts) -> int:
+    """Host-dispatched PyTorch operators in one speculative round of
+    ``engine`` (every request admitted and prefilled, and one round run,
+    first); drains the requests."""
+    from repro_torch.serve.engine import Request
+
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=5000 + i, prompt=p, max_new=3 * (engine.spec_k + 1)))
+    engine.step()
+    with op_counter() as count:
+        engine.spec_round()
+    while not engine.sched.idle():
+        engine.step()
+    return count.n
+
+
+def serve_shared(dev, arch, params) -> dict:
+    """Phase 4s on phase 4's smollm-135m params: prefix sharing and
+    speculative decoding at full width (``SHARE_REQUESTS`` requests of a
+    ``SHARE_PREFIX``-token shared prefix and a ``SHARE_TAIL`` tail, seed 2;
+    ``SHARE_NEW`` new tokens; batch 8, blocks of 16, prefill chunk 32) on
+    ``Runtime(int_forward=True, decode_kernel=True)``:
+
+    1. sharing per tick against the same engine without sharing: tokens
+       identical and margins bit for bit, ``prefix_hits`` > 0, the prefill
+       tokens saved;
+    2. sharing at prefill chunk ``SHARE_COW_CHUNK`` (adopters resume inside
+       a shared block and copy it): ``cow_copies`` > 0, every pool tensor's
+       ``data_ptr()`` unchanged across the run, tokens against the plain
+       engine at that chunk under ``parity_up_to_ties`` (eps ``SPEC_EPS``);
+    3. sharing on the megastep (``decode_steps=8``, graph replays) against
+       step 1's per-tick sharing engine, margins bit for bit; then a
+       ``pin_prompt(SHARE_PIN)`` preamble ahead of a body of each request's
+       own on the megastep with ``SHARE_PIN_BLOCKS`` blocks, so two requests
+       run at a time and ``allocate`` evicts the cold cached blocks: the
+       pinned chain survives, every request adopts it, and the tokens and
+       margins equal the plain per-tick engine's on those prompts;
+    4. ``SpecServeEngine(spec_k=SPEC_K)`` with the default self-int8 drafter
+       on bf16 pools and on ``kv_quant`` int8 pools, each under
+       ``parity_up_to_ties`` against the plain engine of the same runtime
+       (eps ``SPEC_EPS``, ``SPEC_KV_EPS``), its launches exact: every draft
+       step 210 int_matmul on the decode kernel and 30 paged_attention,
+       every verify (8 rows x 5 tokens) 210 on the tensor cores;
+    5. a ``ModelDrafter`` of smollm-135m cut to ``SPEC_DRAFT_LAYERS`` layers
+       (its own seed 1, A2Q float, the decode kernel), ``min_accept=0``,
+       same gate, both caches' free lists whole at the drain;
+    6. a spec engine on the megastep whose gate never opens: no round,
+       fallback rounds, graph replays, tokens and margins bit for bit.
+
+    Prints the acceptance rate, tokens a row a round, host ops a spec round,
+    decode tok/s spec vs plain per tick, and the launches.  Returns the
+    sharing and spec runs' launches by kernel entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.serve.engine import PagedServeEngine, parity_up_to_ties
+    from repro_torch.serve.spec import ModelDrafter, SpecServeEngine
+
+    phase(f"4s: smollm-135m prefix sharing and speculative decoding (spec_k {SPEC_K}), "
+          f"{SHARE_REQUESTS} requests over 8 slots")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(2)
+    common = rng.integers(0, arch.vocab, (SHARE_PREFIX,)).astype(np.int32)
+    prompts = [np.concatenate([common, rng.integers(0, arch.vocab, (int(n),)).astype(np.int32)])
+               for n in rng.integers(SHARE_TAIL[0], SHARE_TAIL[1] + 1, SHARE_REQUESTS)]
+    preamble = rng.integers(0, arch.vocab, (SHARE_PIN,)).astype(np.int32)
+    # behind the preamble a body of its own a request, so every donor caches
+    # cold blocks and the tight pool makes ``allocate`` evict them
+    pin_prompts = [np.concatenate([preamble, rng.integers(0, arch.vocab, (len(p),))
+                                   .astype(np.int32)]) for p in prompts]
+    warm = [rng.integers(0, arch.vocab, (8,)).astype(np.int32)]  # under a block: registers nothing
+    rt = Runtime(int_forward=True, decode_kernel=True)
+    kw = dict(batch=8, max_seq=160, block_size=16, prefill_chunk=32, device=dev, rt=rt)
+    counted = {}  # launches of the sharing and spec runs by kernel entry (baselines left out)
+
+    def run(engine, ps, count=True, pools="paged_attention"):
+        engine.generate(warm, max_new=2)  # first-call set-up (and a megastep's capture)
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        outs = engine.generate(ps, max_new=SHARE_NEW)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+        if count:
+            for entry, key in (("int_matmul", "int_matmul_cuda.launches"),
+                               ("int_matmul[tc]", "int_matmul_cuda.tc_launches"),
+                               (pools, "paged_attention_cuda.launches")):
+                counted[entry] = counted.get(entry, 0) + delta.get(key, 0)
+        for r, o in zip(engine.last_requests, outs):
+            if len(o) != SHARE_NEW or not all(0 <= t < arch.vocab for t in o) or \
+                    not np.isfinite(r.margins).all():
+                raise AssertionError(f"[4s] bad output: {o} margins {r.margins}")
+        return outs, delta
+
+    def margins(engine):
+        return [r.margins for r in engine.last_requests]
+
+    def same(a, b):
+        return [r.generated for r in a.last_requests] == [r.generated for r in b.last_requests] \
+            and margins(a) == margins(b)
+
+    # 1. sharing, per tick
+    plain = PagedServeEngine(arch, params, **kw)
+    want, _ = run(plain, prompts, count=False)
+    share = PagedServeEngine(arch, params, prefix_share=True, **kw)
+    run(share, prompts)
+    saved = plain.stats["prefill_tokens"] - share.stats["prefill_tokens"]
+    print(f"[4s sharing, per tick] prefix_hits {share.cache.prefix_hits}, "
+          f"{share.cache.prefix_hit_tokens} prompt tokens adopted, prefill tokens "
+          f"{share.stats['prefill_tokens']} vs {plain.stats['prefill_tokens']} ({saved} saved); "
+          f"prefill {share.throughput()['prefill_tok_s']:.1f} vs "
+          f"{plain.throughput()['prefill_tok_s']:.1f} tok/s; tokens and margins bit for bit "
+          f"{same(share, plain)}; cow_copies {share.cache.cow_copies}", flush=True)
+    if not same(share, plain) or share.cache.prefix_hits < SHARE_REQUESTS - 1 or saved <= 0:
+        raise AssertionError("[4s] sharing per tick differs from the plain engine or never hit")
+
+    # 2. copy-on-write: adopters resume inside a shared block
+    cow_kw = dict(kw, prefill_chunk=SHARE_COW_CHUNK)
+    plain_cow = PagedServeEngine(arch, params, **cow_kw)
+    run(plain_cow, prompts, count=False)
+    cow = PagedServeEngine(arch, params, prefix_share=True, **cow_kw)
+    ptrs = [leaf.data_ptr() for leaf in cow.cache._leaves(pools=True)]
+    run(cow, prompts)
+    kept = ptrs == [leaf.data_ptr() for leaf in cow.cache._leaves(pools=True)]
+    ok, ties, detail = parity_up_to_ties(plain_cow.last_requests,
+                                         [r.generated for r in cow.last_requests], SPEC_EPS)
+    print(f"[4s copy-on-write, chunk {SHARE_COW_CHUNK}] cow_copies {cow.cache.cow_copies} in "
+          f"{cow.cache.pool_rebuilds} batched in-place copies, prefix_hits "
+          f"{cow.cache.prefix_hits}; every pool's data_ptr unchanged {kept}; against the plain "
+          f"engine: parity_up_to_ties eps={SPEC_EPS} ok={ok} ties={ties}, bit for bit "
+          f"{same(cow, plain_cow)}", flush=True)
+    if cow.cache.cow_copies <= 0 or not kept or not ok:
+        raise AssertionError(f"[4s] copy-on-write run: {detail}")
+    del plain_cow, cow
+
+    # 3. sharing on the megastep, then a pinned preamble under block pressure
+    mega = PagedServeEngine(arch, params, prefix_share=True, decode_steps=MEGASTEP_N, **kw)
+    run(mega, prompts)
+    tp = mega.throughput()
+    print(f"[4s sharing, megastep] {tp['graph_replays']} graph replays, prefix_hits "
+          f"{mega.cache.prefix_hits}; tokens and margins bit for bit with the per-tick sharing "
+          f"engine {same(mega, share)}; decode {tp['decode_tok_s']:.1f} vs per tick "
+          f"{share.throughput()['decode_tok_s']:.1f} tok/s", flush=True)
+    if not same(mega, share) or tp["graph_replays"] < 1 or mega.cache.prefix_hits < 1:
+        raise AssertionError("[4s] sharing on the megastep differs from per tick")
+    del mega
+    plain_pin = PagedServeEngine(arch, params, **kw)
+    run(plain_pin, pin_prompts, count=False)
+    pin = PagedServeEngine(arch, params, prefix_share=True, decode_steps=MEGASTEP_N,
+                           num_blocks=SHARE_PIN_BLOCKS, **kw)
+    pin.generate(warm, max_new=2)  # the capture, before the pin (needs an idle engine)
+    pinned = pin.pin_prompt(preamble)
+    evicted = [0]
+    evict_one = pin.cache._evict_one
+
+    def counting(*a, **k):
+        out = evict_one(*a, **k)
+        evicted[0] += out
+        return out
+
+    pin.cache._evict_one = counting
+    run(pin, pin_prompts)
+    survived = pin.cache.lookup_prefix(np.concatenate([preamble, warm[0]]))[0]
+    print(f"[4s pin_prompt({SHARE_PIN}), megastep, {SHARE_PIN_BLOCKS} blocks] pinned {pinned} "
+          f"tokens; {evicted[0]} prompt-cache nodes evicted under pressure; the pinned chain "
+          f"still serves {survived} tokens; prefix_hits {pin.cache.prefix_hits}; tokens and "
+          f"margins bit for bit with the plain per-tick engine {same(pin, plain_pin)}", flush=True)
+    if pinned != SHARE_PIN or evicted[0] < 1 or survived < SHARE_PIN or not same(pin, plain_pin) \
+            or pin.cache.prefix_hits < SHARE_REQUESTS:
+        raise AssertionError("[4s] the pinned run did not evict, lost its pin or differs")
+    del pin, plain_pin, share
+
+    # 4. speculative decoding, default self-int8 drafter, bf16 and int8 pools
+    n = 7 * arch.n_layers
+    spec_rows = {}
+    for kv, eps, base in (("bf16", SPEC_EPS, plain), ("int8", SPEC_KV_EPS, None)):
+        skw = dict(kw, kv_quant=kv == "int8")
+        if base is None:
+            base = PagedServeEngine(arch, params, **skw)
+            run(base, prompts, count=False)
+        spec = SpecServeEngine(arch, params, spec_k=SPEC_K, **skw)
+        outs, delta = run(spec, prompts, pools=f"paged_attention{'[int8]' * (kv == 'int8')}")
+        st, tps = dict(spec.spec_stats), spec.throughput()
+        chunks = sum(-(-len(p) // 32) for p in prompts)
+        ones = sum(len(p) % 32 == 1 for p in prompts)  # a one-token chunk reads through the kernel
+        k_rounds, plain_ticks = SPEC_K * st["rounds"], st["fallback_rounds"]
+        want_counts = {"int_matmul_cuda.launches":
+                       n * (chunks + k_rounds + st["rounds"] + plain_ticks),
+                       "paged_attention_cuda.launches":
+                       arch.n_layers * (k_rounds + plain_ticks + ones)}
+        got_counts = {k: delta.get(k, 0) for k in want_counts}
+        ok, ties, detail = parity_up_to_ties(base.last_requests, outs, eps)
+        identical = outs == [r.generated for r in base.last_requests]
+        rows = st["proposed"] // SPEC_K
+        ops_round = spec_round_ops(spec, prompts[:8])
+        spec_rows[kv] = (spec.acceptance_rate(), st["emitted"] / max(rows, 1))
+        print(f"[4s spec k={SPEC_K}, self-int8 drafter, {kv} KV] spec_stats {st}; acceptance "
+              f"{spec.acceptance_rate():.4f}; {st['emitted'] / max(rows, 1):.3f} tokens a row a "
+              f"round; parity_up_to_ties eps={eps} ok={ok} ties={ties}, tokens identical "
+              f"{identical}; decode {tps['decode_tok_s']:.1f} tok/s vs plain per tick "
+              f"{base.throughput()['decode_tok_s']:.1f}; host ops a spec round {ops_round}; "
+              f"launches {got_counts} (expected {want_counts}), int_matmul on the tensor cores "
+              f"{delta.get('int_matmul_cuda.tc_launches', 0)}", flush=True)
+        if not ok or st["rounds"] < 1 or got_counts != want_counts or \
+                delta.get("int_matmul_cuda.tc_launches", 0) < n * st["rounds"]:
+            raise AssertionError(f"[4s] spec on {kv} KV: {detail}, launches {got_counts}")
+        if base is not plain:
+            del base
+        del spec
+
+    # 5. a model drafter: smollm-135m cut to SPEC_DRAFT_LAYERS layers, its own seed
+    darch = dataclasses.replace(arch, stacks=(dataclasses.replace(arch.stacks[0],
+                                                                  count=SPEC_DRAFT_LAYERS),))
+    dparams = init_lm(torch.Generator(device=dev).manual_seed(1), darch, device=dev)
+    drafter = ModelDrafter(darch, dparams, slots=8, max_seq=kw["max_seq"], spec_k=SPEC_K,
+                           block_size=16, prefill_chunk=32, rt=Runtime(decode_kernel=True),
+                           device=dev)
+    mspec = SpecServeEngine(arch, params, spec_k=SPEC_K, drafter=drafter, min_accept=0.0, **kw)
+    outs, _ = run(mspec, prompts)
+    ok, ties, detail = parity_up_to_ties(plain.last_requests, outs, SPEC_EPS)
+    whole = (mspec.cache.free_blocks == mspec.cache.num_blocks - 1,
+             drafter.cache.free_blocks == drafter.cache.num_blocks - 1)
+    print(f"[4s spec k={SPEC_K}, model drafter ({SPEC_DRAFT_LAYERS} layers, seed 1)] spec_stats "
+          f"{mspec.spec_stats}; acceptance {mspec.acceptance_rate():.4f}; parity_up_to_ties "
+          f"eps={SPEC_EPS} ok={ok} ties={ties}; decode {mspec.throughput()['decode_tok_s']:.1f} "
+          f"tok/s; free lists whole (engine, drafter) {whole}", flush=True)
+    if not ok or not all(whole) or mspec.spec_stats["rounds"] < 1:
+        raise AssertionError(f"[4s] model drafter: {detail}, free lists {whole}")
+    del mspec, drafter, dparams
+
+    # 6. the fallback through the megastep: a gate that never opens
+    fb = SpecServeEngine(arch, params, spec_k=SPEC_K, min_accept=2.0, probe_interval=10**6,
+                         decode_steps=MEGASTEP_N, **kw)
+    run(fb, prompts)
+    st, tp = fb.spec_stats, fb.throughput()
+    print(f"[4s spec fallback, megastep] rounds {st['rounds']}, fallback_rounds "
+          f"{st['fallback_rounds']}, graph replays {tp['graph_replays']}; tokens and margins bit "
+          f"for bit with the plain per-tick engine {same(fb, plain)}", flush=True)
+    if st["rounds"] != 0 or st["fallback_rounds"] < 1 or tp["graph_replays"] < 1 or \
+            not same(fb, plain):
+        raise AssertionError("[4s] the megastep fallback differs or ran a round")
+    del fb, plain
+    torch.cuda.empty_cache()
+    print(f"[4s] acceptance and tokens a row a round (bf16, int8 KV) {spec_rows}; launches "
+          f"{counted}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counted
 
 
 DEEPSEEK_INT_MATMUL_PER_FORWARD = 29  # see deepseek_int_matmul_per_forward

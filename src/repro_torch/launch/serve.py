@@ -8,6 +8,9 @@
         --prompt-len 64 --max-new 32 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \\
         --paged --deploy-int8 --parity-check [--eos-auto] --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --paged --int-forward --prefix-share --shared-prefix 64 [--pin-prompt 32] \\
+        [--spec-k 4 [--spec-draft self-int8|<config>]] --requests 8 --batch 8
 
 Port of ``repro.launch.serve``: ``--paged`` serves through
 ``PagedServeEngine``, otherwise through the contiguous ``ServeEngine`` (which
@@ -21,7 +24,17 @@ paged KV pools through the paged-attention kernel, ``--decode-steps N``
 fuses N decode ticks into one window (the megastep; one CUDA-graph replay
 on the card), ``--eos-id`` ends a request the step it emits that token and
 ``--eos-auto`` takes that id from a greedy contiguous probe (request 0's
-token halfway through its budget).  ``--parity-check`` serves the same
+token halfway through its budget).  ``--prefix-share`` dedups common prompt
+prefixes through the radix prompt cache (refcounted copy-on-write blocks,
+LRU/cost eviction); ``--shared-prefix N`` prepends an N-token common prefix
+to every request, and ``--pin-prompt N`` prefills an N-token system
+preamble once before traffic and pins it (never evicted; prepended ahead
+of the shared prefix; needs ``--prefix-share``).  ``--spec-k K`` serves
+through ``SpecServeEngine``: K tokens drafted a round by ``--spec-draft``
+(``self-int8``, the same weights on the integer path, or a config name for a
+separate draft model, e.g. ``smollm-135m``, its weights from ``--seed`` + 1)
+and verified in one call, greedy output token-identical to plain decode;
+an arch with ring or recurrent state serves plain.  ``--parity-check`` serves the same
 prompts on both engines — the contiguous one on the float path (dequant
 matmuls, float cache; recurrent stacks in lockstep groups of ``--batch``),
 the paged one as asked, greedy and with the decode kernel off — and fails
@@ -51,11 +64,25 @@ from repro_torch.serve.engine import (
     deploy_params,
     parity_up_to_ties,
 )
+from repro_torch.serve.spec import ModelDrafter, SpecServeEngine
 
-NOT_PORTED = (
-    "--prefix-share", "--shared-prefix", "--pin-prompt", "--spec-k", "--spec-draft",
-    "--sample", "--temperature", "--top-k", "--trace", "--metrics-json",
-)
+NOT_PORTED = ("--sample", "--temperature", "--top-k", "--trace", "--metrics-json")
+
+
+def _spec_report(engine) -> dict:
+    """Speculative-decoding stats block (``active`` False: plain fallback)."""
+    out = {
+        "active": engine.spec_active() or engine.spec_stats["rounds"] > 0,
+        "supported": engine.spec_supported,
+        "k": engine.spec_k,
+        "acceptance_rate": engine.acceptance_rate(),
+        **engine.spec_stats,
+    }
+    tag = "speculative" if out["supported"] else "speculative UNSUPPORTED (plain fallback)"
+    print(f"[{tag}] k={out['k']} rounds={out['rounds']} "
+          f"acceptance={out['acceptance_rate']:.2f} bonus={out['bonus']} "
+          f"fallback_rounds={out['fallback_rounds']}")
+    return out
 
 
 def _report(tag: str, engine) -> dict:
@@ -109,6 +136,18 @@ def run(argv=None) -> dict:
     ap.add_argument("--eos-auto", action="store_true",
                     help="probe a greedy contiguous run and use the token request 0 emits "
                          "halfway through its budget as the EOS id")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="dedup common prompt prefixes via the radix prompt cache")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend an N-token common prefix to every request")
+    ap.add_argument("--pin-prompt", type=int, default=0,
+                    help="prefill an N-token system preamble once and pin it in the prompt "
+                         "cache (prepended to every request; requires --prefix-share)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft tokens per round (0 = off)")
+    ap.add_argument("--spec-draft", default="self-int8",
+                    help="drafter: 'self-int8' (same weights, integer fast path) or a config "
+                         "name for a small draft model")
     ap.add_argument("--parity-check", action="store_true",
                     help="run paged AND contiguous engines; fail on any token mismatch")
     ap.add_argument("--parity-eps", type=float, default=None,
@@ -134,6 +173,8 @@ def run(argv=None) -> dict:
         wanted = [flag for flag, on in (
             ("--decode-kernel", args.decode_kernel), ("--kv-int8", args.kv_int8),
             ("--num-blocks", args.num_blocks is not None),
+            ("--spec-k", args.spec_k > 0), ("--prefix-share", args.prefix_share),
+            ("--shared-prefix", args.shared_prefix > 0), ("--pin-prompt", args.pin_prompt > 0),
             ("--decode-steps", args.decode_steps != 1)) if on]
         if wanted:
             ap.error(f"{', '.join(wanted)} only affect the paged engine; add --paged")
@@ -141,8 +182,13 @@ def run(argv=None) -> dict:
         ap.error("--eos-auto derives the EOS id; drop --eos-id")
     if args.decode_steps < 1:
         ap.error(f"--decode-steps must be >= 1, got {args.decode_steps}")
+    if args.pin_prompt > 0 and not args.prefix_share:
+        ap.error("--pin-prompt pins into the prompt cache; add --prefix-share")
     if args.kv_bits != 8 and not args.kv_int8:
         ap.error("--kv-bits only affects integer KV blocks; add --kv-int8")
+    if args.spec_draft != "self-int8" and args.spec_k == 0:
+        ap.error("--spec-draft only affects speculative decoding; add --spec-k")
+    # (--spec-k with sampling: the sampling flags are refused above, as not ported)
 
     arch = get_arch(args.arch)
     if args.reduced:
@@ -162,7 +208,17 @@ def run(argv=None) -> dict:
         print("int-forward: deployed linears run the fused W8A8 integer kernel")
 
     rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(0, arch.vocab, (args.prompt_len,)).astype(np.int32)
+    # common material goes ahead of each request's prompt_len tail: a pinned
+    # preamble first (prefilled once, never evicted), then a shared prefix
+    # (cached from the first request that donates it)
+    preamble = (rng.integers(0, arch.vocab, (args.pin_prompt,)).astype(np.int32)
+                if args.pin_prompt > 0 else None)
+    common = (rng.integers(0, arch.vocab, (args.shared_prefix,)).astype(np.int32)
+              if args.shared_prefix > 0 else None)
+    head = [p for p in (preamble, common) if p is not None]
+    prompts = [np.concatenate(head + [rng.integers(0, arch.vocab, (args.prompt_len,))
+                                      .astype(np.int32)])
+               if head else rng.integers(0, arch.vocab, (args.prompt_len,)).astype(np.int32)
                for _ in range(args.requests)]
     decode_kernel = args.decode_kernel
     if args.parity_check and decode_kernel:
@@ -181,19 +237,43 @@ def run(argv=None) -> dict:
         print(f"eos-auto: eos_id={args.eos_id} (request 0's token at step {len(ptoks) // 2})")
 
     def paged_engine():
-        return PagedServeEngine(
-            arch, params, batch=args.batch, max_seq=args.max_seq, block_size=args.block_size,
+        kw = dict(
+            batch=args.batch, max_seq=args.max_seq, block_size=args.block_size,
             prefill_chunk=args.prefill_chunk, num_blocks=args.num_blocks, device=args.device,
             kv_quant=args.kv_int8, kv_bits=args.kv_bits, eos_id=args.eos_id,
-            decode_steps=args.decode_steps,
+            decode_steps=args.decode_steps, prefix_share=args.prefix_share,
             rt=Runtime(decode_kernel=decode_kernel, int_forward=args.int_forward,
                        int_chain=args.int_chain),
         )
+        if args.spec_k > 0:
+            drafter = None
+            if args.spec_draft != "self-int8":
+                darch = get_arch(args.spec_draft)
+                if args.reduced:
+                    darch = reduced(darch)
+                if darch.vocab != arch.vocab:
+                    raise SystemExit(f"draft config {args.spec_draft} vocab {darch.vocab} != "
+                                     f"target vocab {arch.vocab}")
+                dparams = init_lm(torch.Generator().manual_seed(args.seed + 1), darch,
+                                  device=args.device)
+                drafter = ModelDrafter(darch, dparams, slots=args.batch, max_seq=args.max_seq,
+                                       spec_k=args.spec_k, block_size=args.block_size,
+                                       prefill_chunk=args.prefill_chunk, device=args.device)
+            e = SpecServeEngine(arch, params, spec_k=args.spec_k, drafter=drafter, **kw)
+        else:
+            e = PagedServeEngine(arch, params, **kw)
+        if preamble is not None:
+            pinned = e.pin_prompt(preamble)
+            print(f"pinned system preamble: {pinned} of {len(preamble)} tokens "
+                  f"({pinned // e.cache.block_size} blocks, never evicted)")
+        return e
 
     report = {"arch": args.arch, "paged": bool(args.paged or args.parity_check),
               "int_forward": args.int_forward, "int_chain": args.int_chain,
               "kv_int8": args.kv_int8, "kv_bits": args.kv_bits if args.kv_int8 else None,
               "decode_kernel": decode_kernel, "device": args.device,
+              "spec_k": args.spec_k, "prefix_share": args.prefix_share,
+              "shared_prefix": args.shared_prefix, "pin_prompt": args.pin_prompt,
               "decode_steps": args.decode_steps, "eos_id": args.eos_id}
     if args.parity_check:
         # the baseline stays on the float path: dequant matmuls (the default
@@ -253,6 +333,13 @@ def run(argv=None) -> dict:
         report["paged_peak_blocks"] = cache.peak_blocks
         report["kv_bytes_per_token"] = cache.kv_bytes_per_token()
         report["state_bytes_per_slot"] = cache.state_bytes_per_slot()
+        if args.prefix_share:
+            print(f"prefix sharing: {cache.prefix_hits} hits, {cache.prefix_hit_tokens} prompt "
+                  f"tokens served from shared blocks, {cache.cow_copies} CoW copies")
+            report.update({k: cache.counters()[k]
+                           for k in ("prefix_hits", "prefix_hit_tokens", "cow_copies")})
+        if args.spec_k > 0:
+            report["spec"] = _spec_report(engine)
     if args.eos_id is not None:
         report["eos_terminated"] = sum(1 for o in outs if o and o[-1] == args.eos_id)
         print(f"eos: {report['eos_terminated']} of {len(outs)} requests terminated on "

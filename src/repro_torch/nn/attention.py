@@ -224,8 +224,10 @@ def _paged_write(pool: torch.Tensor, val: torch.Tensor, bt: torch.Tensor,
     the trash block instead, so every other block ends as the reference's
     ``take_along_axis`` fill + ``mode="drop"`` scatter leaves it, with no
     mask read back to the host (the write is one plain ``index_put_``,
-    capturable in a CUDA graph).  Rows never share live blocks, so writes
-    collide only in the trash block, which is never read as valid."""
+    capturable in a CUDA graph).  No row writes a block another row reads
+    (a shared block is copied before any write into it, ``PagedKVCache.
+    ensure_writable``), so writes collide only in the trash block, which is
+    never read as valid."""
     bs = pool.shape[1]
     MB = bt.shape[1]
     pos = abs_pos.long()

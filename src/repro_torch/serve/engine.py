@@ -37,14 +37,26 @@ tokens, margins and emitted flags once a window.  On the CPU the window
 runs eagerly; on a CUDA device it is captured once per engine into a
 ``torch.cuda.CUDAGraph`` and every window is one replay (``_capture``).
 
+``prefix_share=True`` (fully paged caches only) adopts the longest cached
+prompt prefix from the cache's radix prompt cache at admission and resumes
+prefill at the chunk-aligned offset below it; every write into a shared
+block copies it first (``ensure_writable``: per prefill chunk, per tick, and
+once a window over the window's span, before the window's inputs are
+staged, so a captured graph sees the new tables), in place.  ``pin_prompt``
+prefills a system preamble once and pins its blocks.  The speculative engine
+(``serve.spec.SpecServeEngine``) subclasses ``PagedServeEngine`` through the
+``_slot_tokens`` / ``_release_slot`` / ``_on_admitted`` / ``_advance``
+hooks.
+
 Both engines keep the reference's ``stats`` = {prefill_tokens,
 decode_tokens, prefill_s, decode_s, decode_dispatches} and ``throughput()``
 contract (first generated token booked under prefill; one decode dispatch a
-tick or a window), plus ``graph_replays``.  ``parity_up_to_ties`` is the
-reference's gate between two engines' greedy streams.  Not ported yet:
-prefix sharing (and the megastep's copy-on-write preflight), the
-speculative engine, disaggregated handoff, non-greedy sampling and the
-observability bundle.
+tick or a window; adopted prompt tokens are not counted as prefilled), plus
+``graph_replays``; the cache keeps the reference's counters
+(``cache.counters()``: ``prefix_hits``, ``cow_copies`` ...).
+``parity_up_to_ties`` is the reference's gate between two engines' greedy
+streams.  Not ported yet: disaggregated handoff, non-greedy sampling and the
+observability bundle (trace spans, metrics).
 """
 
 from __future__ import annotations
@@ -379,7 +391,9 @@ class PagedServeEngine(_StatsMixin):
     an empty engine and prefills them together (the scheduler's fallback
     mode); the default admits continuously.  ``kv_quant`` stores the KV pools as integer codes
     (``kv_bits`` 8, or 4 packed two a byte) with per-slot fp32 scales.  The KV
-    pools are updated in place.
+    pools are updated in place.  ``prefix_share=True`` dedups common prompt
+    prefixes through the cache's radix prompt cache (refcounted,
+    copy-on-write blocks); it takes effect only when ``cache.fully_paged``.
 
     ``decode_steps > 1`` advances the live slots ``decode_steps`` ticks a
     round in one fused window (``megastep``); 1 keeps the per-tick path.  On
@@ -405,6 +419,7 @@ class PagedServeEngine(_StatsMixin):
         decode_steps: int = 1,
         kv_quant: bool = False,
         kv_bits: int = 8,
+        prefix_share: bool = False,
         device="cuda",
     ):
         if decode_steps < 1:
@@ -422,11 +437,13 @@ class PagedServeEngine(_StatsMixin):
             raise NotImplementedError(f"{self.sample_cfg.method} sampling is not ported yet")
         self.bos_id = bos_id
         self.eos_id = eos_id
+        self.recurrent = any(s.kind in ("rwkv6", "hymba") for s in arch.stacks)
         self.cache = PagedKVCache(
             arch, batch, block_size=block_size, num_blocks=num_blocks, max_seq=max_seq,
             dtype=COMPUTE_DTYPES[arch.compute_dtype], device=self.device, kv_quant=kv_quant,
             kv_bits=kv_bits,
         )
+        self.prefix_share = prefix_share and self.cache.fully_paged
         self.sched = Scheduler(batch, prefill_chunk=prefill_chunk, lockstep=bool(lockstep))
         self.stats = _fresh_stats()
         self.last_requests: list = []
@@ -596,11 +613,23 @@ class PagedServeEngine(_StatsMixin):
 
     # -- request lifecycle ----------------------------------------------------
 
+    def _slot_tokens(self, req: Request) -> int:
+        """Worst-case cache positions a request may write (subclasses add
+        headroom: the speculative engine's rejected-draft span)."""
+        return len(req.prompt) + req.max_new
+
+    def _release_slot(self, slot: int) -> None:
+        """Finished-request teardown (subclasses add drafter state)."""
+        self.cache.release(slot)
+
+    def _on_admitted(self, slot: int, req: Request) -> None:
+        """Post-prefill hook for subclasses (drafter admission)."""
+
     def submit(self, req: Request) -> None:
         req.prompt = _normalize_prompt(req.prompt, self.bos_id)
         if req.eos_id is None:
             req.eos_id = self.eos_id
-        total = len(req.prompt) + req.max_new
+        total = self._slot_tokens(req)
         if total > self.max_seq:
             raise ValueError(f"request needs {total} positions > max_seq={self.max_seq}")
         if self.cache.blocks_needed(total) > self.cache.num_blocks - 1:
@@ -610,12 +639,16 @@ class PagedServeEngine(_StatsMixin):
     def _admission_gate(self):
         """Round-local block budget: each admitted request reserves its
         worst-case blocks against the same free pool, so one round never
-        over-commits what ``allocate`` will hand out."""
-        budget = self.cache.free_blocks
+        over-commits what ``allocate`` will hand out.  Adoption only lowers a
+        request's fresh-block draw (a copy-on-write fault takes a block the
+        sequence would otherwise allocate), and the prompt cache's evictable
+        blocks count as capacity: ``allocate`` reclaims them before it
+        fails."""
+        budget = self.cache.free_blocks + self.cache.reclaimable_blocks()
 
         def can_admit(req: Request) -> bool:
             nonlocal budget
-            need = self.cache.blocks_needed(len(req.prompt) + req.max_new)
+            need = self.cache.blocks_needed(self._slot_tokens(req))
             if need > budget:
                 return False
             budget -= need
@@ -626,22 +659,39 @@ class PagedServeEngine(_StatsMixin):
     def _admit(self, slot: int, req: Request) -> None:
         """Isolated chunked prefill: whole prompt chunks through a one-row
         view of this slot's block table and recurrent leaves (zeroed first) —
-        other live rows are never touched."""
+        other live rows are never touched.  With ``prefix_share`` the longest
+        cached prefix is adopted first and prefill resumes at the
+        chunk-aligned offset below its length (so every chunk keeps a shape
+        plain prefill has), the adopted run trimmed to the blocks covering
+        ``[0, resume)``: the span ``[resume, shared)`` is recomputed to the
+        same K/V, and adopting its partial block would only buy a
+        copy-on-write fault.  Each chunk makes its span writable first."""
         self.cache.reset_slot(slot)
-        self.cache.allocate(slot, len(req.prompt) + req.max_new)
+        adopted = 0
+        if self.prefix_share:
+            shared, blocks = self.cache.lookup_prefix(req.prompt)
+            resume = (shared // self.sched.prefill_chunk) * self.sched.prefill_chunk
+            if resume > 0:
+                self.cache.adopt_prefix(slot, resume, blocks[:self.cache.blocks_needed(resume)])
+                req.prefilled = adopted = resume
+        self.cache.allocate(slot, self._slot_tokens(req))
         t0 = time.perf_counter()
-        bt = self.cache.bt_row(slot)
         pools = self.cache.slice_slot(slot)
         tok = marg = None
         for chunk, start in self.sched.prefill_plan(slot):
+            self.cache.ensure_writable(slot, start, start + len(chunk))
             tokens = torch.as_tensor(chunk[None, :], device=self.device)
-            tok, marg = self._prefill_fn(tokens, pools, bt, start)
+            tok, marg = self._prefill_fn(tokens, pools, self.cache.bt_row(slot), start)
         self.cache.lens[slot] = len(req.prompt)
+        if self.prefix_share:
+            self.cache.register_prefix(slot, req.prompt)
         req.margins.append(float(marg[0]))
         self.stats["prefill_s"] += time.perf_counter() - t0
-        self.stats["prefill_tokens"] += len(req.prompt)
+        # adopted tokens were never recomputed: throughput counts real work
+        self.stats["prefill_tokens"] += len(req.prompt) - adopted
+        self._on_admitted(slot, req)
         if self.sched.record_token(slot, int(tok[0])):
-            self.cache.release(slot)
+            self._release_slot(slot)
 
     def _admit_group(self, group: list) -> None:
         """Lockstep admission: an equal-length group prefilled together in
@@ -670,7 +720,35 @@ class PagedServeEngine(_StatsMixin):
             self.cache.lens[slot] = L
             req.margins.append(float(marg[slot]))
             if self.sched.record_token(slot, int(tok[slot])):
-                self.cache.release(slot)
+                self._release_slot(slot)
+
+    def pin_prompt(self, tokens) -> int:
+        """Prefill a system preamble once and pin its full blocks in the
+        radix prompt cache for good (``--pin-prompt``): never evicted, not
+        counted against the node cap.  Needs an idle engine (it borrows slot
+        0 for the prefill and releases it, leaving only the pins).  Returns
+        the pinned tokens (full blocks only; adopters recompute the partial
+        tail like any other resumed span)."""
+        if not self.prefix_share:
+            raise ValueError("pin_prompt requires prefix_share=True")
+        tokens = _normalize_prompt(tokens, self.bos_id)
+        if not self.sched.idle():
+            raise RuntimeError("pin_prompt needs an idle engine (call pre-traffic)")
+        if len(tokens) + 1 > self.max_seq:
+            raise ValueError("pinned prompt exceeds max_seq")
+        slot = 0
+        self.cache.reset_slot(slot)
+        self.cache.allocate(slot, len(tokens))
+        pools = self.cache.slice_slot(slot)
+        for lo in range(0, len(tokens), self.sched.prefill_chunk):
+            hi = min(lo + self.sched.prefill_chunk, len(tokens))
+            self.cache.ensure_writable(slot, lo, hi)
+            self._prefill_fn(torch.as_tensor(tokens[None, lo:hi], device=self.device), pools,
+                             self.cache.bt_row(slot), lo)
+        self.cache.lens[slot] = len(tokens)
+        self.cache.register_prefix(slot, tokens, pinned=True)
+        self.cache.release(slot)
+        return (len(tokens) // self.cache.block_size) * self.cache.block_size
 
     def tick(self) -> int:
         """One decode step for every live slot (dead rows ride along writing
@@ -681,6 +759,8 @@ class PagedServeEngine(_StatsMixin):
         tok_in = np.zeros((self.batch, 1), np.int32)
         for i in live:
             tok_in[i, 0] = self.sched.slots[i].last_token
+            # a donor's decode write can land in a block a sharer adopted
+            self.cache.ensure_writable(i, int(self.cache.lens[i]), int(self.cache.lens[i]) + 1)
         t0 = time.perf_counter()
         out, marg = self._decode_fn(
             torch.as_tensor(tok_in, device=self.device), self.cache.bt(),
@@ -693,7 +773,7 @@ class PagedServeEngine(_StatsMixin):
             self.cache.lens[i] += 1
             self.sched.slots[i].margins.append(float(marg[i]))
             if self.sched.record_token(i, int(out[i])):
-                self.cache.release(i)
+                self._release_slot(i)
         return len(live)
 
     def megastep(self) -> int:
@@ -704,7 +784,10 @@ class PagedServeEngine(_StatsMixin):
         EOS ids and block tables, **one read-back** of ``(B, N)`` token ids,
         margins and emitted flags.  Every write a window makes stays inside
         each slot's admission-time allocation: ``rem`` caps it at
-        ``max_new``, and the final emitted token is never consumed.
+        ``max_new``, and the final emitted token is never consumed.  The
+        copy-on-write preflight makes each slot's window span ``[lens, lens +
+        min(N, rem))`` writable once, before the inputs (block tables
+        included) are staged.
 
         The host then replays the emitted flags through
         ``Scheduler.record_token`` in tick order; because the device finish
@@ -715,6 +798,10 @@ class PagedServeEngine(_StatsMixin):
         if not live:
             return 0
         N = self.decode_steps
+        for i in live:
+            req = self.sched.slots[i]
+            lo = int(self.cache.lens[i])
+            self.cache.ensure_writable(i, lo, lo + min(N, req.max_new - len(req.generated)))
         inp = self._window_inputs(live)
         t0 = time.perf_counter()
         out, marg, em = self._run_window(inp)
@@ -728,16 +815,16 @@ class PagedServeEngine(_StatsMixin):
                 self.cache.lens[i] += 1
                 self.sched.slots[i].margins.append(float(marg[i, j]))
                 if self.sched.record_token(i, int(out[i, j])):
-                    self.cache.release(i)
+                    self._release_slot(i)
         self.stats["decode_s"] += dt
         self.stats["decode_tokens"] += total
         self.stats["decode_dispatches"] += 1
         return len(live)
 
     def _advance(self) -> int:
-        """One decode round.  ``decode_steps > 1`` routes to the fused
-        megastep; 1 keeps the per-tick path (and its per-token parity
-        role)."""
+        """One decode round (the speculative engine swaps in its draft-verify
+        round here).  ``decode_steps > 1`` routes to the fused megastep; 1
+        keeps the per-tick path (and its per-token parity role)."""
         if self.decode_steps > 1:
             return self.megastep()
         return self.tick()

@@ -106,7 +106,8 @@ def test_launcher_runs_and_refuses_unported_flags(capsys):
     outs = launch_serve.main(base)
     assert [len(o) for o in outs] == [3, 3]
     assert "decode:" in capsys.readouterr().out
-    for extra in (["--prefix-share"], ["--trace=t.json"], ["--spec-k=2"],
+    for extra in (["--sample", "topk"], ["--trace=t.json"], ["--pin-prompt", "4"],
+                  ["--spec-draft=smollm-135m"],
                   ["--decode-steps", "0"], ["--eos-auto", "--eos-id", "3"]):
         with pytest.raises(SystemExit):
             launch_serve.main(base + extra)
