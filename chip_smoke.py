@@ -6,7 +6,9 @@ sharing and speculative decoding), full-width deepseek-v3
 4096-token window) through the paged engine on the kernels, holds the paged
 engine against the contiguous ``ServeEngine`` through the launcher's
 ``--parity-check``, encodes full-size hubert-xlarge, trains full-size
-smollm-135m with A2Q and serves the trained model, and checks the results.  Every model is
+smollm-135m with A2Q and serves the trained model, traces, meters and
+samples the served smollm-135m and reports its accumulator headroom, and
+checks the results.  Every model is
 deployed on the card through the ``a2q_quantize`` kernel, and every deployed
 matrix's codes are held to the plain quantizer's on the card.
 
@@ -121,6 +123,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whole) and the megastep fallback (no round, graph replays, bit for bit);
    acceptance, tokens a row a round, host ops a spec round, decode tok/s
    against plain per tick;
+4o. on phase 4's smollm-135m params (``serve_observed``), phase 4m's 8
+   prompts, 32 new, ``decode_steps=8``, ``Runtime(int_chain=True,
+   decode_kernel=True)``, bf16 KV: a traced engine against an untraced one
+   (tokens, margins, launches and host ops a window equal; the reference's
+   span names; the trace exported under ``build/obs`` and read back; span
+   ms by name, events a window, the spans' share of a window's wall time),
+   the metrics snapshot against ``stats``, ``cache.counters()`` and
+   ``graph_info`` (``jit_cache_size{fn=megadecode}`` 1), the accumulator
+   headroom at seq 8 and 32 (both ``int_matmul`` kernels: 0 violations,
+   ``util_max < 1``), top-k sampling in the captured window (temperature
+   1e-7 greedy bit for bit, one seed's engines identical, two replays on
+   the same inputs drawing other tokens at temperature 64, ``sample_tokens``
+   on ``(64, 49152)`` logits against the masked softmax by chi-square;
+   sampled vs greedy decode tok/s), and the launcher with ``--sample topk
+   --trace --metrics-json`` (its deploy held);
 4b. serve full-width deepseek-v3 with its depth cut to the 3 dense MLA layers
    and 1 MoE layer (256 routed experts top-8 + 1 shared), no MTP head
    (serving never reads it), random A2Q weights from seed 0 built and
@@ -1912,6 +1929,7 @@ def serve(dev):
                "int_matmul[tc]": "int_matmul_cuda.tc_launches",
                "paged_attention[int8]": "paged_attention_cuda.launches"})
     by_path["smollm-135m shared and spec"] = serve_shared(dev, arch, params)
+    by_path["smollm-135m observed"] = serve_observed(dev, arch, params)
     return by_path
 
 
@@ -2214,6 +2232,321 @@ def serve_megastep(dev, arch, params, prompts, *, rt, kv_bits, per_call: dict,
     torch.cuda.empty_cache()
     return {entry: delta[key] if isinstance(key, str) else delta[key[0]] - delta[key[1]]
             for entry, key in names.items()}
+
+
+# phase 4o (PERF.md section 4): phase 4m's batch, prompts and budget on phase 4's
+# smollm-135m params, bf16 KV; the sampled runs' top-k and temperature
+OBS_TOP_K, OBS_TEMPERATURE = 40, 0.8
+OBS_HOT = 64.0  # a temperature at which the top-k draws spread (the fresh-noise gates)
+OBS_DRAWS = 2000  # sample_tokens draws of the (64, vocab) logits on the card
+OBS_P_MIN = 1e-4  # the chi-square gate of tests/test_torch_sampling.py
+
+
+def _launch_delta(fn):
+    """``fn()``'s result and the ``ops.launch_counts`` increase over it."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _q8_leaves(tree) -> int:
+    if not isinstance(tree, dict):
+        return 0
+    return 1 if "q8" in tree else sum(_q8_leaves(v) for v in tree.values())
+
+
+def sampled_in_distribution(dev, vocab: int) -> str:
+    """``sample_tokens`` on the card over fixed ``(64, vocab)`` logits (seed
+    0, N(0, 2^2)), ``OBS_DRAWS`` draws with top-k ``OBS_TOP_K`` at
+    ``OBS_TEMPERATURE``: every token in its row's top-k set, and the counts
+    against the masked softmax by Pearson's chi-square over all rows' cells
+    at p > ``OBS_P_MIN``.  Returns the line to print."""
+    from scipy.stats import chi2
+
+    from repro_torch.serve.sampling import SampleConfig, sample_tokens
+
+    cfg = SampleConfig("topk", temperature=OBS_TEMPERATURE, top_k=OBS_TOP_K)
+    logits = torch.randn((64, vocab), generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev) * 2
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draws = torch.stack([sample_tokens(logits, cfg, gen) for _ in range(OBS_DRAWS)])
+    vals, idx = torch.topk(logits, OBS_TOP_K, dim=-1)
+    hits = draws.long()[:, :, None] == idx[None]  # (draws, rows, k)
+    if not bool(hits.any(-1).all()):
+        raise AssertionError("[4o] sample_tokens drew a token outside its row's top-k set")
+    counts = hits.sum(0).double().cpu().numpy()
+    p = torch.softmax(vals.double() / OBS_TEMPERATURE, -1).cpu().numpy()
+    stat = float((((counts - OBS_DRAWS * p) ** 2) / (OBS_DRAWS * p)).sum())
+    dof = 64 * (OBS_TOP_K - 1)
+    pval = float(chi2.sf(stat, dof))
+    ms = events_ms(lambda: sample_tokens(logits, cfg, gen), 20)
+    if not pval > OBS_P_MIN:
+        raise AssertionError(f"[4o] sampled tokens off the masked softmax: chi-square {stat:.1f} "
+                             f"on {dof} dof, p {pval:.3g}")
+    return (f"[4o] sample_tokens on the card, (64, {vocab}) logits, top-k {OBS_TOP_K} at "
+            f"temperature {OBS_TEMPERATURE}: {OBS_DRAWS} draws a row, all in the row's top-k "
+            f"set; chi-square {stat:.1f} on {dof} dof, p {pval:.3g} (> {OBS_P_MIN}); "
+            f"{ms:.4f} ms a call")
+
+
+def serve_observed(dev, arch, params) -> dict:
+    """Phase 4o on phase 4's smollm-135m params: observability and sampling
+    at full width, on ``Runtime(int_chain=True, decode_kernel=True)``, bf16
+    KV, ``decode_steps=8`` (phase 4m's 8 prompts of 64 tokens, 32 new,
+    batch 8):
+
+    1. a traced engine (``Obs(trace=True)``) against an untraced one: tokens
+       and margins bit for bit, the same launches in the main run, the same
+       host ops a window (at most ``MEGASTEP_MAX_WINDOW_OPS``); the trace
+       holds the reference's span names, is exported under ``build/obs``
+       and read back as JSON; the spans' total ms by name, the events a
+       window and the spans' share of a window's wall time printed;
+    2. ``metrics_snapshot()`` against ``stats``, ``cache.counters()`` and
+       ``graph_info``: ``jit_cache_size{fn=megadecode}`` 1 (one capture),
+       the replays one a decode dispatch; the snapshot's size printed;
+    3. ``engine_headroom`` at ``seq`` 8 (int_matmul's split-K decode kernel)
+       and 32 (its tensor-core kernel): 0 violations, ``util_max < 1``,
+       ``observed_frac_max <= util_max``, one static record a deployed
+       ``q8`` leaf; the figures printed;
+    4. sampling: temperature 1e-7 gives step 1's greedy tokens bit for bit;
+       two engines with the same seed at top-k ``OBS_TOP_K``, temperature
+       ``OBS_TEMPERATURE`` give the same tokens, and two at ``OBS_HOT`` too,
+       off the greedy ones; two replays of one hot engine's window on the
+       same inputs (8 live slots) draw different tokens;
+       ``sample_tokens`` in distribution (``sampled_in_distribution``);
+       decode tok/s sampled vs greedy megastep in turns (G S S G);
+    5. the launcher once with ``--paged --deploy-int8 --int-chain
+       --decode-kernel --decode-steps 8 --sample topk --temperature 0.8
+       --top-k 40 --trace ... --metrics-json ...``, its deploy held to the
+       plain quantizer: the headroom line (0 violations) and both files
+       written and read back.
+
+    Returns the launches of the traced main run, the headroom forwards and
+    the launcher run by kernel entry."""
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.models.lm import Runtime
+    from repro_torch.obs import Obs
+    from repro_torch.obs.headroom import engine_headroom, static_headroom_report
+    from repro_torch.serve.engine import PagedServeEngine, Request
+    from repro_torch.serve.sampling import SampleConfig
+
+    phase("4o: smollm-135m traced, metrics, accumulator headroom and top-k sampling "
+          "on the megastep")
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(8)]
+    chunks = sum(-(-len(p) // 32) for p in prompts)
+    n = 7 * arch.n_layers
+    kw = dict(batch=8, max_seq=96, block_size=16, prefill_chunk=32, device=dev,
+              decode_steps=MEGASTEP_N, rt=Runtime(int_chain=True, decode_kernel=True))
+    topk = SampleConfig("topk", temperature=OBS_TEMPERATURE, top_k=OBS_TOP_K)
+
+    def engine(**more):
+        e = PagedServeEngine(arch, params, **kw, **more)
+        e.generate(prompts[:1], max_new=2)  # warm-up; captures the window
+        return e
+
+    def run(e):
+        e.reset_stats()
+        outs = e.generate(prompts, max_new=32)
+        torch.cuda.synchronize()
+        return outs, e.throughput()
+
+    # 1. tracing is observation only
+    plain, traced = engine(), engine(obs=Obs(trace=True))
+    (want, gtp), plain_launches = _launch_delta(lambda: run(plain))
+    walls: list = []
+    megastep = traced.megastep
+
+    def timed_megastep():
+        t0 = time.perf_counter()
+        live = megastep()
+        walls.append(time.perf_counter() - t0)
+        return live
+
+    traced.megastep = timed_megastep
+    (got, ttp), counted = _launch_delta(lambda: run(traced))
+    traced.megastep = megastep
+    windows = ttp["decode_dispatches"]
+    if got != want or [r.margins for r in traced.last_requests] != \
+            [r.margins for r in plain.last_requests] or counted != plain_launches:
+        raise AssertionError("[4o] the traced engine's tokens, margins or launches differ from "
+                             "the untraced engine's")
+    expect = {"int_matmul_cuda.prologue_launches": n * (MEGASTEP_N * windows + chunks),
+              "paged_attention_cuda.launches": arch.n_layers * MEGASTEP_N * windows}
+    if any(counted[k] != v for k, v in expect.items()) or windows < 1 or \
+            ttp["graph_replays"] != windows:
+        raise AssertionError(f"[4o] launches {counted} (expected {expect}) over {windows} windows")
+    tr = traced.obs.trace
+    events = list(tr.events)
+    names = tr.span_names()
+    need = {"submit", "admit", "block_alloc", "prefill_chunk", "cow_preflight",
+            "decode_megastep", "emit"}
+    if not need <= names:
+        raise AssertionError(f"[4o] the trace lacks {need - names}")
+    tr.export(str(out_dir / "trace.json"))
+    doc = json.loads((out_dir / "trace.json").read_text())
+    if len(doc["traceEvents"]) != len(events):
+        raise AssertionError("[4o] the exported trace does not read back whole")
+    by_name: dict = {}
+    for _, name, _, dur, _ in events:
+        if dur is not None:
+            by_name[name] = by_name.get(name, 0.0) + dur * 1e3
+    # the windows' preflights carry "live"; the prefill chunks' carry "uid"
+    preflight_ms = sum(dur for _, _, dur, args in tr.spans("cow_preflight") if "live" in args) * 1e3
+    window_ms, wall_ms = by_name["decode_megastep"], sum(walls) * 1e3
+    print(f"[4o] traced vs untraced: tokens and margins bit for bit, launches equal "
+          f"({ {k: v for k, v in counted.items() if v} }); {len(events)} events, "
+          f"{len(events) / windows:.1f} a window over {windows} windows; span ms by name "
+          f"{ {k: round(v, 3) for k, v in sorted(by_name.items())} }; a window's spans "
+          f"(cow_preflight {preflight_ms / windows:.3f} + decode_megastep "
+          f"{window_ms / windows:.3f} ms) of its megastep() wall {wall_ms / windows:.3f} ms: "
+          f"{(preflight_ms + window_ms) / wall_ms:.4f}; decode tok/s untraced "
+          f"{gtp['decode_tok_s']:.2f}, traced {ttp['decode_tok_s']:.2f}", flush=True)
+    # 2. metrics of the traced run
+    snap = traced.metrics_snapshot()
+    cc = traced.cache.counters()
+    checks = {
+        "serve_prefill_tokens": ttp["prefill_tokens"], "serve_decode_tokens": ttp["decode_tokens"],
+        "serve_decode_dispatches": ttp["graph_replays"], "requests_completed": len(prompts),
+        "kv_peak_blocks": cc.pop("peak_blocks"), "kv_free_blocks": traced.cache.free_blocks,
+        **{f"kv_{k}": v for k, v in cc.items()},
+        "jit_cache_size{fn=megadecode}": 1, "jit_cache_size{fn=prefill}": 0,
+        "jit_cache_size{fn=decode}": 0, "int_chain_folded": n,
+        "int_chain_requant_dispatches": 0}
+    bad = {k: (snap.get(k, {}).get("value"), v) for k, v in checks.items()
+           if snap.get(k, {}).get("value") != v}
+    if bad or len(snap["request_latency_s"]["values"]) != len(prompts) or \
+            not traced.graph_info:
+        raise AssertionError(f"[4o] metrics snapshot off the engine's state: {bad}")
+    print(f"[4o] metrics snapshot: {len(snap)} metrics, agrees with stats, cache.counters() "
+          f"and graph_info (jit_cache_size{{fn=megadecode}} 1, {ttp['graph_replays']} replays "
+          f"= decode dispatches); p50 / p99 request latency "
+          f"{traced.obs.metrics.histogram('request_latency_s').percentile(50):.3f} / "
+          f"{traced.obs.metrics.histogram('request_latency_s').percentile(99):.3f} s", flush=True)
+
+    # host ops a window (each drains extra requests: after the snapshot)
+    ops_plain, ops_traced = window_ops(plain, prompts), window_ops(traced, prompts)
+    print(f"[4o] host ops a window: untraced {ops_plain}, traced {ops_traced}", flush=True)
+    if ops_plain != ops_traced or ops_traced > MEGASTEP_MAX_WINDOW_OPS:
+        raise AssertionError(f"[4o] host ops a window {ops_plain} / {ops_traced} (at most "
+                             f"{MEGASTEP_MAX_WINDOW_OPS}, equal)")
+
+    # 3. accumulator headroom on both int_matmul kernels
+    static = static_headroom_report(params, arch.quant)
+    if len(static) != _q8_leaves(params):
+        raise AssertionError(f"[4o] {len(static)} static records for {_q8_leaves(params)} "
+                             "deployed q8 leaves")
+    for seq in (8, 32):
+        tc0 = int_matmul_cuda.tc_launches
+        hr, more = _launch_delta(lambda: engine_headroom(traced, seq=seq))
+        tc = int_matmul_cuda.tc_launches - tc0
+        counted = {k: counted[k] + more[k] for k in counted}
+        route = "tensor-core" if seq >= 17 else "split-K decode"
+        if hr["violations"] or not hr["util_max"] < 1 or \
+                not 0 < hr["observed_frac_max"] <= hr["util_max"] or \
+                hr["observed_sites"] != n or (tc == n) != (seq >= 17):
+            raise AssertionError(f"[4o] headroom at seq {seq}: {hr}, {tc} tensor-core launches")
+        print(f"[4o] accumulator headroom, seq {seq} ({route} int_matmul): {hr['layers']} "
+              f"deployed layers, util_max {hr['util_max']!r}, observed_frac_max "
+              f"{hr['observed_frac_max']!r} over {hr['observed_sites']} probed calls, "
+              f"{hr['violations']} violations", flush=True)
+
+    # 4. sampling inside the captured window
+    cold = engine(sample=SampleConfig("topk", temperature=1e-7, top_k=OBS_TOP_K))
+    if run(cold)[0] != want:
+        raise AssertionError("[4o] temperature 1e-7 differs from the greedy megastep")
+    s1, s2 = engine(sample=topk, seed=0), engine(sample=topk, seed=0)
+    (a, stp), (b, _) = run(s1), run(s2)
+    if a != b or not all(len(o) == 32 and all(0 <= t < arch.vocab for t in o) for o in a):
+        raise AssertionError("[4o] two engines of one seed sampled different tokens")
+    # random smollm-135m's tied head puts the top logit far above the rest, so
+    # at 0.8 the draws mostly take it: the fresh-noise gates run hot as well
+    h1, h2 = (engine(sample=SampleConfig("topk", temperature=OBS_HOT, top_k=OBS_TOP_K), seed=0)
+              for _ in range(2))
+    hot, hot2 = run(h1)[0], run(h2)[0]
+    # two replays on one window's inputs: every request admitted and one
+    # window run, then the live slots' window twice (the rows' first tick
+    # sees the same logits in both; the writes stay in their reservations)
+    for i, p in enumerate(prompts):
+        h1.submit(Request(uid=6000 + i, prompt=p, max_new=3 * MEGASTEP_N))
+    h1.step()
+    inp = h1._window_inputs(h1.sched.live)
+    offset = (lambda: h1._gen.get_offset()) if h1._gen.device.type == "cuda" else (lambda: 0)
+    offsets = [offset()]
+    w1 = h1._run_window(inp)[0].copy()  # a view of the pinned read-back buffer otherwise
+    offsets.append(offset())
+    w2 = h1._run_window(inp)[0].copy()
+    offsets.append(offset())
+    while not h1.sched.idle():
+        h1.step()
+    margin = float(np.median([m for r in plain.last_requests for m in r.margins]))
+    same = sum(x == y for o, g in zip(a, want) for x, y in zip(o, g))
+    if hot != hot2 or hot == want or np.array_equal(w1, w2):
+        raise AssertionError(f"[4o] at temperature {OBS_HOT}: two engines of one seed "
+                             f"identical {hot == hot2}, the greedy tokens {hot == want}, two "
+                             f"replays on the same inputs identical {np.array_equal(w1, w2)}")
+    print(f"[4o] sampled megastep (top-k {OBS_TOP_K}): temperature 1e-7 = greedy bit for bit; "
+          f"two engines of seed 0 identical at {OBS_TEMPERATURE} ({same} of {32 * len(a)} "
+          f"tokens the greedy ones; greedy top-2 margin median {margin:.3f}) and at {OBS_HOT} "
+          f"({sum(x != y for o, g in zip(hot, want) for x, y in zip(o, g))} tokens off the "
+          f"greedy ones); two replays of the window on the same inputs at {OBS_HOT} differ in "
+          f"{int((w1 != w2).sum())} of {w1.size} tokens (first tick {int((w1[:, 0] != w2[:, 0])
+          .sum())} of {len(w1)}); generator offset by replay {np.diff(offsets).tolist()}",
+          flush=True)
+    print(sampled_in_distribution(dev, arch.vocab), flush=True)
+    tps = {"greedy": [gtp["decode_tok_s"]], "sampled": [stp["decode_tok_s"]]}
+    for which in ("sampled", "greedy"):
+        tps[which].append(run(s1 if which == "sampled" else plain)[1]["decode_tok_s"])
+    print("[4o] megastep decode tok/s in turns (G S S G): " + "; ".join(
+        f"{k} {[round(v, 2) for v in vs]} mean {np.mean(vs):.2f}" for k, vs in tps.items()),
+        flush=True)
+    del plain, cold, s1, s2, h1, h2
+
+    # 5. the launcher with sampling, --trace and --metrics-json
+    trace_path, metrics_path = out_dir / "launcher_trace.json", out_dir / "launcher_metrics.json"
+    argv = ["--arch", arch.name, "--device", str(dev), "--paged", "--deploy-int8", "--int-chain",
+            "--decode-kernel", "--decode-steps", str(MEGASTEP_N), "--sample", "topk",
+            "--temperature", str(OBS_TEMPERATURE), "--top-k", str(OBS_TOP_K),
+            "--trace", str(trace_path), "--metrics-json", str(metrics_path),
+            "--requests", "8", "--prompt-len", "64", "--max-new", "16", "--batch", "8",
+            "--max-seq", "96", "--block-size", "16", "--prefill-chunk", "32"]
+    a2q_quantize_cuda.launches = 0
+    with held_deploys("4o launcher") as held:
+        out, more = _launch_delta(lambda: launcher(argv))
+    check_held("4o launcher", held, a2q_quantize_cuda.launches)
+    counted = {k: counted[k] + more[k] for k in counted}
+    hr = out["report"]["headroom"]
+    ltrace = json.loads(trace_path.read_text())["traceEvents"]
+    lsnap = json.loads(metrics_path.read_text())
+    if hr["violations"] or more["a2q_quantize_cuda.launches"] != n or \
+            not {"decode_megastep", "emit"} <= {e["name"] for e in ltrace} or \
+            lsnap["requests_completed"]["value"] != 8 or \
+            lsnap["acc_headroom_violations"]["value"] != 0 or \
+            lsnap["jit_cache_size{fn=megadecode}"]["value"] != 1:
+        raise AssertionError(f"[4o] launcher run: headroom {hr}, {len(ltrace)} trace events, "
+                             f"{len(lsnap)} metrics")
+    print(f"[4o] launcher --sample topk --trace --metrics-json: {len(ltrace)} trace events, "
+          f"{len(lsnap)} metrics written and read back; headroom {hr}", flush=True)
+    del out, traced
+    torch.cuda.empty_cache()
+    launches = {"int_matmul": counted["int_matmul_cuda.launches"]
+                - counted["int_matmul_cuda.prologue_launches"],
+                "int_matmul[prologue]": counted["int_matmul_cuda.prologue_launches"],
+                "int_matmul[tc]": counted["int_matmul_cuda.tc_launches"],
+                "paged_attention": counted["paged_attention_cuda.launches"],
+                "a2q_quantize": counted["a2q_quantize_cuda.launches"],
+                "a2q_quantize[flips]": held["flips"]}
+    print(f"[4o] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 # phase 4s (PERF.md section 4): phase 4m's batch, blocks and prefill chunk; a
@@ -3156,6 +3489,9 @@ def serve_contiguous(dev) -> dict:
         deploys += held["matrices"]
         rep, engines = out["report"], out["engines"]
         contig = engines["contiguous"]
+        # an --int-forward run ends in the launcher's headroom probe: one
+        # eager forward of 8 tokens on the served engine's runtime
+        probe = n if "headroom" in rep else 0
         if not on_card(contig):
             raise AssertionError(f"[4p {tag}] the contiguous engine did not run on the card")
         ctp = contig.throughput()
@@ -3165,7 +3501,7 @@ def serve_contiguous(dev) -> dict:
             ptp = engines["paged"].throughput()
             chunks = sum(-(-CONTIG_PROMPT_LEN // 32) for _ in range(CONTIG_PROMPTS))
             if rep["int_forward"]:
-                expect += n * (ptp["decode_dispatches"] + chunks)
+                expect += n * (ptp["decode_dispatches"] + chunks) + probe
             line += (f"; paged: prefill {ptp['prefill_tok_s']:.2f} tok/s, decode "
                      f"{ptp['decode_tok_s']:.2f} tok/s")
             if "parity_sub_margin_ties" in rep:
@@ -3174,7 +3510,7 @@ def serve_contiguous(dev) -> dict:
             else:
                 line += "; tokens identical across engines (exact parity)"
         else:
-            expect_prologue += n * (ctp["prefill_tokens"] + ctp["decode_dispatches"])
+            expect_prologue += n * (ctp["prefill_tokens"] + ctp["decode_dispatches"]) + probe
             counted = ops.launch_counts()  # the op count's own launches are not the path's
             line += (f"; host ops a contiguous tick {contig_tick_ops(contig, out['outs'][0][:4])}"
                      f" (int-chain)")

@@ -11,6 +11,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --paged --int-forward --prefix-share --shared-prefix 64 [--pin-prompt 32] \\
         [--spec-k 4 [--spec-draft self-int8|<config>]] --requests 8 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --paged --int-chain --decode-kernel --decode-steps 8 --sample topk \
+        --temperature 0.8 --top-k 40 --trace trace.json --metrics-json metrics.json
 
 Port of ``repro.launch.serve``: ``--paged`` serves through
 ``PagedServeEngine``, otherwise through the contiguous ``ServeEngine`` (which
@@ -42,9 +45,19 @@ unless their greedy tokens agree: exactly on float KV, under
 ``parity_up_to_ties`` at ``--parity-eps`` (0.05) on integer KV.  An
 attention-free model (rwkv6) keeps a recurrent state per slot instead of
 KV, and sliding-window layers a ring a slot; their bytes a slot are
-printed beside the KV bytes a token.  ``--device`` defaults to ``cuda``.
-Throughput is reported split into prefill and decode.  The reference's
-other flags are refused as not ported yet (``ROADMAP.md`` queue 1).
+printed beside the KV bytes a token.  ``--sample temperature|topk``
+(``--temperature``, ``--top-k``; paged engine only, not with ``--spec-k``)
+samples on the device from a generator seeded by ``--seed``;
+``--parity-check`` forces greedy.  ``--trace PATH`` records the engine's
+request spans and writes them as Chrome trace-event JSON (Perfetto);
+``--metrics-json PATH`` writes the engine's metrics snapshot (stats, cache
+counters, chain report, CUDA-graph captures, latency histograms, and the
+headroom gauges).  Every ``--int-forward`` run prints the accumulator
+headroom: each deployed layer's worst-case utilization of its P-bit
+accumulator (A2Q's static bound) and the largest partial sum one probed
+eager forward reaches against it, with the violations (0 when the
+guarantee holds).  ``--device`` defaults to ``cuda``.  Throughput is
+reported split into prefill and decode.
 """
 
 from __future__ import annotations
@@ -58,15 +71,16 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models.lm import Runtime, init_lm
+from repro_torch.obs import Obs
+from repro_torch.obs.headroom import engine_headroom
 from repro_torch.serve.engine import (
     PagedServeEngine,
     ServeEngine,
     deploy_params,
     parity_up_to_ties,
 )
+from repro_torch.serve.sampling import SampleConfig
 from repro_torch.serve.spec import ModelDrafter, SpecServeEngine
-
-NOT_PORTED = ("--sample", "--temperature", "--top-k", "--trace", "--metrics-json")
 
 
 def _spec_report(engine) -> dict:
@@ -148,11 +162,19 @@ def run(argv=None) -> dict:
     ap.add_argument("--spec-draft", default="self-int8",
                     help="drafter: 'self-int8' (same weights, integer fast path) or a config "
                          "name for a small draft model")
+    ap.add_argument("--sample", choices=("greedy", "temperature", "topk"), default="greedy")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--parity-check", action="store_true",
                     help="run paged AND contiguous engines; fail on any token mismatch")
     ap.add_argument("--parity-eps", type=float, default=None,
                     help="greedy-margin tie tolerance for --parity-check with --kv-int8 "
                          "(default 0.05; float KV always compares exactly)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record request-span traces and write Chrome trace-event JSON here "
+                         "(load in Perfetto / chrome://tracing)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write the metrics snapshot (engine + cache + chain + headroom) here")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=12)
@@ -164,13 +186,10 @@ def run(argv=None) -> dict:
     ap.add_argument("--num-blocks", type=int, default=None, help="paged KV pool size (blocks)")
     ap.add_argument("--json", default=None, help="write the stats report to this path")
     ap.add_argument("--seed", type=int, default=0)
-    given = list(sys.argv[1:] if argv is None else argv)
-    for flag in NOT_PORTED:
-        if any(a == flag or a.startswith(flag + "=") for a in given):
-            ap.error(f"{flag} is not ported yet (ROADMAP.md queue 1)")
-    args = ap.parse_args(given)
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if not args.paged and not args.parity_check:
         wanted = [flag for flag, on in (
+            ("--sample", args.sample != "greedy"), ("--top-k", args.top_k != 0),
             ("--decode-kernel", args.decode_kernel), ("--kv-int8", args.kv_int8),
             ("--num-blocks", args.num_blocks is not None),
             ("--spec-k", args.spec_k > 0), ("--prefix-share", args.prefix_share),
@@ -188,7 +207,8 @@ def run(argv=None) -> dict:
         ap.error("--kv-bits only affects integer KV blocks; add --kv-int8")
     if args.spec_draft != "self-int8" and args.spec_k == 0:
         ap.error("--spec-draft only affects speculative decoding; add --spec-k")
-    # (--spec-k with sampling: the sampling flags are refused above, as not ported)
+    if args.spec_k > 0 and args.sample != "greedy":
+        ap.error("--spec-k is lossless for greedy decoding only")
 
     arch = get_arch(args.arch)
     if args.reduced:
@@ -220,11 +240,13 @@ def run(argv=None) -> dict:
                                       .astype(np.int32)])
                if head else rng.integers(0, arch.vocab, (args.prompt_len,)).astype(np.int32)
                for _ in range(args.requests)]
+    sample = SampleConfig(method=args.sample, temperature=args.temperature, top_k=args.top_k)
     decode_kernel = args.decode_kernel
-    if args.parity_check and decode_kernel:
+    if args.parity_check and (args.sample != "greedy" or decode_kernel):
         # the contiguous baseline is greedy on the gathered-view arithmetic;
         # the paged side compares on the same
         print("parity-check forces greedy sampling on the gathered-view decode path")
+        sample = SampleConfig()
         decode_kernel = False
     if args.eos_auto:
         # a greedy contiguous probe: the token request 0 emits halfway through
@@ -236,12 +258,15 @@ def run(argv=None) -> dict:
         args.eos_id = int(ptoks[len(ptoks) // 2])
         print(f"eos-auto: eos_id={args.eos_id} (request 0's token at step {len(ptoks) // 2})")
 
+    obs = Obs(trace=bool(args.trace))
+
     def paged_engine():
         kw = dict(
             batch=args.batch, max_seq=args.max_seq, block_size=args.block_size,
             prefill_chunk=args.prefill_chunk, num_blocks=args.num_blocks, device=args.device,
             kv_quant=args.kv_int8, kv_bits=args.kv_bits, eos_id=args.eos_id,
-            decode_steps=args.decode_steps, prefix_share=args.prefix_share,
+            decode_steps=args.decode_steps, prefix_share=args.prefix_share, sample=sample,
+            seed=args.seed, obs=obs,
             rt=Runtime(decode_kernel=decode_kernel, int_forward=args.int_forward,
                        int_chain=args.int_chain),
         )
@@ -320,7 +345,7 @@ def run(argv=None) -> dict:
         # the contiguous engine honors --int-forward / --int-chain as well
         engine = ServeEngine(arch, params, batch=args.batch, max_seq=args.max_seq,
                              rt=Runtime(int_forward=args.int_forward, int_chain=args.int_chain),
-                             eos_id=args.eos_id, device=args.device)
+                             eos_id=args.eos_id, device=args.device, obs=obs)
         engines = {"contiguous": engine}
         outs = engine.generate(prompts, max_new=args.max_new)
         report["contiguous"] = _report("contiguous", engine)
@@ -344,8 +369,25 @@ def run(argv=None) -> dict:
         report["eos_terminated"] = sum(1 for o in outs if o and o[-1] == args.eos_id)
         print(f"eos: {report['eos_terminated']} of {len(outs)} requests terminated on "
               f"eos_id={args.eos_id}")
+    if args.int_forward:
+        # accumulator headroom: each deployed layer's static utilization (the
+        # paper's Eq. 11 ratio) and the partial sums one probed eager
+        # forward reaches
+        hr = engine_headroom(engine)
+        report["headroom"] = hr
+        print(f"acc headroom: {hr['layers']} deployed layers, max static utilization "
+              f"{hr['util_max']:.4f}, max observed |acc|/bound {hr['observed_frac_max']:.4f} "
+              f"over {hr['observed_sites']} probed calls, {hr['violations']} violations")
     for i, o in enumerate(outs):
         print(f"req {i}: {o}")
+    if args.trace:
+        engine.obs.trace.export(args.trace)
+        print(f"wrote trace ({len(engine.obs.trace.events)} events) to {args.trace}")
+    if args.metrics_json:
+        snap = engine.metrics_snapshot()
+        with open(args.metrics_json, "w") as f:
+            json.dump(snap, f, indent=2, sort_keys=True)
+        print(f"wrote {len(snap)} metrics to {args.metrics_json}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=2)

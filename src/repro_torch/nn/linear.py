@@ -28,8 +28,11 @@ act-quant.  An :class:`IntAct` (int8 codes with their scale) is consumed
 directly.  A producer that requantizes into its consumer's quantizer
 (``out_aq`` from :func:`chain_out_aq`: rwkv6's channel-mix ``cm.wk ->
 relu^2 -> cm.wv``, the non-gated MLP's ``w_in -> gelu -> w_out``) runs the
-kernel's requant epilogue and returns an :class:`IntAct` (``chained``).  The
-accumulator-headroom probe is not ported yet.
+kernel's requant epilogue and returns an :class:`IntAct` (``chained``).
+
+Inside an ``acc_probe_scope`` every fused call samples the worst partial-sum
+magnitude its actual integer operands can produce (``_probe_acc``), the
+runtime twin of the A2Q bound; ``obs/headroom.py`` drives it.
 
 Every ``int_forward`` call records its disposition (``folded`` for the
 prologue or an ``IntAct`` input, ``standalone`` for the fused path with its
@@ -67,6 +70,7 @@ __all__ = [
     "IntAct",
     "chain_out_aq",
     "chain_report_scope",
+    "acc_probe_scope",
 ]
 
 
@@ -116,6 +120,71 @@ def chain_report_scope(report: dict):
 def _record(kind: str, site: str):
     if _ACTIVE_REPORT:
         _ACTIVE_REPORT[-1][kind].append(site)
+
+
+# --- accumulator-headroom probe --------------------------------------------
+#
+# The A2Q guarantee is proved statically from the deployed weights' l1 norms;
+# this probe makes it observable: inside an acc_probe_scope each fused-path
+# call samples the worst partial-sum magnitude its actual integer operands
+# could produce and records it against the layer's accumulator bound.
+
+_ACTIVE_ACC_PROBE: list = []
+
+
+@contextlib.contextmanager
+def acc_probe_scope(samples: list):
+    """Sample observed accumulator magnitudes from the fused W8A8 path.
+
+    Inside the scope, every eager ``_apply_linear_int8`` call appends one
+    record per call::
+
+        {"site", "acc_max", "acc_bits", "bound", "spill_int16",
+         "in_bits", "in_signed"}
+
+    ``acc_max`` is ``max(|x_codes| @ |q8|)`` over output channels in int64
+    on the host — an upper bound on the magnitude of *any* partial sum, in
+    any accumulation order, for the actual integer operands (the runtime
+    twin of the paper's Eq. 11 check, which bounds the same quantity by
+    ``||w||_1 * 2**(N - 1_signed)`` over all inputs).  The port's layer
+    stacks are a Python loop, so every deployed call of a forward records
+    (the reference's scanned stacks trace abstract operands and record only
+    their unstacked sites).  The codes are read back to the host inside the
+    scope only; outside it the probe does nothing, and it skips while a CUDA
+    graph is being captured (a read-back cannot be captured)."""
+    samples.clear()
+    _ACTIVE_ACC_PROBE.append(samples)
+    try:
+        yield samples
+    finally:
+        _ACTIVE_ACC_PROBE.pop()
+
+
+def _probing(x: torch.Tensor) -> bool:
+    """A probe scope is open and ``x`` can be read back (no CUDA graph is
+    being captured)."""
+    return bool(_ACTIVE_ACC_PROBE) and not (x.is_cuda and torch.cuda.is_current_stream_capturing())
+
+
+def _probe_acc(site, codes, q8, *, in_bits, in_signed, acc_bits, spill_int16,
+               symmetrized=False):
+    if not _probing(codes):
+        return
+    xc = codes.detach().to("cpu", torch.int64)
+    if symmetrized:
+        xc = xc + 128  # stored codes are true - 128 (unsigned-8 ride-along)
+    xc = xc.abs().reshape(-1, xc.shape[-1])
+    wq = q8.detach().to("cpu", torch.int64).abs()
+    acc_max = int((xc @ wq).max()) if xc.numel() and wq.numel() else 0
+    _ACTIVE_ACC_PROBE[-1].append({
+        "site": site,
+        "acc_max": acc_max,
+        "acc_bits": int(acc_bits),
+        "bound": 2 ** (int(acc_bits) - 1) - 1,
+        "spill_int16": bool(spill_int16),
+        "in_bits": int(in_bits),
+        "in_signed": bool(in_signed),
+    })
 
 
 def _warn_fallback_once(site: str, reason: str):
@@ -228,6 +297,9 @@ def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
     s8 = params["s8"].to(torch.float32)
     if isinstance(x, IntAct):
         _record("folded", site)
+        _probe_acc(site, x.codes, params["q8"], in_bits=x.bits, in_signed=x.signed,
+                   acc_bits=kw["acc_bits"], spill_int16=kw["spill_int16"],
+                   symmetrized=not x.signed and x.bits == 8)
         K = x.codes.shape[-1]
         lead = x.codes.shape[:-1]
         y = ops.int_matmul(x.codes.reshape(-1, K), params["q8"], scale=x.scale * s8,
@@ -235,6 +307,13 @@ def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
     elif int_chain:
         _record("folded", site)
         x_scale = torch.exp2(params["aq"]["log2_scale"].to(torch.float32))
+        if _probing(x):
+            # replay the prologue's quantization on the fp32 upcast (bf16
+            # widens exactly), so the probe sees the codes the kernel folds
+            xq_p, _ = act_quant_int({"log2_scale": params["aq"]["log2_scale"]},
+                                    x.to(torch.float32), N, signed=input_signed)
+            _probe_acc(site, xq_p, params["q8"], in_bits=N, in_signed=input_signed,
+                       acc_bits=kw["acc_bits"], spill_int16=kw["spill_int16"])
         K = x.shape[-1]
         lead = x.shape[:-1]
         # bf16 goes in as it is: the prologue widens it exactly
@@ -246,6 +325,8 @@ def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
         _record("standalone", site)
         xq, x_scale = act_quant_int({"log2_scale": params["aq"]["log2_scale"]},
                                     x.to(torch.float32), N, signed=input_signed)
+        _probe_acc(site, xq, params["q8"], in_bits=N, in_signed=input_signed,
+                   acc_bits=kw["acc_bits"], spill_int16=kw["spill_int16"])
         if not input_signed and N == 8:
             xq = xq - 128.0
         K = x.shape[-1]

@@ -55,8 +55,25 @@ tick or a window; adopted prompt tokens are not counted as prefilled), plus
 ``graph_replays``; the cache keeps the reference's counters
 (``cache.counters()``: ``prefix_hits``, ``cow_copies`` ...).
 ``parity_up_to_ties`` is the reference's gate between two engines' greedy
-streams.  Not ported yet: disaggregated handoff, non-greedy sampling and the
-observability bundle (trace spans, metrics).
+streams.
+
+Sampling (``PagedServeEngine(sample=..., seed=...)``): greedy by default;
+temperature and top-k draw from one ``torch.Generator`` the engine owns on
+its device, seeded by ``seed`` (every prefill, tick and window draws from
+it, inside the captured window too; ``_capture``).  ``ServeEngine`` is
+greedy, as in the reference.
+
+Observability (``obs=``, a ``repro_torch.obs.Obs``; default untraced): the
+reference's trace spans and instants around host code — ``submit``,
+``admit``, ``prefill_slot``, ``decode_tick`` and ``emit`` in
+``ServeEngine``; ``admit``, ``radix_lookup``, ``block_alloc``,
+``prefill_chunk``, ``cow_preflight``, ``admit_group``, ``decode_tick`` and
+``decode_megastep`` in ``PagedServeEngine`` — never inside the window the
+graph holds, and with no device synchronization of their own; and the
+metrics contract: ``metrics_snapshot()`` folds ``stats``, the chain report,
+``cache.counters()`` and the CUDA-graph captures into the registry, beside
+the per-request latency histograms the scheduler records.  Not ported yet:
+disaggregated handoff.
 """
 
 from __future__ import annotations
@@ -73,6 +90,7 @@ from repro_torch.kernels.ops import launch_counts, set_launch_counts
 from repro_torch.models.lm import Runtime, apply_lm, init_cache
 from repro_torch.nn.linear import deploy_linear
 from repro_torch.nn.transformer import COMPUTE_DTYPES
+from repro_torch.obs import Obs
 from repro_torch.serve.paged_cache import PagedKVCache
 from repro_torch.serve.sampling import SampleConfig, sample_tokens
 from repro_torch.serve.scheduler import Scheduler, ServeRequest
@@ -172,12 +190,15 @@ def _greedy_margin(logits: torch.Tensor) -> torch.Tensor:
 
 
 class _StatsMixin:
-    """The engines' shared ``stats`` contract."""
+    """The engines' shared ``stats`` and metrics contract."""
 
     def reset_stats(self) -> None:
         """Zero the throughput counters (after a warm-up pass, so first-call
-        set-up stays out of steady-state numbers)."""
+        set-up stays out of steady-state numbers).  This is the one reset
+        path: engine stats, collected spans, live metrics and (in the paged
+        engine) the cache's counters clear together."""
         self.stats = _fresh_stats()
+        self.obs.reset()
 
     def throughput(self) -> dict:
         """Derived tok/s split (prefill vs decode) from ``stats``, and the
@@ -201,6 +222,38 @@ class _StatsMixin:
             out["int_chain_chained"] = len(rep.get("chained", ()))
             out["int_chain_fallback"] = len(rep.get("fallback", ()))
         return out
+
+    # -- the metrics contract ---------------------------------------------------
+
+    def _graph_counts(self) -> dict:
+        """CUDA graphs captured per step function, the port's counterpart of
+        the reference's jit compile counts (``jit_cache_size{fn=...}``)."""
+        return {}
+
+    def _sync_metrics(self) -> None:
+        """Fold the engine's runtime state — stats, derived throughput, chain
+        report, graph captures — into the registry.  Called at snapshot time:
+        nothing on the dispatch path touches a metric object (the
+        per-request histograms are recorded at completion)."""
+        m = self.obs.metrics
+        tp = self.throughput()
+        for k in ("prefill_tokens", "decode_tokens", "decode_dispatches",
+                  "prefill_s", "decode_s"):
+            m.counter(f"serve_{k}").set(tp[k])
+        for k in ("prefill_tok_s", "decode_tok_s", "tok_s", "dispatches_per_token"):
+            m.gauge(f"serve_{k}").set(tp[k])
+        for k in ("int_chain_requant_dispatches", "int_chain_folded",
+                  "int_chain_chained", "int_chain_fallback"):
+            if k in tp:
+                m.gauge(k).set(tp[k])
+        for name, n in self._graph_counts().items():
+            m.gauge("jit_cache_size", {"fn": name}).set(n)
+
+    def metrics_snapshot(self) -> dict:
+        """The one ``snapshot()`` contract: sync the engine's state into the
+        registry and return the JSON-able view (``--metrics-json``)."""
+        self._sync_metrics()
+        return self.obs.metrics.snapshot()
 
 
 class ServeEngine(_StatsMixin):
@@ -229,6 +282,7 @@ class ServeEngine(_StatsMixin):
         bos_id: int = 0,
         eos_id: Optional[int] = None,
         device="cuda",
+        obs: Optional[Obs] = None,
     ):
         self.device = resolve_device(device)
         _check_device(params, self.device)
@@ -237,6 +291,7 @@ class ServeEngine(_StatsMixin):
         self.batch = batch
         self.max_seq = max_seq
         self.rt = rt or Runtime()
+        self.obs = obs or Obs()
         self.bos_id = bos_id
         self.eos_id = eos_id  # default for requests that do not set their own
         self.cache = self._fresh_cache()
@@ -245,6 +300,9 @@ class ServeEngine(_StatsMixin):
         self.recurrent = any(s.kind in ("rwkv6", "hymba") for s in arch.stacks)
         self.stats = _fresh_stats()
         self.last_requests: list = []
+
+    def _graph_counts(self) -> dict:
+        return {"decode": 0}  # eager: no graph is captured
 
     def _fresh_cache(self) -> dict:
         return init_cache(self.arch, self.batch, self.max_seq,
@@ -268,10 +326,12 @@ class ServeEngine(_StatsMixin):
         req.prompt = _normalize_prompt(req.prompt, self.bos_id)
         if req.eos_id is None:
             req.eos_id = self.eos_id
+        self.obs.trace.instant("submit", {"uid": req.uid, "prompt": len(req.prompt)})
         for i, s in enumerate(self.slots):
             if s is None:
                 self.slots[i] = req
-                self._prefill_slot(i, req)
+                with self.obs.trace.span("admit", {"uid": req.uid, "slot": i}):
+                    self._prefill_slot(i, req)
                 return True
         return False
 
@@ -290,6 +350,13 @@ class ServeEngine(_StatsMixin):
             req.done = True
             req.finished_at = time.perf_counter()
             self.slots[slot] = None
+            m = self.obs.metrics
+            m.counter("requests_completed").inc()
+            if req.submitted_at is not None:
+                m.histogram("request_latency_s").observe(req.latency)
+                if req.first_token_at is not None:
+                    m.histogram("request_ttft_s").observe(req.ttft)
+            self.obs.trace.instant("emit", {"uid": req.uid, "tokens": len(req.generated)})
             return True
         return False
 
@@ -297,13 +364,14 @@ class ServeEngine(_StatsMixin):
         """Feed the prompt one token a forward into this slot's lane; the last
         step's logits give the first generated token, booked under prefill."""
         t0 = time.perf_counter()
-        self.pos[slot] = 0
-        for t in req.prompt:
-            tok = np.zeros((self.batch, 1), np.int32)
-            tok[slot, 0] = t
-            logits = self._decode(tok)
-            self.pos[slot] += 1
-        last = self._host(logits[slot])
+        with self.obs.trace.span("prefill_slot", {"uid": req.uid, "tokens": len(req.prompt)}):
+            self.pos[slot] = 0
+            for t in req.prompt:
+                tok = np.zeros((self.batch, 1), np.int32)
+                tok[slot, 0] = t
+                logits = self._decode(tok)
+                self.pos[slot] += 1
+            last = self._host(logits[slot])
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += len(req.prompt)
         self._emit_token(slot, req, last)
@@ -315,10 +383,11 @@ class ServeEngine(_StatsMixin):
         if not live:
             return 0
         t0 = time.perf_counter()
-        tok = np.zeros((self.batch, 1), np.int32)
-        for i in live:
-            tok[i, 0] = self.slots[i].last_token
-        logits = self._host(self._decode(tok))
+        with self.obs.trace.span("decode_tick", {"live": len(live)}):
+            tok = np.zeros((self.batch, 1), np.int32)
+            for i in live:
+                tok[i, 0] = self.slots[i].last_token
+            logits = self._host(self._decode(tok))
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_tokens"] += len(live)
         self.stats["decode_dispatches"] += 1
@@ -381,8 +450,11 @@ class ServeEngine(_StatsMixin):
 
 class PagedServeEngine(_StatsMixin):
     """Paged-KV serving engine: scheduler-driven continuous batching, chunked
-    prefill on isolated one-row views, greedy on-device sampling (only token
-    ids and greedy margins reach the host).
+    prefill on isolated one-row views, on-device sampling (only token ids and
+    greedy margins reach the host).  ``sample`` picks greedy (the default),
+    temperature or top-k; the random methods draw from the engine's own
+    ``torch.Generator`` on its device, seeded by ``seed``, so a run
+    reproduces from ``seed`` through the same sequence of calls.
 
     ``params`` must already live on ``device`` (default ``"cuda"``; a CUDA
     device without a usable card raises).  ``num_blocks`` bounds KV memory
@@ -420,7 +492,9 @@ class PagedServeEngine(_StatsMixin):
         kv_quant: bool = False,
         kv_bits: int = 8,
         prefix_share: bool = False,
+        seed: int = 0,
         device="cuda",
+        obs: Optional[Obs] = None,
     ):
         if decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, got {decode_steps}")
@@ -432,9 +506,11 @@ class PagedServeEngine(_StatsMixin):
         self.batch = batch
         self.max_seq = max_seq
         self.rt = rt or Runtime()
+        self.obs = obs or Obs()
         self.sample_cfg = sample or SampleConfig()
-        if not self.sample_cfg.greedy:
-            raise NotImplementedError(f"{self.sample_cfg.method} sampling is not ported yet")
+        # the reference's _next_key: every prefill, tick and window draws from it
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
         self.bos_id = bos_id
         self.eos_id = eos_id
         self.recurrent = any(s.kind in ("rwkv6", "hymba") for s in arch.stacks)
@@ -444,16 +520,37 @@ class PagedServeEngine(_StatsMixin):
             kv_bits=kv_bits,
         )
         self.prefix_share = prefix_share and self.cache.fully_paged
-        self.sched = Scheduler(batch, prefill_chunk=prefill_chunk, lockstep=bool(lockstep))
+        self.sched = Scheduler(batch, prefill_chunk=prefill_chunk, lockstep=bool(lockstep),
+                               obs=self.obs)
         self.stats = _fresh_stats()
         self.last_requests: list = []
         self._graph: Optional[dict] = None  # the captured window (CUDA, decode_steps > 1)
+        self._captures = 0
         self.graph_info: dict = {}
 
     def reset_stats(self) -> None:
-        """Zero the throughput counters and the cache's counters together."""
+        """Zero the throughput counters, spans, metrics and the cache's
+        counters together."""
         super().reset_stats()
         self.cache.reset_counters()
+
+    def _graph_counts(self) -> dict:
+        """``megadecode``: the window's captures, 1 once ``_capture`` ran (a
+        value above 1 would be a recapture, the bug class the reference's
+        jit compile-count gauge catches).  Prefill and the per-tick decode
+        run eagerly: 0."""
+        return {"prefill": 0, "decode": 0, "megadecode": self._captures}
+
+    def _sync_metrics(self) -> None:
+        super()._sync_metrics()
+        m = self.obs.metrics
+        cc = self.cache.counters()
+        # peak_blocks is a watermark (a fleet merge takes the max); the rest
+        # are monotone event counts
+        m.gauge("kv_peak_blocks").set(cc.pop("peak_blocks"))
+        for k, v in cc.items():
+            m.counter(f"kv_{k}").set(v)
+        m.gauge("kv_free_blocks").set(self.cache.free_blocks)
 
     # -- steps (sampling on device: only ids and margins reach the host) ------
 
@@ -462,7 +559,7 @@ class PagedServeEngine(_StatsMixin):
         logits, _ = apply_lm(self.params, self.arch, tokens=tokens, cache=cache,
                              start_pos=start, rt=self.rt)
         row = logits[:, last]
-        tok = sample_tokens(row, self.sample_cfg)
+        tok = sample_tokens(row, self.sample_cfg, self._gen)
         return tok.cpu().numpy(), _greedy_margin(row).cpu().numpy()
 
     def _prefill_fn(self, tokens: torch.Tensor, pools: dict, bt: torch.Tensor, start: int):
@@ -508,7 +605,7 @@ class PagedServeEngine(_StatsMixin):
                                  tokens=torch.where(act, tok, zero)[:, None], cache=cache,
                                  start_pos=torch.where(act, pos, zero), rt=self.rt)
             row = logits[:, 0]
-            nxt = sample_tokens(row, self.sample_cfg)
+            nxt = sample_tokens(row, self.sample_cfg, self._gen)
             toks.append(nxt)
             margs.append(_greedy_margin(row))
             emitted.append(act)
@@ -541,7 +638,18 @@ class PagedServeEngine(_StatsMixin):
         place, so their addresses hold across the prefills between windows.
         The kernel wrappers count their launches at capture: those counts are
         taken back (the capture ran nothing) and each replay adds them.  A
-        failed capture raises; there is no eager fallback on the card."""
+        failed capture raises; there is no eager fallback on the card.
+
+        Sampling: the window's ``decode_steps`` draws come from the engine's
+        generator, which is registered with the graph before the capture
+        (``CUDAGraph.register_generator_state``, which the PyTorch 2.11 of
+        the H100 runs in PERF.md has), so each replay advances its Philox
+        offset by the window's draws and every window draws fresh noise.
+        The warm-up window draws from the generator too: a run
+        reproduces from ``seed`` through the same sequence of calls, not bit
+        for bit with the per-tick path (the reference's windows split their
+        key apart from its per-tick stream as well).  Greedy windows draw
+        nothing and register nothing."""
         dev = self.device
         B, MB, N = self.batch, self.cache.max_blocks_per_seq, self.decode_steps
         stage = torch.zeros((B, 5 + MB), dtype=torch.int32).pin_memory()
@@ -556,11 +664,14 @@ class PagedServeEngine(_StatsMixin):
         reserved = torch.cuda.memory_stats(dev).get("reserved_bytes.all.current", 0)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        if not self.sample_cfg.greedy:
+            graph.register_generator_state(self._gen)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, stream=stream):
             out = self._window(inp)
         torch.cuda.synchronize(dev)
         capture_s = time.perf_counter() - t0
+        self._captures += 1
         after = launch_counts()
         set_launch_counts(before)
         self._graph = {"graph": graph, "inp": inp, "out": out, "stage": stage,
@@ -592,7 +703,8 @@ class PagedServeEngine(_StatsMixin):
         """The window on the host's packed inputs: eager on the CPU; on a CUDA
         device one upload through the pinned staging tensor, one replay of
         the captured graph, one read-back.  Returns ``(B, N)`` token ids,
-        margins and emitted flags as numpy."""
+        margins and emitted flags as numpy (on a CUDA device views of the
+        pinned read-back buffer, which the next window overwrites)."""
         if self.device.type != "cuda":
             out = self._window(torch.from_numpy(inp)).numpy()
         else:
@@ -666,30 +778,37 @@ class PagedServeEngine(_StatsMixin):
         ``[0, resume)``: the span ``[resume, shared)`` is recomputed to the
         same K/V, and adopting its partial block would only buy a
         copy-on-write fault.  Each chunk makes its span writable first."""
-        self.cache.reset_slot(slot)
-        adopted = 0
-        if self.prefix_share:
-            shared, blocks = self.cache.lookup_prefix(req.prompt)
-            resume = (shared // self.sched.prefill_chunk) * self.sched.prefill_chunk
-            if resume > 0:
-                self.cache.adopt_prefix(slot, resume, blocks[:self.cache.blocks_needed(resume)])
-                req.prefilled = adopted = resume
-        self.cache.allocate(slot, self._slot_tokens(req))
-        t0 = time.perf_counter()
-        pools = self.cache.slice_slot(slot)
-        tok = marg = None
-        for chunk, start in self.sched.prefill_plan(slot):
-            self.cache.ensure_writable(slot, start, start + len(chunk))
-            tokens = torch.as_tensor(chunk[None, :], device=self.device)
-            tok, marg = self._prefill_fn(tokens, pools, self.cache.bt_row(slot), start)
-        self.cache.lens[slot] = len(req.prompt)
-        if self.prefix_share:
-            self.cache.register_prefix(slot, req.prompt)
-        req.margins.append(float(marg[0]))
-        self.stats["prefill_s"] += time.perf_counter() - t0
-        # adopted tokens were never recomputed: throughput counts real work
-        self.stats["prefill_tokens"] += len(req.prompt) - adopted
-        self._on_admitted(slot, req)
+        tr = self.obs.trace
+        with tr.span("admit", {"uid": req.uid, "slot": slot, "prompt": len(req.prompt)}):
+            self.cache.reset_slot(slot)
+            adopted = 0
+            if self.prefix_share:
+                with tr.span("radix_lookup", {"uid": req.uid}):
+                    shared, blocks = self.cache.lookup_prefix(req.prompt)
+                resume = (shared // self.sched.prefill_chunk) * self.sched.prefill_chunk
+                if resume > 0:
+                    self.cache.adopt_prefix(slot, resume,
+                                            blocks[:self.cache.blocks_needed(resume)])
+                    req.prefilled = adopted = resume
+            with tr.span("block_alloc", {"uid": req.uid}):
+                self.cache.allocate(slot, self._slot_tokens(req))
+            t0 = time.perf_counter()
+            pools = self.cache.slice_slot(slot)
+            tok = marg = None
+            for chunk, start in self.sched.prefill_plan(slot):
+                with tr.span("prefill_chunk", {"uid": req.uid, "start": start}):
+                    with tr.span("cow_preflight", {"uid": req.uid}):
+                        self.cache.ensure_writable(slot, start, start + len(chunk))
+                    tokens = torch.as_tensor(chunk[None, :], device=self.device)
+                    tok, marg = self._prefill_fn(tokens, pools, self.cache.bt_row(slot), start)
+            self.cache.lens[slot] = len(req.prompt)
+            if self.prefix_share:
+                self.cache.register_prefix(slot, req.prompt)
+            req.margins.append(float(marg[0]))
+            self.stats["prefill_s"] += time.perf_counter() - t0
+            # adopted tokens were never recomputed: throughput counts real work
+            self.stats["prefill_tokens"] += len(req.prompt) - adopted
+            self._on_admitted(slot, req)
         if self.sched.record_token(slot, int(tok[0])):
             self._release_slot(slot)
 
@@ -708,12 +827,14 @@ class PagedServeEngine(_StatsMixin):
             toks[slot] = req.prompt
             req.prefilled = L
         t0 = time.perf_counter()
-        bt = self.cache.bt()
         tok = marg = None
-        for lo in range(0, L, self.sched.prefill_chunk):
-            hi = min(lo + self.sched.prefill_chunk, L)
-            tokens = torch.as_tensor(toks[:, lo:hi], device=self.device)
-            tok, marg = self._prefill_fn(tokens, self.cache.pools, bt, lo)
+        with self.obs.trace.span("admit_group", {"requests": len(group), "prompt": L}):
+            bt = self.cache.bt()
+            for lo in range(0, L, self.sched.prefill_chunk):
+                hi = min(lo + self.sched.prefill_chunk, L)
+                with self.obs.trace.span("prefill_chunk", {"start": lo}):
+                    tokens = torch.as_tensor(toks[:, lo:hi], device=self.device)
+                    tok, marg = self._prefill_fn(tokens, self.cache.pools, bt, lo)
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += L * len(group)
         for slot, req in group:
@@ -756,16 +877,20 @@ class PagedServeEngine(_StatsMixin):
         live = self.sched.live
         if not live:
             return 0
+        tr = self.obs.trace
         tok_in = np.zeros((self.batch, 1), np.int32)
-        for i in live:
-            tok_in[i, 0] = self.sched.slots[i].last_token
-            # a donor's decode write can land in a block a sharer adopted
-            self.cache.ensure_writable(i, int(self.cache.lens[i]), int(self.cache.lens[i]) + 1)
+        with tr.span("cow_preflight", {"live": len(live)}):
+            for i in live:
+                tok_in[i, 0] = self.sched.slots[i].last_token
+                # a donor's decode write can land in a block a sharer adopted
+                self.cache.ensure_writable(i, int(self.cache.lens[i]),
+                                           int(self.cache.lens[i]) + 1)
         t0 = time.perf_counter()
-        out, marg = self._decode_fn(
-            torch.as_tensor(tok_in, device=self.device), self.cache.bt(),
-            torch.as_tensor(self.cache.lens, device=self.device),
-        )
+        with tr.span("decode_tick", {"live": len(live)}):
+            out, marg = self._decode_fn(
+                torch.as_tensor(tok_in, device=self.device), self.cache.bt(),
+                torch.as_tensor(self.cache.lens, device=self.device),
+            )
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_tokens"] += len(live)
         self.stats["decode_dispatches"] += 1
@@ -797,15 +922,18 @@ class PagedServeEngine(_StatsMixin):
         live = self.sched.live
         if not live:
             return 0
+        tr = self.obs.trace
         N = self.decode_steps
-        for i in live:
-            req = self.sched.slots[i]
-            lo = int(self.cache.lens[i])
-            self.cache.ensure_writable(i, lo, lo + min(N, req.max_new - len(req.generated)))
-        inp = self._window_inputs(live)
-        t0 = time.perf_counter()
-        out, marg, em = self._run_window(inp)
-        dt = time.perf_counter() - t0
+        with tr.span("cow_preflight", {"live": len(live)}):
+            for i in live:
+                req = self.sched.slots[i]
+                lo = int(self.cache.lens[i])
+                self.cache.ensure_writable(i, lo, lo + min(N, req.max_new - len(req.generated)))
+        with tr.span("decode_megastep", {"live": len(live), "steps": N}):
+            inp = self._window_inputs(live)
+            t0 = time.perf_counter()
+            out, marg, em = self._run_window(inp)
+            dt = time.perf_counter() - t0
         total = 0
         for j in range(N):
             for i in live:

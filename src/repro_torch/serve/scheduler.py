@@ -1,6 +1,6 @@
 """Serving scheduler: admission queue, chunked prefill plans, slot recycling.
 
-Pure host-side policy, a copy of ``repro.serve.scheduler`` without the
+Pure host-side policy, a copy of ``repro.serve.scheduler`` with its
 tracing and metrics hooks.  The engine owns execution (prefill / decode
 steps, the paged cache); the scheduler owns *which* request occupies *which*
 slot *when*:
@@ -85,12 +85,18 @@ class ServeRequest:
 
 
 class Scheduler:
-    def __init__(self, n_slots: int, *, prefill_chunk: int = 32, lockstep: bool = False):
+    def __init__(self, n_slots: int, *, prefill_chunk: int = 32, lockstep: bool = False,
+                 obs=None):
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.n_slots = n_slots
         self.prefill_chunk = prefill_chunk
         self.lockstep = lockstep
+        # the observability bundle (``repro_torch.obs.Obs``) shared with the
+        # owning engine: requests enter and complete here, so the submit /
+        # emit instants and the per-request latency histograms are recorded
+        # here rather than in an engine
+        self.obs = obs
         self.queue: deque[ServeRequest] = deque()
         self.slots: List[Optional[ServeRequest]] = [None] * n_slots
 
@@ -108,6 +114,8 @@ class Scheduler:
     def submit(self, req: ServeRequest) -> None:
         req.submitted_at = time.perf_counter()
         self.queue.append(req)
+        if self.obs is not None:
+            self.obs.trace.instant("submit", {"uid": req.uid, "prompt": len(req.prompt)})
 
     def admissions(self, can_admit: Callable[[ServeRequest], bool]) -> List[Tuple[int, "ServeRequest"]]:
         """Assign queued requests to slots; returns the new (slot, request)
@@ -177,5 +185,13 @@ class Scheduler:
             req.done = True
             req.finished_at = time.perf_counter()
             self.slots[slot] = None
+            if self.obs is not None:
+                m = self.obs.metrics
+                m.counter("requests_completed").inc()
+                if req.submitted_at is not None:
+                    m.histogram("request_latency_s").observe(req.latency)
+                    if req.first_token_at is not None:
+                        m.histogram("request_ttft_s").observe(req.ttft)
+                self.obs.trace.instant("emit", {"uid": req.uid, "tokens": len(req.generated)})
             return True
         return False

@@ -26,6 +26,11 @@ the acceptance EMA drops below ``min_accept`` the engine serves plain rounds
 through the parent's ``_advance`` (the megastep with ``decode_steps > 1``)
 and probes speculation again every ``probe_interval`` rounds.  Draft and
 verify run eagerly; ``decode_dispatches`` books a round as 2, as the
+reference does.  A traced engine records the reference's ``spec_round``
+span around a round, with its ``cow_preflight``, ``spec_draft`` and
+``spec_verify`` inside; ``metrics_snapshot()`` adds the ``spec_<k>``
+counters of ``spec_stats`` and the ``spec_acceptance_rate`` gauge.
+Sampling stays greedy: the engine refuses any other method, as the
 reference does.
 """
 
@@ -110,6 +115,13 @@ class SpecServeEngine(PagedServeEngine):
         """Accepted draft tokens / proposed draft tokens, engine lifetime."""
         return self.spec_stats["accepted"] / max(self.spec_stats["proposed"], 1)
 
+    def _sync_metrics(self) -> None:
+        super()._sync_metrics()
+        m = self.obs.metrics
+        for k, v in self.spec_stats.items():
+            m.counter(f"spec_{k}").set(v)
+        m.gauge("spec_acceptance_rate").set(self.acceptance_rate())
+
     def spec_active(self) -> bool:
         return self.spec_supported and self._accept_ema >= self.min_accept
 
@@ -150,26 +162,32 @@ class SpecServeEngine(PagedServeEngine):
         if not live:
             return 0
         k = self.spec_k
+        tr = self.obs.trace
         t0 = time.perf_counter()
-        lens0 = self.cache.lens.copy()
-        for i in live:
-            # the round writes [lens, lens + k + 1): draft inputs, then the
-            # verify span; shared blocks copy up front and the watermark
-            # records how far garbage may reach on rejection
-            self.cache.allocate(i, int(lens0[i]) + k + 1)
-            self.cache.ensure_writable(i, int(lens0[i]), int(lens0[i]) + k + 1)
-        tok_in = np.zeros((self.batch,), np.int32)
-        for i in live:
-            tok_in[i] = self.sched.slots[i].last_token
-        proposals = self.drafter.propose(self, live, tok_in, k)  # (B, k)
-        tokens = np.zeros((self.batch, k + 1), np.int32)
-        tokens[live] = np.concatenate([tok_in[live, None], proposals[live]], axis=1)
-        is_live = np.zeros((self.batch,), bool)
-        is_live[live] = True
-        dev = self.device
-        am, mg = self._verify(self.params, torch.as_tensor(tokens, device=dev), self.cache.pools,
-                              self.cache.bt(), torch.as_tensor(lens0, device=dev),
-                              torch.as_tensor(is_live, device=dev))
+        with tr.span("spec_round", {"live": len(live), "k": k, "probe": probe}):
+            lens0 = self.cache.lens.copy()
+            with tr.span("cow_preflight", {"live": len(live)}):
+                for i in live:
+                    # the round writes [lens, lens + k + 1): draft inputs, then
+                    # the verify span; shared blocks copy up front and the
+                    # watermark records how far garbage may reach on rejection
+                    self.cache.allocate(i, int(lens0[i]) + k + 1)
+                    self.cache.ensure_writable(i, int(lens0[i]), int(lens0[i]) + k + 1)
+            tok_in = np.zeros((self.batch,), np.int32)
+            for i in live:
+                tok_in[i] = self.sched.slots[i].last_token
+            with tr.span("spec_draft", {"live": len(live), "k": k}):
+                proposals = self.drafter.propose(self, live, tok_in, k)  # (B, k)
+            tokens = np.zeros((self.batch, k + 1), np.int32)
+            tokens[live] = np.concatenate([tok_in[live, None], proposals[live]], axis=1)
+            is_live = np.zeros((self.batch,), bool)
+            is_live[live] = True
+            dev = self.device
+            with tr.span("spec_verify", {"live": len(live)}):
+                am, mg = self._verify(self.params, torch.as_tensor(tokens, device=dev),
+                                      self.cache.pools, self.cache.bt(),
+                                      torch.as_tensor(lens0, device=dev),
+                                      torch.as_tensor(is_live, device=dev))
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_dispatches"] += 2  # draft + batched verify, as booked by the reference
 

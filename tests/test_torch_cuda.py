@@ -984,6 +984,33 @@ def test_megastep_graph_replay_matches_eager_window_and_per_tick(dev, name):
         mega.graph_info["launches"]
 
 
+def test_sampled_megastep_redraws_noise_every_replay(dev):
+    """Top-k sampling inside the captured window: the engine's generator is
+    registered with the graph, so two replays on the same inputs draw other
+    tokens and advance its offset alike, and two engines of one seed give
+    the same tokens."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.sampling import SampleConfig
+
+    hot = SampleConfig("topk", temperature=64.0, top_k=40)
+    outs = []
+    for _ in range(2):
+        arch, engine = _megastep_engine(dev, "smollm-135m", decode_steps=4, sample=hot, seed=3)
+        outs.append(engine.generate(_megastep_prompts(arch.vocab), max_new=6))
+    assert outs[0] == outs[1]
+    for i, p in enumerate(_megastep_prompts(arch.vocab)[:2]):
+        engine.submit(Request(uid=10 + i, prompt=p, max_new=12))
+    engine.step()
+    inp = engine._window_inputs(engine.sched.live)
+    offsets = [engine._gen.get_offset()]
+    windows = []
+    for _ in range(2):
+        windows.append(engine._run_window(inp)[0].copy())
+        offsets.append(engine._gen.get_offset())
+    assert (windows[0] != windows[1]).any()
+    assert offsets[2] - offsets[1] == offsets[1] - offsets[0] > 0
+
+
 @pytest.mark.parametrize("name", list(MEGASTEP_CASES))
 def test_megastep_eager_window_makes_no_host_sync(dev, name):
     """One window of the decode forward run eagerly on live slots under

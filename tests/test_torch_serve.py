@@ -16,6 +16,8 @@ greedy margins (top-2 logit gaps, the engines' per-step logit readout) agree
 to 1e-4.  The JAX engines run once per module.
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -106,13 +108,40 @@ def test_launcher_runs_and_refuses_unported_flags(capsys):
     outs = launch_serve.main(base)
     assert [len(o) for o in outs] == [3, 3]
     assert "decode:" in capsys.readouterr().out
-    for extra in (["--sample", "topk"], ["--trace=t.json"], ["--pin-prompt", "4"],
+    for extra in (["--spec-k", "2", "--sample", "temperature"], ["--pin-prompt", "4"],
                   ["--spec-draft=smollm-135m"],
                   ["--decode-steps", "0"], ["--eos-auto", "--eos-id", "3"]):
         with pytest.raises(SystemExit):
             launch_serve.main(base + extra)
-    with pytest.raises(SystemExit):  # a paged-only flag without --paged
-        launch_serve.main([a for a in base if a != "--paged"] + ["--kv-int8"])
+    unpaged = [a for a in base if a != "--paged"]
+    for extra in (["--kv-int8"], ["--sample", "topk", "--top-k", "4"]):
+        with pytest.raises(SystemExit):  # a paged-only flag without --paged
+            launch_serve.main(unpaged + extra)
+
+
+def test_launcher_samples_traces_and_writes_metrics(tmp_path, capsys):
+    """``--sample topk --top-k 4 --trace PATH --metrics-json PATH`` on the
+    megastep: the sampled tokens reproduce from ``--seed``, the trace and the
+    snapshot are written and read back, and the int-forward run prints its
+    accumulator headroom (0 violations)."""
+    trace, metrics = tmp_path / "t.json", tmp_path / "m.json"
+    argv = ["--arch", "yi-6b", "--reduced", "--paged", "--int-chain", "--decode-kernel",
+            "--decode-steps", "2", "--sample", "topk", "--top-k", "4", "--temperature", "0.8",
+            "--device", "cpu", "--requests", "3", "--prompt-len", "5", "--max-new", "4",
+            "--batch", "2", "--max-seq", "16", "--block-size", "4", "--prefill-chunk", "4"]
+    first = launch_serve.run(argv + ["--trace", str(trace), "--metrics-json", str(metrics)])
+    out = capsys.readouterr().out
+    assert launch_serve.main(argv) == first["outs"]
+    assert [len(o) for o in first["outs"]] == [4, 4, 4]
+    assert "acc headroom:" in out and first["report"]["headroom"]["violations"] == 0
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e["name"] for e in events}
+    assert {"submit", "admit", "prefill_chunk", "decode_megastep", "emit"} <= names
+    snap = json.loads(metrics.read_text())
+    assert snap["requests_completed"]["value"] == 3
+    assert snap["serve_decode_tokens"]["value"] == first["report"]["paged_engine"]["decode_tokens"]
+    assert snap["acc_headroom_violations"]["value"] == 0
+    assert snap["int_chain_requant_dispatches"]["value"] == 0
 
 
 def test_launcher_megastep_with_eos_id(capsys):
