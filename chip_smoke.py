@@ -90,7 +90,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    or the bytes, and at DeepSeek-V3's 4K pre-training context (B=8,
    lengths from the seed in [3072, 4096]) on bf16, int8 and int4 pools with
    the replay: within MLA_TOL, two graph replays equal to the eager call,
-   no host sync, SDPA on the gathered view as the library time;
+   no host sync, SDPA on the gathered view as the library time.  The last
+   slice's, in the same checks: ``int_matmul`` with the prologue at
+   ``PROLOGUE_SHAPES`` (hymba-1.5b's decode shapes, its dt_proj (N=25) at
+   decode and at a 256-row prefill chunk (the tensor-core kernel's
+   register-copy route) and its head (N=32001), llama4-scout's head
+   (N=202048), llava's mlp.w_out (K=20480) and its patch prefill (M=1280)),
+   bit for bit; ``paged_attention`` on bf16 pools at ``NEW_PAGED``
+   (llama4's global layer past the 8192 chunk, B=2, H=40, KV=8, Dh=128, and
+   llava's decode, H=56, KV=8), and ``flash_attention`` at llava's causal
+   prefill (B=2, H=56, KV=8, T=640, D=128, tensor cores), against their
+   plain versions;
 4. serve full-width smollm-135m (30 layers, random A2Q weights from seed 0,
    deployed to int8; in this phase and 4b, 4e and 4f every deployed
    matrix's codes recomputed on the card with the plain quantizer from the
@@ -107,7 +117,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    path's under ``parity_up_to_ties`` at that ``eps``; then a reduced model
    on the card against the same model on the CPU (plain versions), token for
    token and margin for margin;
-4s. on phase 4's smollm-135m params (``serve_shared``), 10 requests of a
+4s. on phase 4's smollm-135m params cut to their first ``SIDE_LAYERS`` (6)
+   layers (``serve_shared``), 10 requests of a
    64-token shared prefix and a 4-24-token tail (seed 2), 16 new, batch 8,
    blocks of 16, on ``Runtime(int_forward=True, decode_kernel=True)``:
    ``prefix_share`` per tick (tokens and margins bit for bit with the engine
@@ -117,13 +128,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    pinned 32-token preamble on the megastep in 21 blocks (evictions, the
    pin kept, bit for bit with plain per tick); ``SpecServeEngine(spec_k=4)``
    with the self-int8 drafter on bf16 and int8 KV (``parity_up_to_ties`` at
-   1e-3 / 0.05 against the plain engine, the launches exact: 210
-   int_matmul and 30 paged_attention a draft step, 210 tensor-core
-   int_matmul a verify), a 4-layer smollm ``ModelDrafter`` (both free lists
+   1e-3 / 0.05 against the plain engine, the launches exact: 7 int_matmul
+   and 1 paged_attention a layer a draft step, 7 tensor-core int_matmul a
+   layer a verify), a 4-layer smollm ``ModelDrafter`` (both free lists
    whole) and the megastep fallback (no round, graph replays, bit for bit);
    acceptance, tokens a row a round, host ops a spec round, decode tok/s
    against plain per tick;
-4o. on phase 4's smollm-135m params (``serve_observed``), phase 4m's 8
+4o. on phase 4's smollm-135m params cut to their first ``SIDE_LAYERS`` (6)
+   layers (``serve_observed``), phase 4m's 8
    prompts, 32 new, ``decode_steps=8``, ``Runtime(int_chain=True,
    decode_kernel=True)``, bf16 KV: a traced engine against an untraced one
    (tokens, margins, launches and host ops a window equal; the reference's
@@ -152,8 +164,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    reduced deepseek-v3 on the card against the same model on the CPU;
 4p. the contiguous ``ServeEngine`` (per-token prefill into a slot's lane,
    host argmax) and the reference's parity gate, through ``launch/serve.py
-   --paged --parity-check`` on full-size smollm-135m (2 requests, prompt 64,
-   32 new, batch 8, seed 0): with ``--deploy-int8`` the contiguous dequant
+   --paged --parity-check`` on smollm-135m at full width, its depth cut from
+   30 layers to 4 (2 requests, prompt 64, 32 new, batch 8, seed 0): with ``--deploy-int8`` the contiguous dequant
    engine against the paged one, token for token; with ``--int-forward
    --kv-int8`` the paged int path (int_matmul, int8 KV) against the
    contiguous float path under ``parity_up_to_ties`` at eps 0.05, the
@@ -161,11 +173,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``--int-chain`` (1 request, 8 new) on int_matmul's prologue; every
    deploy held to the plain quantizer, both engines' tok/s, the host ops of
    a contiguous tick, the contiguous engines' params and caches on the card;
-4c. on phase 4's smollm-135m, the ``--int-chain --kv-int8 [--kv-bits 4]
+4c. on phase 4's smollm-135m cut to its first ``SIDE_LAYERS`` (6) layers, as
+   4m's, 4s's and 4o's, the ``--int-chain --kv-int8 [--kv-bits 4]
    --decode-kernel`` path: ``Runtime(int_chain=True, decode_kernel=True)``
-   on int8, then int4 KV pools; launch counts (210 int_matmul per forward, 30
-   paged_attention per tick) and the chain report (210 folded, 0
-   standalone); the unchained int-forward run on the same pools gives
+   on int8, then int4 KV pools; launch counts (7 int_matmul a layer per
+   forward, 1 paged_attention a layer per tick) and the chain report (all
+   folded, 0 standalone); the unchained int-forward run on the same pools gives
    bitwise-equal prompt logits and identical tokens and margins; the
    gathered dequantized read gives the same tokens; against bf16 KV,
    ``parity_up_to_ties`` at an eps measured from the prompt logits (the
@@ -175,11 +188,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4d. the same on phase 4b's deepseek-v3 params (no second model is built),
    with ``mla_absorb=True``: 29 int_matmul per forward (29 folded), 4
    paged_mla_attention per tick;
-4e. serve full-size rwkv6-7b (32 layers, d_model 4096, d_ff 14336, vocab
-   65536, random A2Q weights from seed 0 deployed block by block): 8
+4e. serve full-width rwkv6-7b (d_model 4096, d_ff 14336, vocab 65536), its
+   depth cut from 32 layers to ``RWKV6_LAYERS`` (8) for this phase, 4e-long,
+   5e and its 4m (random A2Q weights from seed 0 deployed block by block): 8
    requests, prompt 64, 32 new tokens, batch 8, with ``Runtime(int_chain=
-   True)``: 225 int_matmul a forward (32 of them cm.wk's requant), 32
-   rwkv6_scan, chain report 225 folded / 32 chained / 0 standalone; the
+   True)``: 7 int_matmul a layer and the head a forward (one a layer
+   cm.wk's requant), one rwkv6_scan a layer, chain report all folded but
+   cm.wk's chained, 0 standalone; the
    recurrent state bytes a slot, host ops a decode tick, a profiled decode;
    the unchained int-forward run gives bitwise-equal prompt logits and
    identical tokens and margins; the prefill chunks' recurrences on the
@@ -187,7 +202,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4e-long. on the same params, one 4096-token prompt (seed 0, RWKV-6's
    training context) in prefill chunks of 1024 (four chunked-form calls a
    layer, the slot's state carried) and 8 new tokens: prefill and decode
-   tok/s, the launch counts (32 x 4 on the chunked kernel, 32 a tick on the
+   tok/s, the launch counts (4 a layer on the chunked kernel, one a layer a
+   tick on the
    step kernel), the host ops of each prefill chunk, one profiled prefill
    chunk's device ms by kernel (``rwkv6_scan``, ``int_matmul``, the rest);
    in-vocab tokens and finite margins;
@@ -210,15 +226,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``torch.cuda.set_sync_debug_mode("error")``; decode tok/s per-tick vs
    megastep (median of 3 alternating runs), host ops a tick vs a window,
    capture seconds, the graph pool's bytes, one window's launches by kernel;
-4h. h2o-danube-1.8b at full width (24 layers, d_model 2560, 32 heads over 8
+4h. h2o-danube-1.8b at full width, its depth cut from 24 layers to
+   ``H2O_LAYERS`` (4) for the main run (d_model 2560, 32 heads over 8
    KV heads of 80, window 4096, vocab 32000; random A2Q weights from seed 0
-   deployed through ``a2q_quantize``: 169 matrices, each held) served with
+   deployed through ``a2q_quantize``: 7 a layer and the head, each held)
+   served with
    ``Runtime(int_chain=True, decode_kernel=True)``: 4 requests over 4 slots,
    prompts of 4,100-4,300 tokens (seed 0) in prefill chunks of 256, so the
    per-slot rings wrap in prefill and again in decode, 64 new tokens; per
    tick, then on the megastep (``decode_steps=8``) on the same params and
    batches, tokens and margins bit for bit, then the EOS rerun (request
-   0's token at step 32); 169 int_matmul prologue launches a forward and no
+   0's token at step 32); 7 int_matmul prologue launches a layer and the
+   head's a forward and no
    ``paged_attention`` launch (ring layers take ``_sdpa``, as in the
    reference); prefill and decode tok/s, host ops a tick and a window, ring
    state bytes a slot, peak memory; then the contiguous check: the same
@@ -226,6 +245,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``launch/serve.py --paged --parity-check --deploy-int8`` (the paged
    engine's ring against the contiguous ``ServeEngine``'s, past the window:
    token for token);
+4y. hymba-1.5b at full size (32 layers, d_model 1600, 25 heads over 5 KV
+   heads of 64, window 1024, 25 mamba heads of 64, state 16, SSD chunk 64,
+   d_ff 5504, vocab 32001; random A2Q weights from seed 0 deployed through
+   ``a2q_quantize``: 353 matrices, each held) served with
+   ``Runtime(int_chain=True, decode_kernel=True)``: 4 requests over 4
+   slots, prompts of 1,100-1,300 tokens (seed 0) in prefill chunks of 256
+   (the ring wraps; the chunked SSD form on whole chunks, the sequential one
+   on each prompt's tail), 64 new; per tick, then on the megastep on the same
+   params and batches, tokens and margins bit for bit; 353 int_matmul
+   prologue launches a forward, no ``paged_attention`` launch (the ring
+   takes ``_sdpa``); then the contiguous check at 2 layers (one 1,100-token
+   prompt, 16 new, ``--paged --parity-check --deploy-int8``);
+4l. llama4-scout at full width (d_model 5120, 40 heads over 8 KV heads of
+   128, 16 experts top-1 with d_ff 8192 + 1 shared, vocab 202048), its depth
+   cut from 48 layers to one iRoPE period (3 chunk-local RoPE layers of
+   chunk 8192, 1 NoPE global layer; ~10.9 B parameters), built and deployed
+   block by block (221 matrices, each held): 2 requests of 8,300 and 8,450
+   tokens in prefill chunks of 256 (across the 8192 chunk boundary), 32 new,
+   per tick and on the megastep, bit for bit; 29 int_matmul prologue
+   launches a forward, one ``paged_attention`` a tick (the global layer);
+4v. llava-next-34b at full width (d_model 7168, 56 heads over 8 KV heads of
+   128, d_ff 20480, vocab 64000), depth cut from 60 layers to 4 (29
+   matrices, each held): ``build_prefill_step`` on ``Runtime(int_chain=
+   True)`` over 576 patch embeddings and 64 tokens (seed 0), batch 2, bf16
+   (4 ``flash_attention`` launches, causal, GQA 7:1, D=128, all on the
+   tensor cores; the logits within two bf16 ulps of the largest of the same
+   forward on ``_sdpa``), then phase 4's 8 text prompts (64 tokens, 32 new)
+   per tick and on the megastep, bit for bit, 4 ``paged_attention`` a tick;
+   each of 4y, 4l and 4v prints prefill and decode tok/s, host ops a tick
+   and a window, KV bytes a token, state bytes a slot, peak memory, a
+   profiled decode tick and its own seconds;
 4f. deploy full-size hubert-xlarge (48 layers, d_model 1280, d_ff 5120, 504
    classes, random A2Q weights from seed 0, block by block: 289
    ``a2q_quantize`` launches) and encode 8 clips of 1000 bf16 frames (seed
@@ -320,13 +370,21 @@ LAYERS = 30
 # folded in), so both take the fp32 tolerance.
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-6}
 MLA_TOL = 2e-5
+# depth cuts of the earlier paths, so the script, the last slice's three decoders
+# included, stays inside its time limit on a slow host (PERF.md section 4)
+SIDE_LAYERS = 6  # 4c, 4m, 4s and 4o: phase 4's smollm-135m params, their first layers
+H2O_LAYERS = 4  # 4h's main run (of 24)
+RWKV6_LAYERS = 8  # 4e, 4e-long, 5e and rwkv6's 4m (of 32)
 # deepseek-v3's largest int_matmul shapes on the served path: (K, N) -> site
 DEEPSEEK_SITES = {(18432, 7168): "dense mlp.w_out, largest K",
                   (7168, 129280): "head, largest N"}
 
 
+START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"== {title}", flush=True)
+    print(f"== [{time.perf_counter() - START:.1f} s] {title}", flush=True)
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
@@ -622,8 +680,11 @@ def paged_served(dev, kind: str) -> dict:
 
 
 def check_paged_attention(dev) -> dict:
-    import torch.nn.functional as F
-
+    """paged_attention against its plain version at smollm-135m's decode
+    shape (fp32 and bf16 pools, ragged lengths, a window of 20, a NaN block
+    behind an entry past a row's length), at the 2048-token context
+    (``paged_served``) and at ``NEW_PAGED``, within ``ATTN_TOL``; timed
+    beside the plain version, SDPA and the bound (``paged_times``)."""
     from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
 
     entry = None
@@ -651,36 +712,72 @@ def check_paged_attention(dev) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(past, paged_attention_cuda(q, kp, vp, bt, lengths)):
             raise AssertionError(f"paged_attention {dtype} read a table entry past the length")
-        ms = graph_ms(lambda: paged_attention_cuda(q, kp, vp, bt, lengths), LAYERS)
-        plain_ms = graph_ms(lambda: paged_attention_plain(q, kp, vp, bt, lengths), LAYERS)
-        # yardstick: SDPA on the already-gathered view (the gather not timed)
-        S = bt.shape[1] * kp.shape[1]
-        kg = kp[bt.long()].reshape(B, S, KV, Dh).transpose(1, 2).contiguous()
-        vg = vp[bt.long()].reshape(B, S, KV, Dh).transpose(1, 2).contiguous()
-        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-        qs = q[:, :, None, :]
-        G = H // KV  # heads h*G..h*G+G-1 share KV head h
-        kg, vg = kg.repeat_interleave(G, dim=1), vg.repeat_interleave(G, dim=1)
-        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask), LAYERS)
-        esize = kp.element_size()
-        toks = lengths.sum().item()
-        n_bytes = (q.numel() * q.element_size() * 2 + toks * KV * Dh * 2 * esize
-                   + bt.numel() * 4 + B * 4)
-        n_ops = 4 * toks * (H // KV) * KV * Dh  # QK^T and PV multiply-adds, 2 flops each
-        b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
+        t = paged_times(q, kp, vp, bt, lengths, LAYERS, plain_time=graph_ms)
         print(f"paged_attention {str(dtype).replace('torch.', '')} B={B} H={H} KV={KV} Dh={Dh} "
               f"bs={kp.shape[1]} lengths={lengths.tolist()}: max_abs_err {worst:.3g} "
-              f"kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} bound_ms {b_ms:.6f} ({b_by}) "
-              f"library_ms(sdpa, gathered) {lib_ms:.5f}", flush=True)
+              f"kernel_ms {t['ms']:.5f} plain_ms {t['plain_ms']:.5f} bound_ms "
+              f"{t['bound_ms']:.6f} ({t['bound_by']}) library_ms(sdpa, gathered) "
+              f"{t['library_ms']:.5f}", flush=True)
         if dtype == torch.bfloat16:  # the main path's pools
             entry = {"name": "paged_attention", "route": "cuda",
                      "source": "src/repro_torch/csrc/paged_attention.cu",
                      "replaces": "src/repro/kernels/paged_attention.py:212",
                      "at": "B=8 H=9 KV=3 Dh=64 bs=16 bf16 pools, ragged lengths incl. 0",
-                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms,
-                     "at_2048_context": paged_served(dev, "bf16")}
+                     "max_abs_err": worst, **t,
+                     "at_2048_context": paged_served(dev, "bf16"), "at_new_decoders": {}}
+    # the shapes of llama4-scout's global layer and llava-next-34b's decode
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for site, B, H, KV, Dh, lo, hi in NEW_PAGED:
+        lengths = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+        q, kp, vp, bt, lengths = paged_case(dev, torch.bfloat16, B=B, H=H, KV=KV, Dh=Dh,
+                                            max_seq=-(-hi // 16) * 16, lengths=lengths)
+        with no_host_sync():
+            got = paged_attention_cuda(q, kp, vp, bt, lengths)
+        torch.cuda.synchronize()
+        err = (got.float() - paged_attention_plain(q, kp, vp, bt, lengths).float()
+               ).abs().max().item()
+        if not err <= ATTN_TOL[torch.bfloat16] or not torch.isfinite(got).all():
+            raise AssertionError(f"paged_attention {site}: max err {err}")
+        t = paged_times(q, kp, vp, bt, lengths, 10,
+                        plain_time=lambda fn, _: events_ms(fn, 2))
+        print(f"paged_attention {site} B={B} H={H} KV={KV} Dh={Dh} bf16 pools "
+              f"({lengths.sum().item()} keys): max_abs_err {err:.3g} kernel_ms {t['ms']:.5f} "
+              f"plain_ms {t['plain_ms']:.4f} bound_ms {t['bound_ms']:.5f} ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.1%} of the bound, library_ms(sdpa, gathered) "
+              f"{t['library_ms']:.5f}", flush=True)
+        entry["at_new_decoders"][f"{site} B={B} H={H} KV={KV} Dh={Dh}"] = {"max_abs_err": err,
+                                                                          **t}
+        del q, kp, vp
     return entry
+
+
+def paged_times(q, kp, vp, bt, lengths, reps: int, plain_time) -> dict:
+    """``paged_attention`` on (q, pools, table, lengths) timed in a CUDA
+    graph of ``reps`` calls, its plain version by ``plain_time(fn, reps)``,
+    SDPA on the already-gathered view (the gather not timed) and the bound:
+    the K/V bytes of the live tokens, or QK^T and PV at the fp32 peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+
+    B, H, Dh = q.shape
+    KV = kp.shape[2]
+    ms = graph_ms(lambda: paged_attention_cuda(q, kp, vp, bt, lengths), reps)
+    plain_ms = plain_time(lambda: paged_attention_plain(q, kp, vp, bt, lengths), reps)
+    S = bt.shape[1] * kp.shape[1]
+    G = H // KV  # heads h*G..h*G+G-1 share KV head h
+    kg, vg = (p[bt.long()].reshape(B, S, KV, Dh).transpose(1, 2).repeat_interleave(G, dim=1)
+              .contiguous() for p in (kp, vp))
+    mask = (torch.arange(S, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask), reps)
+    toks = lengths.sum().item()
+    n_bytes = (q.numel() * q.element_size() * 2 + toks * KV * Dh * 2 * kp.element_size()
+               + bt.numel() * 4 + B * 4)
+    n_ops = 4 * toks * H * Dh  # QK^T and PV multiply-adds, 2 flops each
+    b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def check_int_matmul_deepseek(dev) -> dict:
@@ -1026,16 +1123,36 @@ def check_paged_mla_attention(dev) -> dict:
     return entry
 
 
+# int_matmul with the prologue past smollm's layer: (key in the entry, site, M,
+# K, N), the shapes the main paths give it.  hymba's dt_proj and head are the
+# only N that are not multiples of 8: the decode kernel's column tail, and the
+# tensor-core kernel's register-copy route at the prefill chunk's 256 rows.
+PROLOGUE_SHAPES = (
+    ("at_deepseek", "deepseek-v3 mlp.w_out, decode", 8, 18432, 7168),
+    ("at_deepseek", "deepseek-v3 mlp.w_out, a prefill chunk", 32, 18432, 7168),
+    ("at_new_decoders", "hymba-1.5b mamba.in_proj, decode", 4, 1600, 3200),
+    ("at_new_decoders", "hymba-1.5b mamba.dt_proj, decode", 4, 1600, 25),
+    ("at_new_decoders", "hymba-1.5b mamba.dt_proj, prefill chunk", 256, 1600, 25),
+    ("at_new_decoders", "hymba-1.5b mlp.w_out, decode", 4, 5504, 1600),
+    ("at_new_decoders", "hymba-1.5b head, decode", 4, 1600, 32001),
+    ("at_new_decoders", "llama4-scout head, decode (the largest N)", 2, 5120, 202048),
+    ("at_new_decoders", "llava-next-34b mlp.w_out, decode (the largest K)", 8, 20480, 7168),
+    ("at_new_decoders", "llava-next-34b mlp.w_in, patch prefill", 1280, 7168, 20480),
+)
+
+
 def check_int_matmul_prologue(dev) -> dict:
     """int_matmul with the quantizing prologue (fp32 activations quantized
     in the kernel, the ``--int-chain`` path) at smollm-135m's seven layer
-    shapes (M=8, signed and unsigned 8-bit inputs) and at deepseek-v3's
-    K=18432 shape (M=8, where all the threads quantize the few live rows,
-    and M=32, a prefill chunk, where each thread quantizes its own segment):
-    bit for bit the plain version, and the kernel's codes the standalone
-    act-quant's (the same kernel on those int8 codes gives the same output).
-    Times of one smollm layer's seven calls (signed inputs, the main path's)
-    and of the deepseek shape."""
+    shapes (M=8, signed and unsigned 8-bit inputs) and at
+    ``PROLOGUE_SHAPES`` (deepseek-v3's K=18432 at M=8, where all the
+    threads quantize the few live rows, and M=32, a prefill chunk, where
+    each thread quantizes its own segment; the shapes of hymba-1.5b,
+    llama4-scout and llava-next-34b): bit for bit the plain version, the
+    kernel's codes the standalone act-quant's (the same kernel on those int8
+    codes gives the same output), and on the tensor cores exactly from
+    ``TC_MIN_ROWS`` rows.  Times of one smollm layer's seven calls (signed
+    inputs, the main path's) and of each of ``PROLOGUE_SHAPES``."""
     from repro_torch.kernels.int_matmul import int_matmul_cuda, int_matmul_plain, prologue_codes
     from repro_torch.kernels.ops import int_matmul_block_k
 
@@ -1045,8 +1162,13 @@ def check_int_matmul_prologue(dev) -> dict:
 
     def check(x, w, scale, kw, pro, what):
         nonlocal worst
+        tc = int_matmul_cuda.tc_launches
         got = int_matmul_cuda(x, w, scale, **kw, **pro)
         torch.cuda.synchronize()
+        if (int_matmul_cuda.tc_launches > tc) != (x.shape[0] >= tc_min_rows()):
+            raise AssertionError(f"int_matmul prologue {what}: ran on the "
+                                 f"{'tensor-core' if int_matmul_cuda.tc_launches > tc else 'decode'}"
+                                 " kernel")
         want = int_matmul_plain(x, w, scale, **kw, **pro)
         err = (got - want).abs().max().item()
         standalone = int_matmul_cuda(prologue_codes(x, s_aq, pro["q_lo"], pro["q_hi"],
@@ -1095,25 +1217,27 @@ def check_int_matmul_prologue(dev) -> dict:
                      "at": "one smollm-135m layer's 7 decode calls, M=8, fp32 x quantized in the "
                            "prologue (signed 8-bit), int16 carry, fused scale",
                      "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None, "at_deepseek": {}}
-    K, N = 18432, 7168  # deepseek's dense mlp.w_out, the largest K
-    w = a2q_bounded_weights(gen, K, N, dev)
-    scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
-    kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
+                     "bound_by": b_by, "library_ms": None, "at_deepseek": {},
+                     "at_new_decoders": {}}
     pro = dict(aq_scale=s_aq, q_lo=-128, q_hi=127, q_shift=0)
-    for M in (8, 32):
+    for at, site, M, K, N in PROLOGUE_SHAPES:
+        w = a2q_bounded_weights(gen, K, N, dev)
+        scale = torch.rand((N,), generator=gen, device=dev) * 1e-3 + 1e-4
+        kw = dict(acc_bits=16, mode="exact", block_k=int_matmul_block_k(K), spill_int16=True)
         x = torch.randn((M, K), generator=gen, device=dev) * 3
-        check(x, w, scale, kw, pro, f"M={M} K={K} N={N}")
+        check(x, w, scale, kw, pro, f"{site} M={M} K={K} N={N}")
         ms = graph_ms(lambda: int_matmul_cuda(x, w, scale, **kw, **pro), 5)
         plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, **kw, **pro), 2)
         b_ms, b_by = bound_ms(4 * M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N,
                               INT8_OPS_PER_S)
-        print(f"int_matmul prologue deepseek M={M} K={K} N={N}: equal to plain and to the "
-              f"standalone codes, kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} "
-              f"({b_by})", flush=True)
-        entry["at_deepseek"][f"M={M} K={K} N={N}"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+        print(f"int_matmul prologue {site} M={M} K={K} N={N} "
+              f"({'tensor-core' if M >= tc_min_rows() else 'decode'} kernel): equal to plain and "
+              f"to the standalone codes, kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+              f"{b_ms:.5f} ({b_by}), {b_ms / ms:.1%} of the bound", flush=True)
+        key = f"M={M} K={K} N={N}" if at == "at_deepseek" else f"{site} M={M} K={K} N={N}"
+        entry[at][key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None}
+        del w
     entry["max_abs_err"] = worst
     return entry
 
@@ -1420,7 +1544,9 @@ def check_flash_attention(dev) -> dict:
     hubert-xlarge's whole-utterance encode (8 clips x 1000 frames, 16 heads
     of 80, bidirectional) in bf16 and fp32; smollm-135m's causal GQA (9 heads
     over 3, D 64, T 64); a causal sliding window of 256 at hubert's shape;
-    64 queries end-aligned to 1000 keys.  Within 2e-5 (fp32) plus one bf16
+    64 queries end-aligned to 1000 keys; llava-next-34b's causal patch and
+    text prefill (GQA 7:1, D 128, timed beside its causal bound; the
+    entry's ``at_new_decoders``).  Within 2e-5 (fp32) plus one bf16
     ulp of the output (bf16); bf16 runs on the tensor-core kernel, fp32 on
     the CUDA-core one (the launch counts show which).  hubert's bf16 case
     timed (CUDA events) beside the plain version, the CUDA-core kernel on
@@ -1445,6 +1571,7 @@ def check_flash_attention(dev) -> dict:
                                    torch.bfloat16),
         "end-aligned Tq=64 Tk=1000 bf16": (B, H, H, 64, HUBERT_FRAMES, D, True, None,
                                            torch.bfloat16),
+        LLAVA_PREFILL: (2, 56, 8, 576 + 64, 576 + 64, 128, True, None, torch.bfloat16),
     }
     gen = torch.Generator(device=dev).manual_seed(9)
     entry, worst, worst_bf16 = None, 0.0, 0.0
@@ -1481,6 +1608,22 @@ def check_flash_attention(dev) -> dict:
             entry["fp32"] = {"at": "the same shape in fp32, on the CUDA cores", "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                              "bound_share": b_ms / ms, "library_ms": lib_ms}
+        if tag == LLAVA_PREFILL:  # causal: the kept (q, k) pairs' operations
+            ms = graph_ms(lambda: flash_attention_cuda(q, k, v, **kw), 10)
+            plain_ms = events_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
+            kr, vr = (t.repeat_interleave(h // kv, dim=1).contiguous() for t in (k, v))
+            qc = q.contiguous()
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qc, kr, vr, is_causal=True),
+                              10)
+            n_ops = 4 * b * h * d * (tq * (tq + 1) // 2)
+            b_ms, b_by = bound_ms(dtype.itemsize * (2 * b * h * tq * d + 2 * b * kv * tk * d),
+                                  n_ops, BF16_FLOPS_PER_S)
+            print(f"flash_attention {tag}: kernel tc ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"library_ms(sdpa, KV repeated) {lib_ms:.4f} bound_ms {b_ms:.5f} ({b_by}), "
+                  f"{b_ms / ms:.1%} of the bound", flush=True)
+            at_llava = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms}
+            del kr, vr, qc
         if tag != "hubert bf16":
             continue
         # the same values as unaligned views: the wrapper routes them to the CUDA cores
@@ -1519,6 +1662,7 @@ def check_flash_attention(dev) -> dict:
         del want, qu, ku, vu, got_cc
     entry["max_abs_err"] = worst  # fp32; bf16 adds one rounding of the output
     entry["max_abs_err_bf16"] = worst_bf16
+    entry["at_new_decoders"] = {LLAVA_PREFILL: at_llava}
     return entry
 
 
@@ -1653,6 +1797,14 @@ def check_int_matmul_hubert(dev) -> list:
                         "library_ms": lib_ms}
         del w, w_cm, x, codes, y
     return [entry, tc_entry]
+
+
+# paged_attention and flash_attention at the shapes phases 4l and 4v give them
+NEW_PAGED = (  # (site, B, H, KV, Dh, lengths lo, hi)
+    ("llama4-scout global NoPE layer, decode past the 8192 chunk", 2, 40, 8, 128, 8300, 8482),
+    ("llava-next-34b decode", 8, 56, 8, 128, 64, 96),
+)
+LLAVA_PREFILL = "llava-next-34b causal prefill bf16 (B=2 H=56 KV=8 T=576+64 D=128)"
 
 
 def _quantize(pool, bits):
@@ -1913,24 +2065,38 @@ def serve(dev):
     if not ok or ties or marg > 1e-4:
         raise AssertionError(f"card vs CPU disagree: {detail}, margin diff {marg}")
     del engine, ref
-    phase("4c: smollm-135m full size on --int-chain --kv-int8 [--kv-bits 4] --decode-kernel")
+    # 4c, 4m, 4s and 4o run on the first SIDE_LAYERS layers of these params
+    side = dataclasses.replace(arch, stacks=(dataclasses.replace(arch.stacks[0],
+                                                                  count=SIDE_LAYERS),))
+    side_params = {**params, "stacks": {"0": _first_layers(params["stacks"]["0"], SIDE_LAYERS)}}
+    phase(f"4c: smollm-135m ({SIDE_LAYERS} of its {arch.n_layers} layers) on --int-chain "
+          "--kv-int8 [--kv-bits 4] --decode-kernel")
     by_path = {"smollm-135m": launches,
-               "smollm-135m int-chain": serve_int(dev, arch, params, prompts,
-                                                  per_forward=7 * arch.n_layers, mla=False)}
-    phase("4m: smollm-135m (4c's --int-chain --kv-int8) on the megastep, 12 requests over 8 slots")
+               "smollm-135m int-chain": serve_int(dev, side, side_params, prompts,
+                                                  per_forward=7 * side.n_layers, mla=False)}
+    phase(f"4m: smollm-135m ({SIDE_LAYERS} layers, 4c's --int-chain --kv-int8) on the megastep, "
+          "12 requests over 8 slots")
     more = np.random.default_rng(1)
     prompts12 = prompts + [more.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(4)]
-    n = 7 * arch.n_layers
+    n = 7 * side.n_layers
     by_path["smollm-135m megastep"] = serve_megastep(
-        dev, arch, params, prompts12, rt=Runtime(int_chain=True, decode_kernel=True), kv_bits=8,
+        dev, side, side_params, prompts12, rt=Runtime(int_chain=True, decode_kernel=True),
+        kv_bits=8,
         per_call={"int_matmul_cuda.launches": (n, n), "int_matmul_cuda.prologue_launches": (n, n),
-                  "paged_attention_cuda.launches": (arch.n_layers, 0)},
+                  "paged_attention_cuda.launches": (side.n_layers, 0)},
         names={"int_matmul[prologue]": "int_matmul_cuda.prologue_launches",
                "int_matmul[tc]": "int_matmul_cuda.tc_launches",
                "paged_attention[int8]": "paged_attention_cuda.launches"})
-    by_path["smollm-135m shared and spec"] = serve_shared(dev, arch, params)
-    by_path["smollm-135m observed"] = serve_observed(dev, arch, params)
+    by_path["smollm-135m shared and spec"] = serve_shared(dev, side, side_params)
+    by_path["smollm-135m observed"] = serve_observed(dev, side, side_params)
     return by_path
+
+
+def _first_layers(tree, n: int):
+    """The first ``n`` layers of a stack's ``(count, ...)`` leaves (views)."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
 
 
 def op_counter():
@@ -2521,7 +2687,7 @@ def serve_observed(dev, arch, params) -> dict:
             "--max-seq", "96", "--block-size", "16", "--prefill-chunk", "32"]
     a2q_quantize_cuda.launches = 0
     with held_deploys("4o launcher") as held:
-        out, more = _launch_delta(lambda: launcher(argv))
+        out, more = _launch_delta(lambda: launcher(argv, get_arch=lambda name: arch))
     check_held("4o launcher", held, a2q_quantize_cuda.launches)
     counted = {k: counted[k] + more[k] for k in counted}
     hr = out["report"]["headroom"]
@@ -2599,8 +2765,9 @@ def serve_shared(dev, arch, params) -> dict:
        on bf16 pools and on ``kv_quant`` int8 pools, each under
        ``parity_up_to_ties`` against the plain engine of the same runtime
        (eps ``SPEC_EPS``, ``SPEC_KV_EPS``), its launches exact: every draft
-       step 210 int_matmul on the decode kernel and 30 paged_attention,
-       every verify (8 rows x 5 tokens) 210 on the tensor cores;
+       step 7 int_matmul a layer on the decode kernel and 1 paged_attention
+       a layer, every verify (8 rows x 5 tokens) 7 a layer on the tensor
+       cores;
     5. a ``ModelDrafter`` of smollm-135m cut to ``SPEC_DRAFT_LAYERS`` layers
        (its own seed 1, A2Q float, the decode kernel), ``min_accept=0``,
        same gate, both caches' free lists whole at the drain;
@@ -2833,12 +3000,13 @@ def deepseek_int_matmul_per_forward(arch) -> int:
     return n
 
 
-def build_deepseek(dev, arch) -> dict:
-    """Full-width random A2Q params of ``arch``, deployed to int8 stack by
+def build_by_block(dev, arch) -> dict:
+    """Full-width random A2Q params of ``arch`` (stacks of ``attn_mlp`` and
+    ``moe`` blocks: deepseek-v3, llama4-scout), deployed to int8 stack by
     stack and leaf by leaf with the package's own initializers and
     ``deploy_params`` on sub-trees, so no whole fp32 tree exists: the
-    largest fp32 leaf alive at once is one routed expert weight (256 x 7168
-    x 2048, 15 GB)."""
+    largest fp32 leaf alive at once is one routed expert weight (deepseek's
+    256 x 7168 x 2048, 15 GB)."""
     from repro_torch.core.quantizers import init_act_quant
     from repro_torch.nn.attention import init_attention
     from repro_torch.nn.embedding import init_embedding
@@ -2951,7 +3119,7 @@ def serve_deepseek(dev):
     t0 = time.perf_counter()
     a2q_quantize_cuda.launches = 0
     with held_deploys(arch.name) as held:
-        params = build_deepseek(dev, arch)
+        params = build_by_block(dev, arch)
     torch.cuda.synchronize()
     deploys = a2q_quantize_cuda.launches
     check_held(arch.name, held, deploys)
@@ -3242,8 +3410,11 @@ def serve_rwkv6(dev) -> dict:
     from repro_torch.nn.module import tree_to
     from repro_torch.serve.engine import PagedServeEngine, deploy_params, parity_up_to_ties
 
-    phase("4e: serve full-width rwkv6-7b on --int-chain (requant epilogue, rwkv6_scan)")
-    arch = get_arch("rwkv6-7b")
+    full = get_arch("rwkv6-7b")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                 count=RWKV6_LAYERS),))
+    phase(f"4e: serve full-width rwkv6-7b ({arch.n_layers} of {full.n_layers} layers) on "
+          "--int-chain (requant epilogue, rwkv6_scan)")
     n = arch.n_layers
     per_forward = 7 * n + 1  # r, k, v, g, o, cm.wk, cm.wv a layer, and the untied head
     torch.cuda.empty_cache()
@@ -3404,9 +3575,10 @@ def serve_rwkv6(dev) -> dict:
         "rwkv6-7b long prompt": long_counts, "rwkv6-7b megastep": mega_counts}
 
 
-# phase 4p: phase 4's prompts and budget, 2 requests of its 8 (the contiguous engine
-# prefills a token a forward, 0.1-0.15 s a forward at full size; PERF.md section 4)
-CONTIG_PROMPTS, CONTIG_PROMPT_LEN, CONTIG_NEW = 2, 64, 32
+# phase 4p: phase 4's prompts and budget, 2 requests of its 8, smollm-135m's depth cut
+# from 30 layers to 4 (the contiguous engine prefills a token a forward, 0.1-0.15 s
+# a forward at full depth; PERF.md section 4)
+CONTIG_PROMPTS, CONTIG_PROMPT_LEN, CONTIG_NEW, CONTIG_LAYERS = 2, 64, 32, 4
 
 
 def contig_tick_ops(engine, prompt) -> int:
@@ -3445,8 +3617,9 @@ def on_card(engine) -> bool:
 
 def serve_contiguous(dev) -> dict:
     """Phase 4p: the contiguous ``ServeEngine`` and the reference's parity
-    gate, through ``launch/serve.py --paged --parity-check`` on full-size
-    smollm-135m (2 requests of 64 prompt tokens, 32 new, batch 8): with
+    gate, through ``launch/serve.py --paged --parity-check`` on smollm-135m
+    at full width with its depth cut to ``CONTIG_LAYERS`` (2 requests of 64
+    prompt tokens, 32 new, batch 8): with
     ``--deploy-int8`` the contiguous dequant engine against the paged one,
     token for token; with ``--int-forward --kv-int8`` the paged int path
     (int_matmul, int8 KV) against the contiguous float path under
@@ -3462,8 +3635,11 @@ def serve_contiguous(dev) -> dict:
     from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
     from repro_torch.kernels.int_matmul import int_matmul_cuda
 
-    phase("4p: the contiguous ServeEngine and --parity-check on full-size smollm-135m")
-    arch = get_arch("smollm-135m")
+    full = get_arch("smollm-135m")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                 count=CONTIG_LAYERS),))
+    phase(f"4p: the contiguous ServeEngine and --parity-check on smollm-135m at full width, "
+          f"{arch.n_layers} of its {full.n_layers} layers")
     t_phase = time.perf_counter()
     base = ["--arch", arch.name, "--device", str(dev), "--requests", str(CONTIG_PROMPTS),
             "--prompt-len", str(CONTIG_PROMPT_LEN), "--max-new", str(CONTIG_NEW), "--batch", "8",
@@ -3483,7 +3659,7 @@ def serve_contiguous(dev) -> dict:
             argv[argv.index("--requests") + 1], argv[argv.index("--max-new") + 1] = "1", "8"
         t0 = time.perf_counter()
         with held_deploys(f"4p {tag}") as held:
-            out = launcher(argv)
+            out = launcher(argv, get_arch=lambda name: arch)
         torch.cuda.synchronize()
         flips += held["flips"]
         deploys += held["matrices"]
@@ -3542,10 +3718,10 @@ H2O_CUT_LAYERS, H2O_CUT_PROMPT, H2O_CUT_NEW = 2, 4128, 16  # the contiguous chec
 
 
 def serve_h2o(dev) -> dict:
-    """Phase 4h: h2o-danube-1.8b at full width (24 layers, d_model 2560, 32
-    heads over 8 KV heads of 80, window 4096, vocab 32000), random A2Q
-    weights from seed 0 deployed through ``a2q_quantize`` (169 matrices,
-    every one held to the plain quantizer), served on the paged engine with
+    """Phase 4h: h2o-danube-1.8b at full width (d_model 2560, 32 heads over 8
+    KV heads of 80, window 4096, vocab 32000) cut to ``H2O_LAYERS`` of its 24
+    layers, random A2Q weights from seed 0 deployed through ``a2q_quantize``
+    (every matrix held to the plain quantizer), served on the paged engine with
     ``Runtime(int_chain=True, decode_kernel=True)``: 4 requests over 4
     slots, prompts of 4,100-4,300 tokens in prefill chunks of 256 (the ring
     wraps in prefill and again in decode), 64 new tokens; per tick, then on
@@ -3558,148 +3734,437 @@ def serve_h2o(dev) -> dict:
     contiguous ``ServeEngine``'s, past the window).  Returns the launches by
     kernel entry."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
-    from repro_torch.models.lm import Runtime, init_lm
-    from repro_torch.serve.engine import PagedServeEngine, deploy_params
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.engine import deploy_params
 
-    arch = get_arch("h2o-danube-1.8b")
+    full = get_arch("h2o-danube-1.8b")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                 count=H2O_LAYERS),))
     a = arch.stacks[0].attn
-    phase(f"4h: h2o-danube-1.8b full width ({arch.n_layers} layers, d_model {arch.d_model}, "
+    phase(f"4h: h2o-danube-1.8b full width ({arch.n_layers} of {full.n_layers} layers, d_model "
+          f"{arch.d_model}, "
           f"window {a.window}) on --int-chain --decode-kernel, prompts past the window; "
           f"{H2O_REQUESTS} requests, {H2O_NEW} new tokens")
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    a2q_quantize_cuda.launches = 0
-    t0 = time.perf_counter()
-    with held_deploys(arch.name) as held:
-        params = deploy_params(init_lm(torch.Generator(device=dev).manual_seed(0), arch,
-                                       device=dev), arch.quant)
-    torch.cuda.synchronize()
-    deploys = a2q_quantize_cuda.launches
-    check_held(arch.name, held, deploys)
+    params, deployed = deploy_held(arch.name, lambda: deploy_params(
+        init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev), arch.quant))
     per_forward = 7 * arch.n_layers + 1  # the untied head too
-    print(f"init + deploy: {time.perf_counter() - t0:.2f} s, {deploys} a2q_quantize launches, "
-          f"{held['flips']} code flips", flush=True)
-    if deploys != per_forward:
-        raise AssertionError(f"{deploys} a2q_quantize launches at deploy, expected {per_forward}")
+    if deployed["a2q_quantize"] != per_forward:
+        raise AssertionError(f"{deployed} deploys, expected {per_forward}")
     rng = np.random.default_rng(0)
     lens = rng.integers(H2O_PROMPTS[0], H2O_PROMPTS[1] + 1, H2O_REQUESTS)
     prompts = [rng.integers(0, arch.vocab, (int(n),)).astype(np.int32) for n in lens]
     short = [p[:300] for p in prompts]  # warm-ups and host-op counts
-    max_seq = -(-(H2O_PROMPTS[1] + H2O_NEW) // 16) * 16
-    kw = dict(batch=H2O_REQUESTS, max_seq=max_seq, block_size=16, prefill_chunk=H2O_CHUNK,
+    run = tick_and_megastep("4h", arch, params, prompts, dev=dev, chunk=H2O_CHUNK,
+                            max_new=H2O_NEW, per_forward=per_forward, attn_layers=0,
+                            short=short)
+    tick, mega = run["engine"], run["mega"]
+    eos = int(run["outs"][0][H2O_NEW // 2])
+    for e in (tick, mega):
+        e.eos_id = eos
+    eos_outs = [e.generate(prompts, max_new=H2O_NEW) for e in (tick, mega)]
+    for e in (tick, mega):
+        e.eos_id = None
+    eos_same = eos_outs[0] == eos_outs[1] and \
+        [r.margins for r in tick.last_requests] == [r.margins for r in mega.last_requests]
+    freed = all(e.cache.free_blocks == e.cache.num_blocks - 1 for e in (tick, mega))
+    print(f"[4h] eos_id {eos}: tokens and margins identical {eos_same}, request 0 ends after "
+          f"{len(eos_outs[1][0])} tokens, every block freed {freed}", flush=True)
+    if not eos_same or len(eos_outs[1][0]) >= H2O_NEW or not freed:
+        raise AssertionError("[4h] the EOS rerun differs or did not end request 0 early")
+    chunk = profile_prefill_chunk(tick, prompts[0][:2 * H2O_CHUNK + 88])
+    print(f"[4h] profiled prefill chunk of {H2O_CHUNK} tokens (device ms by part): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in chunk.items() if k != "rwkv6_scan"), flush=True)
+    launches = {**run["launches"], **deployed}
+    del run, tick, mega, params
+    torch.cuda.empty_cache()
+
+    cut = contiguous_check("4h", dev, arch, H2O_CUT_LAYERS, 7, H2O_CUT_PROMPT, H2O_CUT_NEW,
+                           H2O_CHUNK)
+    for k in ("a2q_quantize", "a2q_quantize[flips]"):
+        launches[k] += cut[k]
+    print(f"[4h] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"h2o-danube-1.8b": launches}
+
+
+def contiguous_check(tag, dev, arch, layers, per_layer, prompt_len, new, chunk) -> dict:
+    """The paged engine's ring against the contiguous ``ServeEngine``'s past
+    the window: ``arch`` at full width cut to ``layers`` layers (the
+    contiguous engine prefills a token a forward), one ``prompt_len``-token
+    prompt and ``new`` tokens through ``launch/serve.py --paged
+    --parity-check --deploy-int8`` (token for token), the deploy held to the
+    plain quantizer (``per_layer`` matrices a layer and the head).  Returns
+    its ``a2q_quantize`` launches and flips."""
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+
+    cut = dataclasses.replace(arch, stacks=(dataclasses.replace(arch.stacks[0], count=layers),))
+    print(f"[{tag}] the contiguous check, depth cut to {layers} layers: 1 request of "
+          f"{prompt_len} prompt tokens, {new} new, --paged --parity-check --deploy-int8",
+          flush=True)
+    t0 = time.perf_counter()
+    a2q_quantize_cuda.launches = 0
+    with held_deploys(f"{tag} cut") as held:
+        out = launcher(["--arch", arch.name, "--device", str(dev), "--paged", "--parity-check",
+                        "--deploy-int8", "--requests", "1", "--prompt-len", str(prompt_len),
+                        "--max-new", str(new), "--batch", "1", "--max-seq",
+                        str(prompt_len + new), "--block-size", "16",
+                        "--prefill-chunk", str(chunk)], get_arch=lambda name: cut)
+    torch.cuda.synchronize()
+    check_held(f"{tag} cut", held, a2q_quantize_cuda.launches)
+    contig = out["engines"]["contiguous"]
+    ctp, ptp = contig.throughput(), out["engines"]["paged"].throughput()
+    ring = contig.cache["0"]["attn"]["kpos"]
+    print(f"[{tag}] contiguous check: tokens identical across engines {out['outs']}; ring "
+          f"{tuple(contig.cache['0']['attn']['k'].shape)}, kpos from {int(ring.min())} to "
+          f"{int(ring.max())}; contiguous prefill {ctp['prefill_tok_s']:.2f} tok/s, decode "
+          f"{ctp['decode_tok_s']:.2f} tok/s; paged prefill {ptp['prefill_tok_s']:.2f} tok/s; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not on_card(contig) or len(out["outs"][0]) != new or int(ring.min()) <= 0 or \
+            held["matrices"] != per_layer * layers + 1:
+        raise AssertionError(f"[{tag}] the contiguous check did not run past the window on the "
+                             "card")
+    del out, contig
+    torch.cuda.empty_cache()
+    return {"a2q_quantize": held["matrices"], "a2q_quantize[flips]": held["flips"]}
+
+
+def tick_and_megastep(tag, arch, params, prompts, *, dev, chunk, max_new, per_forward,
+                      attn_layers, short, after_run=None) -> dict:
+    """The paged engine on ``Runtime(int_chain=True, decode_kernel=True)``,
+    ``len(prompts)`` slots, blocks of 16, prefill chunks of ``chunk``: per
+    tick, then on the megastep (``decode_steps=8``) on the same params and
+    batches, tokens and margins bit for bit; ``per_forward`` int_matmul
+    prologue launches a forward (every prefill chunk, every tick, every
+    tick of a window) and ``attn_layers`` ``paged_attention`` launches a
+    decode tick.  Prints prefill and decode tok/s, host ops a tick and a
+    window (``short`` prompts), KV bytes a token and state bytes a slot,
+    peak memory and a profiled decode (``after_run(engine)`` is called on the
+    per-tick engine right after its run); returns the launches by kernel
+    entry, both engines and the per-tick run's tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import Runtime
+    from repro_torch.serve.engine import PagedServeEngine
+
+    max_seq = -(-(max(len(p) for p in prompts) + max_new) // 16) * 16
+    kw = dict(batch=len(prompts), max_seq=max_seq, block_size=16, prefill_chunk=chunk,
               device=dev, rt=Runtime(int_chain=True, decode_kernel=True))
     tick = PagedServeEngine(arch, params, **kw)
     mega = PagedServeEngine(arch, params, decode_steps=MEGASTEP_N, **kw)
     for e in (tick, mega):  # warm-up; the megastep engine captures its window here
         e.generate(short[:1], max_new=2)
-    chunks = sum(-(-len(p) // H2O_CHUNK) for p in prompts)
+    chunks = sum(-(-len(p) // chunk) for p in prompts)
 
     def run(engine):
         engine.reset_stats()
         torch.cuda.synchronize()
         before = ops.launch_counts()
-        outs = engine.generate(prompts, max_new=H2O_NEW)
+        outs = engine.generate(prompts, max_new=max_new)
         torch.cuda.synchronize()
         after = ops.launch_counts()
         return outs, engine.throughput(), {k: after[k] - before[k] for k in after}
 
     outs, ttp, tl = run(tick)
+    if after_run is not None:
+        after_run(tick)
     mouts, mtp, ml = run(mega)
-    windows = mtp["decode_dispatches"]
-    want = {"int_matmul_cuda.prologue_launches": (per_forward * (ttp["decode_dispatches"] + chunks),
+    ticks, windows = ttp["decode_dispatches"], mtp["decode_dispatches"]
+    want = {"int_matmul_cuda.prologue_launches": (per_forward * (ticks + chunks),
                                                   per_forward * (MEGASTEP_N * windows + chunks)),
-            "paged_attention_cuda.launches": (0, 0)}
+            "paged_attention_cuda.launches": (attn_layers * ticks,
+                                              attn_layers * MEGASTEP_N * windows)}
     got = {k: (tl[k], ml[k]) for k in want}
     for r, o in zip(tick.last_requests, outs):
-        if len(o) != H2O_NEW or not all(0 <= t < arch.vocab for t in o) or \
+        if len(o) != max_new or not all(0 <= t < arch.vocab for t in o) or \
                 not np.isfinite(r.margins).all():
-            raise AssertionError(f"[4h] bad output {o}")
+            raise AssertionError(f"[{tag}] bad output {o}")
     same_margins = [r.margins for r in tick.last_requests] == \
         [r.margins for r in mega.last_requests]
     marg = max(abs(x - y) for r, g in zip(tick.last_requests, mega.last_requests)
                for x, y in zip(r.margins, g.margins))
-    print(f"[4h] prompts {[len(p) for p in prompts]} (ring {a.window}); per tick: prefill "
-          f"{ttp['prefill_tok_s']:.2f} tok/s, decode {ttp['decode_tok_s']:.2f} tok/s "
-          f"({ttp['decode_dispatches']} ticks); megastep: prefill {mtp['prefill_tok_s']:.2f} "
-          f"tok/s, decode {mtp['decode_tok_s']:.2f} tok/s ({windows} windows, "
-          f"{mtp['graph_replays']} graph replays); tokens identical {mouts == outs}, margins "
-          f"bit for bit {same_margins} (largest difference {marg!r})", flush=True)
+    print(f"[{tag}] prompts {[len(p) for p in prompts]} in chunks of {chunk}; per tick: prefill "
+          f"{ttp['prefill_tok_s']:.2f} tok/s, decode {ttp['decode_tok_s']:.2f} tok/s ({ticks} "
+          f"ticks); megastep: prefill {mtp['prefill_tok_s']:.2f} tok/s, decode "
+          f"{mtp['decode_tok_s']:.2f} tok/s ({windows} windows, {mtp['graph_replays']} graph "
+          f"replays); tokens identical {mouts == outs}, margins bit for bit {same_margins} "
+          f"(largest difference {marg!r}); chain report {ttp['int_chain_folded']} folded, "
+          f"{ttp['int_chain_requant_dispatches']} standalone, {ttp['int_chain_fallback']} "
+          "fallback", flush=True)
     if got != want or mtp["graph_replays"] != windows or mouts != outs or not same_margins:
-        raise AssertionError(f"[4h] launches {got} (expected {want}), or the megastep differs "
+        raise AssertionError(f"[{tag}] launches {got} (expected {want}), or the megastep differs "
                              "from the per-tick engine")
-    eos = int(outs[0][H2O_NEW // 2])
-    for e in (tick, mega):
-        e.eos_id = eos
-    eos_runs = [run(e) for e in (tick, mega)]
-    for e in (tick, mega):
-        e.eos_id = None
-    eos_same = eos_runs[0][0] == eos_runs[1][0] and \
-        [r.margins for r in tick.last_requests] == [r.margins for r in mega.last_requests]
-    freed = all(e.cache.free_blocks == e.cache.num_blocks - 1 for e in (tick, mega))
-    print(f"[4h] eos_id {eos}: tokens and margins identical {eos_same}, request 0 ends after "
-          f"{len(eos_runs[1][0][0])} tokens, every block freed {freed}", flush=True)
-    if not eos_same or len(eos_runs[1][0][0]) >= H2O_NEW or not freed:
-        raise AssertionError("[4h] the EOS rerun differs or did not end request 0 early")
     n_tick, n_window = tick_ops(tick, short), window_ops(mega, short)
-    peak = torch.cuda.max_memory_allocated() / 2**30
     tc = tl["int_matmul_cuda.tc_launches"]
-    decode_k = tl["int_matmul_cuda.launches"] - tc
-    print(f"[4h] host ops a tick {n_tick}, a window of {MEGASTEP_N} ticks {n_window}; ring state "
-          f"{tick.cache.state_bytes_per_slot()} bytes a slot ({tick.cache.kv_bytes_per_token()} "
-          f"KV bytes a token: no pools); peak allocated {peak:.2f} GiB; per-tick run's int_matmul "
-          f"launches: {decode_k} on the split-K decode kernel, {tc} on the tensor-core kernel; "
-          f"paged_attention launches 0 (ring layers take _sdpa, as in the reference: its decode "
-          f"kernel reads paged pools only); graph pool {mega.graph_info['pool_bytes']} bytes",
-          flush=True)
+    print(f"[{tag}] host ops a tick {n_tick}, a window of {MEGASTEP_N} ticks {n_window}; "
+          f"{tick.cache.kv_bytes_per_token()} KV bytes a token, {tick.cache.state_bytes_per_slot()} "
+          f"state bytes a slot (rings and recurrent state); peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; per-tick run's int_matmul "
+          f"launches: {tl['int_matmul_cuda.launches'] - tc} on the split-K decode kernel, {tc} "
+          f"on the tensor-core kernel; graph pool {mega.graph_info['pool_bytes']} bytes; "
+          f"capture {mega.graph_info['capture_s']:.3f} s", flush=True)
     if n_window > MEGASTEP_MAX_WINDOW_OPS:
-        raise AssertionError(f"[4h] {n_window} host ops a window > {MEGASTEP_MAX_WINDOW_OPS}")
+        raise AssertionError(f"[{tag}] {n_window} host ops a window > {MEGASTEP_MAX_WINDOW_OPS}")
     profile_decode(tick, short)
-    chunk = profile_prefill_chunk(tick, prompts[0][:2 * H2O_CHUNK + 88])
-    print(f"[4h] profiled prefill chunk of {H2O_CHUNK} tokens (device ms by part): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in chunk.items() if k != "rwkv6_scan"), flush=True)
     launches = {"int_matmul[prologue]": tl["int_matmul_cuda.prologue_launches"]
                 + ml["int_matmul_cuda.prologue_launches"],
                 "int_matmul[tc]": tc + ml["int_matmul_cuda.tc_launches"],
-                "paged_attention": 0, "a2q_quantize": deploys,
-                "a2q_quantize[flips]": held["flips"]}
-    del tick, mega, params
-    torch.cuda.empty_cache()
+                "paged_attention": tl["paged_attention_cuda.launches"]
+                + ml["paged_attention_cuda.launches"]}
+    return {"launches": launches, "engine": tick, "mega": mega, "outs": outs}
 
-    cut = dataclasses.replace(arch, stacks=(dataclasses.replace(arch.stacks[0],
-                                                                count=H2O_CUT_LAYERS),))
-    print(f"[4h] the contiguous check, depth cut to {H2O_CUT_LAYERS} layers (the contiguous "
-          f"engine prefills a token a forward): 1 request of {H2O_CUT_PROMPT} prompt tokens, "
-          f"{H2O_CUT_NEW} new, --paged --parity-check --deploy-int8", flush=True)
+
+def deploy_held(tag, build) -> tuple[dict, dict]:
+    """``build()`` (an init and a deploy) under ``held_deploys``: the params
+    and ``{"a2q_quantize": launches, "a2q_quantize[flips]": flips}``;
+    prints the seconds, the parameters and their bytes on the card."""
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+
     t0 = time.perf_counter()
     a2q_quantize_cuda.launches = 0
-    with held_deploys("4h cut") as held_cut:
-        out = launcher(["--arch", arch.name, "--device", str(dev), "--paged", "--parity-check",
-                        "--deploy-int8", "--requests", "1", "--prompt-len", str(H2O_CUT_PROMPT),
-                        "--max-new", str(H2O_CUT_NEW), "--batch", "1", "--max-seq",
-                        str(H2O_CUT_PROMPT + H2O_CUT_NEW), "--block-size", "16",
-                        "--prefill-chunk", str(H2O_CHUNK)], get_arch=lambda name: cut)
+    with held_deploys(tag) as held:
+        params = build()
     torch.cuda.synchronize()
-    check_held("4h cut", held_cut, a2q_quantize_cuda.launches)
-    contig = out["engines"]["contiguous"]
-    ctp, ptp = contig.throughput(), out["engines"]["paged"].throughput()
-    ring = contig.cache["0"]["attn"]["kpos"]
-    print(f"[4h] contiguous check: tokens identical across engines {out['outs']}; ring "
-          f"{tuple(contig.cache['0']['attn']['k'].shape)}, kpos from {int(ring.min())} to "
-          f"{int(ring.max())}; contiguous prefill {ctp['prefill_tok_s']:.2f} tok/s, decode "
-          f"{ctp['decode_tok_s']:.2f} tok/s; paged prefill {ptp['prefill_tok_s']:.2f} tok/s; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if not on_card(contig) or len(out["outs"][0]) != H2O_CUT_NEW or int(ring.min()) <= 0 or \
-            held_cut["matrices"] != 7 * H2O_CUT_LAYERS + 1:
-        raise AssertionError("[4h] the contiguous check did not run past the window on the card")
-    launches["a2q_quantize"] += held_cut["matrices"]
-    launches["a2q_quantize[flips]"] += held_cut["flips"]
-    print(f"[4h] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    del out, contig
+    deploys = a2q_quantize_cuda.launches
+    check_held(tag, held, deploys)
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[{tag}] init + deploy: {time.perf_counter() - t0:.1f} s, {n_params / 1e9:.3f} B "
+          f"params, {n_bytes / 1e9:.2f} GB on the card, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, {deploys} a2q_quantize launches, "
+          f"{held['flips']} code flips", flush=True)
+    return params, {"a2q_quantize": deploys, "a2q_quantize[flips]": held["flips"]}
+
+
+# phase 4y (PERF.md section 4): prompts past the 1024-token window, in chunks
+# of 256 (four 64-token SSD chunks a call) with a tail of another length (the
+# sequential form)
+HYMBA_REQUESTS, HYMBA_NEW, HYMBA_CHUNK = 4, 64, 256
+HYMBA_PROMPTS = (1100, 1300)
+HYMBA_CUT_LAYERS, HYMBA_CUT_PROMPT, HYMBA_CUT_NEW = 2, 1100, 16  # the contiguous check's cut
+
+
+def serve_hymba(dev) -> dict:
+    """Phase 4y: hymba-1.5b at full size (32 layers, d_model 1600, 25 heads
+    over 5 KV heads of 64, window 1024, 25 mamba heads of 64 with state 16
+    and SSD chunk 64, d_ff 5504, vocab 32001), random A2Q weights from seed 0
+    deployed through ``a2q_quantize`` (353 matrices, each held), served on
+    the paged engine with ``Runtime(int_chain=True, decode_kernel=True)``:
+    4 requests over 4 slots, prompts of 1,100-1,300 tokens in prefill chunks
+    of 256 (the ring wraps; the chunked SSD form on whole chunks, the
+    sequential one on the tail), 64 new tokens, per tick and on the
+    megastep, bit for bit; 353 int_matmul prologue launches a forward and no
+    ``paged_attention`` launch (the ring takes ``_sdpa``).  Then the
+    contiguous check: the same widths cut to 2 layers, one 1,100-token
+    prompt and 16 new tokens through ``launch/serve.py --paged
+    --parity-check --deploy-int8``.  Returns the launches by kernel entry."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.engine import deploy_params
+
+    arch = get_arch("hymba-1.5b")
+    s = arch.stacks[0]
+    phase(f"4y: hymba-1.5b full size ({arch.n_layers} layers, d_model {arch.d_model}, window "
+          f"{s.attn.window}, {arch.d_model // s.ssm.head_dim} mamba heads, SSD chunk "
+          f"{s.ssm.chunk}) on --int-chain --decode-kernel; {HYMBA_REQUESTS} requests of "
+          f"{HYMBA_PROMPTS[0]}-{HYMBA_PROMPTS[1]} tokens, {HYMBA_NEW} new")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, deployed = deploy_held(arch.name, lambda: deploy_params(
+        init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev), arch.quant))
+    per_forward = 11 * arch.n_layers + 1  # attention 4, mamba 4, mlp 3; the head
+    if deployed["a2q_quantize"] != per_forward:
+        raise AssertionError(f"{deployed} deploys, expected {per_forward}")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(HYMBA_PROMPTS[0], HYMBA_PROMPTS[1] + 1, HYMBA_REQUESTS)
+    prompts = [rng.integers(0, arch.vocab, (int(n),)).astype(np.int32) for n in lens]
+    if all(len(p) % HYMBA_CHUNK % s.ssm.chunk == 0 for p in prompts):
+        raise AssertionError("no prompt tail takes the sequential SSD form")
+    run = tick_and_megastep("4y", arch, params, prompts, dev=dev, chunk=HYMBA_CHUNK,
+                            max_new=HYMBA_NEW, per_forward=per_forward, attn_layers=0,
+                            short=[p[:64] for p in prompts])
+    launches = {**run["launches"], **deployed}
+    del run, params
     torch.cuda.empty_cache()
-    return {"h2o-danube-1.8b": launches}
+
+    cut = contiguous_check("4y", dev, arch, HYMBA_CUT_LAYERS, 11, HYMBA_CUT_PROMPT,
+                           HYMBA_CUT_NEW, HYMBA_CHUNK)
+    for k in ("a2q_quantize", "a2q_quantize[flips]"):
+        launches[k] += cut[k]
+    print(f"[4y] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"hymba-1.5b": launches}
+
+
+# phase 4l (PERF.md section 4): one iRoPE period, prompts across the 8192 chunk
+LLAMA4_LAYERS, LLAMA4_PROMPTS, LLAMA4_NEW, LLAMA4_CHUNK = 4, (8300, 8450), 32, 256
+
+
+def serve_llama4(dev) -> dict:
+    """Phase 4l: llama4-scout at full width (d_model 5120, 40 heads over 8
+    KV heads of 128, 16 experts top-1 with d_ff 8192 plus 1 shared expert,
+    vocab 202048) with its depth cut from 48 layers to one iRoPE period (3
+    chunk-local RoPE layers with chunk 8192, then 1 NoPE global layer),
+    built and deployed block by block (221 matrices, each held): 2
+    requests of 8,300 and 8,450 tokens in prefill chunks of 256 (prefill
+    crosses the 8192 chunk boundary; the local layers' rings of 8192 slots
+    wrap), 32 new tokens, per tick and on the megastep on the same batches,
+    bit for bit; 29 int_matmul prologue launches a forward, one
+    ``paged_attention`` launch a tick (the global layer; the rings take
+    ``_sdpa``).  Returns the launches by kernel entry."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch("llama4-scout-17b-a16e")
+    arch = dataclasses.replace(full, stacks=full.stacks[:2])  # 3 local + 1 global
+    local, glob = arch.stacks
+    if arch.n_layers != LLAMA4_LAYERS or local.attn.chunk is None or \
+            glob.attn.rope_theta is not None:
+        raise AssertionError("llama4-scout's first two stacks are not one iRoPE period")
+    phase(f"4l: llama4-scout full width (d_model {arch.d_model}, {local.moe.n_experts} experts "
+          f"top-{local.moe.top_k} + {local.moe.n_shared} shared, vocab {arch.vocab}) cut to "
+          f"{arch.n_layers} layers ({local.count} chunk-local of {local.attn.chunk}, "
+          f"{glob.count} NoPE global); {len(LLAMA4_PROMPTS)} requests of {LLAMA4_PROMPTS} tokens")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, deployed = deploy_held(arch.name, lambda: build_by_block(dev, arch))
+    per_forward = 7 * arch.n_layers + 1  # attention 4, the shared expert 3; the head
+    n_deploy = arch.n_layers * (4 + 3 * local.moe.n_experts + 3) + 1
+    if deployed["a2q_quantize"] != n_deploy:
+        raise AssertionError(f"{deployed} deploys, expected {n_deploy}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.vocab, (n,)).astype(np.int32) for n in LLAMA4_PROMPTS]
+    def rings(engine):
+        kpos = engine.cache.pools["0"]["attn"]["kpos"]
+        chunk = local.attn.chunk
+        seen = (kpos >= 0) & (kpos // chunk == kpos.max(-1, keepdim=True).values // chunk)
+        print(f"[4l] after the per-tick run: local rings {tuple(kpos.shape)}, each slot's kpos "
+              f"from {kpos.min(-1).values[0].tolist()} to {kpos.max(-1).values[0].tolist()}; "
+              f"keys in the last token's chunk {seen.sum(-1)[0].tolist()} of {chunk} slots; the "
+              f"global layer's pools {tuple(engine.cache.pools['1']['attn']['kp'].shape)}",
+              flush=True)
+        if int(kpos.max()) < chunk or int(seen.sum(-1).max()) >= chunk:
+            raise AssertionError("[4l] no prompt crossed the chunk boundary")
+
+    run = tick_and_megastep("4l", arch, params, prompts, dev=dev, chunk=LLAMA4_CHUNK,
+                            max_new=LLAMA4_NEW, per_forward=per_forward,
+                            attn_layers=glob.count, short=[p[:64] for p in prompts],
+                            after_run=rings)
+    launches = {**run["launches"], **deployed}
+    print(f"[4l] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del run, params
+    torch.cuda.empty_cache()
+    return {"llama4-scout": launches}
+
+
+LLAVA_LAYERS, LLAVA_TEXT = 4, 64  # phase 4v (PERF.md section 4)
+
+
+def _sdpa_as_flash(q, k, v, *, causal, window=None, scale=None, q_chunk=256):
+    """``ops.flash_attention``'s contract on ``nn.attention._sdpa`` (the
+    reference's cacheless attention): ``(B, H, T, D)`` head views in and out,
+    positions ``0 .. T - 1`` for queries and keys."""
+    from repro_torch.nn.attention import _sdpa
+
+    B, T = q.shape[0], q.shape[2]
+    pos = torch.arange(T, dtype=torch.int32, device=q.device)[None].expand(B, T)
+    return _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos, pos,
+                 causal=causal, window=window, chunk=None, q_chunk=q_chunk).transpose(1, 2)
+
+
+def serve_llava(dev) -> dict:
+    """Phase 4v: llava-next-34b at full width (d_model 7168, 56 heads over 8
+    KV heads of 128, d_ff 20480, vocab 64000) with its depth cut from 60
+    layers to 4, random A2Q weights from seed 0 deployed through
+    ``a2q_quantize`` (29 matrices, each held).  (a) ``build_prefill_step``
+    on ``Runtime(int_chain=True)`` over 576 patch embeddings drawn from the
+    seed plus 64 text tokens, batch 2, bf16: 4 ``flash_attention`` launches,
+    causal, GQA 7:1, D=128, all on the tensor cores, 29 int_matmul on the
+    tensor-core kernel; the last position's logits held to the same forward
+    with the cacheless attention on ``_sdpa`` within two bf16 ulps of the
+    largest logit.  (b) the paged engine serves phase 4's 8 text prompts (64
+    tokens, 32 new) per tick and on the megastep, bit for bit, 4
+    ``paged_attention`` launches a tick.  Returns the launches by kernel
+    entry."""
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.serve.engine import deploy_params
+
+    full = get_arch("llava-next-34b")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                 count=LLAVA_LAYERS),))
+    a = arch.stacks[0].attn
+    S = arch.frontend.seq_len
+    phase(f"4v: llava-next-34b full width (d_model {arch.d_model}, {a.heads} heads over "
+          f"{a.kv_heads} KV heads of {a.head_dim}) cut to {arch.n_layers} layers; {S} patches + "
+          f"{LLAVA_TEXT} tokens through build_prefill_step, then served on text")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, deployed = deploy_held(arch.name, lambda: deploy_params(
+        init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev), arch.quant))
+    per_forward = 7 * arch.n_layers + 1
+    if deployed["a2q_quantize"] != per_forward:
+        raise AssertionError(f"{deployed} deploys, expected {per_forward}")
+    rng = np.random.default_rng(0)
+    batch = {"frontend_embeds": torch.as_tensor(rng.normal(size=(2, S, arch.d_model)),
+                                                dtype=torch.bfloat16, device=dev),
+             "tokens": torch.as_tensor(rng.integers(0, arch.vocab, (2, LLAVA_TEXT)),
+                                       dtype=torch.int32, device=dev)}
+    step = build_prefill_step(arch, Runtime(int_chain=True))
+    step(params, batch)  # warm-up
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    after = ops.launch_counts()
+    got = {k: (after[k] - before[k]) // 3 for k in after if after[k] != before[k]}
+    want = {"int_matmul_cuda.launches": per_forward, "int_matmul_cuda.prologue_launches":
+            per_forward, "int_matmul_cuda.tc_launches": per_forward,
+            "flash_attention_cuda.launches": arch.n_layers,
+            "flash_attention_cuda.tc_launches": arch.n_layers}
+    with mock.patch.object(ops, "flash_attention", _sdpa_as_flash):
+        ref = step(params, batch)
+    torch.cuda.synchronize()
+    if ops.launch_counts()["flash_attention_cuda.launches"] != after[
+            "flash_attention_cuda.launches"]:
+        raise AssertionError("[4v a] the _sdpa forward launched flash_attention")
+    lf, rf = logits.float(), ref.float()
+    scale = rf.abs().max().item()
+    diff = (lf - rf).abs().max().item()
+    eps = 2.0**-6 * scale  # two bf16 ulps at the top of the logit range
+    tok_s = 2 * (S + LLAVA_TEXT) / sorted(secs)[1]
+    print(f"[4v a] prefill of 2 x ({S} patches + {LLAVA_TEXT} tokens): {tok_s:.1f} tok/s "
+          f"(median of 3), logits {tuple(logits.shape)}; launches a forward {got}; against "
+          f"the cacheless attention on _sdpa: max |diff| {diff:.4g}, max |logit| {scale:.4g}, "
+          f"bound {eps:.4g}, argmax equal {torch.equal(lf.argmax(-1), rf.argmax(-1))}",
+          flush=True)
+    if got != want or not torch.isfinite(lf).all() or not diff <= eps:
+        raise AssertionError(f"[4v a] launches {got} (expected {want}) or logits off _sdpa's by "
+                             f"{diff} > {eps}")
+    launches = {"int_matmul[prologue]": 3 * per_forward, "int_matmul[tc]": 3 * per_forward,
+                "flash_attention": 3 * arch.n_layers, "flash_attention[tc]": 3 * arch.n_layers}
+    del logits, ref, lf, rf
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.vocab, (64,)).astype(np.int32) for _ in range(8)]
+    run = tick_and_megastep("4v b", arch, params, prompts, dev=dev, chunk=32, max_new=32,
+                            per_forward=per_forward, attn_layers=arch.n_layers,
+                            short=prompts)
+    for k, v in run["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    launches.update(deployed)
+    print(f"[4v] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del run, params
+    torch.cuda.empty_cache()
+    return {"llava-next-34b": launches}
 
 
 def build_hubert(dev, arch) -> dict:
@@ -3936,7 +4401,9 @@ def encode_hubert(dev) -> dict:
         "flash_attention[tc]": launches["flash_attention[tc]"]}}
 
 
-TRAIN_STEPS = 100  # with the resumed half, about 1.5 minutes at full size
+# with the resumed half, about 1.2 minutes at full size (100 steps until the last
+# slice's three decoders needed the time; PERF.md section 4)
+TRAIN_STEPS = 50
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 512, 3e-3
 # the resumed run's losses against the uninterrupted run's: the first step
 # bit for bit (same state, same batch, a deterministic forward), the rest
@@ -4189,6 +4656,12 @@ def main() -> int:
     by_path.update(serve_rwkv6(dev))
     torch.cuda.empty_cache()
     by_path.update(serve_h2o(dev))
+    torch.cuda.empty_cache()
+    by_path.update(serve_hymba(dev))
+    torch.cuda.empty_cache()
+    by_path.update(serve_llama4(dev))
+    torch.cuda.empty_cache()
+    by_path.update(serve_llava(dev))
     torch.cuda.empty_cache()
     by_path.update(encode_hubert(dev))
     torch.cuda.empty_cache()

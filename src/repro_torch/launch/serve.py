@@ -44,8 +44,8 @@ the paged one as asked, greedy and with the decode kernel off — and fails
 unless their greedy tokens agree: exactly on float KV, under
 ``parity_up_to_ties`` at ``--parity-eps`` (0.05) on integer KV.  An
 attention-free model (rwkv6) keeps a recurrent state per slot instead of
-KV, and sliding-window layers a ring a slot; their bytes a slot are
-printed beside the KV bytes a token.  ``--sample temperature|topk``
+KV, sliding-window and chunk-local layers a ring a slot, hymba both; their
+bytes a slot are printed beside the KV bytes a token.  ``--sample temperature|topk``
 (``--temperature``, ``--top-k``; paged engine only, not with ``--spec-k``)
 samples on the device from a generator seeded by ``--seed``;
 ``--parity-check`` forces greedy.  ``--trace PATH`` records the engine's

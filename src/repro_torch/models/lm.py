@@ -1,15 +1,18 @@
 """Model assembly: embeddings or frames -> stacks -> final norm -> head.
 
 Port of ``repro.models.lm`` for token decoders (``family="lm"``) whose stacks
-are ``attn_mlp`` (GQA or MLA), ``moe`` or ``rwkv6`` blocks (rwkv6 reads no
-positions), and for audio encoders (``family="audio"``, hubert): no token
+are ``attn_mlp`` (GQA or MLA), ``moe``, ``rwkv6`` (reads no positions) or
+``hymba`` blocks; for the vision-language family (``family="vlm"``,
+llava-next): the ``lm`` tree, precomputed patch embeddings prepended to the
+token embeddings (the anyres tiling frontend is a stub in the reference
+too); and for audio encoders (``family="audio"``, hubert): no token
 embedding, precomputed frame embeddings in (the conv feature frontend is a
 stub in the reference too), a boundary ``head`` of ``n_classes`` over every
 frame.  The reference's sharding constraints have no counterpart on one
 device and are dropped.  ``lm_loss`` is the training loss of the dense
 ``attn_mlp`` token decoders (smollm, yi, ...); the multi-token-prediction
-head's loss, MoE, rwkv6 and audio training, hymba's blocks and the
-vision-language family are not ported yet.
+head's loss and MoE, rwkv6, hymba, vlm and audio training are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ def init_lm(gen: torch.Generator, arch: ArchConfig, device="cuda") -> dict:
     ``head`` when untied (audio: ``d_model -> n_classes``), and ``mtp`` when
     ``arch.mtp_depth > 0`` (the multi-token-prediction head of the training
     loss; serving never reads it)."""
-    if arch.family not in ("lm", "audio"):
+    if arch.family not in ("lm", "vlm", "audio"):
         raise NotImplementedError(f"model family {arch.family!r} is not ported yet")
     dev = resolve_device(device)
     params: dict = {}
@@ -120,8 +123,8 @@ def apply_lm(
     rt: Optional[Runtime] = None,
 ):
     """Forward pass over ``tokens (B, T)``, precomputed ``frontend_embeds
-    (B, S, d_model)`` (hubert's frames), or both (the embeddings first, then
-    the tokens', along the sequence).  ``cache`` given => a cached step
+    (B, S, d_model)`` (hubert's frames), or both (llava's patches: the
+    embeddings first, then the tokens', along the sequence).  ``cache`` given => a cached step
     (``T == 1`` decode or ``T > 1`` chunked prefill) written at each row's
     ``start_pos`` (an int or a ``(B,)`` tensor): over a contiguous cache
     (``init_cache``), or over paged pools, when the cache carries its

@@ -23,13 +23,17 @@ MLA down/up projections) as to any other matmul.  Ported from
   ``T == 1`` read goes through ``kernels/ops.paged_attention`` instead of the
   gathered-view ``_sdpa``;
 * the cacheless GQA step (a whole utterance through hubert's bidirectional
-  encoder, a prompt scored without a cache) goes through
-  ``kernels/ops.flash_attention`` (the reference computes it with ``_sdpa``;
-  chunk-local masks are not ported there and raise) — unless autograd
-  records the forward: training differentiates ``_sdpa``, as the
-  reference's training does (its layers never call the Pallas flash
-  kernel), and the flash kernel has no backward.  This route follows the
-  reference's semantics; it is not a fallback on a failure;
+  encoder, a prompt scored without a cache, llava's patches and text)
+  goes through ``kernels/ops.flash_attention`` (the reference computes it
+  with ``_sdpa``) — unless autograd records the forward (training
+  differentiates ``_sdpa``, as the reference's training does: its layers
+  never call the Pallas flash kernel, and the flash kernel has no
+  backward), or the layer is chunk-local (llama4's local layers): the
+  flash kernel's mask is causal and windowed only, as its reference's is
+  (``repro.kernels.flash_attention`` leaves chunk-local masks to the layer
+  above), so those layers take ``_sdpa`` with the chunk mask.  These
+  routes follow the reference's semantics; none is a fallback on a
+  failure;
 * MLA (deepseek-v3): low-rank compressed q and kv with a shared rope key,
   cached as the latent ``ckvp (NB, bs, kv_lora_rank)`` and rope-key ``kpep
   (NB, bs, qk_rope_dim)`` pools, or in the contiguous ``ckv``/``kpe``
@@ -343,16 +347,14 @@ def apply_attention(
         qh = apply_rope(qh, positions, a.rope_theta)
         kh = apply_rope(kh, positions, a.rope_theta)
 
-    if cache is None and torch.is_grad_enabled() and \
-            (qh.requires_grad or kh.requires_grad or vh.requires_grad):
-        # training: the reference differentiates its own _sdpa; flash has no backward
+    if cache is None and (a.chunk is not None or torch.is_grad_enabled() and
+                          (qh.requires_grad or kh.requires_grad or vh.requires_grad)):
+        # training: the reference differentiates its own _sdpa, and flash has
+        # no backward; a chunk-local layer: flash masks no chunks
         out = _sdpa(qh, kh, vh, positions, positions, causal=a.causal, window=a.window,
                     chunk=a.chunk, q_chunk=q_chunk)
         new_cache = None
     elif cache is None:
-        if a.chunk is not None:
-            raise NotImplementedError("chunk-local attention is not ported yet (llama4's local "
-                                      "layers)")
         from repro_torch.kernels import ops
 
         out = ops.flash_attention(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),

@@ -1,8 +1,8 @@
-"""RWKV-6 (Finch) blocks: the time-mix recurrence and the channel-mix.
+"""Attention-free sequence mixers: RWKV-6 (Finch) blocks and hymba's
+Mamba-2 SSD heads.
 
-Port of the rwkv6 half of ``repro.nn.ssm`` (the Mamba-2 SSD heads that
-hymba needs are not ported yet).  The recurrence is "diagonal decay + rank-1
-update", O(1) state in sequence length::
+Port of ``repro.nn.ssm``.  The RWKV-6 recurrence is "diagonal decay +
+rank-1 update", O(1) state in sequence length::
 
     y_t = r_t @ (S + (u * k_t) v_t^T)
     S   = diag(w_t) S + k_t v_t^T
@@ -17,11 +17,21 @@ hand-written scan kernel, with the decay floored at ``exp(_MIN_LOGW)`` where
 the reference takes the chunked form and y kept in fp32 for the decode step,
 as the reference's forms return it.
 
-A2Q attaches to every projection (r/k/v/g/o and the channel-mix's k/v); the
-recurrence has no frozen weight vector to bound.  With a cache the layers
-update the slot's recurrent leaves (``tm.S``, ``tm.shift``, ``cm.shift``) in
-place, as the attention layers write their pools: the reference returns new
-leaves instead.
+hymba's mamba heads run the Mamba-2 SSD, a scalar decay per head::
+
+    S_t = a_t S_{t-1} + x_t B_t^T,    y_t = S_t C_t
+
+in the reference's three forms (``ssd_sequential``, ``ssd_chunked`` with
+the log-decay clamped at ``_MIN_LOGW``, ``ssd_decode_step``), fp32 state
+``(B, H, Dh, N)``, in plain PyTorch on every device: the reference computes
+them in jnp (it has no Pallas SSD), and so does the port.
+
+A2Q attaches to every projection (r/k/v/g/o, the channel-mix's k/v, the
+mamba heads' in/bc/dt/out projections); the recurrences have no frozen
+weight vector to bound.  With a cache the layers update the slot's
+recurrent leaves (``tm.S``, ``tm.shift``, ``cm.shift``, ``mamba.S``) in
+place, as the attention layers write their pools: the reference returns
+new leaves instead.
 """
 
 from __future__ import annotations
@@ -44,6 +54,12 @@ __all__ = [
     "apply_rwkv6_timemix",
     "init_rwkv6_channelmix",
     "apply_rwkv6_channelmix",
+    "ssd_sequential",
+    "ssd_chunked",
+    "ssd_decode_step",
+    "init_mamba_heads",
+    "init_mamba_state",
+    "apply_mamba_heads",
 ]
 
 _MIN_LOGW = -8.0
@@ -257,3 +273,142 @@ def apply_rwkv6_channelmix(params: dict, x: torch.Tensor, q: QuantConfig,
     if state is not None:
         state["shift"].copy_(new_shift)
     return out, state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (scalar per-head decay) for hymba's mamba heads
+# ---------------------------------------------------------------------------
+
+
+def ssd_decode_step(x, a, Bm, Cm, S):
+    """One token: x ``(B, H, Dh)`` (the step size folded in), a ``(B, H)``,
+    Bm/Cm ``(B, H, N)``, S ``(B, H, Dh, N)``.  Returns (y ``(B, H, Dh)``
+    fp32, the new S)."""
+    x, a, Bm, Cm = (t.to(f32) for t in (x, a, Bm, Cm))
+    S = a[..., None, None] * S + x[..., :, None] * Bm[..., None, :]
+    return torch.einsum("bhdn,bhn->bhd", S, Cm), S
+
+
+def ssd_sequential(x, a, Bm, Cm, S0):
+    """Oracle: step-by-step scan.  x ``(B, H, T, Dh)``, a ``(B, H, T)`` decays
+    in (0, 1], Bm/Cm ``(B, H, T, N)``, S0 ``(B, H, Dh, N)``.  Returns (y
+    ``(B, H, T, Dh)`` in ``x``'s dtype, S_T)."""
+    S = S0.to(f32)
+    ys = []
+    for t in range(x.shape[2]):
+        y, S = ssd_decode_step(x[:, :, t], a[:, :, t], Bm[:, :, t], Cm[:, :, t], S)
+        ys.append(y)
+    return torch.stack(ys, 2).to(x.dtype), S
+
+
+def ssd_chunked(x, a, Bm, Cm, S0, chunk: int = 32):
+    """Chunked parallel form (Mamba-2): the scalar decay factorizes the
+    intra-chunk term into ``(C B^T) * decay``, two matmuls and one masked
+    matmul a chunk; the oracle's semantics up to the log-decay clamp at
+    ``_MIN_LOGW``."""
+    B, H, T, Dh = x.shape
+    N = Bm.shape[-1]
+    if T % chunk:
+        raise ValueError(f"ssd_chunked: T={T} is not a multiple of the chunk {chunk}")
+    nc = T // chunk
+    loga = torch.clamp_min(torch.log(torch.clamp_min(a.to(f32), 1e-30)), _MIN_LOGW)
+    xc = x.reshape(B, H, nc, chunk, Dh).to(f32)
+    lc = loga.reshape(B, H, nc, chunk)
+    bc = Bm.reshape(B, H, nc, chunk, N).to(f32)
+    cc = Cm.reshape(B, H, nc, chunk, N).to(f32)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=f32, device=x.device))  # with the diagonal
+    S = S0.to(f32)
+    ys = []
+    for c in range(nc):
+        x_c, la, b_c, c_c = xc[:, :, c], lc[:, :, c], bc[:, :, c], cc[:, :, c]
+        logA = torch.cumsum(la, dim=2)  # inclusive: S_t includes the t-th update
+        c_in = c_c * torch.exp(logA)[..., None]
+        b_in = b_c * torch.exp(-logA)[..., None]
+        y = torch.einsum("bhln,bhdn->bhld", c_in, S)  # inter-chunk
+        att = torch.einsum("bhln,bhmn->bhlm", c_in, b_in)
+        y = y + torch.einsum("bhlm,bhmd->bhld", att * tri, x_c)
+        b_out = b_c * torch.exp(logA[:, :, -1:] - logA)[..., None]
+        S = torch.exp(logA[:, :, -1])[..., None, None] * S + torch.einsum(
+            "bhld,bhln->bhdn", x_c, b_out)
+        ys.append(y)
+    y = torch.stack(ys, 2).reshape(B, H, T, Dh)
+    return y.to(x.dtype), S
+
+
+def init_mamba_heads(gen: torch.Generator, d_model: int, ssm: SSMConfig, q: QuantConfig) -> dict:
+    H = d_model // ssm.head_dim
+    N = ssm.state_dim
+    dev = gen.device
+    return {
+        "in_proj": init_linear(gen, d_model, 2 * d_model, q),
+        "bc_proj": init_linear(gen, d_model, 2 * H * N, q),
+        "dt_proj": init_linear(gen, d_model, H, q),
+        "A_log": torch.zeros((H,), device=dev),
+        "D": torch.ones((H, ssm.head_dim), device=dev),
+        "out_proj": init_linear(gen, d_model, d_model, q),
+        "dt_bias": torch.full((H,), -4.6, device=dev),  # softplus ~ 0.01
+    }
+
+
+def init_mamba_state(d_model: int, ssm: SSMConfig, count: int, rows: int, device) -> dict:
+    """The mamba heads' cache leaf of ``count`` stacked layers: the fp32 SSD
+    state ``S (count, rows, H, Dh, N)``, zeros (rows are batch rows or serving
+    slots)."""
+    H = d_model // ssm.head_dim
+    return {"S": torch.zeros((count, rows, H, ssm.head_dim, ssm.state_dim), dtype=f32,
+                             device=device)}
+
+
+def _ssd(x, a, Bm, Cm, ssm: SSMConfig, state: Optional[dict]):
+    """The reference's dispatch on T: no state -> chunked (``T % chunk``
+    must hold), ``T == 1`` -> the decode step, ``T % chunk == 0`` ->
+    chunked, else sequential; the new state copied into ``state["S"]``.
+    Returns y ``(B, H, T, Dh)`` fp32."""
+    T = x.shape[2]
+    if state is None:
+        if T % ssm.chunk:
+            raise ValueError(f"a cacheless mamba forward takes the chunked form: T={T} is not a "
+                             f"multiple of the chunk {ssm.chunk}")
+        S0 = x.new_zeros((x.shape[0], x.shape[1], x.shape[3], Bm.shape[3]), dtype=f32)
+        return ssd_chunked(x, a, Bm, Cm, S0, chunk=ssm.chunk)[0]
+    if T == 1:
+        y, S = ssd_decode_step(x[:, :, 0], a[:, :, 0], Bm[:, :, 0], Cm[:, :, 0], state["S"])
+        y = y[:, :, None]
+    elif T % ssm.chunk == 0:
+        y, S = ssd_chunked(x, a, Bm, Cm, state["S"], chunk=ssm.chunk)
+    else:
+        y, S = ssd_sequential(x, a, Bm, Cm, state["S"])
+    state["S"].copy_(S)
+    return y
+
+
+def apply_mamba_heads(params: dict, x: torch.Tensor, ssm: SSMConfig, q: QuantConfig,
+                      state: Optional[dict] = None, *, compute_dtype=torch.bfloat16,
+                      int_forward: bool = False, int_chain: bool = False):
+    """``state = {"S": (B, H, Dh, N) fp32}`` for a cached step (updated in
+    place and returned), ``None`` for a cacheless forward.  All four
+    projections are chain breaks (the SSD core and the silu gate need float
+    values), so under ``int_chain`` each folds its act-quant into the
+    kernel's prologue."""
+    B, T, D = x.shape
+    Dh, N = ssm.head_dim, ssm.state_dim
+    H = D // Dh
+
+    def lin(name, xi):
+        return apply_linear(params[name], xi, q, compute_dtype=compute_dtype,
+                            int_forward=int_forward, int_chain=int_chain, site=f"mamba.{name}")
+
+    xz = lin("in_proj", x)
+    xin, z = xz[..., :D], xz[..., D:]
+    bc = lin("bc_proj", x).to(f32).reshape(B, T, H, 2 * N)
+    Bm, Cm = bc[..., :N].transpose(1, 2), bc[..., N:].transpose(1, 2)
+    dt = F.softplus(lin("dt_proj", x).to(f32) + params["dt_bias"].to(f32))  # (B, T, H)
+    A = -torch.exp(params["A_log"].to(f32))  # (H,), negative
+    a = torch.exp(dt * A).transpose(1, 2)  # (B, H, T) decays in (0, 1)
+    xh = xin.to(f32).reshape(B, T, H, Dh).transpose(1, 2)
+    xh = xh * dt.transpose(1, 2)[..., None]  # the step size folded into the input
+    y = _ssd(xh, a, Bm, Cm, ssm, state)
+    y = y + params["D"].to(f32)[None, :, None, :] * xh
+    y = y.transpose(1, 2).reshape(B, T, D).to(compute_dtype)
+    y = y * F.silu(z.to(f32)).to(compute_dtype)
+    return lin("out_proj", y), state

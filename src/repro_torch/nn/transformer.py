@@ -5,8 +5,10 @@ whose parameters are stacked along a leading ``count`` axis, as in
 ``repro.nn.transformer`` (which scans them); here a Python loop applies
 them in order.  Ported block kinds: ``attn_mlp`` (pre-norm GQA or MLA + gated
 or plain MLP, optionally command-r's parallel attention+FFN), ``moe`` (the
-same attention + the mixture-of-experts FFN) and ``rwkv6`` (pre-norm RWKV-6
-time-mix + channel-mix, attention-free); ``hymba`` and ``conv`` raise.
+same attention + the mixture-of-experts FFN), ``rwkv6`` (pre-norm RWKV-6
+time-mix + channel-mix, attention-free) and ``hymba`` (sliding-window
+attention and Mamba-2 SSD heads in parallel on one norm, averaged, then the
+MLP); ``conv`` raises.
 
 When autograd records the forward (training), each block runs under
 ``torch.utils.checkpoint`` unless ``arch.remat == "none"``, as the
@@ -38,8 +40,11 @@ from repro_torch.nn.module import tree_leaves_with_path
 from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.norms import apply_norm, init_norm
 from repro_torch.nn.ssm import (
+    apply_mamba_heads,
     apply_rwkv6_channelmix,
     apply_rwkv6_timemix,
+    init_mamba_heads,
+    init_mamba_state,
     init_rwkv6_channelmix,
     init_rwkv6_timemix,
 )
@@ -83,7 +88,7 @@ def _apply_mlp(p: dict, x: torch.Tensor, q: QuantConfig, compute_dtype,
 
 
 def _check_kind(s: StackConfig) -> None:
-    if s.kind not in ("attn_mlp", "moe", "rwkv6"):
+    if s.kind not in ("attn_mlp", "moe", "rwkv6", "hymba"):
         raise NotImplementedError(f"block kind {s.kind!r} is not ported yet")
 
 
@@ -95,6 +100,12 @@ def _init_block(gen, arch: ArchConfig, s: StackConfig) -> dict:
                 "tm": init_rwkv6_timemix(gen, d, s.ssm, q),
                 "ln2": init_norm(d, arch.norm, device=gen.device),
                 "cm": init_rwkv6_channelmix(gen, d, s.d_ff, q)}
+    if s.kind == "hymba":
+        return {"ln1": init_norm(d, arch.norm, device=gen.device),
+                "attn": init_attention(gen, d, s.attn, q, arch.use_bias),
+                "mamba": init_mamba_heads(gen, d, s.ssm, q),
+                "ln2": init_norm(d, arch.norm, device=gen.device),
+                "mlp": _init_mlp(gen, d, s.d_ff, q, s.mlp_gated, arch.use_bias)}
     p = {"ln1": init_norm(d, arch.norm, device=gen.device),
          "attn": init_attention(gen, d, s.attn, q, arch.use_bias)}
     if not s.parallel_block:
@@ -114,14 +125,25 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
     q = arch.quant
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     norm = functools.partial(apply_norm, kind=arch.norm, eps=arch.norm_eps)
+    kw = dict(compute_dtype=cd, int_forward=int_forward, int_chain=int_chain)
 
     if s.kind == "rwkv6":  # the recurrent leaves of a cache are updated in place
-        kw = dict(compute_dtype=cd, int_forward=int_forward, int_chain=int_chain)
         y, _ = apply_rwkv6_timemix(p["tm"], norm(p["ln1"], x), s.ssm, q,
                                    (cache or {}).get("tm"), **kw)
         x = x + y
         y, _ = apply_rwkv6_channelmix(p["cm"], norm(p["ln2"], x), q, (cache or {}).get("cm"), **kw)
         return x + y
+
+    h = norm(p["ln1"], x)
+    attn_out, _ = apply_attention(  # a paged cache is written in place
+        p["attn"], h, s.attn, q, positions, (cache or {}).get("attn"),
+        q_chunk=arch.attn_q_chunk, mla_absorb=mla_absorb, view=view,
+        decode_kernel=decode_kernel, **kw,
+    )
+    if s.kind == "hymba":  # attention and mamba heads on one norm, averaged
+        m_out, _ = apply_mamba_heads(p["mamba"], h, s.ssm, q, (cache or {}).get("mamba"), **kw)
+        x = x + 0.5 * (attn_out + m_out)
+        return x + _apply_mlp(p["mlp"], norm(p["ln2"], x), q, cd, int_forward, int_chain)
 
     def ffn(h):
         if s.kind == "moe":
@@ -129,12 +151,6 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                              int_chain=int_chain)
         return _apply_mlp(p["mlp"], h, q, cd, int_forward, int_chain)
 
-    h = norm(p["ln1"], x)
-    attn_out, _ = apply_attention(  # a paged cache is written in place
-        p["attn"], h, s.attn, q, positions, (cache or {}).get("attn"),
-        q_chunk=arch.attn_q_chunk, compute_dtype=cd, mla_absorb=mla_absorb, view=view,
-        decode_kernel=decode_kernel, int_forward=int_forward, int_chain=int_chain,
-    )
     if s.parallel_block:
         return x + attn_out + ffn(h)
     x = x + attn_out
@@ -250,12 +266,17 @@ def init_stack_cache(arch: ArchConfig, s: StackConfig, batch: int, max_seq: int,
     a leading ``count`` axis (the layers' caches, stacked): attention
     layers' ``init_attn_cache`` (a ring for sliding-window / chunk-local
     layers), rwkv6's fp32 state ``tm.S (count, batch, H, Dk, Dk)`` and its
-    token-shift carries ``tm.shift``/``cm.shift (count, batch, 1, d)``.
-    Each leaf is its own tensor (updated in place), not a broadcast view."""
+    token-shift carries ``tm.shift``/``cm.shift (count, batch, 1, d)``,
+    hymba's ring and its fp32 SSD state ``mamba.S (count, batch, H, Dh,
+    N)``.  Each leaf is its own tensor (updated in place), not a broadcast
+    view."""
     dev = resolve_device(device)
-    if s.kind in ("attn_mlp", "moe"):
+    if s.kind in ("attn_mlp", "moe", "hymba"):
         one = init_attn_cache(batch, s.attn, max_seq, dtype, device=dev)
-        return {"attn": {k: torch.stack([v] * s.count) for k, v in one.items()}}
+        cache = {"attn": {k: torch.stack([v] * s.count) for k, v in one.items()}}
+        if s.kind == "hymba":
+            cache["mamba"] = init_mamba_state(arch.d_model, s.ssm, s.count, batch, dev)
+        return cache
     if s.kind == "rwkv6":
         H, Dk = arch.d_model // s.ssm.head_dim, s.ssm.head_dim
 

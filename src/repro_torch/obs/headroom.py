@@ -135,7 +135,15 @@ def engine_headroom(engine, *, seq: int = 8, seed: int = 0) -> dict:
     Static gauges cover every deployed layer; observed gauges every fused
     call of one eager forward of ``seq`` tokens.  ``acc_headroom_violations``
     counts static utilizations > 1.0 plus observed samples above their bound
-    — zero whenever the A2Q constraint held at deployment."""
+    — zero whenever the A2Q constraint held at deployment.
+
+    ``seq`` is rounded up to whole chunks of every recurrent stack, whose
+    cacheless forward takes the chunked form (64 tokens for rwkv6-7b and
+    hymba-1.5b).  The rounding is the port's own: the reference probes
+    ``seq`` tokens as given, and its chunked forms refuse them."""
+    for s in engine.arch.stacks:
+        if s.ssm is not None:
+            seq = -(-seq // s.ssm.chunk) * s.ssm.chunk
     m = engine.obs.metrics
     static = static_headroom_report(engine.params, engine.arch.quant)
     observed = observed_headroom(engine.arch, engine.params, rt=engine.rt, seq=seq, seed=seed)

@@ -7,7 +7,7 @@ type and the stats contract:
   contiguous ``max_seq`` cache lane a slot (a ring for sliding-window
   layers), prompts prefilled one token a forward into the slot's lane,
   logits read back to the host for the argmax and the top-2 margin every
-  tick.  Recurrent stacks (rwkv6) run in lockstep: equal-length groups
+  tick.  Recurrent stacks (rwkv6, hymba) run in lockstep: equal-length groups
   prefilled together into a cache rebuilt per group.  Eager.
 * ``PagedServeEngine`` — scheduler-driven continuous batching over
   block-table pools: chunked prefill of each admitted request on an

@@ -1,7 +1,7 @@
 """Paged KV cache: fixed-size token blocks + per-sequence block tables.
 
 Port of ``repro.serve.paged_cache`` for GQA and MLA stacks (``attn_mlp``
-and ``moe`` blocks) and RWKV-6 stacks.  Seq-indexed K/V lives in pools of
+and ``moe`` blocks), RWKV-6 stacks and hymba stacks.  Seq-indexed K/V lives in pools of
 ``block_size``-token blocks shared by all slots, per stack ``kp``/``vp`` of
 shape ``(count, NB, bs, KV, Dh)``, or for MLA the latent ``ckvp (count, NB,
 bs, kv_lora_rank)`` and rope key ``kpep (count, NB, bs, qk_rope_dim)``.
@@ -22,14 +22,15 @@ write into trash and attend to garbage that is never read).  All layers
 share one block table.  The device-facing view is attached to the cache tree
 under the reserved key ``"_paged"``; the layers write the pools in place.
 
-Ring layers (sliding-window or chunk-local attention, h2o-danube's) and
-recurrent stacks keep per-slot leaves instead of pools, as the reference
+Ring layers (sliding-window or chunk-local attention: h2o-danube's,
+hymba's, llama4's local layers) and recurrent stacks keep per-slot leaves instead of pools, as the reference
 does: a ring is already bounded by its window, so it stays in the
 contiguous ring layout ``k``/``v (count, slots, W, KV, Dh)`` with ``kpos
 (count, slots, W)`` (``nn.attention.init_attn_cache``; float whatever
 ``kv_quant`` says), and rwkv6 keeps its ``tm.S (count, slots, H, Dk, Dv)``
 fp32 state and the token-shift carries ``tm.shift``/``cm.shift (count,
-slots, 1, d)`` in the compute dtype.  ``reset_slot`` empties a slot's rows
+slots, 1, d)`` in the compute dtype; hymba its window's ring beside the
+mamba heads' fp32 SSD state ``mamba.S (count, slots, H, Dh, N)``.  ``reset_slot`` empties a slot's rows
 at admission (``kpos`` to -1, everything else to 0); ``slice_slot`` gives the
 one-row view an isolated prefill reads and writes.  The layers write the
 slot's row in place through that view, so no merge follows (the reference
@@ -72,8 +73,7 @@ block only while every sharer treats it read-only; unowned table entries
 stay 0 (trash); the trash block is never refcounted and never freed;
 ``lens[slot]`` counts tokens written for the slot and ``watermarks[slot] >=
 lens[slot]`` bounds where garbage from rolled-back writes may sit.  Not
-ported yet: KV-block export/import (disaggregation) and hymba's per-slot
-leaves.
+ported yet: KV-block export/import (disaggregation).
 """
 
 from __future__ import annotations
@@ -85,6 +85,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, AttnConfig, StackConfig
 from repro_torch.nn.attention import TRASH_BLOCK, init_attn_cache
+from repro_torch.nn.ssm import init_mamba_state
 
 __all__ = ["PagedKVCache", "init_paged_attn_cache", "init_paged_stack_cache", "POOL_KEYS",
            "TRASH_BLOCK"]
@@ -161,12 +162,15 @@ def init_paged_stack_cache(arch: ArchConfig, s: StackConfig, slots: int, num_blo
                            block_size: int, dtype, device, kv_quant: bool = False,
                            kv_bits: int = 8, max_seq: int = 512) -> dict:
     """One stack's cache leaves, each with a leading ``count`` axis: paged
-    attention pools or per-slot rings, or rwkv6's per-slot recurrent
-    leaves."""
-    if s.kind in ("attn_mlp", "moe"):
-        return {"attn": init_paged_attn_cache(s.attn, num_blocks, block_size, dtype, device,
-                                              count=s.count, kv_quant=kv_quant, kv_bits=kv_bits,
-                                              slots=slots, max_seq=max_seq)}
+    attention pools or per-slot rings, rwkv6's per-slot recurrent leaves, or
+    hymba's ring and per-slot SSD state."""
+    if s.kind in ("attn_mlp", "moe", "hymba"):
+        cache = {"attn": init_paged_attn_cache(s.attn, num_blocks, block_size, dtype, device,
+                                               count=s.count, kv_quant=kv_quant,
+                                               kv_bits=kv_bits, slots=slots, max_seq=max_seq)}
+        if s.kind == "hymba":
+            cache["mamba"] = init_mamba_state(arch.d_model, s.ssm, s.count, slots, device)
+        return cache
     if s.kind == "rwkv6":
         H, Dk = arch.d_model // s.ssm.head_dim, s.ssm.head_dim
 
@@ -592,8 +596,8 @@ class PagedKVCache:
 
     def state_bytes_per_slot(self) -> int:
         """Device bytes of one slot's per-slot leaves across all layers (rings'
-        ``k``/``v``/``kpos``; rwkv6's fp32 state and token-shift carries);
-        they do not grow with tokens."""
+        ``k``/``v``/``kpos``; rwkv6's fp32 state and token-shift carries;
+        hymba's ``mamba.S``); they do not grow with tokens."""
         return sum(leaf[:, 0].numel() * leaf.element_size() for leaf in self._leaves(pools=False))
 
     # -- per-slot state (recurrent leaves) ------------------------------------

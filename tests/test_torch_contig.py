@@ -13,6 +13,8 @@ writes (``kpos``) and the written K/V are held exactly.  The JAX engine runs
 share one module-scoped fixture.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -173,8 +175,18 @@ def _np_torch(tree):
 
 
 def test_hymba_cache_is_refused_naming_the_roadmap():
+    """hymba's contiguous cache is ported now: its leaves (the window's ring
+    and the fp32 ``mamba.S``) have the shapes and dtypes of the reference's
+    ``init_cache``.  A block kind still not ported (``conv``) is refused,
+    naming ROADMAP.md."""
+    arch = _arch("hymba-1.5b")
+    want = jinit_cache(jreduced(jget_arch("hymba-1.5b")), 1, 16, dtype=jnp.float32)
+    got = init_cache(arch, 1, 16, dtype=torch.float32, device="cpu")
+    assert jax.tree.map(lambda a: (a.shape, str(a.dtype)), want) == \
+        jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")), got)
+    conv = dataclasses.replace(arch, stacks=(dataclasses.replace(arch.stacks[0], kind="conv"),))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_cache(_arch("hymba-1.5b"), 1, 16, dtype=torch.float32, device="cpu")
+        init_cache(conv, 1, 16, dtype=torch.float32, device="cpu")
 
 
 # -- _write_cache against the reference ---------------------------------------
@@ -409,8 +421,9 @@ def test_accounting_convention_matches_paged_and_device_check():
 
 
 def test_paged_engine_lockstep_fallback(jax_runs):
-    """``tests/test_paged.py``'s lockstep fallback on reduced yi-6b (hymba is
-    not ported): equal-length groups prefilled together into an empty
+    """``tests/test_paged.py``'s lockstep fallback on reduced yi-6b (the
+    reference's test takes hymba; ``tests/test_torch_hymba.py`` serves it):
+    equal-length groups prefilled together into an empty
     engine, a shorter prompt waiting for the next group; tokens against the
     contiguous oracle and the reference's lockstep engine."""
     arch = _arch("yi-6b")
