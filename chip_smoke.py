@@ -7,7 +7,8 @@ sharing and speculative decoding), full-width deepseek-v3
 engine against the contiguous ``ServeEngine`` through the launcher's
 ``--parity-check``, encodes full-size hubert-xlarge, trains full-size
 smollm-135m with A2Q and serves the trained model, traces, meters and
-samples the served smollm-135m and reports its accumulator headroom, and
+samples the served smollm-135m and reports its accumulator headroom, trains
+the paper's four vision networks with A2Q and deploys their conv layers, and
 checks the results.  Every model is
 deployed on the card through the ``a2q_quantize`` kernel, and every deployed
 matrix's codes are held to the plain quantizer's on the card.
@@ -80,8 +81,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    pools' scales are; every phase-3 call of those two kernels under
    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails).  The
    third decode slice's: ``a2q_quantize`` at every matrix shape a run
-   deploys (22 shapes, 1,525 matrices: deepseek-v3's experts, dense mlp,
-   MLA projections and head, rwkv6-7b's and smollm-135m's too), l1 and codes
+   deploys (55 shapes, 1,598 matrices: deepseek-v3's experts, dense mlp,
+   MLA projections and head, rwkv6-7b's and smollm-135m's too, and phase
+   4i's 33 conv and linear shapes, K=9 depthwise to K=4608, C_out=1 to
+   1024), l1 and codes
    bit for bit, timed on copies rotated past the L2 and summed by count into
    the deploy kernel ms a run; ``paged_mla_attention`` on the tensor-core
    kernel for bf16, int8 and int4 pools (fp32 pools and a 12-bit replay on
@@ -312,6 +315,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``parity_up_to_ties`` against the dequant path; the share of served
    tokens that follow the stream's bigram ``(31 * prev + 17) mod 49152`` and
    the largest |logit|;
+4i. train the paper's four vision networks at full width: MobileNetV1 and
+   ResNet18 (width 1.0) on ``ImageClassStream(global_batch=64)`` at 5e-3,
+   ESPCN and UNet (base 32) on ``SuperResStream(global_batch=16, hr=48)``
+   at 1e-3, each ``VISION_STEPS`` float adamw steps, then, as the paper
+   starts A2Q from a float model, ``requantize_from_float`` into A2Q
+   (M=N=6, P=16) and ``VISION_STEPS`` A2Q steps through
+   ``build_vision_train_step``; median step ms and images/s; every loss
+   finite and a held-out batch's loss lower after the A2Q steps than
+   before them (the training losses' first and last-5 mean printed: the
+   super-resolution batches' own mean squares vary more than 20 steps move
+   ESPCN's); the share of nonzero outputs and a profiled A2Q step's kernel
+   time (printed); every conv and linear leaf deployed through
+   ``deploy_vision`` (``a2q_quantize``, held to the plain quantizer), every
+   deployed column's ``Σ|q|`` within its layer's P=16 budget, the deployed
+   forward within ``VISION_DEPLOY_TOL`` of the fake-quant forward, every
+   deployed shape a phase-3 ``DEPLOY_SHAPES`` row with its count; the
+   share of zero codes (``tree_sparsity``) and ``model_luts`` totals at
+   P=16 and P=32 (printed);
 6. print the ``kernels`` line (every kernel and its int-chain variants:
    ``int_matmul[prologue]``, ``int_matmul[requant]``,
    ``int_matmul[gelu requant]``, ``paged_attention[int8|int4]``,
@@ -1451,7 +1472,7 @@ def check_a2q_quantize(dev) -> dict:
     from repro_torch.nn.linear import init_linear
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
-    from time_decode_kernels import DEPLOY_SHAPES, copies_for
+    from time_decode_kernels import DEPLOY_COPIES, DEPLOY_SHAPES, copies_for
 
     quant = get_arch("hubert-xlarge").quant
     P, N = quant.acc_bits, quant.act_bits
@@ -1462,7 +1483,7 @@ def check_a2q_quantize(dev) -> dict:
     at, worst, flips_total = {}, 0.0, 0
     with_deq = {(1280, 1280), (1280, 5120), (5120, 1280), (1280, 504), (4096, 14336)}
     for site, K, C, count in DEPLOY_SHAPES:
-        n = copies_for(4 * K * C)
+        n = min(copies_for(4 * K * C), DEPLOY_COPIES)
         args = []
         for _ in range(n):
             p = init_linear(gen, K, C, quant, boundary=site == "hubert head")
@@ -4191,7 +4212,7 @@ def build_hubert(dev, arch) -> dict:
     return params
 
 
-def profile_forward(fn) -> float:
+def profile_forward(fn, label: str = "forward") -> float:
     """Device time of one call of ``fn`` by kernel, from a torch.profiler
     trace (CUPTI).  Prints the kernels' device time and the largest kernels;
     returns the total in ms."""
@@ -4203,7 +4224,7 @@ def profile_forward(fn) -> float:
         torch.cuda.synchronize()
     dev = kernel_ms(prof)
     total = sum(dev.values())
-    print(f"profiled forward: kernels' device time {total:.3f} ms ({len(dev)} kernels)",
+    print(f"profiled {label}: kernels' device time {total:.3f} ms ({len(dev)} kernels)",
           flush=True)
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms:9.3f} ms  {ms / max(total, 1e-9):6.1%}  {name[:110]}", flush=True)
@@ -4604,6 +4625,172 @@ def train_smollm(dev) -> dict:
     return {"smollm-135m trained": launches}
 
 
+# phase 4i (PERF.md section 4): the paper's A2Q widths M = N = 6 at P = 16, the
+# fig scripts' batch of 64 CIFAR-shaped images (benchmarks/fig4_pareto.py) and
+# 16 BSD-shaped 48 x 48 patches.  As in the paper (App. B) and the fig scripts'
+# requantized_init, each A2Q network starts from its float counterpart
+# (VISION_STEPS float steps, then requantize_from_float): from its own init,
+# A2Q MobileNetV1 at width 1.0 did not learn in 20 steps at any adamw lr from
+# 5e-3 to 5e-2 (PERF.md, PR 26).  A deployed forward within VISION_DEPLOY_TOL
+# of the largest |y| of the fake-quant forward (the same weights bit for bit:
+# 0 expected, the margin for a conv algorithm cuDNN might choose otherwise)
+VISION_STEPS = 20
+VISION_Q = dict(mode="a2q", weight_bits=6, act_bits=6, acc_bits=16)
+VISION_RUNS = (  # (model, init kwargs, lr)
+    ("mobilenetv1", {"width": 1.0}, 5e-3), ("resnet18", {"width": 1.0}, 5e-3),
+    ("espcn", {}, 1e-3), ("unet", {"base": 32}, 1e-3))
+VISION_DEPLOY_TOL = 1e-5
+
+
+def _deployed_layers(tree, model, top=None):
+    """``(node, boundary)`` of every deployed layer of a vision tree."""
+    from repro_torch.models.vision import BOUNDARY_LAYERS
+
+    if isinstance(tree, dict):
+        if "q8" in tree:
+            yield tree, top in BOUNDARY_LAYERS[model]
+            return
+        for k, v in tree.items():
+            yield from _deployed_layers(v, model, k if top is None else "")
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _deployed_layers(v, model, "")
+
+
+def _train(step, params, state, batches):
+    """``step`` over ``batches``: (params, losses as numpy, host ms a step,
+    each step ending in a synchronize)."""
+    losses, times = [], []
+    torch.cuda.synchronize()
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return params, state, torch.stack(losses).cpu().numpy(), times
+
+
+def train_vision(dev, smi: str) -> dict:
+    """Phase 4i: the paper's four networks at full width (MobileNetV1 and
+    ResNet18 at width 1.0, ESPCN, UNet at base 32), each trained
+    ``VISION_STEPS`` float adamw steps, requantized into A2Q
+    (``requantize_from_float``) and trained ``VISION_STEPS`` A2Q steps
+    through ``build_vision_train_step``; one A2Q step profiled; deployed
+    through ``deploy_linear`` (the ``a2q_quantize`` kernel, every matrix
+    held to the plain quantizer), every deployed column within its layer's
+    P=16 budget, the deployed forward against the fake-quant one, the
+    sparsity and LUT accounting printed.  Returns the path's deploy
+    launches and flips."""
+    from collections import Counter
+
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.bounds import l1_budget
+    from repro_torch.core.lut import LayerGeometry, model_luts
+    from repro_torch.core.sparsity import tree_sparsity
+    from repro_torch.data.synthetic import ImageClassStream, SuperResStream
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.models import vision
+    from repro_torch.optim.optimizers import adamw
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from time_decode_kernels import DEPLOY_SHAPES
+
+    phase(f"4i: the paper's vision networks at full width: {VISION_STEPS} float steps, "
+          f"requantized to A2Q (M=N=6, P=16), {VISION_STEPS} A2Q steps; deploy through a2q_quantize")
+    t_phase = time.perf_counter()
+    q, qf = QuantConfig(**VISION_Q), QuantConfig(mode="none")
+    totals, shapes = {"a2q_quantize": 0, "a2q_quantize[flips]": 0}, Counter()
+    for model, kw, lr in VISION_RUNS:
+        init, apply = vision.VISION_MODELS[model]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if model in ("mobilenetv1", "resnet18"):
+            stream, B = ImageClassStream(global_batch=64, seed=0), 64
+        else:
+            stream, B = SuperResStream(global_batch=16, hr=48, seed=0), 16
+        batches = [{k: torch.as_tensor(v, device=dev) for k, v in stream.batch(i).items()}
+                   for i in list(range(2 * VISION_STEPS)) + [10_000]]
+        held_out = batches.pop()
+        x = held_out["x"] if "x" in held_out else held_out["lr"]
+
+        opt = adamw()
+        flt = init(gen, qf, device=dev, **kw)
+        flt, _, f_losses, f_ms = _train(vision.build_vision_train_step(model, qf, opt, lr), flt,
+                                        opt.init(flt), batches[:VISION_STEPS])
+        params = vision.requantize_from_float(init(gen, q, device=dev, **kw), flt, q)
+        del flt
+        with torch.no_grad():
+            before = vision.vision_loss(params, model, held_out, q).item()
+        step = vision.build_vision_train_step(model, q, opt, lr)
+        params, state, losses, a_ms = _train(step, params, opt.init(params),
+                                             batches[VISION_STEPS:])
+        step_ms = float(np.median(a_ms[1:]))
+        print(f"[4i] {model} {kw}, {B} images a step, lr {lr}: float loss first {f_losses[0]:.4f} "
+              f"last-5 mean {f_losses[-5:].mean():.4f} (median step {np.median(f_ms[1:]):.2f} ms); "
+              f"A2Q loss first {losses[0]:.4f} last-5 mean {losses[-5:].mean():.4f}; A2Q median "
+              f"step {step_ms:.2f} ms ({B / step_ms * 1e3:.1f} images/s; first step "
+              f"{a_ms[0]:.0f} ms) on {smi}", flush=True)
+        with torch.no_grad():
+            after = vision.vision_loss(params, model, held_out, q).item()
+            y_fq = apply(params, x, q)
+        nonzero = (y_fq != 0).float().mean().item()
+        print(f"[4i] {model}: held-out batch loss {before:.6f} before the A2Q steps, {after:.6f} "
+              f"after; nonzero outputs {nonzero:.4f}", flush=True)
+        # the gate is the held-out batch's loss: the super-resolution batches'
+        # own mean squares vary by more than 20 A2Q steps move ESPCN's loss, so
+        # the training losses' last 5 against the first tell nothing there
+        if not (np.isfinite(losses).all() and np.isfinite(f_losses).all()) or not after < before:
+            raise AssertionError(f"{model}: float losses {f_losses}, A2Q losses {losses}, "
+                                 f"held-out {before} -> {after}")
+        kernels = profile_forward(lambda: step(params, state, batches[-1]), "A2Q train step")
+        print(f"[4i] {model}: a profiled A2Q step's kernels {kernels:.3f} ms of a {step_ms:.2f} ms "
+              f"step ({1 - kernels / step_ms:.1%} of it device-idle)", flush=True)
+        del state
+
+        a2q_quantize_cuda.launches = 0
+        with held_deploys(f"[4i] {model}") as held:
+            dep = vision.deploy_vision(params, q, model)
+        torch.cuda.synchronize()
+        deploys = a2q_quantize_cuda.launches
+        layers = list(_deployed_layers(dep, model))
+        check_held(f"[4i] {model}", held, deploys)
+        if deploys != len(layers):
+            raise AssertionError(f"{model}: {deploys} deploy launches for {len(layers)} layers")
+        worst = 0.0
+        for node, boundary in layers:
+            qc = node["q8"].to(torch.int64).reshape(-1, node["q8"].shape[-1])
+            shapes[tuple(qc.shape)] += 1
+            budget = l1_budget(q.acc_bits, 8 if boundary else q.act_bits, False)
+            worst = max(worst, float(qc.abs().sum(0).max()) / budget)
+        with torch.no_grad():
+            y_dep = apply(dep, x, q)
+        diff, scale = (y_dep - y_fq).abs().max().item(), y_fq.abs().max().item()
+        codes = tree_sparsity([node["q8"] for node, _ in layers])["overall"]
+        geoms = vision.layer_geometries(params, q)
+        luts = {P: model_luts([LayerGeometry(**{**g.__dict__, "acc_bits": P})
+                               for g in geoms])["total"] for P in (16, 32)}
+        print(f"[4i] {model}: {deploys} matrices deployed, {held['flips']} code flips; largest "
+              f"column's share of its P=16 budget {worst:.4f}; deployed vs fake-quant forward max "
+              f"|diff| {diff:.3g} (largest |y| {scale:.4g}, tolerance {VISION_DEPLOY_TOL} of it); "
+              f"zero codes {codes:.4f}; model_luts total {luts[16]:.1f} at P=16, {luts[32]:.1f} "
+              "at P=32", flush=True)
+        if worst > 1.0 or not diff <= VISION_DEPLOY_TOL * scale:
+            raise AssertionError(f"{model}: budget share {worst}, deployed forward off by {diff}")
+        totals["a2q_quantize"] += deploys
+        totals["a2q_quantize[flips]"] += held["flips"]
+        del params, dep, batches, held_out, y_fq, y_dep
+        torch.cuda.empty_cache()
+    rows = Counter()
+    for _, K, C, count in DEPLOY_SHAPES:
+        if (K, C) in shapes:
+            rows[(K, C)] += count
+    if rows != shapes:
+        raise AssertionError(f"phase 3's DEPLOY_SHAPES rows {dict(rows)} are not 4i's deploys "
+                             f"{dict(shapes)}")
+    print(f"[4i] launches {totals}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"vision networks trained": totals}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4666,6 +4853,8 @@ def main() -> int:
     by_path.update(encode_hubert(dev))
     torch.cuda.empty_cache()
     by_path.update(train_smollm(dev))
+    torch.cuda.empty_cache()
+    by_path.update(train_vision(dev, smi))
     for e in entries:
         counts = {path: n[e["name"]] for path, n in by_path.items() if e["name"] in n}
         e["launches"] = sum(counts.values())

@@ -1,6 +1,7 @@
-"""Core A2Q library: accumulator bounds, quantizers and the A2Q operator."""
+"""Core A2Q library: accumulator bounds, quantizers, the A2Q operator, the
+bit-exact integer simulator, sparsity accounting, and the FINN LUT cost model."""
 
-from repro_torch.core import a2q, bounds, integer, quantizers  # noqa: F401
+from repro_torch.core import a2q, bounds, integer, lut, quantizers, sparsity  # noqa: F401
 from repro_torch.core.a2q import (  # noqa: F401
     a2q_channel_l1,
     a2q_int_weights,

@@ -89,6 +89,14 @@ def init_a2q(w: torch.Tensor, bits: int, acc_bits: int, input_bits: int, input_s
     return {"v": w.to(torch.float32), "t": t, "d": d}
 
 
+def _abs(v: torch.Tensor) -> torch.Tensor:
+    """``|v|`` with ``jnp.abs``'s gradient: +1 at ``v == 0`` (``torch.abs``
+    gives 0 there).  The initializer zeroes every weight past a column's
+    budget, so the l1 norm's gradient reaches those entries in the
+    reference and must in the port."""
+    return torch.where(v >= 0, v, -v)
+
+
 def _effective_gs(params: dict, acc_bits: int, input_bits: int, input_signed: bool):
     """(g/s ratio, s) with the norm cap applied — shared by train + int paths."""
     d, t = params["d"], params["t"]
@@ -108,7 +116,7 @@ def apply_a2q(params: dict, bits: int, acc_bits: int, input_bits: int, input_sig
     n, p = int_range(bits, signed=True)
     g_over_s, s = _effective_gs(params, acc_bits, input_bits, input_signed)
     lead = params["t"].ndim - 1
-    l1_v = torch.clamp_min(pairwise_sum(v.abs().reshape(*v.shape[:lead], -1, v.shape[-1])), _EPS)
+    l1_v = torch.clamp_min(pairwise_sum(_abs(v).reshape(*v.shape[:lead], -1, v.shape[-1])), _EPS)
     # per-column values broadcast over each layer's rows
     g_over_s, l1_v, s = (x.reshape(*x.shape[:lead], *[1] * (v.ndim - lead - 1), x.shape[-1])
                          for x in (g_over_s, l1_v, s))

@@ -1,4 +1,4 @@
-"""QuantLinear — every matmul-bearing layer of the port's models.
+"""QuantLinear / QuantConv — every matmul-bearing layer of the port's models.
 
 The paper's technique is a first-class mode of this layer, as in
 ``repro.nn.linear``:
@@ -11,7 +11,8 @@ The paper's technique is a first-class mode of this layer, as in
 
 Hidden layers use (M, N, P) from :class:`QuantConfig`; ``boundary=True``
 layers stay at 8 bits.  Weights are ``(d_in, d_out)``: output channels
-(accumulators) on the last axis.
+(accumulators) on the last axis; a conv's are HWIO ``(kh, kw, c_in/groups,
+c_out)``, so the same per-column quantizers apply with ``K = kh*kw*c_in/g``.
 
 Deployment: ``deploy_linear`` turns a trained layer into ``{q8, s8}`` —
 int8 weights whose l1 norm provably fits the P-bit accumulator; an A2Q layer
@@ -67,6 +68,8 @@ __all__ = [
     "apply_linear",
     "deploy_linear",
     "linear_penalty",
+    "init_conv",
+    "apply_conv",
     "IntAct",
     "chain_out_aq",
     "chain_report_scope",
@@ -400,17 +403,21 @@ def linear_penalty(params: dict, cfg: QuantConfig, boundary: bool,
 
 def deploy_linear(params: dict, cfg: QuantConfig, *, boundary: bool = False,
                   input_signed: bool = True) -> dict:
-    """A2Q/QAT layer -> inference artifacts ``{q8 int8, s8 scale [, b, aq]}``
-    (2-D weights; ``serve.engine.deploy_params`` walks stacked leaves).  The
-    A2Q codes come from ``ops.a2q_quantize`` (``a2q_int_weights``'
-    arithmetic; the fused kernel for CUDA tensors), the scale is
-    ``2^d``."""
+    """A2Q/QAT layer -> inference artifacts ``{q8 int8, s8 scale [, b, aq]}``,
+    ``q8`` in the layer's own weight shape (a linear's ``(K, C)``, a conv's
+    HWIO leaf whole: every axis but the last is the accumulator's ``K``;
+    ``serve.engine.deploy_params`` walks stacked leaves).  The A2Q codes come
+    from ``ops.a2q_quantize`` on the ``(K, C)`` view (``a2q_int_weights``'
+    arithmetic; the fused kernel for CUDA tensors), the scale is ``2^d``."""
     from repro_torch.kernels import ops
 
     M, N = _bits(cfg, boundary)
     if cfg.mode == "a2q":
-        q, s = ops.a2q_quantize(params["v"], params["t"], params["d"], weight_bits=M,
-                                acc_bits=cfg.acc_bits, input_bits=N, input_signed=input_signed)
+        v = params["v"]
+        q, s = ops.a2q_quantize(v.reshape(-1, v.shape[-1]), params["t"], params["d"],
+                                weight_bits=M, acc_bits=cfg.acc_bits, input_bits=N,
+                                input_signed=input_signed)
+        q = q.reshape(v.shape)
     elif cfg.mode == "qat":
         q, s = weight_qat_int({"log2_scale": params["wq"]["log2_scale"]}, params["w"], M)
     else:
@@ -421,3 +428,93 @@ def deploy_linear(params: dict, cfg: QuantConfig, *, boundary: bool = False,
     if "aq" in params:
         out["aq"] = params["aq"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Conv (the vision networks: MobileNetV1 / ResNet18 / ESPCN / UNet)
+# ---------------------------------------------------------------------------
+
+
+def init_conv(
+    gen: torch.Generator,
+    c_in: int,
+    c_out: int,
+    kernel: tuple[int, int],
+    cfg: QuantConfig,
+    *,
+    groups: int = 1,
+    use_bias: bool = False,
+    boundary: bool = False,
+    input_signed: bool = False,  # the vision nets are ReLU nets: unsigned inputs
+) -> dict:
+    """HWIO weights ``(kh, kw, c_in/groups, c_out)``, channel axis last, so
+    A2Q's per-output-channel reduction (one accumulator, ``K =
+    kh*kw*c_in/groups``) applies unchanged; tensors land on ``gen.device``."""
+    kh, kw = kernel
+    w = kaiming(gen, (kh, kw, c_in // groups, c_out), fan_in=kh * kw * (c_in // groups))
+    M, N = _bits(cfg, boundary)
+    p: dict = {}
+    if cfg.mode == "none":
+        p["w"] = w
+    elif cfg.mode == "qat":
+        p["w"] = w
+        p["wq"] = init_weight_qat(w, M)
+        p["aq"] = init_act_quant(N, input_signed, device=w.device)
+    elif cfg.mode == "a2q":
+        p.update(init_a2q(w, M, cfg.acc_bits, N, input_signed))
+        p["aq"] = init_act_quant(N, input_signed, device=w.device)
+    else:
+        raise ValueError(cfg.mode)
+    if use_bias:
+        p["b"] = torch.zeros((c_out,), dtype=torch.float32, device=w.device)
+    return p
+
+
+def _same_padding(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial axis, ``(before, after)``: the
+    output keeps ``ceil(size / stride)`` positions and the odd pad goes
+    after (a stride-2 3x3 conv on an even size pads ``(0, 1)``, where
+    PyTorch's ``padding=1`` pads ``(1, 1)``)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def apply_conv(
+    params: dict,
+    x: torch.Tensor,
+    cfg: QuantConfig,
+    *,
+    stride: tuple[int, int] = (1, 1),
+    padding: str = "SAME",
+    groups: int = 1,
+    boundary: bool = False,
+    input_signed: bool = False,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """NHWC convolution with ``apply_linear``'s quant pipeline: the input's
+    act-quant, then the layer's weights (fake-quant, or deployed ``q8 *
+    s8``) permuted from HWIO to OIHW at the call; ``padding`` ``"SAME"``
+    (as XLA pads) or ``"VALID"``.  The NHWC input goes to
+    ``torch.nn.functional.conv2d`` as a channels-last NCHW view."""
+    M, N = _bits(cfg, boundary)
+    if cfg.mode != "none" and "aq" in params:
+        x = apply_act_quant({"log2_scale": params["aq"]["log2_scale"]}, x, N, signed=input_signed)
+    w = _quant_weights(params, cfg, boundary, input_signed).to(compute_dtype)
+    kh, kw = w.shape[:2]
+    x = x.to(compute_dtype).permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (t, b), (lft, r) = (_same_padding(x.shape[2], kh, stride[0]),
+                            _same_padding(x.shape[3], kw, stride[1]))
+    elif padding == "VALID":
+        t = b = lft = r = 0
+    else:
+        raise ValueError(f"apply_conv: padding {padding!r} is not 'SAME' or 'VALID'")
+    if (t, lft) != (b, r):
+        x = torch.nn.functional.pad(x, (lft, r, t, b))
+        t = lft = 0
+    y = torch.nn.functional.conv2d(x, w.permute(3, 2, 0, 1), stride=tuple(stride),
+                                   padding=(t, lft), groups=groups)
+    y = y.permute(0, 2, 3, 1)
+    if "b" in params:
+        y = y + params["b"].to(compute_dtype)
+    return y

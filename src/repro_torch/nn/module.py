@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["kaiming", "normal_init", "tree_to", "tree_map", "tree_leaves_with_path"]
+__all__ = ["kaiming", "normal_init", "tree_to", "tree_map", "tree_leaves_with_path", "keystr"]
 
 
 def kaiming(gen: torch.Generator, shape, fan_in: Optional[int] = None, dtype=torch.float32):
@@ -26,24 +26,39 @@ def normal_init(gen: torch.Generator, shape, std: float = 0.02, dtype=torch.floa
     return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device) * std
 
 
+# A tree is nested dicts and lists (the vision networks' ``blocks``, ``enc``
+# and ``dec``); anything else, a tuple included, is a leaf.
+
+
 def tree_to(tree, device):
-    """Move every leaf of a nested dict of tensors to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    """Move every leaf of a tree of tensors to ``device``."""
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts that share ``tree``'s keys."""
+    """``fn`` over the leaves of trees that share ``tree``'s structure (a
+    ``rest`` tree's nodes are indexed by ``tree``'s keys, so its leaves may
+    be subtrees: they arrive whole)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves_with_path(tree, path=()):
-    """``[(keys, leaf), ...]`` of nested dicts, keys sorted at every level:
-    the order ``jax.tree_util`` flattens a dict in, so sums over leaves and
-    checkpoint manifests follow the reference's order."""
+    """``[(keys, leaf), ...]``, dict keys sorted at every level and list
+    items in index order (an item's key is its index): the order
+    ``jax.tree_util`` flattens a tree in, so sums over leaves and checkpoint
+    manifests follow the reference's order."""
     if isinstance(tree, dict):
         return [item for k in sorted(tree) for item in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [item for i, v in enumerate(tree) for item in tree_leaves_with_path(v, path + (i,))]
     return [(path, tree)]
+
+
+def keystr(path) -> str:
+    """A ``tree_leaves_with_path`` key path as ``jax.tree_util.keystr``
+    writes it: ``"['blocks'][0]['c1']"``."""
+    return "".join(f"[{k!r}]" for k in path)

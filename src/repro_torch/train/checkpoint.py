@@ -36,15 +36,11 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.nn.module import tree_leaves_with_path
+from repro_torch.nn.module import keystr, tree_leaves_with_path
 
 __all__ = ["save", "restore", "latest_step", "install_signal_handler"]
 
 _SENTINEL = "_COMPLETE"
-
-
-def _leafkey(path) -> str:
-    return "".join(f"[{k!r}]" for k in path)
 
 
 def save(directory: str, tree: Any, step: int, keep: int = 3) -> str:
@@ -63,7 +59,7 @@ def save(directory: str, tree: Any, step: int, keep: int = 3) -> str:
         val = leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf)
         arrays[key] = val
         manifest["leaves"].append(
-            {"key": key, "path": _leafkey(path), "shape": list(val.shape), "dtype": str(val.dtype)}
+            {"key": key, "path": keystr(path), "shape": list(val.shape), "dtype": str(val.dtype)}
         )
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -124,7 +120,7 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
     with np.load(os.path.join(d, "arrays.npz")) as arrays:
 
         def load(path, leaf):
-            key = _leafkey(path)
+            key = keystr(path)
             if key not in by_path:
                 if allow_missing:
                     return leaf
@@ -141,6 +137,8 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
 def _map_with_path(fn, tree, path=()):
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
     return fn(path, tree)
 
 

@@ -17,10 +17,11 @@ line per shape and, last, a JSON object of every time under ``--tag``.
 
 Times: CUDA graphs of back-to-back calls timed with CUDA events.  Weights
 and pools rotate over enough copies that the calls stream them from HBM
-(more than the 50 MB L2), as a model whose layers each hold their own do.
-``a2q_quantize``'s line "deploy kernel ms a run" sums count x ms over the
-1,525 matrices one ``chip_smoke.py`` run deploys, beside the same sum of
-the byte bounds.
+(more than the 50 MB L2), as a model whose layers each hold their own do
+(``a2q_quantize``'s at most ``DEPLOY_COPIES``: the smallest vision matrices
+stay in the L2).  ``a2q_quantize``'s line "deploy kernel ms a run" sums
+count x ms over the 1,598 matrices of ``DEPLOY_SHAPES``, beside the same
+sum of the byte bounds.
 """
 
 from __future__ import annotations
@@ -215,9 +216,9 @@ def time_paged_attention(dev) -> dict:
     return out
 
 
-# (site, K, C, matrices a chip_smoke.py run deploys at that shape): all 1,525
+# (site, K, C, matrices a chip_smoke.py run deploys at that shape): 1,598
 # deploys of smollm-135m (210), deepseek-v3 cut to 3 dense + 1 MoE layer
-# (801), rwkv6-7b (225) and hubert-xlarge (289)
+# (801), rwkv6-7b (225), hubert-xlarge (289) and the four vision networks (73)
 DEPLOY_SHAPES = [
     ("smollm wq/wo", 576, 576, 60), ("smollm wk/wv", 576, 192, 60),
     ("smollm w_in/w_gate", 576, 1536, 60), ("smollm w_out", 1536, 576, 30),
@@ -230,7 +231,29 @@ DEPLOY_SHAPES = [
     ("rwkv6 cm.wv", 14336, 4096, 32), ("rwkv6 head", 4096, 65536, 1),
     ("hubert attn", 1280, 1280, 192), ("hubert w_in", 1280, 5120, 48),
     ("hubert w_out", 5120, 1280, 48), ("hubert head", 1280, 504, 1),
+    # the vision networks' conv and linear leaves at full width (chip_smoke.py
+    # phase 4i: MobileNetV1 and ResNet18 at width 1.0, ESPCN, UNet at base 32),
+    # each HWIO leaf as its (K = kh*kw*c_in/groups, C_out) matrix; site = first user
+    ("mobilenetv1 stem", 27, 32, 1), ("mobilenetv1 dw / unet stem", 9, 32, 2),
+    ("mobilenetv1 pw", 32, 64, 1), ("mobilenetv1 dw", 9, 64, 1),
+    ("mobilenetv1 pw / resnet18 sc", 64, 128, 2), ("mobilenetv1 dw", 9, 128, 2),
+    ("mobilenetv1 pw / resnet18 sc", 128, 128, 2), ("mobilenetv1 pw / resnet18 sc", 128, 256, 2),
+    ("mobilenetv1 dw", 9, 256, 2), ("mobilenetv1 pw / resnet18 sc", 256, 256, 2),
+    ("mobilenetv1 pw / resnet18 sc", 256, 512, 2), ("mobilenetv1 dw", 9, 512, 6),
+    ("mobilenetv1 pw / resnet18 sc", 512, 512, 6), ("mobilenetv1 pw", 512, 1024, 1),
+    ("mobilenetv1 dw", 9, 1024, 1), ("mobilenetv1 pw", 1024, 1024, 1),
+    ("mobilenetv1 head", 1024, 10, 1), ("resnet18 stem", 27, 64, 1),
+    ("resnet18 c1/c2 / espcn c2 / unet", 576, 64, 7), ("resnet18 sc", 64, 64, 2),
+    ("resnet18 c1 / unet", 576, 128, 2), ("resnet18 c1/c2 / unet", 1152, 128, 8),
+    ("resnet18 c1", 1152, 256, 1), ("resnet18 c1/c2", 2304, 256, 3),
+    ("resnet18 c1", 2304, 512, 1), ("resnet18 c1/c2", 4608, 512, 3),
+    ("resnet18 head", 512, 10, 1), ("espcn c1", 25, 64, 1),
+    ("espcn c3 / unet", 576, 32, 2), ("espcn out / unet out", 288, 1, 2),
+    ("unet enc c1", 288, 64, 1), ("unet dec c1", 1152, 64, 1), ("unet dec c2 / up", 288, 32, 2),
 ]
+# rotated copies of a deploy shape's operands at most: the smallest matrices
+# would need tens of thousands to exceed the L2, and stay in it at this many
+DEPLOY_COPIES = 256
 
 
 def time_a2q_quantize(dev) -> dict:
@@ -246,7 +269,7 @@ def time_a2q_quantize(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(24)
     out, run_ms, run_bound = {}, 0.0, 0.0
     for site, K, C, count in DEPLOY_SHAPES:
-        n = copies_for(4 * K * C)
+        n = min(copies_for(4 * K * C), DEPLOY_COPIES)
         args = []
         for _ in range(n):
             p = init_linear(gen, K, C, quant)
@@ -272,7 +295,8 @@ def time_a2q_quantize(dev) -> dict:
         del args, v, gs, s
         torch.cuda.empty_cache()
     out["deploy kernel ms a run"] = {"ms": run_ms, "bound_ms": run_bound}
-    print(f"a2q_quantize deploy kernel ms a run (1,525 matrices): {run_ms:.3f} ms, bound "
+    print(f"a2q_quantize deploy kernel ms a run ({sum(c for *_, c in DEPLOY_SHAPES):,} matrices): "
+          f"{run_ms:.3f} ms, bound "
           f"{run_bound:.3f} ms ({run_bound / run_ms:.1%})", flush=True)
     return out
 
