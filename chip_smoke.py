@@ -11,7 +11,9 @@ samples the served smollm-135m and reports its accumulator headroom, trains
 the paper's four vision networks with A2Q and deploys their conv layers, and
 checks the results.  Every model is
 deployed on the card through the ``a2q_quantize`` kernel, and every deployed
-matrix's codes are held to the plain quantizer's on the card.
+matrix's codes are held to the plain quantizer's on the card.  yi-6b is
+also served through the serving cluster's routed and disaggregated fleets,
+and smollm-135m through spawned replicas.
 
     python3 chip_smoke.py
 
@@ -176,6 +178,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``--int-chain`` (1 request, 8 new) on int_matmul's prologue; every
    deploy held to the plain quantizer, both engines' tok/s, the host ops of
    a contiguous tick, the contiguous engines' params and caches on the card;
+4r. the serving cluster (``serve_cluster``) through ``launch/serve_cluster.py``
+   in this process on yi-6b at full width (d_model 4096, 32 heads over 4 KV
+   heads of 128, d_ff 11008, vocab 64000), its depth cut from 32 layers to
+   ``CLUSTER_LAYERS`` (4), random A2Q weights from seed 0 drawn once for
+   three fleets: 16 requests (prompts of 64 tokens, every fourth 192), 32
+   new, batch 8, blocks of 16, prefill chunks of 32, ``--int-forward
+   --parity-check``: ``--disagg 1:1`` (bf16 blocks migrate; token-identical
+   to the single engine), ``--disagg 2:2 --kv-int8 --fault-rate 0.25`` (one
+   replica killed a quarter into the wave: one death, requeues, every
+   stream emitted once, ``parity_up_to_ties`` at eps 0.05) and ``--disagg
+   1:2 --kv-int8 --kv-bits 4 --decode-steps 8 --policy weighted-latency``
+   (int4 blocks imported in place into megastep replicas: one graph capture
+   a decode replica, replays); every engine on the card, every deploy held,
+   int_matmul launches equal to 29 a forward of the forwards the engines'
+   stats imply, migration bytes in equal to bytes out (plus a dead decode
+   replica's re-imports), bytes a block token equal to
+   ``kv_bytes_per_token()``; fleet tokens, capacity, dispatch, p50/p99
+   latency and TTFT, migrated blocks and bytes, tok/s by engine; then
+   smollm-135m at full size on two spawned replicas (``--transport
+   subproc``, built in the parent first), token-identical to the parent's
+   single engine, no death (the children's launches are not counted);
 4c. on phase 4's smollm-135m cut to its first ``SIDE_LAYERS`` (6) layers, as
    4m's, 4s's and 4o's, the ``--int-chain --kv-int8 [--kv-bits 4]
    --decode-kernel`` path: ``Runtime(int_chain=True, decode_kernel=True)``
@@ -3616,24 +3639,33 @@ def contig_tick_ops(engine, prompt) -> int:
     return count.n
 
 
-def launcher(argv: list, **patch):
-    """``repro_torch.launch.serve`` run in this process on ``argv`` (its
-    ``run``: tokens, report and engines); ``patch`` replaces names of the
-    launcher's module for the call (a depth-cut config behind ``get_arch``)."""
+def launcher(argv: list, entry: str = "serve", **patch):
+    """``repro_torch.launch.<entry>`` run in this process on ``argv`` (its
+    ``run``: the report, the outputs and the engines); ``patch`` replaces
+    names for the call wherever the launcher's module, or for
+    ``serve_cluster`` the replica module, defines them (a depth-cut config
+    behind ``get_arch``, a shared param draw behind ``init_params``, a
+    spawned replica's main)."""
+    import importlib
     from unittest import mock
 
-    from repro_torch.launch import serve as launch_serve
-
+    mods = [importlib.import_module(f"repro_torch.launch.{entry}")]
+    if entry == "serve_cluster":
+        mods.append(importlib.import_module("repro_torch.serve.cluster.replica"))
     with contextlib.ExitStack() as stack:
         for name, value in patch.items():
-            stack.enter_context(mock.patch.object(launch_serve, name, value))
-        return launch_serve.run(argv)
+            owners = [m for m in mods if hasattr(m, name)]
+            if not owners:
+                raise AttributeError(f"no module of launch.{entry} defines {name}")
+            for m in owners:
+                stack.enter_context(mock.patch.object(m, name, value))
+        return mods[0].run(argv)
 
 
-def on_card(engine) -> bool:
-    """Every parameter and cache leaf of a contiguous ``ServeEngine`` is a
-    CUDA tensor."""
-    return all(t.is_cuda for t in (*_leaves(engine.params), *_leaves(engine.cache)))
+def on_card(*trees) -> bool:
+    """Every tensor leaf of ``trees`` (an engine's params, its cache or
+    pools) is a CUDA tensor."""
+    return all(t.is_cuda for tree in trees for t in _leaves(tree))
 
 
 def serve_contiguous(dev) -> dict:
@@ -3689,7 +3721,7 @@ def serve_contiguous(dev) -> dict:
         # an --int-forward run ends in the launcher's headroom probe: one
         # eager forward of 8 tokens on the served engine's runtime
         probe = n if "headroom" in rep else 0
-        if not on_card(contig):
+        if not on_card(contig.params, contig.cache):
             raise AssertionError(f"[4p {tag}] the contiguous engine did not run on the card")
         ctp = contig.throughput()
         line = (f"[4p {tag}] {time.perf_counter() - t0:.1f} s; contiguous: prefill "
@@ -3731,6 +3763,259 @@ def serve_contiguous(dev) -> dict:
                              f"paged int side, {expect_prologue} prologue launches on the "
                              f"contiguous int-chain run, {3 * n} deploys")
     return {"smollm-135m contiguous": launches}
+
+
+# phase 4r (PERF.md section 4): yi-6b at full width, its depth cut from 32 layers to 4,
+# served by routed and disaggregated fleets through launch/serve_cluster.py
+CLUSTER_LAYERS = 4
+CLUSTER_ARGS = ["--requests", "16", "--prompt-len", "64", "--long-every", "4", "--max-new", "32",
+                "--batch", "8", "--max-seq", "256", "--block-size", "16", "--prefill-chunk", "32",
+                "--int-forward", "--parity-check"]
+CLUSTER_RUNS = (("1:1 bf16", ["--disagg", "1:1"]),
+                ("2:2 int8 fault", ["--disagg", "2:2", "--kv-int8", "--fault-rate", "0.25"]),
+                ("1:2 int4 megastep", ["--disagg", "1:2", "--kv-int8", "--kv-bits", "4",
+                                       "--decode-steps", "8", "--policy", "weighted-latency"]))
+# one prefill chunk a prompt (the longest is 194 tokens): a spawned child's
+# prefill forwards are the requests dispatched to it
+CLUSTER_SPAWN = ["--arch", "smollm-135m", "--transport", "subproc", "--replicas", "2",
+                 "--requests", "4", "--max-new", "16", "--int-forward", "--parity-check",
+                 "--prompt-len", "64", "--batch", "8", "--max-seq", "256",
+                 "--prefill-chunk", "256"]
+
+
+def held_replica_main(cfg, conn) -> None:
+    """A spawned cluster replica (``replica._replica_main``) whose deploys are
+    held to the plain quantizer in its own process (``held_deploys``: a
+    flip it cannot explain kills the child before its hello); the held
+    counts ride in its stats events under ``held``.  Defined at module
+    level, so a spawn child of this script can unpickle it."""
+    from repro_torch.serve.cluster import replica
+
+    with held_deploys(f"4r spawn {cfg.name}") as held:
+        replica._replica_main(cfg, conn, stats_extra={"held": held})
+
+
+def engine_forwards(engine, prompts, chunk: int) -> int:
+    """Forwards an engine ran: its prefill chunks (``prompts`` are the ones
+    it prefilled) and one a tick, or ``decode_steps`` a window replayed and
+    the capture's eager warm-up window."""
+    chunks = sum(-(-len(p) // chunk) for p in prompts)
+    if engine.decode_steps > 1:
+        return chunks + engine.decode_steps * (engine.stats["graph_replays"] + engine._captures)
+    return chunks + engine.stats["decode_dispatches"]
+
+
+def serve_cluster(dev, smi: str) -> dict:
+    """Phase 4r: the serving cluster through ``launch/serve_cluster.py`` in
+    this process, on yi-6b at full width with its depth cut to
+    ``CLUSTER_LAYERS`` (``CLUSTER_ARGS``: 16 requests, prompts of 64 and
+    every fourth 192 tokens, 32 new, batch 8, ``--int-forward
+    --parity-check``), three fleets sharing one raw param draw: ``--disagg
+    1:1`` (bf16 blocks migrate; token-identical to the single engine),
+    ``--disagg 2:2 --kv-int8 --fault-rate 0.25`` (int8 blocks; one replica
+    killed a quarter into the wave: one death, requeues, every stream
+    emitted once; ``parity_up_to_ties`` at eps 0.05) and ``--disagg 1:2
+    --kv-int8 --kv-bits 4 --decode-steps 8 --policy weighted-latency``
+    (int4 blocks imported into megastep engines whose CUDA graphs hold the
+    pools: one capture a decode replica, replays).  Every deploy held to
+    the plain quantizer; the int_matmul and a2q_quantize launches against
+    the count the engines' stats imply; migration bytes in equal to bytes
+    out (plus the blocks a death made a decode replica import again), each
+    engine's bytes a block token equal to ``kv_bytes_per_token()``.  Then
+    the spawn transport: smollm-135m at full size on two spawned replicas
+    (``CLUSTER_SPAWN``), token-identical, no death, both dispatched to;
+    each child's deploys held in its own process, its launches read from
+    its stats event and checked against its engine stats.  Returns the
+    launches by path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.serve.cluster import replica
+
+    full = get_arch("yi-6b")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                 count=CLUSTER_LAYERS),))
+    phase(f"4r: the serving cluster on yi-6b at full width, {arch.n_layers} of its "
+          f"{full.n_layers} layers: routed and disaggregated fleets, failover, int8/int4 "
+          "block migration, megastep decode replicas; the spawn transport on smollm-135m")
+    t_phase = time.perf_counter()
+    drawn, draw = {}, replica.init_params
+
+    def shared_params(cfg, a):  # one seeded draw for the phase's three fleets
+        if "params" not in drawn:
+            drawn["params"] = draw(cfg, a)
+        return drawn["params"]
+
+    per_forward = 7 * arch.n_layers + 1  # seven linears a layer and the untied head
+    chunk = int(CLUSTER_ARGS[CLUSTER_ARGS.index("--prefill-chunk") + 1])
+    max_new = int(CLUSTER_ARGS[CLUSTER_ARGS.index("--max-new") + 1])
+    torch.cuda.synchronize()
+    a2q_quantize_cuda.launches = int_matmul_cuda.launches = 0
+    int_matmul_cuda.prologue_launches = int_matmul_cuda.tc_launches = 0
+    flips, deploys, forwards, prefill_chunks, runs = 0, 0, 0, 0, {}
+    for tag, flags in CLUSTER_RUNS:
+        t0 = time.perf_counter()
+        before = int_matmul_cuda.launches
+        with held_deploys(f"4r {tag}") as held:
+            out = launcher(["--arch", arch.name, "--device", str(dev), *CLUSTER_ARGS, *flags],
+                           "serve_cluster", get_arch=lambda name: arch,
+                           init_params=shared_params)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        flips += held["flips"]
+        deploys += held["matrices"]
+        rep, router, prompts = out["report"], out["router"], out["prompts"]
+        engines = dict(out["engines"], single=out["single"])
+        fleet = out["engines"]
+        if not all(on_card(e.params, e.cache.pools) for e in engines.values()):
+            raise AssertionError(f"[4r {tag}] an engine's params or pools are off the card")
+        if rep["completed"] != len(prompts) or rep.get("parity") is not True or \
+                any(len(o) != max_new or not all(0 <= t < arch.vocab for t in o)
+                    for o in out["outs"]):
+            raise AssertionError(f"[4r {tag}] incomplete or bad streams: {rep['completed']} done")
+        if len(engines) * per_forward != held["matrices"]:
+            raise AssertionError(f"[4r {tag}] {held['matrices']} deployed matrices for "
+                                 f"{len(engines)} engines of {per_forward}")
+        # each prompt prefilled once by the fleet (a death never repeats a
+        # prefill) and once by the parity engine
+        fleet_prefilled = sum(e.stats["prefill_tokens"] for e in fleet.values())
+        if fleet_prefilled != sum(len(p) for p in prompts):
+            raise AssertionError(f"[4r {tag}] the fleet prefilled {fleet_prefilled} tokens")
+        # the prefill replicas together prefilled every prompt once, the
+        # parity engine every prompt again
+        run_forwards = {n: engine_forwards(e, prompts if n == "single" else [], chunk)
+                        for n, e in engines.items()}
+        run_forwards["prefill replicas"] = sum(-(-len(p) // chunk) for p in prompts)
+        if int_matmul_cuda.launches - before != per_forward * sum(run_forwards.values()):
+            raise AssertionError(f"[4r {tag}] {int_matmul_cuda.launches - before} int_matmul "
+                                 f"launches, expected {per_forward} a forward of {run_forwards}")
+        forwards += sum(run_forwards.values())
+        prefill_chunks += 2 * sum(-(-len(p) // chunk) for p in prompts)
+        # migration: bytes in == bytes out, plus what a death made a decode
+        # replica import again (its adopted, unfinished requests)
+        again = 0
+        for st in router.states.values():
+            if not st.alive:
+                rep_ = st.handle.replica
+                bs = rep_.engine.cache.block_size
+                again += sum(-(-len(r.prompt) // bs) * bs * rep_.engine.cache.kv_bytes_per_token()
+                             for r, _ in rep_._track.values() if r.prefilled)
+        b_out = sum(e.cache.migration_bytes_out for e in fleet.values())
+        b_in = sum(e.cache.migration_bytes_in for e in fleet.values())
+        blocks = sum(e.cache.migrated_blocks_out for e in fleet.values())
+        if not b_out > 0 or b_in != b_out + again:
+            raise AssertionError(f"[4r {tag}] migration bytes in {b_in} != out {b_out} + "
+                                 f"{again} imported again")
+        for n, e in fleet.items():
+            c = e.cache
+            per_tok = c.block_size * c.kv_bytes_per_token()
+            if c.migration_bytes_out != c.migrated_blocks_out * per_tok or \
+                    c.migration_bytes_in != c.migrated_blocks_in * per_tok:
+                raise AssertionError(f"[4r {tag}] {n}: migration bytes off "
+                                     f"{c.kv_bytes_per_token()} bytes a token")
+        tok_s = {n: (round(e.throughput()["prefill_tok_s"], 1),
+                     round(e.throughput()["decode_tok_s"], 1)) for n, e in engines.items()}
+        line = (f"[4r {tag}] {smi}; {seconds:.1f} s; fleet {rep['total_tokens']} tokens, "
+                f"capacity {rep['agg_tok_s']:.1f} tok/s (busiest replica busy "
+                f"{rep['makespan_s']:.3f} s); dispatched {rep['dispatched']}; latency p50 "
+                f"{rep['latency']['p50_latency_s']:.3f} s p99 {rep['latency']['p99_latency_s']:.3f}"
+                f" s, ttft p50 {rep['latency']['p50_ttft_s']:.3f} s p99 "
+                f"{rep['latency']['p99_ttft_s']:.3f} s; migrated {blocks} blocks, {b_out} bytes "
+                f"out, {b_in} in ({again} imported again), "
+                f"{fleet['d0'].cache.kv_bytes_per_token()} KV bytes a token; tok/s by engine "
+                f"(prefill, decode) {tok_s}")
+        if "parity_sub_margin_ties" in rep:
+            line += f"; parity_up_to_ties eps 0.05: {rep['parity_sub_margin_ties']} sub-margin ties"
+        else:
+            line += "; tokens identical to the single engine (exact parity)"
+        if "fault" in tag:
+            line += f"; killed {rep['killed']}, deaths {rep['deaths']}, requeues {rep['requeues']}"
+            if rep["deaths"] != 1 or rep["requeues"] <= 0:
+                raise AssertionError(f"[4r {tag}] deaths {rep['deaths']}, requeues "
+                                     f"{rep['requeues']}")
+        if "megastep" in tag:
+            graphs = {n: (e._captures, e.stats["graph_replays"]) for n, e in engines.items()
+                      if not n.startswith("p")}
+            line += f"; decode graphs (captures, replays) {graphs}"
+            if any(c != 1 or r <= 0 for c, r in graphs.values()):
+                raise AssertionError(f"[4r {tag}] graph captures and replays {graphs}")
+        print(line, flush=True)
+        runs[tag] = {"report": rep, "seconds": seconds, "bytes_out": b_out, "bytes_in": b_in}
+        del out, engines, fleet, router
+        torch.cuda.empty_cache()
+    drawn.clear()
+    torch.cuda.empty_cache()
+    launches = {"int_matmul": int_matmul_cuda.launches - int_matmul_cuda.prologue_launches,
+                "int_matmul[prologue]": int_matmul_cuda.prologue_launches,
+                "int_matmul[tc]": int_matmul_cuda.tc_launches,
+                "a2q_quantize": a2q_quantize_cuda.launches, "a2q_quantize[flips]": flips}
+    check_held("4r", {"matrices": deploys}, a2q_quantize_cuda.launches)
+    print(f"[4r] launches {launches}", flush=True)
+    if launches["int_matmul"] != per_forward * forwards or launches["int_matmul[prologue]"] or \
+            not 0 < launches["int_matmul[tc]"] <= per_forward * prefill_chunks:
+        raise AssertionError(f"[4r] launches {launches}: expected {per_forward * forwards} "
+                             f"int_matmul ({forwards} forwards of {per_forward}), the tensor-core "
+                             f"ones within {prefill_chunks} prefill chunks")
+    by_path = {"yi-6b cluster": launches}
+
+    # the spawn transport: each child builds its engine, its deploys held in
+    # its own process (held_replica_main), and loads the kernels phase 2
+    # built; its stats event brings back its launch and held counts, checked
+    # against its own engine stats by the in-process fleets' rule
+    t0 = time.perf_counter()
+    a2q_quantize_cuda.launches = int_matmul_cuda.launches = 0
+    int_matmul_cuda.prologue_launches = int_matmul_cuda.tc_launches = 0
+    with held_deploys("4r spawn parity engine") as held:
+        out = launcher([*CLUSTER_SPAWN, "--device", str(dev)], "serve_cluster",
+                       _replica_main=held_replica_main)
+    torch.cuda.synchronize()
+    rep, sm = out["report"], out["single"]
+    if rep.get("parity") is not True or rep["deaths"] != 0 or rep["completed"] != 4 or \
+            out["engines"] or not on_card(sm.params, sm.cache.pools):
+        raise AssertionError(f"[4r spawn] {rep}")
+    per_forward = 7 * sm.arch.n_layers  # smollm-135m's head is tied: seven linears a layer
+    children = {}
+    for name, st in out["router"].states.items():
+        ev, n = st.stats, st.dispatched
+        c, tp = ev["launches"], ev["throughput"]
+        got = {"int_matmul": c["int_matmul_cuda.launches"] - c["int_matmul_cuda.prologue_launches"],
+               "int_matmul[prologue]": c["int_matmul_cuda.prologue_launches"],
+               "int_matmul[tc]": c["int_matmul_cuda.tc_launches"],
+               "a2q_quantize": c["a2q_quantize_cuda.launches"],
+               "a2q_quantize[flips]": ev["held"]["flips"]}
+        want = per_forward * (n + tp["decode_dispatches"])  # one prefill chunk a request
+        children[name] = got
+        if n <= 0 or ev["served"] != n or got["int_matmul"] != want or \
+                got["int_matmul[prologue]"] or not 0 < got["int_matmul[tc]"] <= per_forward * n \
+                or ev["held"]["matrices"] != got["a2q_quantize"] or \
+                got["a2q_quantize"] != per_forward:
+            raise AssertionError(f"[4r spawn] child {name}: dispatched {n}, served "
+                                 f"{ev['served']}, {tp['decode_dispatches']} decode dispatches, "
+                                 f"launches {got}, held {ev['held']}; expected {want} int_matmul "
+                                 f"and {per_forward} held deploys")
+    fleet = {k: sum(g[k] for g in children.values()) for k in children[name]}
+    prefilled = sum(st.stats["throughput"]["prefill_tokens"] for st in out["router"].states.values())
+    if prefilled != sum(len(p) for p in out["prompts"]):
+        raise AssertionError(f"[4r spawn] the children prefilled {prefilled} tokens")
+    parity = {"int_matmul": int_matmul_cuda.launches, "int_matmul[tc]": int_matmul_cuda.tc_launches,
+              "a2q_quantize": a2q_quantize_cuda.launches, "a2q_quantize[flips]": held["flips"]}
+    check_held("4r spawn parity engine", held, a2q_quantize_cuda.launches)
+    want = per_forward * engine_forwards(sm, out["prompts"], 256)
+    if parity["int_matmul"] != want or int_matmul_cuda.prologue_launches:
+        raise AssertionError(f"[4r spawn] parity engine launches {parity}, expected {want} "
+                             "int_matmul")
+    lat = rep["latency"]
+    print(f"[4r spawn] {smi}; {time.perf_counter() - t0:.1f} s; smollm-135m on 2 spawned "
+          f"replicas: tokens identical to the parent's single engine, deaths 0, dispatched "
+          f"{rep['dispatched']}, capacity {rep['agg_tok_s']:.1f} tok/s (busiest replica busy "
+          f"{rep['makespan_s']:.3f} s), latency p50 {lat['p50_latency_s']:.3f} s p99 "
+          f"{lat['p99_latency_s']:.3f} s, ttft p50 {lat['p50_ttft_s']:.3f} s p99 "
+          f"{lat['p99_ttft_s']:.3f} s; the children's launches (their stats events) "
+          f"{children}; the parent's parity engine {parity}", flush=True)
+    by_path["smollm-135m spawned fleet"] = fleet
+    by_path["smollm-135m spawned fleet's parity engine"] = parity
+    print(f"[4r] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path
 
 
 H2O_REQUESTS, H2O_NEW, H2O_CHUNK = 4, 64, 256  # phase 4h (PERF.md section 4)
@@ -3842,7 +4127,7 @@ def contiguous_check(tag, dev, arch, layers, per_layer, prompt_len, new, chunk) 
           f"{int(ring.max())}; contiguous prefill {ctp['prefill_tok_s']:.2f} tok/s, decode "
           f"{ctp['decode_tok_s']:.2f} tok/s; paged prefill {ptp['prefill_tok_s']:.2f} tok/s; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if not on_card(contig) or len(out["outs"][0]) != new or int(ring.min()) <= 0 or \
+    if not on_card(contig.params, contig.cache) or len(out["outs"][0]) != new or int(ring.min()) <= 0 or \
             held["matrices"] != per_layer * layers + 1:
         raise AssertionError(f"[{tag}] the contiguous check did not run past the window on the "
                              "card")
@@ -4837,6 +5122,8 @@ def main() -> int:
     by_path = serve(dev)
     torch.cuda.empty_cache()
     by_path.update(serve_contiguous(dev))
+    torch.cuda.empty_cache()
+    by_path.update(serve_cluster(dev, smi))
     torch.cuda.empty_cache()
     by_path.update(serve_deepseek(dev))
     torch.cuda.empty_cache()  # deepseek's params are gone before rwkv6 is built

@@ -68,12 +68,20 @@ reference's trace spans and instants around host code — ``submit``,
 ``admit``, ``prefill_slot``, ``decode_tick`` and ``emit`` in
 ``ServeEngine``; ``admit``, ``radix_lookup``, ``block_alloc``,
 ``prefill_chunk``, ``cow_preflight``, ``admit_group``, ``decode_tick`` and
-``decode_megastep`` in ``PagedServeEngine`` — never inside the window the
-graph holds, and with no device synchronization of their own; and the
-metrics contract: ``metrics_snapshot()`` folds ``stats``, the chain report,
-``cache.counters()`` and the CUDA-graph captures into the registry, beside
-the per-request latency histograms the scheduler records.  Not ported yet:
-disaggregated handoff.
+``decode_megastep`` in ``PagedServeEngine`` (and ``prefill_handoff``,
+``kv_export`` and ``kv_import`` around the disaggregated handoff) — never
+inside the window the graph holds, and with no device synchronization of
+their own; and the metrics contract: ``metrics_snapshot()`` folds ``stats``,
+the chain report, ``cache.counters()`` (the ``migrat*`` counters included)
+and the CUDA-graph captures into the registry, beside the per-request
+latency histograms the scheduler records.
+
+Prefill/decode disaggregation (``serve.cluster``): a prefill-role engine runs
+a prompt on a borrowed slot and exports its KV blocks
+(``prefill_handoff``); a decode-role engine queues the request with that
+payload (``submit_handoff``) and ``_admit`` imports the blocks in place
+instead of recomputing the prompt (``_admit_handoff``), per tick and on the
+megastep alike.
 """
 
 from __future__ import annotations
@@ -527,6 +535,9 @@ class PagedServeEngine(_StatsMixin):
         self._graph: Optional[dict] = None  # the captured window (CUDA, decode_steps > 1)
         self._captures = 0
         self.graph_info: dict = {}
+        # disaggregation: uid -> exported-KV payload awaiting adoption
+        # (submit_handoff queues the request; _admit consumes the payload)
+        self._handoffs: dict = {}
 
     def reset_stats(self) -> None:
         """Zero the throughput counters, spans, metrics and the cache's
@@ -748,6 +759,108 @@ class PagedServeEngine(_StatsMixin):
             raise ValueError("request exceeds the paged cache's total block budget")
         self.sched.submit(req)
 
+    # -- prefill/decode disaggregation -----------------------------------------
+
+    def can_prefill_handoff(self, req: Request) -> bool:
+        """Capacity probe for a prefill-role replica: a free slot to borrow
+        and enough blocks for the prompt only (decode headroom is the decode
+        replica's budget)."""
+        return (
+            any(r is None for r in self.sched.slots)
+            and self.cache.blocks_needed(len(req.prompt))
+            <= self.cache.free_blocks + self.cache.reclaimable_blocks()
+        )
+
+    def prefill_handoff(self, req: Request) -> dict:
+        """Prefill-role entry point of the disaggregated cluster: run the
+        prompt through the isolated chunked prefill on a borrowed free slot,
+        export the written KV blocks at wire width, release the slot (also
+        when the prefill raised) and return the migration payload; the
+        request never enters this engine's decode loop.  The payload carries
+        the prefill's sampled first token and its greedy margin, so the
+        decode replica adopts at the state a local admission reaches:
+
+            {"kv": <export_blocks payload>, "first_token": int, "margin": float}
+        """
+        req.prompt = _normalize_prompt(req.prompt, self.bos_id)
+        if req.eos_id is None:
+            req.eos_id = self.eos_id
+        if len(req.prompt) > self.max_seq:
+            raise ValueError(f"prompt of {len(req.prompt)} tokens > max_seq={self.max_seq}")
+        free = [i for i, r in enumerate(self.sched.slots) if r is None]
+        if not free:
+            raise RuntimeError("prefill_handoff needs a free slot")
+        slot = free[0]
+        tr = self.obs.trace
+        self.cache.reset_slot(slot)
+        self.cache.allocate(slot, len(req.prompt))
+        self.sched.slots[slot] = req  # prefill_plan reads the slot binding
+        try:
+            with tr.span("prefill_handoff", {"uid": req.uid}):
+                first, margin = self._prefill_chunks(slot, req, preflight_span=False)
+                with tr.span("kv_export", {"uid": req.uid}):
+                    payload = {"kv": self.cache.export_blocks(slot), "first_token": first,
+                               "margin": margin}
+        finally:
+            self.sched.slots[slot] = None
+            req.prefilled = 0  # a requeued copy must be able to prefill again
+            self.cache.release(slot)
+        return payload
+
+    def submit_handoff(self, req: Request, payload: dict) -> None:
+        """Decode-role entry point: queue a request whose prompt KV arrives as
+        a migrated block payload.  Admission goes through the scheduler and
+        the block gate (the prompt + ``max_new`` reservation), but ``_admit``
+        imports the payload's blocks instead of recomputing the prompt: no
+        prefill forward, decode resumes at ``len(prompt)`` with the handed-off
+        first token recorded.  Geometry skew fails here, at the queue."""
+        req.prompt = _normalize_prompt(req.prompt, self.bos_id)
+        if req.eos_id is None:
+            req.eos_id = self.eos_id
+        kv = payload["kv"]
+        if kv["tokens"] != len(req.prompt):
+            raise ValueError(
+                f"handoff payload covers {kv['tokens']} tokens, "
+                f"prompt has {len(req.prompt)}"
+            )
+        if kv["block_size"] != self.cache.block_size:
+            raise ValueError(
+                f"handoff block_size {kv['block_size']} != {self.cache.block_size}"
+            )
+        if kv["kv_quant"] != self.cache.kv_quant or (
+            kv["kv_quant"] and kv["kv_bits"] != self.cache.kv_bits
+        ):
+            raise ValueError(
+                f"handoff kv_quant/kv_bits ({kv['kv_quant']}, {kv['kv_bits']}) do "
+                f"not match this cache ({self.cache.kv_quant}, {self.cache.kv_bits})"
+            )
+        total = self._slot_tokens(req)
+        if total > self.max_seq:
+            raise ValueError(f"request needs {total} positions > max_seq={self.max_seq}")
+        if self.cache.blocks_needed(total) > self.cache.num_blocks - 1:
+            raise ValueError("request exceeds the paged cache's total block budget")
+        self._handoffs[req.uid] = payload
+        self.sched.submit(req)
+
+    def _admit_handoff(self, slot: int, req: Request, payload: dict) -> None:
+        """Adopt migrated prompt KV into a fresh slot: import the wire blocks
+        in place, grow the allocation to the full decode reservation and
+        record the prefill replica's first token.  No prompt forward runs:
+        ``prefill_tokens`` counts no recomputed token."""
+        self.cache.reset_slot(slot)
+        t0 = time.perf_counter()
+        with self.obs.trace.span("kv_import", {"uid": req.uid, "slot": slot}):
+            self.cache.import_blocks(slot, payload["kv"])
+            self.cache.allocate(slot, self._slot_tokens(req))
+        req.prefilled = len(req.prompt)
+        req.margins.append(float(payload["margin"]))
+        if self.prefix_share:
+            self.cache.register_prefix(slot, req.prompt)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self._on_admitted(slot, req)
+        if self.sched.record_token(slot, int(payload["first_token"])):
+            self._release_slot(slot)
+
     def _admission_gate(self):
         """Round-local block budget: each admitted request reserves its
         worst-case blocks against the same free pool, so one round never
@@ -777,7 +890,12 @@ class PagedServeEngine(_StatsMixin):
         plain prefill has), the adopted run trimmed to the blocks covering
         ``[0, resume)``: the span ``[resume, shared)`` is recomputed to the
         same K/V, and adopting its partial block would only buy a
-        copy-on-write fault.  Each chunk makes its span writable first."""
+        copy-on-write fault.  Each chunk makes its span writable first.  A
+        request queued by ``submit_handoff`` imports its migrated blocks
+        instead (``_admit_handoff``)."""
+        payload = self._handoffs.pop(req.uid, None)
+        if payload is not None:
+            return self._admit_handoff(slot, req, payload)
         tr = self.obs.trace
         with tr.span("admit", {"uid": req.uid, "slot": slot, "prompt": len(req.prompt)}):
             self.cache.reset_slot(slot)
@@ -792,25 +910,42 @@ class PagedServeEngine(_StatsMixin):
                     req.prefilled = adopted = resume
             with tr.span("block_alloc", {"uid": req.uid}):
                 self.cache.allocate(slot, self._slot_tokens(req))
-            t0 = time.perf_counter()
-            pools = self.cache.slice_slot(slot)
-            tok = marg = None
-            for chunk, start in self.sched.prefill_plan(slot):
-                with tr.span("prefill_chunk", {"uid": req.uid, "start": start}):
-                    with tr.span("cow_preflight", {"uid": req.uid}):
-                        self.cache.ensure_writable(slot, start, start + len(chunk))
-                    tokens = torch.as_tensor(chunk[None, :], device=self.device)
-                    tok, marg = self._prefill_fn(tokens, pools, self.cache.bt_row(slot), start)
-            self.cache.lens[slot] = len(req.prompt)
+            first, margin = self._prefill_chunks(slot, req, adopted=adopted)
             if self.prefix_share:
                 self.cache.register_prefix(slot, req.prompt)
-            req.margins.append(float(marg[0]))
-            self.stats["prefill_s"] += time.perf_counter() - t0
-            # adopted tokens were never recomputed: throughput counts real work
-            self.stats["prefill_tokens"] += len(req.prompt) - adopted
+            req.margins.append(margin)
             self._on_admitted(slot, req)
-        if self.sched.record_token(slot, int(tok[0])):
+        if self.sched.record_token(slot, first):
             self._release_slot(slot)
+
+    def _prefill_chunks(self, slot: int, req: Request, *, adopted: int = 0,
+                        preflight_span: bool = True) -> tuple[int, float]:
+        """The isolated chunked prefill of ``req``'s prompt from
+        ``req.prefilled`` on, through a one-row view of ``slot``'s block
+        table, each chunk's span made writable first (under a
+        ``cow_preflight`` span when ``preflight_span``).  Returns the first
+        token and its margin on the host: the clock of ``prefill_s`` stops
+        after that read, so it covers the device's queued work.
+        ``prefill_tokens`` counts the prompt less the ``adopted`` tokens that
+        were never recomputed."""
+        tr = self.obs.trace
+        t0 = time.perf_counter()
+        pools = self.cache.slice_slot(slot)
+        tok = marg = None
+        for chunk, start in self.sched.prefill_plan(slot):
+            with tr.span("prefill_chunk", {"uid": req.uid, "start": start}):
+                if preflight_span:
+                    with tr.span("cow_preflight", {"uid": req.uid}):
+                        self.cache.ensure_writable(slot, start, start + len(chunk))
+                else:
+                    self.cache.ensure_writable(slot, start, start + len(chunk))
+                tokens = torch.as_tensor(chunk[None, :], device=self.device)
+                tok, marg = self._prefill_fn(tokens, pools, self.cache.bt_row(slot), start)
+        self.cache.lens[slot] = len(req.prompt)
+        first, margin = int(tok[0]), float(marg[0])
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self.stats["prefill_tokens"] += len(req.prompt) - adopted
+        return first, margin
 
     def _admit_group(self, group: list) -> None:
         """Lockstep admission: an equal-length group prefilled together in

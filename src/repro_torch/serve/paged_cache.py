@@ -72,8 +72,18 @@ Invariants: a sequence's blocks appear in its table row in logical order
 block only while every sharer treats it read-only; unowned table entries
 stay 0 (trash); the trash block is never refcounted and never freed;
 ``lens[slot]`` counts tokens written for the slot and ``watermarks[slot] >=
-lens[slot]`` bounds where garbage from rolled-back writes may sit.  Not
-ported yet: KV-block export/import (disaggregation).
+lens[slot]`` bounds where garbage from rolled-back writes may sit.
+
+KV-block migration (prefill/decode disaggregation; fully paged caches only):
+``export_blocks`` gathers a slot's written blocks on the device and makes one
+host copy a pool leaf, at storage width (fp32 pools as fp32, int8 codes as
+int8, packed int4 as uint8, scales as fp32; a bf16 pool, which numpy has no
+type for, as its raw bits in uint16); the payload records each leaf's dtype
+(``dtypes``) beside the reference's fields, its leaves keyed by the
+reference's ``jax.tree_util.keystr`` strings (``"['0']['attn']['kp']"``).
+``import_blocks`` validates the geometry and every leaf's dtype and shape
+and writes the blocks **in place**, one ``index_copy_`` a pool leaf, never
+converting a leaf: no pool tensor is rebound.
 """
 
 from __future__ import annotations
@@ -92,6 +102,31 @@ __all__ = ["PagedKVCache", "init_paged_attn_cache", "init_paged_stack_cache", "P
 
 # leaves indexed by block (shared by all slots); every other leaf is per slot
 POOL_KEYS = frozenset({"kp", "vp", "ckvp", "kpep", "kps", "vps", "ckvs", "kpes"})
+
+# numpy carriers of the pool dtypes on the migration wire: bf16 ships as its bits
+_WIRE_NP = {torch.float32: np.float32, torch.bfloat16: np.uint16, torch.int8: np.int8,
+            torch.uint8: np.uint8}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _to_wire(t: torch.Tensor) -> np.ndarray:
+    """One host copy of ``t`` as numpy at storage width (bf16 as its bits)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _from_wire(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A wire array back as a host tensor of ``dtype`` (the bits viewed, never
+    converted)."""
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = np.array(arr, copy=True)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class _RadixNode:
@@ -244,9 +279,15 @@ class PagedKVCache:
         self.refcounts = np.zeros((num_blocks,), np.int32)
         self.peak_blocks = 0  # high-water mark of simultaneously owned blocks
         self.cow_copies = 0  # copy-on-write block copies
-        self.pool_rebuilds = 0  # batched copy-on-write dispatches (in place here)
+        self.pool_rebuilds = 0  # batched in-place pool writes (copy-on-write, block imports)
         self.prefix_hits = 0  # admissions that adopted a shared prefix
         self.prefix_hit_tokens = 0  # prompt tokens served from shared blocks
+        # KV-block migration (disaggregation): blocks and wire bytes exported
+        # to / imported from a peer cache, at storage width
+        self.migrated_blocks_out = 0
+        self.migrated_blocks_in = 0
+        self.migration_bytes_out = 0
+        self.migration_bytes_in = 0
         # radix prompt cache: _block_pins counts nodes per block (for the
         # freed-block assert), _entry_rc the refcount the nodes hold;
         # max_prefix_entries caps the unpinned nodes
@@ -264,7 +305,8 @@ class PagedKVCache:
     # -- counters ------------------------------------------------------------
 
     _COUNTER_FIELDS = ("peak_blocks", "cow_copies", "pool_rebuilds", "prefix_hits",
-                       "prefix_hit_tokens")
+                       "prefix_hit_tokens", "migrated_blocks_out", "migrated_blocks_in",
+                       "migration_bytes_out", "migration_bytes_in")
 
     def counters(self) -> dict:
         """Every cache event counter as one dict."""
@@ -578,13 +620,103 @@ class PagedKVCache:
         self.peak_blocks = max(self.peak_blocks, self.allocated_blocks())
 
     def _leaves(self, pools: bool):
-        def walk(tree):
+        return (leaf for _, leaf in self._leaves_with_keys(pools))
+
+    def _leaves_with_keys(self, pools: bool):
+        """``(key, leaf)`` pairs, ``key`` the reference's ``keystr`` of the
+        leaf's path (``"['0']['attn']['kp']"``)."""
+        def walk(tree, key):
             for k, v in tree.items():
                 if isinstance(v, dict):
-                    yield from walk(v)
+                    yield from walk(v, f"{key}[{k!r}]")
                 elif (k in POOL_KEYS) == pools:
-                    yield v
-        return walk(self.pools)
+                    yield f"{key}[{k!r}]", v
+        return walk(self.pools, "")
+
+    # -- KV-block migration (prefill/decode disaggregation) --------------------
+
+    def _migration_guard(self) -> None:
+        if not self.fully_paged:
+            raise ValueError(
+                "KV-block migration needs a fully paged cache (no ring / "
+                "recurrent per-slot leaves); this arch keeps per-slot state "
+                "outside the block pools"
+            )
+
+    def export_blocks(self, slot: int) -> dict:
+        """``slot``'s written KV as a host payload: for each pool leaf the
+        blocks covering ``lens[slot]`` tokens, gathered on the device and
+        copied to the host once, at storage width (``_to_wire``), plus the
+        geometry ``import_blocks`` validates and each leaf's dtype.  The slot
+        keeps its blocks: export is a read."""
+        self._migration_guard()
+        n_tok = int(self.lens[slot])
+        if n_tok <= 0:
+            raise ValueError(f"slot {slot} has no written tokens to export")
+        need = self.blocks_needed(n_tok)
+        ids = torch.tensor(self._owned[slot][:need], dtype=torch.long, device=self.device)
+        leaves, dtypes = {}, {}
+        for key, leaf in self._leaves_with_keys(pools=True):
+            leaves[key] = _to_wire(leaf.index_select(1, ids))
+            dtypes[key] = _dtype_name(leaf.dtype)
+        self.migrated_blocks_out += need
+        self.migration_bytes_out += sum(a.nbytes for a in leaves.values())
+        return {
+            "tokens": n_tok,
+            "n_blocks": need,
+            "block_size": self.block_size,
+            "kv_quant": self.kv_quant,
+            "kv_bits": self.kv_bits,
+            "leaves": leaves,
+            "dtypes": dtypes,
+        }
+
+    def import_blocks(self, slot: int, payload: dict) -> None:
+        """Adopt an exported payload into the empty ``slot``: allocate fresh
+        blocks for its token span, write every wire leaf into the local pool
+        in place (one ``index_copy_`` a leaf on the block axis; the
+        megastep's CUDA graph reads each pool at a fixed address) and set
+        ``lens``/``watermarks`` so decode resumes at position ``tokens``.  The
+        geometry and each leaf's dtype and shape must match this cache:
+        nothing is converted or re-quantized, so codes land bit for bit.
+        Every leaf is checked before anything is allocated or written."""
+        self._migration_guard()
+        for field in ("block_size", "kv_quant", "kv_bits"):
+            if payload[field] != getattr(self, field):
+                raise ValueError(
+                    f"migration geometry mismatch: {field}="
+                    f"{payload[field]!r} vs local {getattr(self, field)!r}"
+                )
+        assert not self._owned[slot], "import_blocks needs an empty slot"
+        n_tok = int(payload["tokens"])
+        n_blocks = self.blocks_needed(n_tok)
+        if n_blocks != payload["n_blocks"]:
+            raise ValueError(f"migration block count skew: {payload['n_blocks']} blocks for "
+                             f"{n_tok} tokens of {self.block_size}")
+        leaves = dict(payload["leaves"])
+        writes = []
+        for key, leaf in self._leaves_with_keys(pools=True):
+            arr = leaves.pop(key)
+            got = payload["dtypes"][key]
+            want = (leaf.shape[0], n_blocks) + tuple(leaf.shape[2:])
+            if (got != _dtype_name(leaf.dtype) or arr.dtype != _WIRE_NP[leaf.dtype]
+                    or arr.shape != want):
+                raise ValueError(
+                    f"migration leaf mismatch at {key}: "
+                    f"got {got}{arr.shape}, want {_dtype_name(leaf.dtype)}{want}"
+                )
+            writes.append((leaf, arr))
+        if leaves:
+            raise ValueError(f"payload has leaves unknown here: {sorted(leaves)}")
+        self.allocate(slot, n_tok)
+        idx = torch.tensor(self._owned[slot], dtype=torch.long, device=self.device)
+        for leaf, arr in writes:
+            leaf.index_copy_(1, idx, _from_wire(arr, leaf.dtype).to(self.device))
+        self.pool_rebuilds += 1
+        self.lens[slot] = n_tok
+        self.watermarks[slot] = n_tok
+        self.migrated_blocks_in += n_blocks
+        self.migration_bytes_in += sum(a.nbytes for a in payload["leaves"].values())
 
     def kv_bytes_per_token(self) -> int:
         """Device bytes one cached token costs across every pool (all layers;

@@ -29,9 +29,8 @@ path, its int matmuls in the Pallas interpreter):
 * ``metrics_snapshot()`` has the reference's keys, less the counters of
   what the port's cache does not have (``bt_full_uploads`` /
   ``bt_row_patches``: the port uploads its block tables whole with each
-  call's inputs, no device-resident table is patched; the ``migrat*``
-  counters: no disaggregated handoff yet), with equal values for every
-  count; times and throughputs are left out (wall clock), and so are the
+  call's inputs, no device-resident table is patched), with equal values
+  for every count (the ``migrat*`` counters included); times and throughputs are left out (wall clock), and so are the
   ``jit_cache_size`` values (the reference counts jit compiles, the port
   CUDA-graph captures: 0 on the CPU);
 * ``engine_headroom`` finds 0 violations in both.
@@ -316,8 +315,7 @@ def test_engine_headroom_zero_violations_on_both():
 
 ENGINE_CASES = ("contiguous", "tick", "megastep_share", "lockstep", "spec")
 # the reference's cache counters the port's cache does not keep (see above)
-NOT_IN_PORT = {"kv_bt_full_uploads", "kv_bt_row_patches", "kv_migrated_blocks_out",
-               "kv_migrated_blocks_in", "kv_migration_bytes_out", "kv_migration_bytes_in"}
+NOT_IN_PORT = {"kv_bt_full_uploads", "kv_bt_row_patches"}
 WALL_CLOCK = {"serve_prefill_s", "serve_decode_s", "serve_prefill_tok_s", "serve_decode_tok_s",
               "serve_tok_s"}
 
