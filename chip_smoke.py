@@ -338,6 +338,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``parity_up_to_ties`` against the dequant path; the share of served
    tokens that follow the stream's bigram ``(31 * prev + 17) mod 49152`` and
    the largest |logit|;
+4u. train the MoE and recurrent decoders at full width (``train_decoders``,
+   ``DECODER_TRAIN_RUNS``): llama4-scout cut to one chunk-local MoE layer
+   (adafactor), deepseek-v3 to one dense MLA layer and its MTP head
+   (adafactor), rwkv6-7b to 4 layers and hymba-1.5b to 8 (adamw), params
+   from a device generator, 12 steps of 4 x 512 ``TokenStream`` tokens
+   through ``build_train_step(donate=True)``: step ms, train tok/s, peak
+   memory, the max |logit| at init, first-3 and last-3 mean loss (and
+   ``mtp_ce``): finite and not rising by more than ``DECODER_FLAT_TOL``, 0
+   kernel launches; each trained tree deployed under ``held_deploys`` (one
+   launch an A2Q matrix, the MTP head's included, 0 flips) and served (4
+   requests of 64 tokens, 16 new) on ``int_forward`` with the decode
+   kernels (deepseek absorbed on ``paged_mla_attention``, all on the tensor
+   cores; rwkv6 on both ``rwkv6_scan`` kernels), the launches counted
+   against the ticks and chunks, ``parity_up_to_ties`` against the deployed
+   tree's dequant path; then each reduced config trained 12 steps of 4 x
+   64 on the card and on the CPU (``reduced_learns``): the loss (and
+   ``mtp_ce``) falls, each step within ``DECODER_CHECK_TOL`` of the CPU's,
+   no kernel launched;
 4i. train the paper's four vision networks at full width: MobileNetV1 and
    ResNet18 (width 1.0) on ``ImageClassStream(global_batch=64)`` at 5e-3,
    ESPCN and UNet (base 32) on ``SuperResStream(global_batch=16, hr=48)``
@@ -4910,6 +4928,267 @@ def train_smollm(dev) -> dict:
     return {"smollm-135m trained": launches}
 
 
+# phase 4u (PERF.md section 4): the MoE and recurrent decoders trained at full
+# width, each cut in depth to fit one card with its optimizer: 12 steps of 4 x
+# 512 TokenStream tokens (512 a multiple of rwkv6's and hymba's 64-token
+# chunks), then deployed and served.  At these widths A2Q from the
+# reference's init puts out logits within ~0.03 of 0 (the P=16 budget spreads
+# 256 integer units over each column's K = 1,600-18,432 inputs), and 12 steps
+# do not move the loss: the full-width runs are held to a finite loss that
+# does not rise by more than DECODER_FLAT_TOL, and the learning to the
+# reduced configs trained on the card against the same run on the CPU
+DECODER_TRAIN_STEPS, DECODER_TRAIN_BATCH, DECODER_TRAIN_SEQ, DECODER_TRAIN_LR = 12, 4, 512, 3e-3
+DECODER_SERVE_REQUESTS, DECODER_SERVE_PROMPT, DECODER_SERVE_NEW = 4, 64, 16
+DECODER_FLAT_TOL = 1e-3  # nat
+DECODER_CHECK_SEQ, DECODER_CHECK_TOL = 64, 1e-3  # reduced runs: tokens a row, card vs CPU rtol
+DECODER_TRAIN_RUNS = (  # (arch, layers kept of the first stack, optimizer)
+    # one chunk-local MoE layer: 4.27 B parameters; adamw's two moments would not fit
+    ("llama4-scout-17b-a16e", 1, "adafactor"),
+    # one of the 3 dense MLA layers and the MTP head (its block then takes the
+    # dense stack's d_ff 18,432): 3.12 B; adamw's moments ran out of memory in
+    # the backward (69.3 GiB peak, 12.8 GiB of it unallocated between blocks)
+    ("deepseek-v3-671b", 1, "adafactor"),
+    ("rwkv6-7b", 4, "adamw"),
+    ("hymba-1.5b", 8, "adamw"),
+)
+
+
+def _a2q_matrices(tree) -> int:
+    """The 2-D A2Q weight matrices of a tree (a stacked leaf's layers and
+    experts each one): what a deploy launches ``a2q_quantize`` on."""
+    if not isinstance(tree, dict):
+        return 0
+    if {"v", "t", "d"} <= set(tree):
+        return int(np.prod(tree["v"].shape[:-2]))
+    return sum(_a2q_matrices(v) for v in tree.values())
+
+
+def _int_matmul_per_forward(arch) -> int:
+    """Deployed 2-D linears one cached forward runs on int_matmul (the
+    routed experts take the dequantized view; MLA's wkv_b is absorbed)."""
+    s = arch.stacks[0]
+    if s.kind == "rwkv6":
+        return 7 * s.count + 1  # time-mix 5, channel-mix 2; the head
+    if s.kind == "hymba":
+        return 11 * s.count + 1  # attention 4, mamba 4, mlp 3; the head
+    return deepseek_int_matmul_per_forward(arch)
+
+
+def train_decoders(dev, smi: str) -> dict:
+    """Phase 4u: each of ``DECODER_TRAIN_RUNS`` at full width with its depth
+    cut, params drawn by a device generator, A2Q training through
+    ``build_train_step`` (``donate=True``: one copy of the state) and the
+    ``Trainer`` (cosine schedule, warm-up of one step) for
+    ``DECODER_TRAIN_STEPS`` steps with no kernel launched;
+    the loss (and deepseek's ``mtp_ce``) must stay finite and not rise (see
+    ``DECODER_FLAT_TOL``), and the reduced config must learn on the card as
+    on the CPU (``reduced_learns``).  The trained tree is deployed through
+    ``deploy_params`` under ``held_deploys`` (one launch an A2Q matrix, the
+    MTP head's included, 0 code flips) and served: 4 requests of 64
+    TokenStream tokens, 16 new, on ``PagedServeEngine`` with
+    ``int_forward`` and the decode kernels (deepseek absorbed into latent
+    space on ``paged_mla_attention``; rwkv6 on ``rwkv6_scan``), held to the
+    deployed tree's dequant path with ``parity_up_to_ties``.  Returns the
+    deploy and serve launches by model."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.models.lm import Runtime, apply_lm, init_lm
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.optim.optimizers import adafactor, adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.serve.engine import PagedServeEngine, deploy_params, parity_up_to_ties
+    from repro_torch.train.state import init_state
+    from repro_torch.train.trainer import Trainer
+
+    N, B, S = DECODER_TRAIN_STEPS, DECODER_TRAIN_BATCH, DECODER_TRAIN_SEQ
+    phase(f"4u: train the MoE and recurrent decoders at full width ({N} steps of {B} x {S} "
+          f"tokens), deploy, serve {DECODER_SERVE_REQUESTS} requests each")
+    t_phase = time.perf_counter()
+    out = {}
+    for name, layers, opt_name in DECODER_TRAIN_RUNS:
+        t_model = time.perf_counter()
+        full = get_arch(name)
+        arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                     count=layers),))
+        q = arch.quant
+        if (arch.compute_dtype, arch.param_dtype, arch.remat) != ("bfloat16", "float32", "block") \
+                or q.mode != "a2q" or S % max(s.ssm.chunk if s.ssm else 1 for s in arch.stacks):
+            raise AssertionError(f"{name}'s config moved: {arch}")
+        tag = f"4u {name}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        opt = {"adamw": adamw, "adafactor": adafactor}[opt_name]()
+        held_state = [init_state(init_lm(torch.Generator(device=dev).manual_seed(0), arch,
+                                         device=dev), opt).tree()]
+        n_params = sum(t.numel() for t in _leaves(held_state[0]["params"]))
+        probe = TokenStream(vocab=arch.vocab, seq_len=DECODER_SERVE_PROMPT,
+                            global_batch=DECODER_SERVE_REQUESTS, seed=0).batch(10_000)["tokens"]
+        with torch.no_grad():
+            init_logit = apply_lm(held_state[0]["params"], arch, tokens=torch.as_tensor(
+                probe, device=dev))[0].abs().max().item()
+        step_fn = build_train_step(arch, opt, Runtime(), lr_schedule=cosine_with_warmup(
+            DECODER_TRAIN_LR, warmup=1, total=N), donate=True)
+        stream = TokenStream(vocab=arch.vocab, seq_len=S, global_batch=B, seed=0)
+        print(f"[{tag}] d_model {arch.d_model}, {arch.n_layers} of {full.n_layers} layers"
+              f"{' + the MTP head' if arch.mtp_depth else ''}, {n_params / 1e9:.3f} B parameters, "
+              f"{opt_name}; init {time.perf_counter() - t_model:.1f} s", flush=True)
+        ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+        t0 = time.perf_counter()
+        # the trainer holds the only reference to the initial state, so the
+        # first step's update frees it
+        res = Trainer(step_fn, stream.batch, log_every=1).run(held_state.pop(), N)
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        train_launches = sum(ops.launch_counts().values())
+        hist = res.history
+        keys = ["loss", "ce", "penalty"] + (["mtp_ce"] if "mtp_ce" in hist[0] else [])
+        series = {k: np.array([r[k] for r in hist]) for k in keys}
+        step_ms = float(np.median([r["step_time"] for r in hist[1:]])) * 1e3
+        print(f"[{tag}] {N} steps in {train_s:.1f} s: median step {step_ms:.1f} ms, "
+              f"{B * S / step_ms * 1e3:.0f} train tok/s (first step "
+              f"{hist[0]['step_time'] * 1e3:.0f} ms), peak memory {peak / 2**30:.2f} GiB ({smi}); "
+              f"kernel launches while training {train_launches}", flush=True)
+        print(f"[{tag}] " + "; ".join(
+            f"{k} {series[k][:3].mean():.6f} -> {series[k][-3:].mean():.6f}" for k in keys)
+              + f"; largest grad norm {max(r['grad_norm'] for r in hist):.4g}; max |logit| at "
+              f"init {init_logit:.4g}", flush=True)
+        for k in ("loss", "mtp_ce"):
+            if k in series and not (np.isfinite(series[k]).all() and
+                                    series[k][-3:].mean() <= series[k][:3].mean()
+                                    + DECODER_FLAT_TOL):
+                raise AssertionError(f"[{tag}] {k} not finite or rose: {series[k]}")
+        if train_launches:
+            raise AssertionError(f"[{tag}] training launched kernels: {ops.launch_counts()}")
+        trained = res.state["params"]
+        del res
+        torch.cuda.empty_cache()
+
+        matrices = _a2q_matrices(trained)
+        a2q_quantize_cuda.launches = 0
+        with held_deploys(tag) as held:
+            params = deploy_params(trained, q)
+        torch.cuda.synchronize()
+        deploys = a2q_quantize_cuda.launches
+        check_held(tag, held, deploys)
+        if deploys != matrices or held["flips"]:
+            raise AssertionError(f"[{tag}] {deploys} deploy launches for {matrices} A2Q matrices, "
+                                 f"{held['flips']} code flips")
+        del trained
+        torch.cuda.empty_cache()
+
+        mla = arch.stacks[0].attn is not None and arch.stacks[0].attn.kind == "mla"
+        rt = Runtime(int_forward=True, decode_kernel=True, mla_absorb=mla)
+        prompts = list(probe)
+        kw = dict(batch=DECODER_SERVE_REQUESTS, max_seq=96, block_size=16,
+                  prefill_chunk=DECODER_SERVE_PROMPT, device=dev)
+        engine = PagedServeEngine(arch, params, rt=rt, **kw)
+        engine.generate(prompts[:1], max_new=2)  # warm-up
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        outs = engine.generate(prompts, max_new=DECODER_SERVE_NEW)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        d = {k: after[k] - before[k] for k in after}
+        tp = engine.throughput()
+        ticks = tp["decode_dispatches"]
+        per_forward = _int_matmul_per_forward(arch)
+        chunked = d["rwkv6_scan_cuda.chunked_launches"]
+        launches = {"int_matmul": d["int_matmul_cuda.launches"],  # int8 x in (int_forward)
+                    "int_matmul[tc]": d["int_matmul_cuda.tc_launches"],
+                    "paged_mla_attention": d["paged_mla_attention_cuda.launches"],
+                    "paged_mla_attention[tc]": d["paged_mla_attention_cuda.tc_launches"],
+                    "rwkv6_scan": d["rwkv6_scan_cuda.launches"] - chunked,  # step kernel
+                    "rwkv6_scan[chunked]": chunked,
+                    "a2q_quantize": deploys, "a2q_quantize[flips]": held["flips"]}
+        print(f"[{tag}] served: prefill {tp['prefill_tok_s']:.1f} tok/s, decode "
+              f"{tp['decode_tok_s']:.1f} tok/s ({ticks} ticks); launches {launches}", flush=True)
+        rwkv = arch.stacks[0].kind == "rwkv6"
+        want = {"int_matmul": per_forward * (ticks + DECODER_SERVE_REQUESTS),
+                "paged_mla_attention": arch.n_layers * ticks if mla else 0,
+                "rwkv6_scan": arch.n_layers * ticks if rwkv else 0,  # one prefill chunk a prompt
+                "rwkv6_scan[chunked]": arch.n_layers * DECODER_SERVE_REQUESTS if rwkv else 0}
+        got = {k: launches[k] for k in want}
+        if got != want or d["int_matmul_cuda.prologue_launches"] or \
+                d["paged_attention_cuda.launches"] or \
+                launches["paged_mla_attention[tc]"] != launches["paged_mla_attention"]:
+            raise AssertionError(f"[{tag}] launches {launches}, expected {want}, no prologue or "
+                                 "paged_attention launch and the MLA launches all on the tensor "
+                                 "cores")
+        toks = torch.as_tensor(np.stack(prompts), device=dev)
+        with torch.no_grad():
+            l_deq = apply_lm(params, arch, tokens=toks, rt=Runtime(mla_absorb=mla))[0].float()
+        eps = 2.0**-6 * l_deq.abs().max().item()  # two bf16 ulps at the top of the range
+        hits = float((l_deq[:, :-1].argmax(-1).cpu().numpy() ==
+                      _bigram(probe[:, :-1], arch.vocab)).mean())
+        del l_deq
+        ref = PagedServeEngine(arch, params, rt=Runtime(mla_absorb=mla), **kw)
+        ref_outs = ref.generate(prompts, max_new=DECODER_SERVE_NEW)
+        ok, ties, detail = parity_up_to_ties(ref.last_requests, outs, eps)
+        print(f"[{tag}] int path vs the deployed tree's dequant path: parity_up_to_ties "
+              f"eps={eps:.4g} ok={ok} ties={ties} identical "
+              f"{sum(a == b for a, b in zip(ref_outs, outs))}/{len(outs)}; prompts' next-token "
+              f"argmax on the bigram {hits:.4f}; model {time.perf_counter() - t_model:.1f} s",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"[{tag}] parity failed: {detail}")
+        for o in outs:
+            if len(o) != DECODER_SERVE_NEW or not all(0 <= t < arch.vocab for t in o):
+                raise AssertionError(f"[{tag}] bad output {o}")
+        out[f"{name} trained (4u)"] = launches
+        del engine, ref, params
+        torch.cuda.empty_cache()
+        reduced_learns(name, opt_name, dev)
+    print(f"[4u] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def reduced_learns(name, opt_name, dev) -> None:
+    """``name``'s reduced config (fp32) trained ``DECODER_TRAIN_STEPS`` steps
+    of ``DECODER_TRAIN_BATCH`` x ``DECODER_CHECK_SEQ`` tokens on the card and
+    on the CPU from the same CPU-drawn params, as 4u trains the full width:
+    the loss (and ``mtp_ce``) falls from the first three steps' mean to the
+    last three's on the card, each step's figure within
+    ``DECODER_CHECK_TOL`` of the CPU's, and the card's run launches no
+    kernel."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.optim.optimizers import adafactor, adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.train.state import init_state
+    from repro_torch.train.trainer import Trainer
+
+    arch, N = reduced(get_arch(name)), DECODER_TRAIN_STEPS
+    runs = {}
+    ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+    for device in ("cpu", dev):
+        opt = {"adamw": adamw, "adafactor": adafactor}[opt_name]()
+        step_fn = build_train_step(arch, opt, Runtime(), lr_schedule=cosine_with_warmup(
+            DECODER_TRAIN_LR, warmup=1, total=N), donate=True)
+        state = init_state(init_lm(torch.Generator().manual_seed(0), arch, device=device),
+                           opt).tree()
+        stream = TokenStream(vocab=arch.vocab, seq_len=DECODER_CHECK_SEQ,
+                             global_batch=DECODER_TRAIN_BATCH, seed=0)
+        hist = Trainer(step_fn, stream.batch, log_every=1).run(state, N).history
+        runs[str(device)] = {k: np.array([r[k] for r in hist]) for k in ("loss", "mtp_ce")
+                             if k in hist[0]}
+    card, cpu = runs[str(dev)], runs["cpu"]
+    launches = sum(ops.launch_counts().values())
+    err = max(float(np.abs(card[k] / cpu[k] - 1).max()) for k in card)
+    print(f"[4u {name} reduced] card: " + "; ".join(
+        f"{k} {v[:3].mean():.4f} -> {v[-3:].mean():.4f}" for k, v in card.items())
+          + f"; largest relative difference from the CPU's {err:.3g}; kernel launches "
+          f"{launches}", flush=True)
+    if launches or not err <= DECODER_CHECK_TOL or not all(
+            np.isfinite(v).all() and v[-3:].mean() < v[:3].mean() for v in card.values()):
+        raise AssertionError(f"[4u {name} reduced] card {card}, CPU {cpu}, launches {launches}")
+
+
 # phase 4i (PERF.md section 4): the paper's A2Q widths M = N = 6 at P = 16, the
 # fig scripts' batch of 64 CIFAR-shaped images (benchmarks/fig4_pareto.py) and
 # 16 BSD-shaped 48 x 48 patches.  As in the paper (App. B) and the fig scripts'
@@ -5140,6 +5419,8 @@ def main() -> int:
     by_path.update(encode_hubert(dev))
     torch.cuda.empty_cache()
     by_path.update(train_smollm(dev))
+    torch.cuda.empty_cache()
+    by_path.update(train_decoders(dev, smi))
     torch.cuda.empty_cache()
     by_path.update(train_vision(dev, smi))
     for e in entries:

@@ -1,4 +1,4 @@
-"""Training launcher: A2Q training of a dense decoder on one device.
+"""Training launcher: A2Q training of a token decoder on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 200 --batch 8 --seq 512 [--ckpt-dir DIR --ckpt-every 50] \\
@@ -9,10 +9,13 @@ Port of ``repro.launch.train`` for one device: params from the port's
 ``TokenStream`` bigram data, ``build_train_step`` with ``--optimizer`` and a
 cosine schedule with warmup peaking at ``--lr``, the ``Trainer`` with
 checkpoints (a rerun with the same ``--ckpt-dir`` resumes, printing
-``resumed from step N``) and an emergency save on SIGTERM.  ``--device``
-defaults to ``cuda``.  The reference's multi-device flags are refused as
-not ported yet: ``--grad-compress-bits``/``--grad-compress-scale``, and
-``--mesh auto`` when more than one device is visible.
+``resumed from step N``) and an emergency save on SIGTERM.  Every
+``lm``-family arch trains: dense, MoE (deepseek-v3 with its MTP head, whose
+``mtp_ce`` is printed beside the loss; llama4-scout), rwkv6 and hymba; the
+vlm and audio families raise.  ``--device`` defaults to ``cuda``.  The
+reference's multi-device flags are refused as not ported yet:
+``--grad-compress-bits``/``--grad-compress-scale``, and ``--mesh auto`` when
+more than one device is visible.
 """
 
 from __future__ import annotations
@@ -96,6 +99,8 @@ def main(argv=None):
             json.dump(result.history, f, indent=1)
     first, last = result.history[0]["loss"], result.history[-1]["loss"]
     print(f"loss {first:.4f} -> {last:.4f}")
+    if "mtp_ce" in result.history[-1]:
+        print(f"mtp_ce {result.history[0]['mtp_ce']:.4f} -> {result.history[-1]['mtp_ce']:.4f}")
     return result
 
 

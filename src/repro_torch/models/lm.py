@@ -9,10 +9,10 @@ too); and for audio encoders (``family="audio"``, hubert): no token
 embedding, precomputed frame embeddings in (the conv feature frontend is a
 stub in the reference too), a boundary ``head`` of ``n_classes`` over every
 frame.  The reference's sharding constraints have no counterpart on one
-device and are dropped.  ``lm_loss`` is the training loss of the dense
-``attn_mlp`` token decoders (smollm, yi, ...); the multi-token-prediction
-head's loss and MoE, rwkv6, hymba, vlm and audio training are not ported
-yet.
+device and are dropped.  ``lm_loss`` is the training loss of the token
+decoders (``family="lm"``: ``attn_mlp``, ``moe``, ``rwkv6`` and ``hymba``
+stacks) with deepseek-v3's multi-token-prediction head; vlm and audio
+training are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,11 +21,18 @@ import contextlib
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, StackConfig
 from repro_torch.nn.embedding import apply_embedding, init_embedding
-from repro_torch.nn.linear import apply_linear, chain_report_scope, init_linear, linear_penalty
+from repro_torch.nn.linear import (
+    _quant_weights,
+    apply_linear,
+    chain_report_scope,
+    init_linear,
+    linear_penalty,
+)
 from repro_torch.nn.module import tree_to
 from repro_torch.nn.norms import apply_norm, init_norm
 from repro_torch.nn.transformer import (
@@ -84,16 +91,21 @@ def init_lm(gen: torch.Generator, arch: ArchConfig, device="cuda") -> dict:
     elif not arch.tie_embeddings:
         params["head"] = init_linear(gen, arch.d_model, arch.vocab, arch.quant, boundary=True)
     if arch.mtp_depth > 0:
-        last = arch.stacks[-1]
         params["mtp"] = {
             "proj": init_linear(gen, 2 * arch.d_model, arch.d_model, arch.quant),
-            "block": init_stack(gen, arch, StackConfig(
-                kind="attn_mlp", count=1, attn=last.attn, d_ff=last.d_ff or arch.d_model * 4,
-                mlp_gated=True)),
+            "block": init_stack(gen, arch, _mtp_stackcfg(arch)),
             "norm_h": init_norm(arch.d_model, arch.norm, device=gen.device),
             "norm_e": init_norm(arch.d_model, arch.norm, device=gen.device),
         }
     return tree_to(params, dev)
+
+
+def _mtp_stackcfg(arch: ArchConfig) -> StackConfig:
+    """The MTP head's one block: the last stack's attention, a gated MLP of
+    its ``d_ff`` (``4 * d_model`` when it has none, as a MoE stack)."""
+    last = arch.stacks[-1]
+    return StackConfig(kind="attn_mlp", count=1, attn=last.attn,
+                       d_ff=last.d_ff or arch.d_model * 4, mlp_gated=True)
 
 
 def _head_logits(params, arch: ArchConfig, h: torch.Tensor, rt: Runtime) -> torch.Tensor:
@@ -121,6 +133,7 @@ def apply_lm(
     cache: Optional[dict] = None,
     start_pos=None,
     rt: Optional[Runtime] = None,
+    return_hidden: bool = False,
 ):
     """Forward pass over ``tokens (B, T)``, precomputed ``frontend_embeds
     (B, S, d_model)`` (hubert's frames), or both (llava's patches: the
@@ -133,9 +146,11 @@ def apply_lm(
     ``cm.shift``) are updated in place; the returned cache holds the
     per-stack leaves without the view.
 
-    Returns ``(logits, new_cache)``.  The reference's third output, the A2Q
-    penalty, depends on the params alone: ``a2q_penalty_of(params, arch)``
-    computes it (``lm_loss`` adds it to the task loss)."""
+    Returns ``(logits, new_cache)``, and with ``return_hidden`` also the
+    post-``final_norm`` hidden states ``(B, S, d_model)`` (the MTP head's
+    input).  The reference's third output, the A2Q penalty, depends on the
+    params alone: ``a2q_penalty_of(params, arch)`` computes it (``lm_loss``
+    adds it to the task loss)."""
     rt = rt or Runtime()
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     parts = []
@@ -169,9 +184,8 @@ def apply_lm(
                             int_chain=rt.int_chain)
         h = apply_norm(params["final_norm"], x, kind=arch.norm, eps=arch.norm_eps)
         logits = _head_logits(params, arch, h, rt)
-    if cache is None:
-        return logits, None
-    return logits, {k: v for k, v in cache.items() if k != "_paged"}
+    out_cache = None if cache is None else {k: v for k, v in cache.items() if k != "_paged"}
+    return (logits, out_cache, h) if return_hidden else (logits, out_cache)
 
 
 def a2q_penalty_of(params: dict, arch: ArchConfig) -> torch.Tensor:
@@ -198,22 +212,60 @@ def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor, z_loss: float = 
 
 
 def lm_loss(params: dict, arch: ArchConfig, batch: dict, rt: Optional[Runtime] = None):
-    """Training loss ``task CE (+ z-loss) + reg_lambda * L_reg`` and its
-    metrics ``{"ce", "penalty", "loss"}``, as ``repro.models.lm.lm_loss``
-    computes them for a dense decoder.  ``batch`` = ``{tokens, targets}``,
-    targets aligned to the tokens.  Only the ``lm`` family's ``attn_mlp``
-    stacks train here; the rest raise (``ROADMAP.md`` queue 1, training)."""
-    if arch.family != "lm" or any(s.kind != "attn_mlp" for s in arch.stacks):
+    """Training loss ``task CE (+ z-loss) [+ 0.3 * MTP CE] + reg_lambda *
+    L_reg`` and its metrics ``{"ce", "penalty", "loss"[, "mtp_ce"]}``, as
+    ``repro.models.lm.lm_loss`` computes them.  ``batch`` = ``{tokens,
+    targets}``, targets aligned to the tokens.
+
+    With an ``mtp`` subtree (deepseek-v3) the DeepSeek-style head predicts
+    ``targets[t + 1]`` from ``h[t]`` fused with the embedding of
+    ``targets[t]``: both normed, concatenated, projected by ``mtp.proj``,
+    through one ``attn_mlp`` block (``_mtp_stackcfg``) and the model's head
+    with no final norm; ``mtp_ce`` is that CE with its z-loss.  The MTP
+    block's A2Q penalty joins the loss but not ``metrics["penalty"]``, and
+    ``mtp.proj`` is left unpenalized, both as in the reference
+    (``apply_a2q`` still clamps its ``t`` at the cap, so its accumulator
+    guarantee holds).  vlm and audio training raise (``ROADMAP.md`` queue
+    1, training)."""
+    if arch.family != "lm":
         raise NotImplementedError(
-            f"training {arch.name} ({arch.family}, stacks "
-            f"{[s.kind for s in arch.stacks]}) is not ported yet: only the lm family's "
-            "attn_mlp stacks train (ROADMAP.md queue 1, training)")
-    if arch.mtp_depth > 0 and "mtp" in params:
-        raise NotImplementedError("the multi-token-prediction loss is not ported yet "
-                                  "(ROADMAP.md queue 1, training)")
+            f"training {arch.name} ({arch.family}) is not ported yet: only the lm family "
+            "trains (ROADMAP.md queue 1, training)")
     rt = rt or Runtime()
-    logits, _ = apply_lm(params, arch, tokens=batch["tokens"], rt=rt)
-    loss, ce = _cross_entropy(logits, batch["targets"])
     penalty = a2q_penalty_of(params, arch)
+    mtp_on = arch.mtp_depth > 0 and "mtp" in params
+    if "head" in params and arch.quant.mode != "none":
+        # the untied head's fake-quant weight (vocab x d_model: 1.03 G values
+        # at llama4-scout's width), computed once for both heads with an MTP
+        # head; when autograd records, under checkpoint: the backward keeps
+        # only the matmul's compute-dtype copy and recomputes the rest (about
+        # five fp32 copies) when it reaches the head
+        recorded = torch.is_grad_enabled() and any(
+            t.requires_grad for t in params["head"].values() if torch.is_tensor(t))
+        if mtp_on or recorded:
+            head = {k: v for k, v in params["head"].items() if k in ("aq", "b")}
+            args = (params["head"], arch.quant, True, True)
+            head["fq"] = checkpoint(_quant_weights, *args, use_reentrant=False) if recorded \
+                else _quant_weights(*args)
+            params = {**params, "head": head}
+    logits, _, h = apply_lm(params, arch, tokens=batch["tokens"], rt=rt, return_hidden=True)
+    targets = batch["targets"]
+    loss, ce = _cross_entropy(logits, targets)
+    metrics = {"ce": ce, "penalty": penalty}
+    if mtp_on:
+        cd = COMPUTE_DTYPES[arch.compute_dtype]
+        mtp = params["mtp"]
+        emb_next = apply_embedding(params["embed"], targets[:, :-1], dtype=cd)
+        fused = torch.cat([apply_norm(mtp["norm_h"], h[:, :-1], kind=arch.norm),
+                           apply_norm(mtp["norm_e"], emb_next, kind=arch.norm)], dim=-1)
+        hm = apply_linear(mtp["proj"], fused, arch.quant, compute_dtype=cd)
+        B, S, _ = hm.shape
+        pos = torch.arange(S, dtype=torch.int32, device=hm.device)[None, :].expand(B, S)
+        hm = apply_stack(mtp["block"], hm, arch, _mtp_stackcfg(arch), pos)
+        mtp_loss, _ = _cross_entropy(_head_logits(params, arch, hm, rt), targets[:, 1:])
+        loss = loss + 0.3 * mtp_loss
+        penalty = penalty + tree_a2q_penalty(mtp["block"], arch.quant)
+        metrics["mtp_ce"] = mtp_loss
     loss = loss + arch.quant.reg_lambda * penalty
-    return loss, {"ce": ce, "penalty": penalty, "loss": loss}
+    metrics["loss"] = loss
+    return loss, metrics

@@ -17,8 +17,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import Runtime, apply_lm, lm_loss
-from repro_torch.nn.module import tree_map
-from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
+from repro_torch.nn.module import tree_leaves_with_path, tree_map
+from repro_torch.optim.optimizers import Optimizer, global_norm
 
 __all__ = ["build_train_step", "build_prefill_step", "build_serve_step"]
 
@@ -30,6 +30,7 @@ def build_train_step(
     lr_schedule: Optional[Callable] = None,
     grad_clip: float = 1.0,
     grad_compress=None,
+    donate: bool = False,
 ):
     """``train_step(state, batch) -> (new_state, metrics)`` over ``state =
     {"params", "opt_state", "step"}`` (``step`` an int32 0-dim tensor) and a
@@ -37,10 +38,15 @@ def build_train_step(
     params are differentiated as detached copies that require grad, so the
     state's tensors never do (and a deploy of them reaches the kernels);
     the update runs under ``no_grad``.  ``metrics`` (``loss``, ``ce``,
-    ``penalty``, ``grad_norm``, ``lr``) are 0-dim device tensors: nothing is
-    read back to the host.  ``grad_compress`` (the reference's compressed
-    all-reduce) raises: it is not ported (``ROADMAP.md`` queue 1,
-    distribution)."""
+    ``penalty``, ``mtp_ce`` with an MTP head, ``grad_norm``, ``lr``) are
+    0-dim device tensors: nothing is read back to the host.  The fresh
+    gradients are clipped in place.  ``donate=True`` is the reference's
+    donated state buffers: the update runs a leaf at a time and writes the
+    new params and optimizer state into the given state's tensors, so a step
+    holds one copy of them and one leaf's temporaries (the same values; the
+    given state must not be read afterwards).  ``grad_compress`` (the
+    reference's compressed all-reduce) raises: it is not ported
+    (``ROADMAP.md`` queue 1, distribution)."""
     if grad_compress is not None:
         raise NotImplementedError("the compressed gradient all-reduce is not ported yet "
                                   "(ROADMAP.md queue 1, distribution)")
@@ -57,15 +63,55 @@ def build_train_step(
             # a leaf the loss does not reach gets zeros, as jax.grad gives it
             got = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
         grads = tree_map(lambda _: next(got), live)
+        del live, leaves
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            # clip_by_global_norm's arithmetic on the fresh gradients, in place
+            gnorm = global_norm(grads)
+            scale = torch.clamp(grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
+            tree_map(lambda g: g.mul_(scale), grads)
             lr = lr_schedule(step)
-            new_params, new_opt = optimizer.update(grads, opt_state, params, lr)
+            if donate:
+                new_params, new_opt = _update_in_place(optimizer, grads, opt_state, params, lr)
+            else:
+                new_params, new_opt = optimizer.update(grads, opt_state, params, lr)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(grad_norm=gnorm, lr=lr)
         return {"params": new_params, "opt_state": new_opt, "step": step + 1}, metrics
 
     return train_step
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _single(path, value):
+    return value if not path else {path[0]: _single(path[1:], value)}
+
+
+def _update_in_place(optimizer: Optimizer, grads, opt_state, params, lr):
+    """``optimizer.update`` a param leaf at a time (every ported optimizer is
+    leafwise but for its shared ``count``), each result copied into the old
+    tensors: the state's trees keyed like the params (``m``, ``v``, the
+    per-leaf dicts of adafactor's ``v``) are cut to the leaf's path, the
+    rest (``count``) passed whole and written once at the end."""
+    trees = {k for k, v in opt_state.items() if isinstance(v, dict)}
+    new_rest = {}
+    for path, p in tree_leaves_with_path(params):
+        sub = {k: _single(path, _at(opt_state[k], path)) if k in trees else v
+               for k, v in opt_state.items()}
+        new_p, new_s = optimizer.update(_single(path, _at(grads, path)), sub,
+                                        _single(path, p), lr)
+        p.copy_(_at(new_p, path))
+        for k in trees:
+            tree_map(lambda old, new: old.copy_(new), _at(opt_state[k], path),
+                     _at(new_s[k], path))
+        new_rest = {k: v for k, v in new_s.items() if k not in trees}
+    for k, v in new_rest.items():
+        opt_state[k].copy_(v)
+    return params, opt_state
 
 
 def build_prefill_step(arch: ArchConfig, rt: Optional[Runtime] = None):

@@ -25,11 +25,17 @@ path; its expert-parallel ``shard_map`` branches are not ported).  No
 
 Expert weights are ``(E, d_in, d_out)`` with per-(expert, channel) A2Q
 ``t``/``d``, so each expert output channel is its own accumulator (float
-``mode="none"`` experts too; baseline-QAT experts are not ported yet).  Each
-slot's quantized (or deployed ``q8 * s8``) weight view is built on the
-device from its expert id (``index_select`` on the stacked leaves), a few
-slots at a time (``SLOT_CHUNK_ELEMS``), never for all experts at once: at
-deepseek-v3's width one expert leaf is 3.8 G values.  The routed experts
+``mode="none"`` experts too; baseline-QAT experts carry ``w`` and a
+per-(expert, channel) ``wq.log2_scale``).  Each slot's quantized (or
+deployed ``q8 * s8``) weight view is built on the device from its expert id
+(``index_select`` on the stacked leaves), a few slots at a time
+(``SLOT_CHUNK_ELEMS``), never for all experts at once: at deepseek-v3's
+width one expert leaf is 3.8 G values.  When autograd records the forward
+(training), each batch of slots (``TRAIN_SLOT_CHUNK_ELEMS``) runs under
+``torch.utils.checkpoint``: the fake-quant views' temporaries are
+recomputed one batch at a time in the backward instead of kept for every
+expert at once (an A2Q view keeps about five of its size for the backward,
+~40 GB over llama4-scout's 48 expert matrices).  The routed experts
 have no fused integer path (as in the reference): under ``int_forward`` they
 run on the dequantized view and are booked as a ``fallback`` in the chain
 report, while the shared experts are plain linears and take the fused W8A8
@@ -42,27 +48,46 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MoEConfig, QuantConfig
 from repro_torch.core.a2q import apply_a2q, init_a2q
-from repro_torch.core.quantizers import apply_act_quant, init_act_quant
-from repro_torch.nn.linear import _record, _warn_fallback_once, apply_linear, init_linear
-from repro_torch.nn.module import kaiming
+from repro_torch.core.bounds import int_range
+from repro_torch.core.quantizers import (
+    apply_act_quant,
+    clip,
+    init_act_quant,
+    init_weight_qat,
+    ste_round,
+)
+from repro_torch.nn.linear import (
+    _record,
+    _warn_fallback_once,
+    apply_linear,
+    init_linear,
+    linear_penalty,
+)
+from repro_torch.nn.module import kaiming, tree_leaves_with_path
 
-__all__ = ["init_moe", "apply_moe"]
+__all__ = ["init_moe", "apply_moe", "moe_penalty"]
 
 
 def _init_expert_weight(gen, e: int, d_in: int, d_out: int, q: QuantConfig) -> dict:
     """``(e, d_in, d_out)`` expert weights drawn one expert at a time (so an
-    A2Q init never holds more than one expert's float temporaries)."""
+    A2Q init never holds more than one expert's float temporaries).  QAT
+    experts add ``wq.log2_scale (e, d_out)``, each (expert, channel)'s
+    max-abs calibration ``log2(max(absmax over d_in, 1e-8) / (2^(M-1) - 1))``."""
     dev = gen.device
-    if q.mode == "qat":
-        raise NotImplementedError("QAT expert weights are not ported yet")
-    if q.mode == "none":
+    if q.mode in ("none", "qat"):
         w = torch.empty((e, d_in, d_out), dtype=torch.float32, device=dev)
         for i in range(e):
             w[i] = kaiming(gen, (d_in, d_out), fan_in=d_in)
-        return {"w": w}
+        if q.mode == "none":
+            return {"w": w}
+        scale = torch.empty((e, d_out), dtype=torch.float32, device=dev)
+        for i in range(e):
+            scale[i] = init_weight_qat(w[i], q.weight_bits)["log2_scale"]
+        return {"w": w, "wq": {"log2_scale": scale}}
     v = torch.empty((e, d_in, d_out), dtype=torch.float32, device=dev)
     t = torch.empty((e, d_out), dtype=torch.float32, device=dev)
     d = torch.empty((e, d_out), dtype=torch.float32, device=dev)
@@ -88,8 +113,11 @@ def _expert_weight_view(p: dict, q: QuantConfig, ids: torch.Tensor, dtype) -> to
                          out=torch.empty(q8.shape, dtype=dtype, device=q8.device))
     if q.mode == "none":
         return p["w"].index_select(0, ids).to(dtype)
-    if q.mode == "qat":
-        raise NotImplementedError("QAT expert weights are not ported yet")
+    if q.mode == "qat":  # clip(ste_round(w / s), n, p) * s, s per (expert, channel)
+        n, pmax = int_range(q.weight_bits, signed=True)
+        scale = torch.exp2(p["wq"]["log2_scale"].index_select(0, ids))[:, None, :]
+        w = p["w"].index_select(0, ids)
+        return (clip(ste_round(w / scale), n, pmax) * scale).to(dtype)
     # A2Q's norms are per (expert, channel): one expert at a time
     v, t, d = (p[k].index_select(0, ids) for k in ("v", "t", "d"))
     return torch.stack([apply_a2q({"v": v[i], "t": t[i], "d": d[i]}, q.weight_bits, q.acc_bits,
@@ -114,6 +142,7 @@ def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig, q: QuantConfig)
 
 
 SLOT_CHUNK_ELEMS = 1 << 28  # weight elements a batch of expert slots dequantizes at once
+TRAIN_SLOT_CHUNK_ELEMS = 1 << 26  # the same under autograd, a batch recomputed in the backward
 
 
 def _local_expert_ffn(x_buf: torch.Tensor, params: dict, group_sizes: torch.Tensor,
@@ -142,14 +171,25 @@ def _local_expert_ffn(x_buf: torch.Tensor, params: dict, group_sizes: torch.Tens
     src = offsets[ids][:, None] + rows  # within [0, L): offsets[e] + C <= (e + 1) C
     xs = torch.where(valid[..., None], x_buf[src].to(cd), torch.zeros((), dtype=cd, device=dev))
     leaf = next(iter(params["w_in"].values()))  # q8, w or v: (E, d, d_ff)
-    step = max(1, SLOT_CHUNK_ELEMS // (leaf.shape[-2] * leaf.shape[-1]))
+    weights = {k: params[k] for k in ("w_in", "w_gate", "w_out")}
+    recorded = torch.is_grad_enabled() and (x_buf.requires_grad or any(
+        t.requires_grad for _, t in tree_leaves_with_path(weights)))
+    budget = TRAIN_SLOT_CHUNK_ELEMS if recorded else SLOT_CHUNK_ELEMS
+    step = max(1, budget // (leaf.shape[-2] * leaf.shape[-1]))
+
+    def slots(w, sl, xc):
+        h_in = torch.bmm(xc, _expert_weight_view(w["w_in"], q, sl, cd))
+        h_gate = torch.bmm(xc, _expert_weight_view(w["w_gate"], q, sl, cd))
+        h = F.silu(h_gate.to(torch.float32)).to(cd) * h_in
+        return torch.bmm(h, _expert_weight_view(w["w_out"], q, sl, cd))
+
     ys = []
     for lo in range(0, ids.shape[0], step):
         sl, xc = ids[lo:lo + step], xs[lo:lo + step]
-        h_in = torch.bmm(xc, _expert_weight_view(params["w_in"], q, sl, cd))
-        h_gate = torch.bmm(xc, _expert_weight_view(params["w_gate"], q, sl, cd))
-        h = F.silu(h_gate.to(torch.float32)).to(cd) * h_in
-        ys.append(torch.bmm(h, _expert_weight_view(params["w_out"], q, sl, cd)))
+        if recorded:
+            ys.append(checkpoint(slots, weights, sl, xc, use_reentrant=False))
+        else:
+            ys.append(slots(weights, sl, xc))
     y = torch.zeros((L + 1, d), dtype=cd, device=dev)  # w_out maps back to d
     y[torch.where(valid, src, L)] = torch.cat(ys)
     return y[:L]
@@ -228,3 +268,14 @@ def apply_moe(
         h = h.to(compute_dtype) * lin(params["shared_in"], x=x, site="moe.shared_in")
         out = out + lin(params["shared_out"], x=h, site="moe.shared_out")
     return out
+
+
+def moe_penalty(params: dict, cfg: MoEConfig, q: QuantConfig) -> torch.Tensor:
+    """A2Q regularizer over the routed experts (every (expert, channel)'s
+    ``max(t - T, 0)``) and the shared experts; 0 unless ``q.mode == "a2q"``.
+    ``cfg`` is unused, as in the reference."""
+    total = torch.zeros((), dtype=torch.float32)
+    for name in ("w_in", "w_gate", "w_out", "shared_in", "shared_gate", "shared_out"):
+        if name in params:
+            total = total + linear_penalty(params[name], q, False, True)
+    return total

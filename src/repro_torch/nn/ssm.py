@@ -15,7 +15,10 @@ reference's three forms in plain PyTorch; the time-mix runs them on the CPU.
 On CUDA tensors every form goes through ``ops.rwkv6_scan``, the
 hand-written scan kernel, with the decay floored at ``exp(_MIN_LOGW)`` where
 the reference takes the chunked form and y kept in fp32 for the decode step,
-as the reference's forms return it.
+as the reference's forms return it; but a forward that autograd records
+(training) takes ``rwkv6_chunked`` on every device, the form the
+reference's layers train through (the kernel has no backward, as its
+Pallas counterpart has none).
 
 hymba's mamba heads run the Mamba-2 SSD, a scalar decay per head::
 
@@ -163,7 +166,8 @@ def _recurrence(r, k, v, w, u, ssm: SSMConfig, state: Optional[dict]):
     must hold), ``T == 1`` -> the decode step (fp32 y), ``T % chunk == 0``
     -> chunked, else sequential.  On CUDA every branch is the scan kernel
     (the chunked branches with the decay floored at ``exp(_MIN_LOGW)``), the
-    state written over ``state["S"]`` in place; on the CPU the branch's own
+    state written over ``state["S"]`` in place; on the CPU, and on any
+    device when autograd records an input (training), the branch's own
     form, copied into ``state["S"]``.  Returns y ``(B, H, T, Dv)``."""
     T = r.shape[2]
     if state is None:
@@ -173,7 +177,8 @@ def _recurrence(r, k, v, w, u, ssm: SSMConfig, state: Optional[dict]):
         form = "chunked"
     else:
         form = "decode" if T == 1 else "chunked" if T % ssm.chunk == 0 else "sequential"
-    if r.device.type == "cuda":
+    recorded = torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u))
+    if r.device.type == "cuda" and not recorded:
         from repro_torch.kernels import ops
 
         y, _ = ops.rwkv6_scan(

@@ -14,11 +14,14 @@ When autograd records the forward (training), each block runs under
 ``torch.utils.checkpoint`` unless ``arch.remat == "none"``, as the
 reference wraps its scanned block in ``jax.checkpoint``: a block's
 activations are recomputed in the backward instead of kept.  The A2Q
-fake-quant weights of an ``attn_mlp`` stack are then computed once for all
+fake-quant weights of a stack's linears are then computed once for all
 its layers (``apply_a2q`` over the stacked leaves, the same values as layer
 by layer) and kept through the backward, outside the recompute: layer by
 layer, forward, recompute and backward, they were most of a step's
-operators.
+operators.  A MoE's routed experts are left out: their views are built a
+few experts at a time inside ``nn.moe`` (all of them at once would not fit
+at llama4-scout's width).  A cacheless forward writes no state in place,
+so a recomputed block sees what its first run saw.
 """
 
 from __future__ import annotations
@@ -168,7 +171,8 @@ def tree_a2q_penalty(p: dict, q: QuantConfig) -> torch.Tensor:
     """Sum of every A2Q layer's regularizer in a params tree (a block's, or
     a stack's with its ``(count, ...)`` leaves: the penalty is elementwise
     over ``t``/``d``, so a stacked leaf sums its layers, and stacked experts'
-    ``(E, C)`` caps need nothing of their own).  The channel-mix ``cm.wv``
+    ``(count, E, C)`` caps need nothing of their own: ``nn.moe.moe_penalty``'s
+    sum).  The channel-mix ``cm.wv``
     (post-relu^2, unsigned input) is the one layer whose cap uses
     ``1_signed = 0``; every other matmul sees signed inputs."""
     total = torch.zeros((), dtype=torch.float32)
@@ -193,9 +197,10 @@ def _fake_quant_layers(p: dict, q: QuantConfig, compute_dtype) -> dict:
     """A stack's params with each A2Q linear's ``v``/``t``/``d`` replaced by
     ``fq``, its fake-quant weights for every layer ``(count, K, C)`` in
     ``compute_dtype`` (what ``nn.linear._quant_weights`` would compute
-    layer by layer); the activation quantizers and biases stay."""
+    layer by layer); the activation quantizers and biases stay, and so do
+    stacked routed experts (``t`` of ``(count, E, C)``)."""
     def walk(node, path):
-        if "v" in node and "t" in node and "d" in node:
+        if "v" in node and "t" in node and "d" in node and node["t"].ndim == 2:
             out = {k: v for k, v in node.items() if k not in ("v", "t", "d")}
             out["fq"] = apply_a2q(node, q.weight_bits, q.acc_bits, q.act_bits,
                                   path[-2:] != ("cm", "wv"), dtype=compute_dtype)
@@ -241,7 +246,7 @@ def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
     training = cache is None and torch.is_grad_enabled() and \
         any(leaf.requires_grad for _, leaf in tree_leaves_with_path(params))
     if training:
-        if s.kind == "attn_mlp" and arch.quant.mode == "a2q":
+        if arch.quant.mode == "a2q":
             params = _fake_quant_layers(params, arch.quant, COMPUTE_DTYPES[arch.compute_dtype])
         layers = _unbind_layers(params, s.count)
     for i in range(s.count):

@@ -1031,3 +1031,49 @@ def test_megastep_eager_window_makes_no_host_sync(dev, name):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert out.shape == (3, 2, 4) and bool((out[2] != 0).all())
+
+
+def test_rwkv6_training_forward_skips_the_scan_kernel(dev):
+    """A cacheless time-mix forward that autograd records (training) takes
+    ``rwkv6_chunked`` on the card, as the reference trains (the kernel has no
+    backward): no ``rwkv6_scan`` launch, and its output and gradients (the
+    input's and every parameter's) within 1e-4 of their largest value of
+    the CPU's.  The same forward under ``no_grad`` launches the kernel
+    once.  Float weights (``mode="none"``), so no act-quant code sits at a
+    rounding tie between the two devices' fp32 sums."""
+    from repro_torch import resolve_device
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.nn.module import tree_leaves_with_path, tree_map
+    from repro_torch.nn.ssm import apply_rwkv6_timemix, init_rwkv6_timemix
+
+    resolve_device("cuda")  # TF32 off: fp32 matmuls in full fp32
+    ssm = get_arch("rwkv6-7b").stacks[0].ssm  # 64-wide heads, 64-token chunks
+    q = QuantConfig(mode="none")
+    gen = torch.Generator().manual_seed(0)
+    params = init_rwkv6_timemix(gen, 256, ssm, q)
+    params["u"] = torch.randn(params["u"].shape, generator=gen) * 0.5
+    x = torch.randn((2, 2 * ssm.chunk, 256), generator=gen)
+    ct = torch.randn(x.shape, generator=gen)
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device).requires_grad_(), params)
+        xi = x.to(device).requires_grad_()
+        y, _ = apply_rwkv6_timemix(p, xi, ssm, q, compute_dtype=torch.float32)
+        leaves = [xi] + [v for _, v in tree_leaves_with_path(p)]
+        return y, torch.autograd.grad((y * ct.to(device)).sum(), leaves)
+
+    want_y, want_g = run("cpu")
+    before = rwkv6_scan_cuda.launches
+    got_y, got_g = run(dev)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_cuda.launches == before
+    for got, want in zip((got_y, *got_g), (want_y, *want_g)):
+        want = want.detach()
+        torch.testing.assert_close(got.detach().cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    with torch.no_grad():
+        y, _ = apply_rwkv6_timemix(tree_map(lambda t: t.to(dev), params), x.to(dev), ssm, q,
+                                   compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_cuda.launches == before + 1
+    assert torch.isfinite(y).all()

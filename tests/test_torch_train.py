@@ -235,9 +235,10 @@ def _port_forward_probe(params, arch, batch):
       so such a code may round one apart, and that token's forward, and
       with it every gradient it feeds, then differs a little.
 
-    Measured through a hook on the port's act-quant, without remat (each
-    call runs once)."""
+    Measured through a hook on the port's act-quant (the linears' and a
+    MoE's entry quantizer), without remat (each call runs once)."""
     import repro_torch.nn.linear as lin
+    import repro_torch.nn.moe as moe
     from repro_torch.core.bounds import int_range
 
     live = tree_map(lambda t: torch.from_numpy(np.array(t)).requires_grad_(), params)
@@ -254,12 +255,12 @@ def _port_forward_probe(params, arch, batch):
         calls.append(call)
         return y
 
-    lin.apply_act_quant = record
+    lin.apply_act_quant = moe.apply_act_quant = record
     try:
         loss, _ = lm_loss(live, dataclasses.replace(arch, remat="none"), batch)
         loss.backward()
     finally:
-        lin.apply_act_quant = orig
+        lin.apply_act_quant = moe.apply_act_quant = orig
     mags, ties = {}, 0
     for c in calls:
         u = (c["x"] / c["s"]).double()
