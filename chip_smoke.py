@@ -13,7 +13,9 @@ checks the results.  Every model is
 deployed on the card through the ``a2q_quantize`` kernel, and every deployed
 matrix's codes are held to the plain quantizer's on the card.  yi-6b is
 also served through the serving cluster's routed and disaggregated fleets,
-and smollm-135m through spawned replicas.
+and smollm-135m through spawned replicas.  smollm-135m also trains through
+the compressed data-parallel gradient reduction, and hubert-xlarge and
+llava-next-34b train at full width before they encode and serve.
 
     python3 chip_smoke.py
 
@@ -122,7 +124,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    path's under ``parity_up_to_ties`` at that ``eps``; then a reduced model
    on the card against the same model on the CPU (plain versions), token for
    token and margin for margin;
-4s. on phase 4's smollm-135m params cut to their first ``SIDE_LAYERS`` (6)
+4s. on phase 4's smollm-135m params cut to their first ``SIDE_LAYERS`` (4)
    layers (``serve_shared``), 10 requests of a
    64-token shared prefix and a 4-24-token tail (seed 2), 16 new, batch 8,
    blocks of 16, on ``Runtime(int_forward=True, decode_kernel=True)``:
@@ -139,7 +141,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whole) and the megastep fallback (no round, graph replays, bit for bit);
    acceptance, tokens a row a round, host ops a spec round, decode tok/s
    against plain per tick;
-4o. on phase 4's smollm-135m params cut to their first ``SIDE_LAYERS`` (6)
+4o. on phase 4's smollm-135m params cut to their first ``SIDE_LAYERS`` (4)
    layers (``serve_observed``), phase 4m's 8
    prompts, 32 new, ``decode_steps=8``, ``Runtime(int_chain=True,
    decode_kernel=True)``, bf16 KV: a traced engine against an untraced one
@@ -181,7 +183,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4r. the serving cluster (``serve_cluster``) through ``launch/serve_cluster.py``
    in this process on yi-6b at full width (d_model 4096, 32 heads over 4 KV
    heads of 128, d_ff 11008, vocab 64000), its depth cut from 32 layers to
-   ``CLUSTER_LAYERS`` (4), random A2Q weights from seed 0 drawn once for
+   ``CLUSTER_LAYERS`` (2), random A2Q weights from seed 0 drawn once for
    three fleets: 16 requests (prompts of 64 tokens, every fourth 192), 32
    new, batch 8, blocks of 16, prefill chunks of 32, ``--int-forward
    --parity-check``: ``--disagg 1:1`` (bf16 blocks migrate; token-identical
@@ -199,7 +201,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    smollm-135m at full size on two spawned replicas (``--transport
    subproc``, built in the parent first), token-identical to the parent's
    single engine, no death (the children's launches are not counted);
-4c. on phase 4's smollm-135m cut to its first ``SIDE_LAYERS`` (6) layers, as
+4c. on phase 4's smollm-135m cut to its first ``SIDE_LAYERS`` (4) layers, as
    4m's, 4s's and 4o's, the ``--int-chain --kv-int8 [--kv-bits 4]
    --decode-kernel`` path: ``Runtime(int_chain=True, decode_kernel=True)``
    on int8, then int4 KV pools; launch counts (7 int_matmul a layer per
@@ -253,7 +255,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    megastep (median of 3 alternating runs), host ops a tick vs a window,
    capture seconds, the graph pool's bytes, one window's launches by kernel;
 4h. h2o-danube-1.8b at full width, its depth cut from 24 layers to
-   ``H2O_LAYERS`` (4) for the main run (d_model 2560, 32 heads over 8
+   ``H2O_LAYERS`` (2) for the main run (d_model 2560, 32 heads over 8
    KV heads of 80, window 4096, vocab 32000; random A2Q weights from seed 0
    deployed through ``a2q_quantize``: 7 a layer and the head, each held)
    served with
@@ -271,15 +273,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``launch/serve.py --paged --parity-check --deploy-int8`` (the paged
    engine's ring against the contiguous ``ServeEngine``'s, past the window:
    token for token);
-4y. hymba-1.5b at full size (32 layers, d_model 1600, 25 heads over 5 KV
-   heads of 64, window 1024, 25 mamba heads of 64, state 16, SSD chunk 64,
-   d_ff 5504, vocab 32001; random A2Q weights from seed 0 deployed through
-   ``a2q_quantize``: 353 matrices, each held) served with
+4y. hymba-1.5b at full width, ``HYMBA_LAYERS`` (16) of its 32 layers
+   (d_model 1600, 25 heads over 5 KV heads of 64, window 1024, 25 mamba
+   heads of 64, state 16, SSD chunk 64, d_ff 5504, vocab 32001; random A2Q
+   weights from seed 0 deployed through ``a2q_quantize``: 177 matrices,
+   each held) served with
    ``Runtime(int_chain=True, decode_kernel=True)``: 4 requests over 4
    slots, prompts of 1,100-1,300 tokens (seed 0) in prefill chunks of 256
    (the ring wraps; the chunked SSD form on whole chunks, the sequential one
    on each prompt's tail), 64 new; per tick, then on the megastep on the same
-   params and batches, tokens and margins bit for bit; 353 int_matmul
+   params and batches, tokens and margins bit for bit; 177 int_matmul
    prologue launches a forward, no ``paged_attention`` launch (the ring
    takes ``_sdpa``); then the contiguous check at 2 layers (one 1,100-token
    prompt, 16 new, ``--paged --parity-check --deploy-int8``);
@@ -341,7 +344,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4u. train the MoE and recurrent decoders at full width (``train_decoders``,
    ``DECODER_TRAIN_RUNS``): llama4-scout cut to one chunk-local MoE layer
    (adafactor), deepseek-v3 to one dense MLA layer and its MTP head
-   (adafactor), rwkv6-7b to 4 layers and hymba-1.5b to 8 (adamw), params
+   (adafactor), rwkv6-7b to 2 layers and hymba-1.5b to 4 (adamw), params
    from a device generator, 12 steps of 4 x 512 ``TokenStream`` tokens
    through ``build_train_step(donate=True)``: step ms, train tok/s, peak
    memory, the max |logit| at init, first-3 and last-3 mean loss (and
@@ -356,6 +359,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    64 on the card and on the CPU (``reduced_learns``): the loss (and
    ``mtp_ce``) falls, each step within ``DECODER_CHECK_TOL`` of the CPU's,
    no kernel launched;
+4g. the compressed data-parallel gradient reduction (``train_compressed``):
+   full-size smollm-135m (``COMPRESS_LAYERS``) trained ``COMPRESS_STEPS``
+   steps of 8 x 512 ``TokenStream`` tokens from one seed-0 init,
+   uncompressed and through ``build_train_step(Runtime(mesh, rules,
+   grad_compress))`` with a data axis of ``COMPRESS_GROUPS`` groups on the
+   card, int8 ``tensor`` then int8 ``column``: step ms, train tok/s, peak
+   memory, the largest |loss - uncompressed| and the share of nonzero
+   gradient elements the wire sends as 0 (``wire_zeros``), each run
+   learning, both residual trees nonzero, no kernel launched; the
+   reference's own tracking test on the card (``COMPRESS_REF``: every
+   compressed loss within ``COMPRESS_TOL`` of the uncompressed one); its
+   int8 tensor state's residual pair through a checkpoint bit for bit and
+   an uncompressed checkpoint restored with ``allow_missing``;
+   ``compressed_allreduce_tree`` on the card against the CPU port
+   (``wire_on_card``: codes, totals and residuals bit for bit); the int8
+   tensor run deployed (held, 0 flips) and served (4 requests, 16 new) on
+   ``int_matmul`` and ``paged_attention``, ``parity_up_to_ties`` against
+   the dequant path;
+4w. the frontend families trained at full width (``train_frontends``):
+   hubert-xlarge (``HUBERT_TRAIN_LAYERS`` layers) on 4 x 1,000 seed-made
+   frames with framewise targets, llava-next-34b (``LLAVA_TRAIN_LAYERS``
+   of 60) on 2 x (576 patches + 64 tokens), ``FRONTEND_TRAIN_STEPS`` adamw
+   steps through ``build_train_step(donate=True)``: step ms, train tok/s,
+   peak memory, losses finite and not rising by more than
+   ``DECODER_FLAT_TOL``, 0 kernel launches; each deployed (held, 0 flips);
+   hubert encodes on ``int_chain`` (``flash_attention``, ``int_matmul``
+   with the gelu requant), llava prefills its patches on ``int_chain``
+   (``flash_attention``) and serves 4 text requests on the paged engine
+   (``paged_attention``, ``int_matmul``); each reduced config learns on the
+   card as on the CPU (``frontend_learns``);
 4i. train the paper's four vision networks at full width: MobileNetV1 and
    ResNet18 (width 1.0) on ``ImageClassStream(global_batch=64)`` at 5e-3,
    ESPCN and UNet (base 32) on ``SuperResStream(global_batch=16, hr=48)``
@@ -434,8 +467,8 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-6}
 MLA_TOL = 2e-5
 # depth cuts of the earlier paths, so the script, the last slice's three decoders
 # included, stays inside its time limit on a slow host (PERF.md section 4)
-SIDE_LAYERS = 6  # 4c, 4m, 4s and 4o: phase 4's smollm-135m params, their first layers
-H2O_LAYERS = 4  # 4h's main run (of 24)
+SIDE_LAYERS = 4  # 4c, 4m, 4s and 4o: phase 4's smollm-135m params, their first layers
+H2O_LAYERS = 2  # 4h's main run (of 24)
 RWKV6_LAYERS = 8  # 4e, 4e-long, 5e and rwkv6's 4m (of 32)
 # deepseek-v3's largest int_matmul shapes on the served path: (K, N) -> site
 DEEPSEEK_SITES = {(18432, 7168): "dense mlp.w_out, largest K",
@@ -1290,15 +1323,28 @@ def check_int_matmul_prologue(dev) -> dict:
         check(x, w, scale, kw, pro, f"{site} M={M} K={K} N={N}")
         ms = graph_ms(lambda: int_matmul_cuda(x, w, scale, **kw, **pro), 5)
         plain_ms = events_ms(lambda: int_matmul_plain(x, w, scale, **kw, **pro), 2)
+        # the library: torch._int_mm on the prologue's int8 codes, within its
+        # shape rule (M > 16 and M, K, N multiples of 8): rows zero-padded to
+        # 24 below 17, N zero-padded to a multiple of 8 (hymba's 25 and 32001)
+        M_l, N_l = max(-(-M // 8) * 8, 24), -(-N // 8) * 8
+        codes = torch.zeros((M_l, K), dtype=torch.int8, device=dev)
+        codes[:M] = prologue_codes(x, s_aq, -128, 127, 0)
+        w_l = torch.zeros((K, N_l), dtype=torch.int8, device=dev)
+        w_l[:, :N] = w
+        w_l = w_l.t().contiguous().t()  # column-major for cuBLASLt
+        lib_ms = graph_ms(lambda: torch._int_mm(codes, w_l), 5)
+        pad = (f", padded to M={M_l}" if M_l != M else "") + (f" N={N_l}" if N_l != N else "")
+        del codes, w_l
         b_ms, b_by = bound_ms(4 * M * K + K * N + 4 * N + 4 * M * N, 2 * M * K * N,
                               INT8_OPS_PER_S)
         print(f"int_matmul prologue {site} M={M} K={K} N={N} "
               f"({'tensor-core' if M >= tc_min_rows() else 'decode'} kernel): equal to plain and "
               f"to the standalone codes, kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-              f"{b_ms:.5f} ({b_by}), {b_ms / ms:.1%} of the bound", flush=True)
+              f"{b_ms:.5f} ({b_by}), {b_ms / ms:.1%} of the bound; library_ms(_int_mm on the "
+              f"codes{pad}) {lib_ms:.4f}", flush=True)
         key = f"M={M} K={K} N={N}" if at == "at_deepseek" else f"{site} M={M} K={K} N={N}"
         entry[at][key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": None}
+                          "library_ms": lib_ms, "library": f"torch._int_mm on the codes{pad}"}
         del w
     entry["max_abs_err"] = worst
     return entry
@@ -3785,7 +3831,7 @@ def serve_contiguous(dev) -> dict:
 
 # phase 4r (PERF.md section 4): yi-6b at full width, its depth cut from 32 layers to 4,
 # served by routed and disaggregated fleets through launch/serve_cluster.py
-CLUSTER_LAYERS = 4
+CLUSTER_LAYERS = 2
 CLUSTER_ARGS = ["--requests", "16", "--prompt-len", "64", "--long-every", "4", "--max-new", "32",
                 "--batch", "8", "--max-seq", "256", "--block-size", "16", "--prefill-chunk", "32",
                 "--int-forward", "--parity-check"]
@@ -4265,19 +4311,21 @@ def deploy_held(tag, build) -> tuple[dict, dict]:
 # sequential form)
 HYMBA_REQUESTS, HYMBA_NEW, HYMBA_CHUNK = 4, 64, 256
 HYMBA_PROMPTS = (1100, 1300)
+HYMBA_LAYERS = 16  # of 32: a depth cut for the script's time (PERF.md section 4)
 HYMBA_CUT_LAYERS, HYMBA_CUT_PROMPT, HYMBA_CUT_NEW = 2, 1100, 16  # the contiguous check's cut
 
 
 def serve_hymba(dev) -> dict:
-    """Phase 4y: hymba-1.5b at full size (32 layers, d_model 1600, 25 heads
-    over 5 KV heads of 64, window 1024, 25 mamba heads of 64 with state 16
-    and SSD chunk 64, d_ff 5504, vocab 32001), random A2Q weights from seed 0
-    deployed through ``a2q_quantize`` (353 matrices, each held), served on
+    """Phase 4y: hymba-1.5b at full width (d_model 1600, 25 heads over 5 KV
+    heads of 64, window 1024, 25 mamba heads of 64 with state 16 and SSD
+    chunk 64, d_ff 5504, vocab 32001), ``HYMBA_LAYERS`` of its 32 layers,
+    random A2Q weights from seed 0 deployed through ``a2q_quantize`` (11 a
+    layer and the head, each held), served on
     the paged engine with ``Runtime(int_chain=True, decode_kernel=True)``:
     4 requests over 4 slots, prompts of 1,100-1,300 tokens in prefill chunks
     of 256 (the ring wraps; the chunked SSD form on whole chunks, the
     sequential one on the tail), 64 new tokens, per tick and on the
-    megastep, bit for bit; 353 int_matmul prologue launches a forward and no
+    megastep, bit for bit; 11 a layer + 1 int_matmul prologue launches a forward and no
     ``paged_attention`` launch (the ring takes ``_sdpa``).  Then the
     contiguous check: the same widths cut to 2 layers, one 1,100-token
     prompt and 16 new tokens through ``launch/serve.py --paged
@@ -4286,9 +4334,12 @@ def serve_hymba(dev) -> dict:
     from repro_torch.models.lm import init_lm
     from repro_torch.serve.engine import deploy_params
 
-    arch = get_arch("hymba-1.5b")
+    full = get_arch("hymba-1.5b")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                 count=HYMBA_LAYERS),))
     s = arch.stacks[0]
-    phase(f"4y: hymba-1.5b full size ({arch.n_layers} layers, d_model {arch.d_model}, window "
+    phase(f"4y: hymba-1.5b full width ({arch.n_layers} of {full.n_layers} layers, d_model "
+          f"{arch.d_model}, window "
           f"{s.attn.window}, {arch.d_model // s.ssm.head_dim} mamba heads, SSD chunk "
           f"{s.ssm.chunk}) on --int-chain --decode-kernel; {HYMBA_REQUESTS} requests of "
           f"{HYMBA_PROMPTS[0]}-{HYMBA_PROMPTS[1]} tokens, {HYMBA_NEW} new")
@@ -4725,9 +4776,9 @@ def encode_hubert(dev) -> dict:
         "flash_attention[tc]": launches["flash_attention[tc]"]}}
 
 
-# with the resumed half, about 1.2 minutes at full size (100 steps until the last
-# slice's three decoders needed the time; PERF.md section 4)
-TRAIN_STEPS = 50
+# with the resumed half, about 40 s at full size (cut from 100 steps, then 50, as
+# later phases needed the script's time; PERF.md section 4)
+TRAIN_STEPS = 24
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 512, 3e-3
 # the resumed run's losses against the uninterrupted run's: the first step
 # bit for bit (same state, same batch, a deterministic forward), the rest
@@ -4948,8 +4999,8 @@ DECODER_TRAIN_RUNS = (  # (arch, layers kept of the first stack, optimizer)
     # dense stack's d_ff 18,432): 3.12 B; adamw's moments ran out of memory in
     # the backward (69.3 GiB peak, 12.8 GiB of it unallocated between blocks)
     ("deepseek-v3-671b", 1, "adafactor"),
-    ("rwkv6-7b", 4, "adamw"),
-    ("hymba-1.5b", 8, "adamw"),
+    ("rwkv6-7b", 2, "adamw"),
+    ("hymba-1.5b", 4, "adamw"),
 )
 
 
@@ -5189,6 +5240,646 @@ def reduced_learns(name, opt_name, dev) -> None:
         raise AssertionError(f"[4u {name} reduced] card {card}, CPU {cpu}, launches {launches}")
 
 
+# phase 4g (PERF.md section 4): the compressed data-parallel gradient
+# reduction on full-size smollm-135m, a data axis of COMPRESS_GROUPS groups on
+# the one card (each group's rows' gradient taken in turn, stacked, and
+# reduced through compressed_allreduce_tree: the global view the reference's
+# devices compute together), adamw.  At full width the int8 runs learn
+# (COMPRESS_LEARN) but do not track the uncompressed one within the
+# reference's tolerance: adam moves every weight whose gradient is nonzero by
+# about the lr, and the wire sends most of the embedding table's small
+# gradients as 0 (their error is fed back, and sent once it grows past half a
+# code); the share is printed.  The tracking is held where the reference's
+# own 20-step test holds it (tests/test_sharding.py,
+# test_compressed_grad_training_tracks_uncompressed: reduced smollm-135m, 8
+# devices of one row of 32 tokens, adamw at 2e-3): COMPRESS_REF, on the card
+COMPRESS_GROUPS, COMPRESS_STEPS, COMPRESS_BATCH, COMPRESS_SEQ = 4, 12, 8, 512
+COMPRESS_LR, COMPRESS_TOL, COMPRESS_LEARN = 3e-3, 0.05, 0.5  # nat
+COMPRESS_REF = dict(groups=8, steps=20, batch=8, seq=32, lr=2e-3)
+COMPRESS_LAYERS = 30  # of smollm-135m's 30: no depth cut
+COMPRESS_SERVE_REQUESTS, COMPRESS_SERVE_NEW = 4, 16
+# the wire held bit for bit, card against the CPU port: stacked gradients of
+# smollm-135m's leaf shapes on a (data=4, model=1) mesh, each spec giving
+# another owner dim: (name, shape, spec)
+WIRE_LEAVES = (
+    ("one layer's mlp.w_in.v (FSDP owner dim)", (576, 1536), ("data", "model")),
+    ("attn.wk.t over 30 layers (first free dim)", (30, 192), ("model", None)),
+    ("mlp.w_out.t over 30 layers (owner dim padded to 32)", (30, 576), None),
+    ("three rows of the head's width (column owner dim padded)", (3, 49150), ("model", None)),
+    ("aq.log2_scale over 30 layers (rank 1)", (30,), None),
+    ("a scalar", (), None),
+)
+WIRE_ROUNDS = 3
+
+
+def wire_on_card(dev) -> dict:
+    """``compressed_allreduce_tree`` on the card against the CPU port, fed
+    the same stacked numpy gradients (``WIRE_LEAVES``, seed 0) through
+    ``WIRE_ROUNDS`` rounds of error feedback, at bits 8 and 16 on the tensor
+    and column scales: every leaf's codes (phase 1 and the requantized phase
+    2, read where the port quantizes), totals and both residuals bit for
+    bit.  Returns the codes compared."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.collectives import compressed_allreduce_tree, owner_dim, server_shape
+    from repro_torch.dist.sharding import Mesh
+
+    n = COMPRESS_GROUPS
+    rng = np.random.default_rng(0)
+    grads = [{name: (rng.standard_normal((n,) + shape) * 10.0 ** rng.integers(-4, 0, (n,) + (
+        1,) * len(shape))).astype(np.float32) for name, shape, _ in WIRE_LEAVES}
+        for _ in range(WIRE_ROUNDS)]
+    specs = {name: spec for name, _, spec in WIRE_LEAVES}
+    compared, orig = 0, collectives._quantize
+    for bits in (8, 16):
+        for scale in ("tensor", "column"):
+            outs = {}
+            for device in ("cpu", dev):
+                rec: list = []
+                collectives._quantize = lambda *a: rec.append(orig(*a)) or rec[-1]
+                mesh = Mesh.on_device(device, data=n, model=1)
+                err = {"local": {k: torch.zeros((n,) + s, device=device)
+                                 for k, s, _ in WIRE_LEAVES},
+                       "server": {k: torch.zeros(server_shape(s, n, owner_dim(p, len(s), "data")),
+                                                 device=device) for k, s, p in WIRE_LEAVES}}
+                got = []
+                try:
+                    for g in grads:
+                        rec.clear()
+                        total, err = compressed_allreduce_tree(
+                            {k: torch.from_numpy(v).to(device) for k, v in g.items()}, err,
+                            mesh=mesh, axis="data", bits=bits, scale_axis=scale, pspec_tree=specs)
+                        got.append(([c.cpu() for c in rec], {k: v.cpu() for k, v in total.items()},
+                                    {p: {k: v.cpu() for k, v in err[p].items()}
+                                     for p in ("local", "server")}))
+                finally:
+                    collectives._quantize = orig
+                outs[str(device)] = got
+            for r, (cpu, card) in enumerate(zip(outs["cpu"], outs[str(dev)])):
+                same = all(torch.equal(a, b) for a, b in zip(cpu[0], card[0])) and \
+                    len(cpu[0]) == len(card[0]) == 2 * len(WIRE_LEAVES) and \
+                    all(torch.equal(cpu[1][k], card[1][k]) for k in cpu[1]) and \
+                    all(torch.equal(cpu[2][p][k], card[2][p][k]) for p in cpu[2] for k in cpu[2][p])
+                if not same:
+                    raise AssertionError(f"[4g wire] int{bits} {scale} round {r}: the card's codes, "
+                                         "totals or residuals are not the CPU port's bit for bit")
+                compared += sum(c.numel() for c in cpu[0])
+    print(f"[4g wire] compressed_allreduce_tree on the card vs the CPU port, {len(WIRE_LEAVES)} "
+          f"smollm-shaped leaves x {n} groups, {WIRE_ROUNDS} rounds of error feedback, int8 and "
+          f"int16, tensor and column scales: {compared} codes, the totals and both residuals bit "
+          "for bit", flush=True)
+    return {"codes": compared}
+
+
+def _serve_trained(tag, arch, params, dev, prompts, max_new, rt_kw) -> dict:
+    """``params`` (deployed) served on ``PagedServeEngine`` with
+    ``int_forward`` and the decode kernel (one prefill chunk a prompt),
+    held to the dequant path's engine with ``parity_up_to_ties``; returns
+    the launches by kernel entry and the throughput."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import Runtime, apply_lm
+    from repro_torch.serve.engine import PagedServeEngine, parity_up_to_ties
+
+    chunk = max(len(p) for p in prompts)
+    kw = dict(batch=len(prompts), max_seq=-(-(chunk + max_new) // 16) * 16, block_size=16,
+              prefill_chunk=chunk, device=dev)
+    engine = PagedServeEngine(arch, params, rt=Runtime(int_forward=True, decode_kernel=True,
+                                                       **rt_kw), **kw)
+    engine.generate(prompts[:1], max_new=2)  # warm-up
+    engine.reset_stats()
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    outs = engine.generate(prompts, max_new=max_new)
+    torch.cuda.synchronize()
+    d = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    tp = engine.throughput()
+    ticks = tp["decode_dispatches"]
+    launches = {"int_matmul": d["int_matmul_cuda.launches"],
+                "int_matmul[tc]": d["int_matmul_cuda.tc_launches"],
+                "paged_attention": d["paged_attention_cuda.launches"]}
+    per_forward = 7 * arch.n_layers + (0 if arch.tie_embeddings else 1)  # a tied head: a matmul
+    want = {"int_matmul": per_forward * (ticks + len(prompts)),
+            "paged_attention": arch.n_layers * ticks}
+    toks = torch.as_tensor(np.stack(prompts), device=dev)
+    with torch.no_grad():
+        l_deq = apply_lm(params, arch, tokens=toks)[0].float()
+    eps = 2.0**-6 * l_deq.abs().max().item()  # two bf16 ulps at the top of the logit range
+    del l_deq
+    ref = PagedServeEngine(arch, params, rt=Runtime(**rt_kw), **kw)
+    ref_outs = ref.generate(prompts, max_new=max_new)
+    ok, ties, detail = parity_up_to_ties(ref.last_requests, outs, eps)
+    print(f"[{tag}] served {len(prompts)} requests: prefill {tp['prefill_tok_s']:.1f} tok/s, "
+          f"decode {tp['decode_tok_s']:.1f} tok/s ({ticks} ticks); launches {launches}; int path "
+          f"vs the deployed tree's dequant path: parity_up_to_ties eps={eps:.4g} ok={ok} "
+          f"ties={ties} identical {sum(a == b for a, b in zip(ref_outs, outs))}/{len(outs)}",
+          flush=True)
+    if {k: launches[k] for k in want} != want or d["int_matmul_cuda.prologue_launches"]:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want} and no prologue")
+    if not ok:
+        raise AssertionError(f"[{tag}] parity failed: {detail}")
+    for o in outs:
+        if len(o) != max_new or not all(0 <= t < arch.vocab for t in o):
+            raise AssertionError(f"[{tag}] bad output {o}")
+    del engine, ref
+    return launches
+
+
+def wire_zeros(dev, arch, mesh, rules, batch) -> None:
+    """The first batch's stacked group gradients at the seed-0 init through
+    one ``compressed_allreduce_tree`` (zero residuals) a scale: the share of
+    the elements with a nonzero fp32 sum that the wire sends as 0, over the
+    whole tree and on the embedding table."""
+    from repro_torch.dist.collectives import compressed_allreduce_tree
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.models.lm import init_lm, lm_loss
+    from repro_torch.nn.module import tree_leaves_with_path, tree_map
+    from repro_torch.train.state import init_grad_err
+
+    G = int(mesh.shape["data"])
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    per = next(iter(b.values())).shape[0] // G
+    paths = [p for p, _ in tree_leaves_with_path(params)]
+    rows = []
+    for i in range(G):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = lm_loss(live, arch, {k: v[i * per:(i + 1) * per] for k, v in b.items()})
+        by_path = dict(tree_leaves_with_path(live))
+        leaves = [by_path[p] for p in paths]
+        rows.append(torch.autograd.grad(loss, leaves, materialize_grads=True))
+        del live, loss
+    stacked = {"/".join(p): torch.stack([r[j] for r in rows]) / G for j, p in enumerate(paths)}
+    del rows
+    pspecs = param_specs(params, mesh, rules)
+    specs = {"/".join(p): s for p, s in tree_leaves_with_path(pspecs)}
+    fp32 = {k: v.sum(0) for k, v in stacked.items()}
+    line = []
+    for scale in ("tensor", "column"):
+        err = init_grad_err(fp32, G, pspecs=specs, axis="data")
+        total, _ = compressed_allreduce_tree(stacked, err, mesh=mesh, axis="data", bits=8,
+                                             scale_axis=scale, pspec_tree=specs)
+        live_n = sum(int((fp32[k] != 0).sum()) for k in fp32)
+        zeroed = sum(int(((fp32[k] != 0) & (total[k] == 0)).sum()) for k in fp32)
+        emb = "embed/table"
+        e_live = int((fp32[emb] != 0).sum())
+        e_zero = int(((fp32[emb] != 0) & (total[emb] == 0)).sum())
+        line.append(f"{scale}: {zeroed / live_n:.4f} of {live_n} (embed.table {e_zero / e_live:.4f}"
+                    f" of {e_live})")
+    print("[4g wire zeros] the first batch's nonzero fp32 gradient elements sent as 0 by the int8 "
+          "wire at the seed-0 init: " + "; ".join(line), flush=True)
+    del stacked, fp32, params
+    torch.cuda.empty_cache()
+
+
+def compressed_tracks_on_reduced(dev) -> None:
+    """The reference's own test (``COMPRESS_REF``) on the card: reduced
+    smollm-135m from a CPU-drawn seed-0 init, ``groups`` groups of the
+    batch, adamw at a constant lr, uncompressed and int8 ``tensor`` and
+    ``column``: each learns 0.5 nat, every compressed loss within
+    ``COMPRESS_TOL`` of the uncompressed one, both residual trees nonzero.
+    Returns the int8 tensor run's final state."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.dist.collectives import GradCompressConfig
+    from repro_torch.dist.sharding import Mesh, ShardingRules, param_specs
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.nn.module import tree_leaves_with_path, tree_map, tree_to
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train.state import init_grad_err, init_state
+    from repro_torch.train.trainer import Trainer
+
+    c = COMPRESS_REF
+    arch = reduced(get_arch("smollm-135m"))
+    mesh = Mesh.on_device(dev, data=c["groups"])
+    rules = ShardingRules.default(mesh, arch)
+    init = tree_to(init_lm(torch.Generator().manual_seed(0), arch, device="cpu"), dev)
+    stream = TokenStream(vocab=arch.vocab, seq_len=c["seq"], global_batch=c["batch"])
+    runs, line = {}, []
+    for label, gc in (("uncompressed", None), ("int8 tensor", GradCompressConfig(8, "tensor")),
+                      ("int8 column", GradCompressConfig(8, "column"))):
+        params = tree_map(torch.clone, init)
+        opt = adamw()
+        state = init_state(params, opt).tree()
+        rt = Runtime(mesh=mesh, rules=rules, grad_compress=gc)
+        if gc is not None:
+            state["grad_err"] = init_grad_err(params, c["groups"],
+                                              pspecs=param_specs(params, mesh, rules), axis="data")
+        step = build_train_step(arch, opt, rt, lr_schedule=lambda s: torch.full(
+            (), c["lr"], dtype=torch.float32, device=dev))
+        res = Trainer(step, stream.batch, log_every=1).run(state, c["steps"])
+        losses = runs[label] = np.array([r["loss"] for r in res.history])
+        if label == "int8 tensor":
+            kept = res.state
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0] - 0.5):
+            raise AssertionError(f"[4g reduced {label}] did not learn: {losses}")
+        if gc is not None:
+            diff = float(np.abs(losses - runs["uncompressed"]).max())
+            nz = [sum(float(t.abs().sum()) for _, t in
+                      tree_leaves_with_path(res.state["grad_err"][p])) for p in ("local", "server")]
+            line.append(f"{label} {diff:.4g} nat (residual sums {nz[0]:.4g}, {nz[1]:.4g})")
+            if not (diff < COMPRESS_TOL and min(nz) > 0):
+                raise AssertionError(f"[4g reduced {label}] off the uncompressed losses by {diff} "
+                                     f"(tolerance {COMPRESS_TOL}) or a residual tree is zero {nz}")
+    print(f"[4g reduced] the reference's test on the card (reduced smollm-135m, {c['groups']} "
+          f"groups of {c['batch'] // c['groups']} x {c['seq']} tokens, adamw {c['lr']}, "
+          f"{c['steps']} steps): uncompressed loss {runs['uncompressed'][0]:.4f} -> "
+          f"{runs['uncompressed'][-1]:.4f}; largest |loss - uncompressed| " + "; ".join(line)
+          + f" (tolerance {COMPRESS_TOL})", flush=True)
+    return kept
+
+
+def train_compressed(dev, smi: str) -> dict:
+    """Phase 4g: full-size smollm-135m trained ``COMPRESS_STEPS`` steps of
+    ``COMPRESS_BATCH`` x ``COMPRESS_SEQ`` ``TokenStream`` tokens from one
+    seed-0 init three times: uncompressed (``Runtime()``), then through the
+    compressed step (``Runtime(mesh, rules, grad_compress)`` with a data
+    axis of ``COMPRESS_GROUPS`` on the card) on the int8 ``tensor`` and the
+    int8 ``column`` scale.  Step ms, train tok/s, peak memory, the largest
+    |loss - uncompressed| and the share of the first batch's nonzero
+    gradient elements the wire sends as 0; each run learning
+    ``COMPRESS_LEARN`` nat, both residual trees nonzero, no kernel
+    launched.  The reference's own tracking test on the card
+    (``compressed_tracks_on_reduced``: every compressed loss within
+    ``COMPRESS_TOL`` of the uncompressed one), whose int8 tensor state goes
+    through a checkpoint (the residual pair bit for bit; an uncompressed
+    checkpoint restored into it with ``allow_missing``); the wire against
+    the CPU port (``wire_on_card``); then the full-size tensor run's params
+    deployed through ``a2q_quantize`` (held, 0 flips) and served on
+    ``int_matmul``.  Returns the deploy and serve launches."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.dist.collectives import GradCompressConfig
+    from repro_torch.dist.sharding import Mesh, ShardingRules, param_specs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.nn.module import tree_leaves_with_path, tree_map
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.serve.engine import deploy_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.state import init_grad_err, init_state
+    from repro_torch.train.trainer import Trainer
+
+    full = get_arch("smollm-135m")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                 count=COMPRESS_LAYERS),))
+    G, N, B, S = COMPRESS_GROUPS, COMPRESS_STEPS, COMPRESS_BATCH, COMPRESS_SEQ
+    phase(f"4g: smollm-135m ({arch.n_layers} of {full.n_layers} layers) trained {N} steps of "
+          f"{B} x {S} tokens, uncompressed and with the int8 gradient wire over a data axis of "
+          f"{G} groups on the card (tensor, column); checkpoint, deploy, serve")
+    t_phase = time.perf_counter()
+    mesh = Mesh.on_device(dev, data=G)
+    rules = ShardingRules.default(mesh, arch)
+    stream = TokenStream(vocab=arch.vocab, seq_len=S, global_batch=B, seed=0)
+    runs, trained = {}, None
+    for label, gc in (("uncompressed", None), ("int8 tensor", GradCompressConfig(8, "tensor")),
+                      ("int8 column", GradCompressConfig(8, "column"))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev)
+        opt = adamw()
+        state = init_state(params, opt).tree()
+        rt = Runtime()
+        if gc is not None:
+            state["grad_err"] = init_grad_err(params, G, pspecs=param_specs(params, mesh, rules),
+                                              axis="data")
+            rt = Runtime(mesh=mesh, rules=rules, grad_compress=gc)
+        del params
+        step_fn = build_train_step(arch, opt, rt, lr_schedule=cosine_with_warmup(
+            COMPRESS_LR, warmup=1, total=N))
+        ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+        t0 = time.perf_counter()
+        res = Trainer(step_fn, stream.batch, log_every=1).run(state, N)
+        del state
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launched = sum(ops.launch_counts().values())
+        losses = np.array([r["loss"] for r in res.history])
+        step_ms = float(np.median([r["step_time"] for r in res.history[1:]])) * 1e3
+        runs[label] = losses
+        extra = ""
+        if gc is not None:
+            mags = {p: sum(float(t.abs().sum()) for _, t in
+                           tree_leaves_with_path(res.state["grad_err"][p]))
+                    for p in ("local", "server")}
+            extra = (f"; residual sums local {mags['local']:.4g}, server {mags['server']:.4g}; "
+                     f"largest |loss - uncompressed| "
+                     f"{np.abs(losses - runs['uncompressed']).max():.4g} nat (not gated at full "
+                     "width: see COMPRESS_REF)")
+            if not min(mags.values()) > 0:
+                raise AssertionError(f"[4g {label}] a residual tree is all zeros: {mags}")
+        print(f"[4g {label}] {N} steps in {train_s:.1f} s: median step {step_ms:.1f} ms, "
+              f"{B * S / step_ms * 1e3:.0f} train tok/s (first step "
+              f"{res.history[0]['step_time'] * 1e3:.0f} ms), peak memory {peak / 2**30:.2f} GiB "
+              f"({smi}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; kernel launches while "
+              f"training {launched}{extra}", flush=True)
+        if launched or not np.isfinite(losses).all() or \
+                not losses[-1] <= losses[0] - COMPRESS_LEARN:
+            raise AssertionError(f"[4g {label}] losses {losses}, launches {launched}")
+        if label == "int8 tensor":
+            trained = res.state["params"]
+        del res
+        torch.cuda.empty_cache()
+
+    wire_zeros(dev, arch, mesh, rules, stream.batch(1))
+    kept = compressed_tracks_on_reduced(dev)
+    d = str(Path(__file__).resolve().parent / "build" / "smoke_ckpt_4g")
+    shutil.rmtree(d, ignore_errors=True)
+    ckpt.save(d + "/a", kept, N)
+
+    def like():
+        s = init_state(tree_map(torch.zeros_like, kept["params"]), adamw()).tree()
+        s["grad_err"] = tree_map(torch.zeros_like, kept["grad_err"])
+        return s
+
+    restored, at = ckpt.restore(d + "/a", like())
+    same = at == N and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_path(restored), tree_leaves_with_path(kept)))
+    ckpt.save(d + "/b", {k: v for k, v in kept.items() if k != "grad_err"}, N)
+    plain, _ = ckpt.restore(d + "/b", like(), allow_missing=True)
+    zeros = sum(float(t.abs().sum()) for _, t in tree_leaves_with_path(plain["grad_err"]))
+    try:
+        ckpt.restore(d + "/b", like())
+        refused = False
+    except KeyError:
+        refused = True
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"[4g checkpoint] the reduced int8 tensor run's state (residual pair included) on the "
+          f"card restored bit for "
+          f"bit {same}; an uncompressed checkpoint restored with allow_missing: residuals "
+          f"{zeros} (zero), refused without it {refused}", flush=True)
+    if not (same and zeros == 0 and refused):
+        raise AssertionError("[4g checkpoint] the residual pair did not survive a checkpoint")
+    del restored, plain, kept
+    wire_on_card(dev)
+
+    tag = "4g smollm-135m compressed"
+    a2q_quantize_cuda.launches = 0
+    with held_deploys(tag) as held:
+        params = deploy_params(trained, arch.quant)
+    torch.cuda.synchronize()
+    deploys = a2q_quantize_cuda.launches
+    check_held(tag, held, deploys)
+    if deploys != 7 * arch.n_layers or held["flips"]:
+        raise AssertionError(f"[{tag}] {deploys} deploy launches, {held['flips']} code flips")
+    del trained
+    prompts = list(TokenStream(vocab=arch.vocab, seq_len=64, global_batch=COMPRESS_SERVE_REQUESTS,
+                               seed=0).batch(10_000)["tokens"])
+    launches = _serve_trained(tag, arch, params, dev, prompts, COMPRESS_SERVE_NEW, {})
+    launches.update({"a2q_quantize": deploys, "a2q_quantize[flips]": held["flips"]})
+    del params
+    torch.cuda.empty_cache()
+    print(f"[4g] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"smollm-135m compressed-gradient trained (4g)": launches}
+
+
+# phase 4w (PERF.md section 4): the frontend families trained at full width
+# with A2Q, FRONTEND_TRAIN_STEPS steps through build_train_step(donate=True):
+# hubert-xlarge on HUBERT_TRAIN clips of seed-made frames with framewise
+# targets, llava-next-34b on LLAVA_TRAIN rows of seed-made patches ahead of
+# TokenStream text, targets over the whole sequence.  A frame's (a patch's)
+# target is the argmax of its first n_classes (FRONTEND_PATCH_CLASSES)
+# dims, a class a linear read-out can learn.  As in 4u, a full-width A2Q
+# model from the reference's init does not move its loss in 12 steps: the
+# full-width losses are held finite and not rising by more than
+# DECODER_FLAT_TOL, and learning to the reduced configs, card against CPU
+FRONTEND_TRAIN_STEPS, FRONTEND_TRAIN_LR = 12, 3e-3
+HUBERT_TRAIN = (4, 1000)  # clips x frames a step
+HUBERT_TRAIN_LAYERS = 48  # of 48: no depth cut
+LLAVA_TRAIN = (2, 64)  # rows x text tokens a step, behind the 576 patches
+LLAVA_TRAIN_LAYERS = 2  # of 60: two layers, 2.05 B parameters, train with adamw
+FRONTEND_PATCH_CLASSES = 64
+FRONTEND_CHECK = (4, 64)  # reduced runs: rows x positions a step
+
+
+def frontend_batch(arch, step: int, rows: int, text: int, frames: int = 0, seed: int = 0) -> dict:
+    """One numpy step of a frontend family: ``frontend_embeds`` (float32,
+    normal, from ``seed`` and ``step``) with the argmax of each position's
+    first ``n_classes`` (audio) or ``FRONTEND_PATCH_CLASSES`` (vlm) dims as
+    its target; a vlm's ``TokenStream`` text of ``text`` tokens behind its
+    patches, the text's own targets behind the patches'."""
+    rng = np.random.default_rng([seed, step])
+    if arch.family == "audio":
+        x = rng.standard_normal((rows, frames, arch.d_model), dtype=np.float32)
+        return {"frontend_embeds": x,
+                "targets": x[..., :arch.n_classes].argmax(-1).astype(np.int32)}
+    si = arch.frontend.seq_len
+    x = rng.standard_normal((rows, si, arch.d_model), dtype=np.float32)
+    text_batch = _text_stream(arch.vocab, text, rows, seed).batch(step)
+    return {"frontend_embeds": x, "tokens": text_batch["tokens"],
+            "targets": np.concatenate([x[..., :FRONTEND_PATCH_CLASSES].argmax(-1).astype(
+                np.int32), text_batch["targets"]], axis=1)}
+
+
+def _text_stream(vocab, seq_len, rows, seed):
+    from repro_torch.data.synthetic import TokenStream
+
+    return TokenStream(vocab=vocab, seq_len=seq_len, global_batch=rows, seed=seed)
+
+
+def train_frontends(dev, smi: str) -> dict:
+    """Phase 4w: hubert-xlarge (``HUBERT_TRAIN_LAYERS`` layers) and
+    llava-next-34b (``LLAVA_TRAIN_LAYERS`` of 60) at full width, params from
+    a device generator, ``FRONTEND_TRAIN_STEPS`` adamw steps through
+    ``build_train_step(donate=True)`` and the ``Trainer``: step ms, train
+    tok/s, peak memory, first-3 and last-3 mean loss (finite and not rising
+    by more than ``DECODER_FLAT_TOL``), 0 kernel launches; each trained tree
+    deployed under ``held_deploys`` (one launch an A2Q matrix, 0 flips);
+    hubert encodes 2 clips on ``int_chain`` (every attention on
+    ``flash_attention``, every linear on ``int_matmul``, ``mlp.w_in``'s gelu
+    requant); llava prefills its patches and text on ``int_chain``
+    (``flash_attention``, ``int_matmul``) and serves 4 text requests on the
+    paged engine (``paged_attention``, ``int_matmul``); then each reduced
+    config learns on the card as on the CPU (``frontend_learns``).  Returns
+    the launches by model."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.models.lm import Runtime, apply_lm, init_lm
+    from repro_torch.models.steps import build_prefill_step, build_train_step
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.serve.engine import deploy_params
+    from repro_torch.train.state import init_state
+    from repro_torch.train.trainer import Trainer
+
+    N = FRONTEND_TRAIN_STEPS
+    phase(f"4w: train hubert-xlarge ({HUBERT_TRAIN_LAYERS} layers, {HUBERT_TRAIN[0]} x "
+          f"{HUBERT_TRAIN[1]} frames) and llava-next-34b ({LLAVA_TRAIN_LAYERS} of 60 layers, "
+          f"{LLAVA_TRAIN[0]} x (576 patches + {LLAVA_TRAIN[1]} tokens)) at full width, {N} steps; "
+          "deploy, encode and serve")
+    t_phase = time.perf_counter()
+    out = {}
+    for name, layers in (("hubert-xlarge", HUBERT_TRAIN_LAYERS),
+                         ("llava-next-34b", LLAVA_TRAIN_LAYERS)):
+        t_model = time.perf_counter()
+        full = get_arch(name)
+        arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                     count=layers),))
+        q = arch.quant
+        if (arch.compute_dtype, arch.param_dtype, arch.remat) != ("bfloat16", "float32", "block") \
+                or q.mode != "a2q":
+            raise AssertionError(f"{name}'s config moved: {arch}")
+        tag = f"4w {name}"
+        audio = arch.family == "audio"
+        rows = HUBERT_TRAIN[0] if audio else LLAVA_TRAIN[0]
+        batch_fn = (lambda i: frontend_batch(arch, i, HUBERT_TRAIN[0], 0, HUBERT_TRAIN[1])) \
+            if audio else (lambda i: frontend_batch(arch, i, LLAVA_TRAIN[0], LLAVA_TRAIN[1]))
+        tokens_a_step = rows * (HUBERT_TRAIN[1] if audio else arch.frontend.seq_len
+                                + LLAVA_TRAIN[1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        opt = adamw()
+        held_state = [init_state(init_lm(torch.Generator(device=dev).manual_seed(0), arch,
+                                         device=dev), opt).tree()]
+        n_params = sum(t.numel() for t in _leaves(held_state[0]["params"]))
+        step_fn = build_train_step(arch, opt, Runtime(), lr_schedule=cosine_with_warmup(
+            FRONTEND_TRAIN_LR, warmup=1, total=N), donate=True)
+        print(f"[{tag}] d_model {arch.d_model}, {arch.n_layers} of {full.n_layers} layers, "
+              f"{n_params / 1e9:.3f} B parameters, adamw; init "
+              f"{time.perf_counter() - t_model:.1f} s", flush=True)
+        ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+        t0 = time.perf_counter()
+        res = Trainer(step_fn, batch_fn, log_every=1).run(held_state.pop(), N)
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        train_launches = sum(ops.launch_counts().values())
+        hist = res.history
+        series = {k: np.array([r[k] for r in hist]) for k in ("loss", "ce", "penalty")}
+        step_ms = float(np.median([r["step_time"] for r in hist[1:]])) * 1e3
+        print(f"[{tag}] {N} steps of {tokens_a_step} positions in {train_s:.1f} s: median step "
+              f"{step_ms:.1f} ms, {tokens_a_step / step_ms * 1e3:.0f} train tok/s (first step "
+              f"{hist[0]['step_time'] * 1e3:.0f} ms), peak memory {peak / 2**30:.2f} GiB ({smi}); "
+              f"kernel launches while training {train_launches}; " + "; ".join(
+                  f"{k} {v[:3].mean():.6f} -> {v[-3:].mean():.6f}" for k, v in series.items())
+              + f"; largest grad norm {max(r['grad_norm'] for r in hist):.4g}", flush=True)
+        loss = series["loss"]
+        if not (np.isfinite(loss).all() and loss[-3:].mean() <= loss[:3].mean()
+                + DECODER_FLAT_TOL):
+            raise AssertionError(f"[{tag}] loss not finite or rose: {loss}")
+        if train_launches:
+            raise AssertionError(f"[{tag}] training launched kernels: {ops.launch_counts()}")
+        trained = res.state["params"]
+        del res
+        torch.cuda.empty_cache()
+
+        matrices = _a2q_matrices(trained)
+        a2q_quantize_cuda.launches = 0
+        with held_deploys(tag) as held:
+            params = deploy_params(trained, q)
+        torch.cuda.synchronize()
+        deploys = a2q_quantize_cuda.launches
+        check_held(tag, held, deploys)
+        if deploys != matrices or held["flips"]:
+            raise AssertionError(f"[{tag}] {deploys} deploy launches for {matrices} A2Q matrices, "
+                                 f"{held['flips']} code flips")
+        del trained
+        torch.cuda.empty_cache()
+        launches = {"a2q_quantize": deploys, "a2q_quantize[flips]": held["flips"]}
+        n = arch.n_layers
+        ref_batch = frontend_batch(arch, 10_000, 2, LLAVA_TRAIN[1], HUBERT_TRAIN[1])
+        x = {k: torch.as_tensor(v, device=dev) for k, v in ref_batch.items() if k != "targets"}
+        x["frontend_embeds"] = x["frontend_embeds"].to(torch.bfloat16)
+        step = build_prefill_step(arch, Runtime(int_chain=True))
+        step(params, x)  # warm-up
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        rt = Runtime(int_chain=True)
+        logits = apply_lm(params, arch, tokens=x.get("tokens"),
+                          frontend_embeds=x["frontend_embeds"], rt=rt)[0]
+        torch.cuda.synchronize()
+        d = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        per_forward = (6 if audio else 7) * n + 1
+        want = {"int_matmul_cuda.launches": per_forward,
+                "int_matmul_cuda.prologue_launches": per_forward - (n if audio else 0),
+                "int_matmul_cuda.requant_launches": n if audio else 0,
+                "int_matmul_cuda.tc_launches": per_forward,
+                "flash_attention_cuda.launches": n, "flash_attention_cuda.tc_launches": n}
+        got = {k: d[k] for k in want}
+        with torch.no_grad():
+            l_deq = apply_lm(params, arch, tokens=x.get("tokens"),
+                             frontend_embeds=x["frontend_embeds"])[0].float()
+        lf = logits.float()
+        agree = float((lf.argmax(-1) == l_deq.argmax(-1)).float().mean())
+        print(f"[{tag}] {'encode' if audio else 'patch prefill'} of 2 x "
+              f"{x['frontend_embeds'].shape[1] + (LLAVA_TRAIN[1] if not audio else 0)} positions on "
+              f"--int-chain: launches {got}; chain report folded {len(rt.chain_report['folded'])}, "
+              f"chained {len(rt.chain_report['chained'])}, standalone "
+              f"{len(rt.chain_report['standalone'])}; logits {tuple(lf.shape)}, max |diff| from "
+              f"the dequant path {(lf - l_deq).abs().max().item():.4g} (max |logit| "
+              f"{l_deq.abs().max().item():.4g}), argmax agreement {agree:.4f}", flush=True)
+        if got != want or not torch.isfinite(lf).all() or rt.chain_report["standalone"]:
+            raise AssertionError(f"[{tag}] launches {got}, expected {want}; finite "
+                                 f"{bool(torch.isfinite(lf).all())}; chain {rt.chain_report}")
+        del logits, l_deq, lf
+        if audio:  # w_out takes w_in's requantized codes: int8 x in
+            launches.update({"int_matmul[gelu requant]": n, "int_matmul": n,
+                             "int_matmul[prologue]": per_forward - n, "int_matmul[tc]": per_forward,
+                             "flash_attention": n, "flash_attention[tc]": n})
+        else:
+            launches.update({"int_matmul[prologue]": per_forward, "int_matmul[tc]": per_forward,
+                             "flash_attention": n, "flash_attention[tc]": n})
+            prompts = list(_text_stream(arch.vocab, 64, 4, 0).batch(10_000)["tokens"])
+            served = _serve_trained(tag, arch, params, dev, prompts, 16, {})
+            for k, v in served.items():
+                launches[k] = launches.get(k, 0) + v
+        del params
+        torch.cuda.empty_cache()
+        print(f"[{tag}] launches {launches}; model {time.perf_counter() - t_model:.1f} s",
+              flush=True)
+        out[f"{name} trained (4w)"] = launches
+        frontend_learns(name, dev)
+    print(f"[4w] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def frontend_learns(name, dev) -> None:
+    """``name``'s reduced config (fp32) trained ``FRONTEND_TRAIN_STEPS``
+    adamw steps of ``FRONTEND_CHECK`` frontend batches (``frontend_batch``)
+    on the card and on the CPU from the same CPU-drawn params, as 4w trains
+    the full width: the loss falls from the first three steps' mean to the
+    last three's on the card, each step within ``DECODER_CHECK_TOL`` of the
+    CPU's, and the card's run launches no kernel."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.train.state import init_state
+    from repro_torch.train.trainer import Trainer
+
+    arch, N = reduced(get_arch(name)), FRONTEND_TRAIN_STEPS
+    rows, pos = FRONTEND_CHECK
+    if arch.family == "audio":
+        batch_fn = lambda i: frontend_batch(arch, i, rows, 0, pos)  # noqa: E731
+    else:
+        batch_fn = lambda i: frontend_batch(arch, i, rows, pos - arch.frontend.seq_len)  # noqa
+    runs = {}
+    ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+    for device in ("cpu", dev):
+        opt = adamw()
+        step_fn = build_train_step(arch, opt, Runtime(), lr_schedule=cosine_with_warmup(
+            FRONTEND_TRAIN_LR, warmup=1, total=N), donate=True)
+        state = init_state(init_lm(torch.Generator().manual_seed(0), arch, device=device),
+                           opt).tree()
+        hist = Trainer(step_fn, batch_fn, log_every=1).run(state, N).history
+        runs[str(device)] = np.array([r["loss"] for r in hist])
+    card, cpu = runs[str(dev)], runs["cpu"]
+    launches = sum(ops.launch_counts().values())
+    err = float(np.abs(card / cpu - 1).max())
+    print(f"[4w {name} reduced] card: loss {card[:3].mean():.4f} -> {card[-3:].mean():.4f}; "
+          f"largest relative difference from the CPU's {err:.3g}; kernel launches {launches}",
+          flush=True)
+    if launches or not err <= DECODER_CHECK_TOL or not (
+            np.isfinite(card).all() and card[-3:].mean() < card[:3].mean()):
+        raise AssertionError(f"[4w {name} reduced] card {card}, CPU {cpu}, launches {launches}")
+
+
 # phase 4i (PERF.md section 4): the paper's A2Q widths M = N = 6 at P = 16, the
 # fig scripts' batch of 64 CIFAR-shaped images (benchmarks/fig4_pareto.py) and
 # 16 BSD-shaped 48 x 48 patches.  As in the paper (App. B) and the fig scripts'
@@ -5421,6 +6112,10 @@ def main() -> int:
     by_path.update(train_smollm(dev))
     torch.cuda.empty_cache()
     by_path.update(train_decoders(dev, smi))
+    torch.cuda.empty_cache()
+    by_path.update(train_compressed(dev, smi))
+    torch.cuda.empty_cache()
+    by_path.update(train_frontends(dev, smi))
     torch.cuda.empty_cache()
     by_path.update(train_vision(dev, smi))
     for e in entries:

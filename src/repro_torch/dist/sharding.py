@@ -1,0 +1,311 @@
+"""Logical-axis sharding rules with divisibility-aware fallback (port of
+``repro.dist.sharding``).
+
+Every parameter of the reference is boxed with *logical* axis names:
+``embed``, ``heads``, ``kv_heads``, ``mlp``, ``experts``, ``vocab``,
+``layers``, plus the activation-only ``batch``.  The port's parameters are
+plain tensors in the same tree, so ``param_axes`` reads each leaf's names
+from its path (the reference's initializers' boxes, as a table).  This module
+maps those names onto mesh axes:
+
+* ``ShardingRules.rules[name]`` — ordered tuple of mesh axes the logical
+  axis *wants* to shard over (Megatron-style TP on ``model``, FSDP on
+  ``data``, outer DP on ``pod``);
+* ``ShardingRules.unit_counts[name]`` — how many *semantic units* the axis
+  carries (heads, experts, ffn channels...).  A dim only shards when its unit
+  count divides the mesh extent; otherwise it replicates.
+
+A spec is a tuple with one entry a dim: a mesh axis name, a tuple of names,
+or ``None`` (replicated).  ``resolve_pspec`` never reuses one mesh axis for
+two dims of the same array: earlier dims win.
+
+This is placement logic only.  ``Mesh`` describes a mesh: its axis names,
+their sizes and the devices behind its positions (on one card, every
+position is that card: the stacked global view of the compressed train
+step).  The reference's activation constraints (``constrain``) have no
+counterpart until the port executes sharded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.nn.module import tree_map, tree_map_with_path
+
+__all__ = [
+    "Mesh",
+    "ShardingRules",
+    "resolve_pspec",
+    "param_axes",
+    "param_specs",
+    "cache_specs",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A mesh: ``axis_names`` and their ``axis_sizes`` (row-major), and the
+    device of every position (``devices``, ``prod(axis_sizes)`` of them, or
+    empty for a mesh that is only planned)."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+    devices: tuple = ()
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"{self.axis_names} and {self.axis_sizes} differ in length")
+        if self.devices and len(self.devices) != self.size:
+            raise ValueError(f"{len(self.devices)} devices for a mesh of {self.size} positions")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    @staticmethod
+    def on_device(device, **axes: int) -> "Mesh":
+        """A mesh of ``axes`` (name=size, in order) whose every position is
+        ``device``."""
+        n = math.prod(axes.values())
+        return Mesh(tuple(axes), tuple(axes.values()), (torch.device(device),) * n)
+
+
+def _gcd_all(vals: Sequence[int]) -> Optional[int]:
+    """gcd of all values (a sharding must divide *every* stack's count)."""
+    out = 0
+    for v in vals:
+        out = math.gcd(out, int(v))
+    return out or None
+
+
+@dataclasses.dataclass
+class ShardingRules:
+    """Logical-axis -> mesh-axis mapping plus per-axis semantic unit counts."""
+
+    rules: dict
+    unit_counts: dict
+
+    @staticmethod
+    def default(mesh, arch, *, fsdp: bool = True, seq_shard_extra: bool = False,
+                tp_extra: bool = False) -> "ShardingRules":
+        """The production layout from the mesh axes and the arch's dims:
+        ``data`` carries FSDP (and batch), ``model`` TP/EP, ``pod`` the outer
+        data-parallel axis (batch spans ``("pod", "data")``).  ``arch=None``
+        gives activation-only rules with no unit counts.  ``fsdp=False``
+        keeps params unsharded over ``data``; ``tp_extra`` widens ``vocab``
+        onto ``data``; ``seq_shard_extra`` marks the activation ``seq`` axis
+        for ``model``."""
+        names = tuple(mesh.axis_names)
+        model = ("model",) if "model" in names else ()
+        data = ("data",) if "data" in names else ()
+        batch = tuple(a for a in ("pod", "data") if a in names)
+        rules = {
+            "batch": batch,
+            "embed": data if fsdp else (),
+            "heads": model,
+            "kv_heads": model,
+            "mlp": model,
+            "experts": model,
+            "vocab": model + (data if tp_extra else ()),
+            "layers": (),  # the stacked-layers dim: never sharded
+            "seq": model if seq_shard_extra else (),
+        }
+        unit_counts: dict = {}
+        if arch is not None:
+            heads, kv_heads, mlp, experts = [], [], [], []
+            for s in arch.stacks:
+                if s.attn is not None:
+                    heads.append(s.attn.heads)
+                    kv_heads.append(s.attn.kv_heads)
+                if s.ssm is not None and arch.d_model % s.ssm.head_dim == 0:
+                    heads.append(arch.d_model // s.ssm.head_dim)
+                if s.d_ff:
+                    mlp.append(s.d_ff)
+                if s.moe is not None:
+                    mlp.append(s.moe.d_ff)
+                    experts.append(s.moe.n_experts)
+                    if s.moe.n_shared:
+                        mlp.append(s.moe.shared_d_ff or s.moe.d_ff * s.moe.n_shared)
+            unit_counts["embed"] = arch.d_model
+            unit_counts["vocab"] = arch.vocab
+            for name, count in (("heads", _gcd_all(heads)), ("kv_heads", _gcd_all(kv_heads)),
+                                ("mlp", _gcd_all(mlp)), ("experts", _gcd_all(experts))):
+                if count is not None:
+                    unit_counts[name] = count
+        return ShardingRules(rules=rules, unit_counts=unit_counts)
+
+
+def resolve_pspec(dims, shape, mesh, rules: ShardingRules) -> tuple:
+    """Per-dim logical names -> a spec tuple.
+
+    For each dim: take the rule's mesh axes (skipping axes an earlier dim
+    used and size-1 axes), then keep the order-preserving subset with the
+    *largest* extent such that both the dim's unit count and its size divide
+    it; ties prefer earlier axes.  No valid subset -> the dim replicates."""
+    used: set = set()
+    entries = []
+    for name, dim in zip(dims, shape):
+        want = rules.rules.get(name) if name is not None else None
+        if not want:
+            entries.append(None)
+            continue
+        candidates = tuple(a for a in want
+                           if a in mesh.shape and mesh.shape[a] > 1 and a not in used)
+        units = rules.unit_counts.get(name, dim)
+        axes, best_extent = (), 1
+        for mask in range(1, 1 << len(candidates)):
+            subset = tuple(a for i, a in enumerate(candidates) if mask >> i & 1)
+            extent = math.prod(mesh.shape[a] for a in subset)
+            if extent > best_extent and units % extent == 0 and dim % extent == 0:
+                axes, best_extent = subset, extent
+        if not axes:
+            entries.append(None)
+            continue
+        used.update(axes)
+        entries.append(axes[0] if len(axes) == 1 else axes)
+    return tuple(entries)
+
+
+# The reference's boxes, by place in the tree.  A linear's (in, out) axes by
+# (parent key, name); its ``v``/``w`` take both, ``t``/``d``/``b``/``wq``
+# the out axis, ``aq`` none (a deployed linear's ``q8`` and ``s8`` as
+# ``v`` and ``t``).  A MoE's expert weights lead with ``experts``.
+_LINEAR_AXES = {
+    ("attn", "wq"): ("embed", "heads"), ("attn", "wk"): ("embed", "kv_heads"),
+    ("attn", "wv"): ("embed", "kv_heads"), ("attn", "wo"): ("heads", "embed"),
+    ("attn", "wq_a"): ("embed", None), ("attn", "wq_b"): (None, "heads"),
+    ("attn", "wkv_a"): ("embed", None), ("attn", "wkv_b"): (None, "heads"),
+    ("mlp", "w_in"): ("embed", "mlp"), ("mlp", "w_gate"): ("embed", "mlp"),
+    ("mlp", "w_out"): ("mlp", "embed"),
+    ("moe", "shared_in"): ("embed", "mlp"), ("moe", "shared_gate"): ("embed", "mlp"),
+    ("moe", "shared_out"): ("mlp", "embed"),
+    ("tm", "wr"): ("embed", "heads"), ("tm", "wk"): ("embed", "heads"),
+    ("tm", "wv"): ("embed", "heads"), ("tm", "wg"): ("embed", "heads"),
+    ("tm", "wo"): ("heads", "embed"),
+    ("cm", "wk"): ("embed", "mlp"), ("cm", "wv"): ("mlp", "embed"),
+    ("mamba", "in_proj"): ("embed", "heads"), ("mamba", "bc_proj"): ("embed", "heads"),
+    ("mamba", "dt_proj"): ("embed", "heads"), ("mamba", "out_proj"): ("heads", "embed"),
+    ("mtp", "proj"): (None, "embed"),
+}
+_EXPERT_AXES = {"w_in": ("experts", "embed", None), "w_gate": ("experts", "embed", None),
+                "w_out": ("experts", None, "embed")}
+_NORMS = ("ln1", "ln2", "final_norm", "norm_h", "norm_e")
+_PLAIN_AXES = {
+    ("embed", "table"): ("vocab", "embed"),
+    ("moe", "router"): ("embed", None),
+    ("tm", "mix"): (None, "embed"), ("tm", "w_lora_a"): ("embed", None),
+    ("tm", "w_lora_b"): (None, "heads"), ("tm", "w0"): ("heads",),
+    ("tm", "u"): ("heads", None), ("tm", "ln_scale"): ("embed",),
+    ("cm", "mix"): ("embed",),
+    ("mamba", "A_log"): ("heads",), ("mamba", "D"): ("heads", None),
+    ("mamba", "dt_bias"): ("heads",),
+    ("q_norm", "scale"): (None,), ("kv_norm", "scale"): (None,),
+}
+
+
+def _leaf_axes(path: tuple, ndim: int, audio: bool) -> tuple:
+    """One leaf's logical axes (without the stacked ``layers`` dim)."""
+    if len(path) >= 2 and path[-2] in _NORMS:
+        return ("embed",)
+    if path[-2:] in _PLAIN_AXES:
+        return _PLAIN_AXES[path[-2:]]
+    # a linear's leaf: (..., parent, name, leaf) or (..., parent, name, aq|wq, log2_scale)
+    i = len(path) - (2 if path[-1] == "log2_scale" else 1)
+    site, leaf = path[:i], path[i:]
+    if site == ("head",):
+        axes = ("embed", None if audio else "vocab")
+    elif len(site) >= 2 and site[-2:] in _LINEAR_AXES:
+        axes = _LINEAR_AXES[site[-2:]]
+    elif len(site) >= 2 and site[-2] == "moe" and site[-1] in _EXPERT_AXES:
+        axes = _EXPERT_AXES[site[-1]]
+        if leaf[0] in ("t", "d", "wq"):
+            return (axes[0], axes[-1])
+        return axes if leaf[0] in ("v", "w") else ()
+    elif path[-2:] == ("aq", "log2_scale"):  # the MoE's entry quantizer
+        return ()
+    else:
+        return (None,) * ndim
+    if leaf[0] in ("v", "w", "q8"):
+        return axes
+    if leaf[0] in ("t", "d", "b", "wq", "s8"):
+        return (axes[-1],)
+    return ()
+
+
+def param_axes(params: dict) -> dict:
+    """The reference's logical axes of every leaf of a model's param tree
+    (``models.lm.init_lm``'s: stacked leaves under ``stacks`` and
+    ``mtp.block`` lead with ``layers``; the audio family's head has no
+    ``vocab`` axis).  A leaf the table does not know replicates, as a plain
+    leaf does in the reference."""
+    audio = isinstance(params, dict) and "embed" not in params and "head" in params
+
+    def one(path, leaf):
+        stacked = path[:1] == ("stacks",) or path[:2] == ("mtp", "block")
+        body = path[2:] if stacked else path
+        axes = _leaf_axes(body, leaf.dim() - int(stacked), audio) if body else ()
+        axes = (("layers",) if stacked else ()) + tuple(axes)
+        if len(axes) != leaf.dim():
+            raise ValueError(f"axes {axes} do not match {path}'s rank {leaf.dim()}")
+        return axes
+
+    return tree_map_with_path(one, params)
+
+
+def param_specs(params: dict, mesh, rules: ShardingRules) -> dict:
+    """Param tree -> spec tree (same structure): each leaf's
+    ``param_axes`` resolved on ``mesh`` (``resolve_pspec``).  Works on any
+    tensors, ``meta`` ones included (nothing is allocated)."""
+    axes = param_axes(params)
+    return tree_map(lambda p, a: resolve_pspec(a, tuple(p.shape), mesh, rules), params, axes)
+
+
+def cache_specs(cache_tree, mesh, rules: ShardingRules):
+    """Decode-cache tree -> spec tree, by each leaf's name (its last key)
+    and rank, as the reference reads them.
+
+    Contiguous leaves are stacked ``(layers, batch, ...)``: the batch dim
+    shards over the batch axes when divisible and the sequence dims stay
+    local; GQA ``k``/``v`` ``(layers, batch, slots, kv_heads, head_dim)``
+    take the ``kv_heads`` rule on dim 3, SSM states ``S`` ``(layers, batch,
+    heads, ...)`` the ``heads`` rule on dim 2.  Paged pools ``kp``/``vp``
+    ``(layers, num_blocks, block_size, kv_heads, head_dim)`` keep the block
+    axis local and shard the head dim; their int8 scale pools ``kps``/``vps``
+    ``(layers, NB, bs, kv_heads)`` likewise; MLA pools (``ckvp``, ``kpep``,
+    ``ckvs``, ``kpes``) carry nothing shardable but ``layers``.  The block
+    table ``bt`` and the write watermarks ``wm`` ride with the batch; the
+    block refcounts ``rc`` replicate."""
+
+    def one(path, leaf):
+        name = path[-1] if path else None
+        ndim = leaf.dim()
+        if name == "wm":
+            return resolve_pspec(("batch",) + (None,) * (ndim - 1), tuple(leaf.shape), mesh, rules)
+        if name == "rc" or ndim < 2:
+            return (None,) * ndim
+        if name == "bt":
+            return resolve_pspec(("batch",) + (None,) * (ndim - 1), tuple(leaf.shape), mesh, rules)
+        if name in ("kp", "vp", "ckvp", "kpep", "kps", "vps", "ckvs", "kpes"):
+            dims = ["layers"] + [None] * (ndim - 1)
+            if name in ("kp", "vp") and ndim == 5:
+                dims[3] = "kv_heads"
+            elif name in ("kps", "vps") and ndim == 4:
+                dims[3] = "kv_heads"
+            return resolve_pspec(tuple(dims), tuple(leaf.shape), mesh, rules)
+        dims = ["layers", "batch"] + [None] * (ndim - 2)
+        if name in ("k", "v") and ndim == 5:
+            dims[3] = "kv_heads"
+        elif name == "S" and ndim == 5:
+            dims[2] = "heads"
+        return resolve_pspec(tuple(dims), tuple(leaf.shape), mesh, rules)
+
+    return tree_map_with_path(one, cache_tree)
+

@@ -11,24 +11,27 @@ cosine schedule with warmup peaking at ``--lr``, the ``Trainer`` with
 checkpoints (a rerun with the same ``--ckpt-dir`` resumes, printing
 ``resumed from step N``) and an emergency save on SIGTERM.  Every
 ``lm``-family arch trains: dense, MoE (deepseek-v3 with its MTP head, whose
-``mtp_ce`` is printed beside the loss; llama4-scout), rwkv6 and hymba; the
-vlm and audio families raise.  ``--device`` defaults to ``cuda``.  The
-reference's multi-device flags are refused as not ported yet:
-``--grad-compress-bits``/``--grad-compress-scale``, and ``--mesh auto`` when
-more than one device is visible.
+``mtp_ce`` is printed beside the loss; llama4-scout), rwkv6 and hymba.  As
+the reference's, the launcher trains from ``TokenStream`` alone: llava-next
+trains as a text decoder, and hubert (no token embedding) fails.
+``--device`` defaults to ``cuda``.  ``--grad-compress-bits`` /
+``--grad-compress-scale`` ask for the compressed data-parallel gradient
+reduction; one device has no multi-device data axis, so the launcher says
+so, as the reference does, and trains uncompressed.  ``--mesh auto`` over
+more than one visible card is refused: sharded execution is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import sys
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, reduced
 from repro_torch.data.synthetic import TokenStream
+from repro_torch.dist.collectives import GradCompressConfig, resolve_grad_compress
 from repro_torch.models.lm import Runtime, init_lm
 from repro_torch.models.steps import build_train_step
 from repro_torch.optim.optimizers import adafactor, adamw, sgdm
@@ -39,7 +42,6 @@ from repro_torch.train.state import init_state
 from repro_torch.train.trainer import Trainer
 
 _OPTS = {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}
-NOT_PORTED = ("--grad-compress-bits", "--grad-compress-scale")
 
 
 def main(argv=None):
@@ -55,14 +57,19 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["auto", "none"], default="auto")
+    ap.add_argument(
+        "--grad-compress-bits", type=int, default=0,
+        help="int wire width for the data-parallel gradient all-reduce "
+             "(0 = off, fp32; 8 = int8 wire with error feedback)",
+    )
+    ap.add_argument(
+        "--grad-compress-scale", choices=["tensor", "column"], default="tensor",
+        help="compressed-gradient scale granularity: one scale per leaf, or "
+             "one per output column (A2Q+-style)",
+    )
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--device", default="cuda")
-    given = list(sys.argv[1:] if argv is None else argv)
-    for flag in NOT_PORTED:
-        if any(a == flag or a.startswith(flag + "=") for a in given):
-            ap.error(f"{flag} is not ported yet (the compressed all-reduce belongs to "
-                     "distribution)")
-    args = ap.parse_args(given)
+    args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     if args.mesh == "auto" and dev.type == "cuda" and torch.cuda.device_count() > 1:
@@ -76,14 +83,25 @@ def main(argv=None):
     optimizer = _OPTS[args.optimizer]()
     state = init_state(params, optimizer).tree()
 
+    grad_compress = None
+    if args.grad_compress_bits:
+        grad_compress = GradCompressConfig(bits=args.grad_compress_bits,
+                                           scale_axis=args.grad_compress_scale)
+    mesh = None  # one device: no multi-device data axis
+    gc = resolve_grad_compress(grad_compress, mesh)
+    if grad_compress is not None and gc is None:
+        print("grad-compress requested but no multi-device data axis: running uncompressed")
+
     sched = cosine_with_warmup(args.lr, warmup=max(args.steps // 20, 1), total=args.steps)
-    step_fn = build_train_step(arch, optimizer, Runtime(), lr_schedule=sched)
+    step_fn = build_train_step(arch, optimizer, Runtime(mesh=mesh, grad_compress=grad_compress),
+                               lr_schedule=sched)
 
     stream = TokenStream(vocab=arch.vocab, seq_len=args.seq, global_batch=args.batch,
                          seed=args.seed)
     trainer = Trainer(step_fn, stream.batch, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every, watchdog=StragglerWatchdog())
-    state, start = trainer.maybe_restore(state)
+    # older checkpoints have no grad_err leaves; residuals restart from zeros
+    state, start = trainer.maybe_restore(state, allow_missing=gc is not None)
     if start:
         print(f"resumed from step {start}")
     if args.ckpt_dir:

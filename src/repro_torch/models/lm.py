@@ -9,10 +9,10 @@ too); and for audio encoders (``family="audio"``, hubert): no token
 embedding, precomputed frame embeddings in (the conv feature frontend is a
 stub in the reference too), a boundary ``head`` of ``n_classes`` over every
 frame.  The reference's sharding constraints have no counterpart on one
-device and are dropped.  ``lm_loss`` is the training loss of the token
-decoders (``family="lm"``: ``attn_mlp``, ``moe``, ``rwkv6`` and ``hymba``
-stacks) with deepseek-v3's multi-token-prediction head; vlm and audio
-training are not ported yet.
+device and are dropped.  ``lm_loss`` is the training loss of every family:
+the token decoders (``attn_mlp``, ``moe``, ``rwkv6`` and ``hymba`` stacks,
+deepseek-v3's multi-token-prediction head), llava's patches ahead of its
+text and hubert's framewise classes.
 """
 
 from __future__ import annotations
@@ -59,10 +59,21 @@ class Runtime:
     ``int_chain`` (implies ``int_forward``) folds every deployed linear's
     act-quant into the kernel's quantizing prologue, so none pays a
     standalone act-quant.  ``chain_report`` holds the per-call dispositions of
-    the last forward (see ``nn.linear.chain_report_scope``)."""
+    the last forward (see ``nn.linear.chain_report_scope``).
+
+    ``mesh`` (``dist.sharding.Mesh``), ``rules`` (``dist.sharding.
+    ShardingRules``) and ``grad_compress`` (``dist.collectives.
+    GradCompressConfig``) are the reference's distribution context:
+    ``build_train_step`` reads them to reduce the data-parallel gradients
+    through the int-quantized ``compressed_allreduce_tree`` when the mesh
+    has a data axis of more than one position."""
 
     def __init__(self, decode_kernel: bool = False, int_forward: bool = False,
-                 int_chain: bool = False, mla_absorb: bool = False):
+                 int_chain: bool = False, mla_absorb: bool = False, mesh=None, rules=None,
+                 grad_compress=None):
+        self.mesh = mesh
+        self.rules = rules
+        self.grad_compress = grad_compress
         self.mla_absorb = mla_absorb
         self.decode_kernel = decode_kernel
         self.int_forward = int_forward or int_chain
@@ -202,7 +213,11 @@ def a2q_penalty_of(params: dict, arch: ArchConfig) -> torch.Tensor:
 
 
 def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor, z_loss: float = 1e-4):
-    """Mean CE over all positions, fp32, with MaxText-style z-loss."""
+    """Mean CE over all positions, fp32, with MaxText-style z-loss.  The
+    targets cover every position (the reference's gather refuses others)."""
+    if tuple(targets.shape) != tuple(logits.shape[:-1]):
+        raise ValueError(f"targets {tuple(targets.shape)} do not cover the logits' positions "
+                         f"{tuple(logits.shape[:-1])}")
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
@@ -214,8 +229,10 @@ def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor, z_loss: float = 
 def lm_loss(params: dict, arch: ArchConfig, batch: dict, rt: Optional[Runtime] = None):
     """Training loss ``task CE (+ z-loss) [+ 0.3 * MTP CE] + reg_lambda *
     L_reg`` and its metrics ``{"ce", "penalty", "loss"[, "mtp_ce"]}``, as
-    ``repro.models.lm.lm_loss`` computes them.  ``batch`` = ``{tokens,
-    targets}``, targets aligned to the tokens.
+    ``repro.models.lm.lm_loss`` computes them.  ``batch`` = ``{tokens
+    [, frontend_embeds], targets}`` with targets aligned to the *whole*
+    (frontend + text) sequence: llava's patch positions take targets too,
+    hubert's (no tokens) are its frames' classes.
 
     With an ``mtp`` subtree (deepseek-v3) the DeepSeek-style head predicts
     ``targets[t + 1]`` from ``h[t]`` fused with the embedding of
@@ -225,12 +242,7 @@ def lm_loss(params: dict, arch: ArchConfig, batch: dict, rt: Optional[Runtime] =
     block's A2Q penalty joins the loss but not ``metrics["penalty"]``, and
     ``mtp.proj`` is left unpenalized, both as in the reference
     (``apply_a2q`` still clamps its ``t`` at the cap, so its accumulator
-    guarantee holds).  vlm and audio training raise (``ROADMAP.md`` queue
-    1, training)."""
-    if arch.family != "lm":
-        raise NotImplementedError(
-            f"training {arch.name} ({arch.family}) is not ported yet: only the lm family "
-            "trains (ROADMAP.md queue 1, training)")
+    guarantee holds)."""
     rt = rt or Runtime()
     penalty = a2q_penalty_of(params, arch)
     mtp_on = arch.mtp_depth > 0 and "mtp" in params
@@ -248,7 +260,9 @@ def lm_loss(params: dict, arch: ArchConfig, batch: dict, rt: Optional[Runtime] =
             head["fq"] = checkpoint(_quant_weights, *args, use_reentrant=False) if recorded \
                 else _quant_weights(*args)
             params = {**params, "head": head}
-    logits, _, h = apply_lm(params, arch, tokens=batch["tokens"], rt=rt, return_hidden=True)
+    logits, _, h = apply_lm(params, arch, tokens=batch.get("tokens"),
+                            frontend_embeds=batch.get("frontend_embeds"), rt=rt,
+                            return_hidden=True)
     targets = batch["targets"]
     loss, ce = _cross_entropy(logits, targets)
     metrics = {"ce": ce, "penalty": penalty}

@@ -13,7 +13,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["kaiming", "normal_init", "tree_to", "tree_map", "tree_leaves_with_path", "keystr"]
+__all__ = ["kaiming", "normal_init", "tree_to", "tree_map", "tree_map_with_path", "tree_unzip",
+           "tree_leaves_with_path", "keystr"]
 
 
 def kaiming(gen: torch.Generator, shape, fan_in: Optional[int] = None, dtype=torch.float32):
@@ -44,6 +45,21 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, list):
         return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(keys, leaf)`` over the leaves of ``tree``, the same structure out
+    (``keys`` as ``tree_leaves_with_path`` gives them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def tree_unzip(tree, n: int):
+    """A tree whose leaves are n-tuples -> n trees."""
+    return tuple(tree_map(lambda t, i=i: t[i], tree) for i in range(n))
 
 
 def tree_leaves_with_path(tree, path=()):

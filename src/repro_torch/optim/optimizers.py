@@ -18,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.nn.module import tree_leaves_with_path, tree_map
+from repro_torch.nn.module import tree_leaves_with_path, tree_map, tree_unzip
 
 __all__ = ["Optimizer", "sgdm", "adamw", "adafactor", "global_norm", "clip_by_global_norm"]
 
@@ -49,11 +49,6 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), norm
 
 
-def _unzip(out, n: int):
-    """A tree whose leaves are n-tuples -> n trees."""
-    return tuple(tree_map(lambda t, i=i: t[i], out) for i in range(n))
-
-
 def sgdm(momentum: float = 0.9, weight_decay: float = 0.0, nesterov: bool = False) -> Optimizer:
     def init(params):
         return {"m": tree_map(torch.zeros_like, params)}
@@ -65,7 +60,7 @@ def sgdm(momentum: float = 0.9, weight_decay: float = 0.0, nesterov: bool = Fals
             step = (g + momentum * m_new) if nesterov else m_new
             return p - lr * step, m_new
 
-        new_params, new_m = _unzip(tree_map(upd, grads, state["m"], params), 2)
+        new_params, new_m = tree_unzip(tree_map(upd, grads, state["m"], params), 2)
         return new_params, {"m": new_m}
 
     return Optimizer(init, update)
@@ -103,7 +98,7 @@ def adamw(
             step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + weight_decay * p
             return (p - lr * step).to(p.dtype), m_new, v_new
 
-        new_p, new_m, new_v = _unzip(tree_map(upd, grads, state["m"], state["v"], params), 3)
+        new_p, new_m, new_v = tree_unzip(tree_map(upd, grads, state["m"], state["v"], params), 3)
         return new_p, {"m": new_m, "v": new_v, "count": c}
 
     return Optimizer(init, update)
@@ -159,7 +154,7 @@ def adafactor(
             return (p.to(torch.float32) - lr * u).to(p.dtype), nv
 
         # walked over the params' keys, so each leaf's state dict arrives whole
-        new_p, new_v = _unzip(tree_map(upd, params, grads, state["v"]), 2)
+        new_p, new_v = tree_unzip(tree_map(upd, params, grads, state["v"]), 2)
         return new_p, {"v": new_v, "count": c}
 
     return Optimizer(init, update)

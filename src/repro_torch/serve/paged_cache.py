@@ -93,6 +93,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, AttnConfig, StackConfig
 from repro_torch.nn.attention import TRASH_BLOCK, init_attn_cache
 from repro_torch.nn.ssm import init_mamba_state
@@ -239,7 +240,7 @@ class PagedKVCache:
         num_blocks: Optional[int] = None,
         max_seq: int = 512,
         dtype=torch.bfloat16,
-        device="cpu",
+        device="cuda",
         kv_quant: bool = False,
         kv_bits: int = 8,
         max_prefix_entries: int = 32,
@@ -252,7 +253,7 @@ class PagedKVCache:
         self.slots = slots
         self.block_size = block_size
         self.max_seq = max_seq
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.max_blocks_per_seq = -(-max_seq // block_size)
         if num_blocks is None:
             # worst case every slot runs to max_seq, plus the trash block

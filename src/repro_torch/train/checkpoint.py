@@ -36,7 +36,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.nn.module import keystr, tree_leaves_with_path
+from repro_torch.nn.module import keystr, tree_leaves_with_path, tree_map_with_path
 
 __all__ = ["save", "restore", "latest_step", "install_signal_handler"]
 
@@ -131,15 +131,7 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
                                  f"{tuple(leaf.shape)}")
             return torch.from_numpy(val).to(leaf.device)
 
-        return _map_with_path(load, like), step
-
-
-def _map_with_path(fn, tree, path=()):
-    if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
-    return fn(path, tree)
+        return tree_map_with_path(load, like), step
 
 
 def install_signal_handler(save_fn: Callable[[], None], signals=(signal.SIGTERM, signal.SIGINT)):

@@ -1077,3 +1077,62 @@ def test_rwkv6_training_forward_skips_the_scan_kernel(dev):
     torch.cuda.synchronize()
     assert rwkv6_scan_cuda.launches == before + 1
     assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("scale", ["tensor", "column"])
+def test_compressed_allreduce_tree_on_the_card_equals_the_cpu(dev, scale, monkeypatch):
+    """The global-view compressed reduction (no kernel of its own: the
+    port's elementwise PyTorch ops) on the card against the CPU port, fed
+    the same stacked numpy gradients through three rounds of error
+    feedback at int8 and int16: every leaf's codes (both phases), totals and
+    residuals bit for bit; the overflow guard raises before any work, from
+    the mesh's data extent."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.collectives import compressed_allreduce_tree, owner_dim, server_shape
+    from repro_torch.dist.sharding import Mesh
+
+    n = 4
+    leaves = {"fsdp": ((8, 48), ("data", None)), "free": ((6, 40), ("model", None)),
+              "padded": ((30, 24), None), "padded_col": ((3, 37), ("model", None)),
+              "vector": ((7,), None), "scalar": ((), None)}
+    rng = np.random.default_rng(0)
+    grads = [{k: (rng.standard_normal((n,) + s) * 10.0 ** rng.integers(-3, 1, (n,) + (1,) * len(s)))
+              .astype(np.float32) for k, (s, _) in leaves.items()} for _ in range(3)]
+    specs = {k: p for k, (_, p) in leaves.items()}
+    orig = collectives._quantize
+    for bits in (8, 16):
+        runs = {}
+        for device in ("cpu", dev):
+            rec = []
+            monkeypatch.setattr(collectives, "_quantize",
+                                lambda *a: rec.append(orig(*a)) or rec[-1])
+            mesh = Mesh.on_device(device, data=n, model=1)
+            err = {"local": {k: torch.zeros((n,) + s, device=device)
+                             for k, (s, _) in leaves.items()},
+                   "server": {k: torch.zeros(server_shape(s, n, owner_dim(p, len(s), "data")),
+                                             device=device) for k, (s, p) in leaves.items()}}
+            out = []
+            for g in grads:
+                rec.clear()
+                total, err = compressed_allreduce_tree(
+                    {k: torch.from_numpy(v).to(device) for k, v in g.items()}, err, mesh=mesh,
+                    axis="data", bits=bits, scale_axis=scale, pspec_tree=specs)
+                out.append(([c.cpu() for c in rec], {k: v.cpu() for k, v in total.items()},
+                            {p: {k: v.cpu() for k, v in err[p].items()} for p in err}))
+            runs[str(device)] = out
+        for cpu, card in zip(runs["cpu"], runs[str(dev)]):
+            assert len(cpu[0]) == len(card[0]) == 2 * len(leaves)
+            for a, b in zip(cpu[0], card[0]):
+                assert a.dtype == (torch.int8 if bits <= 8 else torch.int16)
+                assert torch.equal(a, b)
+            for k in leaves:
+                assert torch.equal(cpu[1][k], card[1][k]), k
+                for p in ("local", "server"):
+                    assert torch.equal(cpu[2][p][k], card[2][p][k]), (p, k)
+    monkeypatch.setattr(collectives, "_quantize", orig)
+    big = 1 << 17  # 2**17 shards of int16 codes can overflow the int32 sum
+    g = torch.zeros((big, 0), device=dev)
+    with pytest.raises(ValueError, match="overflow"):
+        compressed_allreduce_tree({"w": g}, {"local": {"w": g}, "server": {"w": g[0]}},
+                                  mesh=Mesh(("data",), (big,)), axis="data", bits=16,
+                                  scale_axis=scale)

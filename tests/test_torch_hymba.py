@@ -409,7 +409,8 @@ def test_paged_cache_mamba_leaf():
     arch = _arch()
     s = arch.stacks[0]
     H, Dh, N, n = arch.d_model // s.ssm.head_dim, s.ssm.head_dim, s.ssm.state_dim, s.count
-    cache = PagedKVCache(arch, 3, block_size=4, max_seq=64, dtype=torch.float32)
+    cache = PagedKVCache(arch, 3, block_size=4, max_seq=64, dtype=torch.float32,
+                         device="cpu")
     leaves = cache.pools["0"]
     S = leaves["mamba"]["S"]
     assert S.shape == (n, 3, H, Dh, N) and S.dtype == torch.float32

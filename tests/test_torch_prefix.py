@@ -52,7 +52,8 @@ EPS = 1e-4
 
 def _cache(slots=3, num_blocks=32, block_size=4, max_seq=64, **kw):
     return PagedKVCache(reduced(get_arch("yi-6b")), slots=slots, block_size=block_size,
-                        max_seq=max_seq, num_blocks=num_blocks, dtype=torch.float32, **kw)
+                        max_seq=max_seq, num_blocks=num_blocks, dtype=torch.float32,
+                        **{"device": "cpu", **kw})
 
 
 def _pool_leaves(c):

@@ -303,7 +303,7 @@ def test_lm_logits_match_jax(model, path):
     tl, _ = apply_lm(tp, arch, tokens=torch.from_numpy(toks), rt=rt)
     close(tl, jl)
     jcache = jinit_cache(jarch, 2, 32, dtype=jnp.float32)
-    cache = PagedKVCache(arch, 2, block_size=4, max_seq=32, dtype=torch.float32)
+    cache = PagedKVCache(arch, 2, block_size=4, max_seq=32, dtype=torch.float32, device="cpu")
     step = jax.jit(lambda p, t, c, sp: japply_lm(p, jarch, tokens=t, cache=c, start_pos=sp,
                                                  rt=jrt)[:2])
     for lo, hi in ((0, 6), (6, 14), (14, 15)):
@@ -388,7 +388,7 @@ def test_int_chain_is_a_pure_dispatch_fusion(model):
 
 def test_paged_cache_recurrent_leaves():
     arch = reduced(get_arch("rwkv6-7b"))
-    cache = PagedKVCache(arch, 3, block_size=4, max_seq=16, dtype=torch.float32)
+    cache = PagedKVCache(arch, 3, block_size=4, max_seq=16, dtype=torch.float32, device="cpu")
     leaves = cache.pools["0"]
     H, Dk, d, n = 4, arch.stacks[0].ssm.head_dim, arch.d_model, arch.stacks[0].count
     assert leaves["tm"]["S"].shape == (n, 3, H, Dk, Dk)
@@ -418,5 +418,6 @@ def test_launcher_serves_rwkv6_on_int_chain(capsys):
     text = capsys.readouterr().out
     assert "15 folded, 2 chained, 0 standalone act-quant" in text
     arch = reduced(get_arch("rwkv6-7b"))
-    state = PagedKVCache(arch, 1, max_seq=16, dtype=torch.float32).state_bytes_per_slot()
+    state = PagedKVCache(arch, 1, max_seq=16, dtype=torch.float32,
+                         device="cpu").state_bytes_per_slot()
     assert f"0 KV bytes/token; {state} recurrent state bytes a slot" in text

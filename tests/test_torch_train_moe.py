@@ -320,10 +320,11 @@ def _off_trunc_ties(params, arch):
     return out, moved
 
 
-def check_lm_loss_and_grads(name, pushed, seeds=(1, 2, 3)):
+def check_lm_loss_and_grads(name, pushed, seeds=(1, 2, 3), batch_fn=None):
     """``lm_loss``'s loss, ce, penalty, ``mtp_ce`` and every gradient leaf
     against ``jax.value_and_grad`` of the reference's (jitted), on three
-    batches, every batch strict: the port's activation quantizers put out
+    batches (``batch_fn(seed)``, numpy; ``TokenStream``'s by default), every
+    batch strict: the port's activation quantizers put out
     the reference's codes (``reference_codes``; the codes the port's own
     forward rounds apart are counted), the ``t``/``d`` of columns on their
     cap are left out and counted (``tests/test_torch_train.py``), the
@@ -347,7 +348,8 @@ def check_lm_loss_and_grads(name, pushed, seeds=(1, 2, 3)):
     assert (n_ties == 0) == pushed
     strict, report, zeros = 0, [], set()
     for seed in seeds:
-        batch = TokenStream(vocab=arch.vocab, seq_len=32, global_batch=4, seed=seed).batch(0)
+        batch = batch_fn(seed) if batch_fn is not None else \
+            TokenStream(vocab=arch.vocab, seq_len=32, global_batch=4, seed=seed).batch(0)
         ((jl, jm), jg), jrec = _jax_recorder(name)(jax.tree.map(jnp.asarray, params),
                                                    {k: jnp.asarray(v) for k, v in batch.items()})
         codes, jprobs, flips = reference_decisions(arch, from_jax_numpy(params), batch, jrec)

@@ -170,22 +170,25 @@ def test_paged_engine_on_text_matches_jax(model, jax_engine, steps):
 
 @pytest.mark.parametrize("name", ["hymba-1.5b", "llama4-scout-17b-a16e", NAME])
 def test_lm_loss_keeps_refusing(name):
-    """Training the vlm family is not ported (ROADMAP.md queue 1):
-    ``lm_loss`` raises before any forward.  hymba and llama4's MoE stacks
-    train now (``tests/test_torch_train_moe.py``,
-    ``tests/test_torch_train_recurrent.py`` hold them to the reference): a
+    """``lm_loss`` refuses none of these any more: hymba and llama4's MoE
+    stacks train (``tests/test_torch_train_moe.py``,
+    ``tests/test_torch_train_recurrent.py`` hold them to the reference), and
+    so does the vlm family, its patches ahead of the text and its targets
+    over the whole sequence (``tests/test_torch_train_frontend.py``): a
     finite loss whose gradient reaches every leaf."""
     from repro_torch.nn.module import tree_leaves_with_path, tree_map
 
     arch = reduced(get_arch(name))
     toks = torch.zeros((1, 8), dtype=torch.int32)
+    batch = {"tokens": toks, "targets": toks}
     if arch.family == "vlm":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            lm_loss({}, arch, {"tokens": toks, "targets": toks})
-        return
+        si = arch.frontend.seq_len
+        batch = {"tokens": toks, "targets": torch.zeros((1, si + 8), dtype=torch.int32),
+                 "frontend_embeds": torch.randn((1, si, arch.d_model),
+                                                generator=torch.Generator().manual_seed(1))}
     params = tree_map(lambda t: t.requires_grad_(),
                       init_lm(torch.Generator().manual_seed(0), arch, device="cpu"))
-    loss, _ = lm_loss(params, arch, {"tokens": toks, "targets": toks})
+    loss, _ = lm_loss(params, arch, batch)
     leaves = [v for _, v in tree_leaves_with_path(params)]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     assert torch.isfinite(loss) and all(g is not None and torch.isfinite(g).all()
