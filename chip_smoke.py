@@ -15,7 +15,10 @@ matrix's codes are held to the plain quantizer's on the card.  yi-6b is
 also served through the serving cluster's routed and disaggregated fleets,
 and smollm-135m through spawned replicas.  smollm-135m also trains through
 the compressed data-parallel gradient reduction, and hubert-xlarge and
-llava-next-34b train at full width before they encode and serve.
+llava-next-34b train at full width before they encode and serve; yi-6b
+trains on a device mesh (DTensor, a world of one rank on the one card), is
+re-sharded through a checkpoint, deployed and served, and llama4-scout's
+MoE runs expert-parallel.
 
     python3 chip_smoke.py
 
@@ -345,7 +348,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``DECODER_TRAIN_RUNS``): llama4-scout cut to one chunk-local MoE layer
    (adafactor), deepseek-v3 to one dense MLA layer and its MTP head
    (adafactor), rwkv6-7b to 2 layers and hymba-1.5b to 4 (adamw), params
-   from a device generator, 12 steps of 4 x 512 ``TokenStream`` tokens
+   from a device generator, 8 steps of 4 x 512 ``TokenStream`` tokens
    through ``build_train_step(donate=True)``: step ms, train tok/s, peak
    memory, the max |logit| at init, first-3 and last-3 mean loss (and
    ``mtp_ce``): finite and not rising by more than ``DECODER_FLAT_TOL``, 0
@@ -360,7 +363,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``mtp_ce``) falls, each step within ``DECODER_CHECK_TOL`` of the CPU's,
    no kernel launched;
 4g. the compressed data-parallel gradient reduction (``train_compressed``):
-   full-size smollm-135m (``COMPRESS_LAYERS``) trained ``COMPRESS_STEPS``
+   smollm-135m at full width (``COMPRESS_LAYERS`` layers) trained ``COMPRESS_STEPS``
    steps of 8 x 512 ``TokenStream`` tokens from one seed-0 init,
    uncompressed and through ``build_train_step(Runtime(mesh, rules,
    grad_compress))`` with a data axis of ``COMPRESS_GROUPS`` groups on the
@@ -407,6 +410,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    deployed shape a phase-3 ``DEPLOY_SHAPES`` row with its count; the
    share of zero codes (``tree_sparsity``) and ``model_luts`` totals at
    P=16 and P=32 (printed);
+4x. sharded execution (``train_sharded``) on a world of ``SHARDED_RANKS``
+   rank(s) over ``SHARDED_BACKEND`` (printed on the phase's line): yi-6b at
+   full width (``SHARDED_LAYERS`` of 32 layers) trained ``SHARDED_STEPS``
+   adamw steps on DTensors placed by ``shard_state`` on a ``(data, model)``
+   mesh, each loss within ``SHARDED_LOSS_RTOL`` of the same steps unsharded
+   in a process of their own (``sharded_reference_main``); the params saved
+   from the mesh and restored onto ``(data=ranks, model=1)`` and onto one
+   unsharded rank, bit for bit; the restored tree deployed (held, 0 flips)
+   and served on ``int_matmul`` and ``paged_attention``,
+   ``parity_up_to_ties`` against the tree trained unsharded; llama4-scout's
+   MoE layer (16 experts, top-1, cf 1.25) with ``ep_axis="model"`` and
+   ``("model", "data")`` against its local path, and the 1-layer model's
+   adafactor step with ``ep_axis="model"`` against the unsharded one;
+   yi-6b's cache placed by ``cache_specs`` through one decode step against
+   the unsharded step (``KV_TOL``, ``kpos`` written at 0); the phase's
+   seconds printed;
 6. print the ``kernels`` line (every kernel and its int-chain variants:
    ``int_matmul[prologue]``, ``int_matmul[requant]``,
    ``int_matmul[gelu requant]``, ``paged_attention[int8|int4]``,
@@ -437,6 +456,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -467,7 +487,7 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0**-6}
 MLA_TOL = 2e-5
 # depth cuts of the earlier paths, so the script, the last slice's three decoders
 # included, stays inside its time limit on a slow host (PERF.md section 4)
-SIDE_LAYERS = 4  # 4c, 4m, 4s and 4o: phase 4's smollm-135m params, their first layers
+SIDE_LAYERS = 2  # 4c, 4m, 4s and 4o: phase 4's smollm-135m params, their first layers
 H2O_LAYERS = 2  # 4h's main run (of 24)
 RWKV6_LAYERS = 8  # 4e, 4e-long, 5e and rwkv6's 4m (of 32)
 # deepseek-v3's largest int_matmul shapes on the served path: (K, N) -> site
@@ -4311,7 +4331,7 @@ def deploy_held(tag, build) -> tuple[dict, dict]:
 # sequential form)
 HYMBA_REQUESTS, HYMBA_NEW, HYMBA_CHUNK = 4, 64, 256
 HYMBA_PROMPTS = (1100, 1300)
-HYMBA_LAYERS = 16  # of 32: a depth cut for the script's time (PERF.md section 4)
+HYMBA_LAYERS = 8  # of 32: a depth cut for the script's time (PERF.md section 4)
 HYMBA_CUT_LAYERS, HYMBA_CUT_PROMPT, HYMBA_CUT_NEW = 2, 1100, 16  # the contiguous check's cut
 
 
@@ -4980,15 +5000,16 @@ def train_smollm(dev) -> dict:
 
 
 # phase 4u (PERF.md section 4): the MoE and recurrent decoders trained at full
-# width, each cut in depth to fit one card with its optimizer: 12 steps of 4 x
+# width, each cut in depth to fit one card with its optimizer: 8 steps of 4 x
 # 512 TokenStream tokens (512 a multiple of rwkv6's and hymba's 64-token
 # chunks), then deployed and served.  At these widths A2Q from the
 # reference's init puts out logits within ~0.03 of 0 (the P=16 budget spreads
-# 256 integer units over each column's K = 1,600-18,432 inputs), and 12 steps
+# 256 integer units over each column's K = 1,600-18,432 inputs), and 8 steps
 # do not move the loss: the full-width runs are held to a finite loss that
 # does not rise by more than DECODER_FLAT_TOL, and the learning to the
 # reduced configs trained on the card against the same run on the CPU
-DECODER_TRAIN_STEPS, DECODER_TRAIN_BATCH, DECODER_TRAIN_SEQ, DECODER_TRAIN_LR = 12, 4, 512, 3e-3
+DECODER_TRAIN_STEPS, DECODER_TRAIN_BATCH, DECODER_TRAIN_SEQ, DECODER_TRAIN_LR = 8, 4, 512, 3e-3
+DECODER_CHECK_STEPS = 12  # the reduced configs' learning runs, card against CPU
 DECODER_SERVE_REQUESTS, DECODER_SERVE_PROMPT, DECODER_SERVE_NEW = 4, 64, 16
 DECODER_FLAT_TOL = 1e-3  # nat
 DECODER_CHECK_SEQ, DECODER_CHECK_TOL = 64, 1e-3  # reduced runs: tokens a row, card vs CPU rtol
@@ -5197,7 +5218,7 @@ def train_decoders(dev, smi: str) -> dict:
 
 
 def reduced_learns(name, opt_name, dev) -> None:
-    """``name``'s reduced config (fp32) trained ``DECODER_TRAIN_STEPS`` steps
+    """``name``'s reduced config (fp32) trained ``DECODER_CHECK_STEPS`` steps
     of ``DECODER_TRAIN_BATCH`` x ``DECODER_CHECK_SEQ`` tokens on the card and
     on the CPU from the same CPU-drawn params, as 4u trains the full width:
     the loss (and ``mtp_ce``) falls from the first three steps' mean to the
@@ -5214,7 +5235,7 @@ def reduced_learns(name, opt_name, dev) -> None:
     from repro_torch.train.state import init_state
     from repro_torch.train.trainer import Trainer
 
-    arch, N = reduced(get_arch(name)), DECODER_TRAIN_STEPS
+    arch, N = reduced(get_arch(name)), DECODER_CHECK_STEPS
     runs = {}
     ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
     for device in ("cpu", dev):
@@ -5256,7 +5277,7 @@ def reduced_learns(name, opt_name, dev) -> None:
 COMPRESS_GROUPS, COMPRESS_STEPS, COMPRESS_BATCH, COMPRESS_SEQ = 4, 12, 8, 512
 COMPRESS_LR, COMPRESS_TOL, COMPRESS_LEARN = 3e-3, 0.05, 0.5  # nat
 COMPRESS_REF = dict(groups=8, steps=20, batch=8, seq=32, lr=2e-3)
-COMPRESS_LAYERS = 30  # of smollm-135m's 30: no depth cut
+COMPRESS_LAYERS = 12  # of smollm-135m's 30: a depth cut for the script's time (PERF.md section 4)
 COMPRESS_SERVE_REQUESTS, COMPRESS_SERVE_NEW = 4, 16
 # the wire held bit for bit, card against the CPU port: stacked gradients of
 # smollm-135m's leaf shapes on a (data=4, model=1) mesh, each spec giving
@@ -5489,7 +5510,7 @@ def compressed_tracks_on_reduced(dev) -> None:
 
 
 def train_compressed(dev, smi: str) -> dict:
-    """Phase 4g: full-size smollm-135m trained ``COMPRESS_STEPS`` steps of
+    """Phase 4g: smollm-135m at full width (``COMPRESS_LAYERS`` layers) trained ``COMPRESS_STEPS`` steps of
     ``COMPRESS_BATCH`` x ``COMPRESS_SEQ`` ``TokenStream`` tokens from one
     seed-0 init three times: uncompressed (``Runtime()``), then through the
     compressed step (``Runtime(mesh, rules, grad_compress)`` with a data
@@ -6046,6 +6067,370 @@ def train_vision(dev, smi: str) -> dict:
     return {"vision networks trained": totals}
 
 
+# phase 4x (PERF.md section 4): sharded execution.  gloo does not move
+# DTensor's collectives for CUDA tensors of ranks that share one card (every
+# one hangs, tools/probe_gloo_cuda.py; PERF.md section 6, PR 30) and NCCL
+# refuses two ranks on one device, so on the one card the sharded path runs
+# as a world of one rank over NCCL: its code and numerics, not a memory or a
+# speed gain.  The four-rank world runs on the CPU (tests/test_torch_sharded.py).
+SHARDED_RANKS, SHARDED_BACKEND = 1, "nccl"
+SHARDED_LAYERS = 2  # of yi-6b's 32, as 4r cuts it: full width, 32 heads over 4 KV heads
+SHARDED_STEPS, SHARDED_BATCH, SHARDED_SEQ, SHARDED_LR = 4, 8, 512, 3e-4
+SHARDED_LOSS_RTOL = 1e-4  # tests/test_torch_sharded.py's ADAM_TOL, sharded vs unsharded adamw
+SHARDED_SERVE = (4, 64, 16)  # requests, prompt tokens, new tokens
+EP_TOKENS = (2, 64)  # rows x tokens through llama4-scout's MoE layer
+EP_TOL = 1e-2  # of the local path's largest |y|, in bf16
+KV_DECODE_ROWS, KV_CACHE_SEQ, KV_TOL = 8, 64, 1e-2  # the reference's gate on the logits
+
+
+def _yi6b_cut():
+    from repro_torch.configs import get_arch
+
+    full = get_arch("yi-6b")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0],
+                                                                 count=SHARDED_LAYERS),))
+    a = arch.stacks[0].attn
+    if (a.heads, a.kv_heads, arch.compute_dtype, arch.quant.mode) != (32, 4, "bfloat16", "a2q"):
+        raise AssertionError(f"yi-6b's config moved: {arch}")
+    return full, arch
+
+
+def _llama4_moe_layer():
+    from repro_torch.configs import get_arch
+
+    full = get_arch("llama4-scout-17b-a16e")
+    arch = dataclasses.replace(full, stacks=(dataclasses.replace(full.stacks[0], count=1),))
+    m = arch.stacks[0].moe
+    if (m.n_experts, m.top_k, m.capacity_factor) != (16, 1, 1.25):
+        raise AssertionError(f"llama4-scout's MoE config moved: {m}")
+    return arch
+
+
+def _leaf_digests(tree) -> dict:
+    import hashlib
+
+    from repro_torch.nn.module import keystr, tree_leaves_with_path
+
+    return {keystr(p): hashlib.sha256(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                                      .tobytes()).hexdigest()
+            for p, t in tree_leaves_with_path(tree)}
+
+
+def _moe_input(arch, dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    return torch.randn(*EP_TOKENS, arch.d_model, generator=g, device=dev).to(torch.bfloat16)
+
+
+def sharded_reference_main(out_dir: str, device: str = "cuda") -> None:
+    """4x's unsharded comparisons, in a process of their own before the
+    sharded run (llama4's unsharded step peaks at ~56 GiB): yi-6b's
+    ``SHARDED_STEPS`` adamw steps and its trained tree served, llama4-scout's
+    MoE layer's local path, and the 1-layer model's first adafactor step, as
+    4u trains it.  Writes ``reference.json`` and ``moe_local.pt``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch import resolve_device
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.lm import Runtime, apply_lm, init_lm
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.nn import moe
+    from repro_torch.optim.optimizers import adafactor, adamw
+    from repro_torch.serve.engine import PagedServeEngine, deploy_params
+    from repro_torch.train.state import init_state
+
+    dev = resolve_device(device)
+    out = {}
+    _, arch = _yi6b_cut()
+    opt = adamw()
+    state = init_state(init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev),
+                       opt).tree()
+    step = build_train_step(arch, opt, Runtime(), lr_schedule=lambda s: torch.full(
+        (), SHARDED_LR, device=dev), donate=True)
+    stream = TokenStream(vocab=arch.vocab, seq_len=SHARDED_SEQ, global_batch=SHARDED_BATCH, seed=0)
+    losses = []
+    for i in range(SHARDED_STEPS):
+        state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(i).items()})
+        losses.append(float(m["loss"]))
+    out["yi_losses"] = losses
+    params = state["params"]
+    del state
+    with torch.no_grad():
+        deployed = deploy_params(params, arch.quant)
+        n, plen, new = SHARDED_SERVE
+        prompts = list(np.random.default_rng(0).integers(0, arch.vocab, (n, plen)))
+        l_deq = apply_lm(deployed, arch, tokens=torch.as_tensor(np.stack(prompts), device=dev))[0]
+        out["serve_eps"] = 2.0**-6 * float(l_deq.float().abs().max())
+        del l_deq
+        engine = PagedServeEngine(arch, deployed, rt=Runtime(int_forward=True, decode_kernel=True),
+                                  batch=n, max_seq=-(-(plen + new) // 16) * 16, block_size=16,
+                                  prefill_chunk=plen, device=dev)
+        engine.generate(prompts, max_new=new)
+    out["serve_ref"] = [{"generated": [int(t) for t in r.generated],
+                         "margins": [float(x) for x in r.margins]} for r in engine.last_requests]
+    del engine, deployed, params
+    torch.cuda.empty_cache()
+
+    la = _llama4_moe_layer()
+    s = la.stacks[0]
+    mp = moe.init_moe(torch.Generator(device=dev).manual_seed(1), la.d_model, s.moe, la.quant)
+    x = _moe_input(la, dev)
+    with torch.no_grad():
+        y = moe.apply_moe(mp, x, s.moe, la.quant, compute_dtype=torch.bfloat16)
+    torch.save(y.cpu(), os.path.join(out_dir, "moe_local.pt"))
+    del mp, y
+    torch.cuda.empty_cache()
+    opt = adafactor()
+    state = init_state(init_lm(torch.Generator(device=dev).manual_seed(0), la, device=dev),
+                       opt).tree()
+    stream = TokenStream(vocab=la.vocab, seq_len=DECODER_TRAIN_SEQ,
+                         global_batch=DECODER_TRAIN_BATCH, seed=0)
+    step = build_train_step(la, opt, Runtime(), lr_schedule=lambda s: torch.full(
+        (), DECODER_TRAIN_LR, device=dev), donate=True)
+    state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(0).items()})
+    out["llama4_loss"] = float(m["loss"])
+    with open(os.path.join(out_dir, "reference.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _run_reference(out_dir: Path) -> None:
+    """``sharded_reference_main`` in a spawned process of its own."""
+    import multiprocessing
+
+    proc = multiprocessing.get_context("spawn").Process(target=sharded_reference_main,
+                                                         args=(str(out_dir),))
+    proc.start()
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"[4x] the unsharded reference process exited {proc.exitcode}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_sharded(dev, smi: str) -> dict:
+    """Phase 4x: sharded execution on a world of ``SHARDED_RANKS`` ranks
+    over ``SHARDED_BACKEND``, a ``(data, model)`` mesh bound to it
+    (``Mesh.over_ranks``).  First the unsharded comparisons in their own
+    process (``sharded_reference_main``).  Then: yi-6b at full width
+    (``SHARDED_LAYERS`` layers) trained ``SHARDED_STEPS`` adamw steps of
+    ``SHARDED_BATCH`` x ``SHARDED_SEQ`` bigram tokens through
+    ``build_train_step`` on DTensors placed by ``shard_state`` (each loss
+    within ``SHARDED_LOSS_RTOL`` of the unsharded steps'); the params saved
+    from the mesh and restored onto ``(data=ranks, model=1)`` and onto one
+    unsharded rank (bit for bit: sha256 of every leaf); the restored tree
+    deployed through ``a2q_quantize`` (every launch held, 0 flips) and
+    served (``SHARDED_SERVE``, ``--int-forward --decode-kernel``), held with
+    ``parity_up_to_ties`` to the tree trained unsharded; llama4-scout's MoE
+    layer at full width on ``EP_TOKENS`` with ``ep_axis="model"`` and
+    ``("model", "data")`` against the local path, and the 1-layer model's
+    first adafactor step with ``ep_axis="model"`` against 4u's unsharded
+    one; yi-6b's cache placed by ``cache_specs`` (``k`` dim 3 on ``model``)
+    through one decode step of ``KV_DECODE_ROWS`` tokens against the
+    unsharded step (``KV_TOL``, ``kpos`` written at 0).  Returns the deploy
+    and serve launches."""
+    import shutil
+    import types
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.dist.sharding import (Mesh, ShardingRules, cache_specs, full_tree,
+                                           param_specs, shard_tree)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.a2q_quantize import a2q_quantize_cuda
+    from repro_torch.models.lm import Runtime, init_cache, init_lm
+    from repro_torch.models.steps import build_serve_step, build_train_step
+    from repro_torch.nn import moe
+    from repro_torch.nn.module import tree_map
+    from repro_torch.optim.optimizers import adafactor, adamw
+    from repro_torch.serve.engine import PagedServeEngine, deploy_params, parity_up_to_ties
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.state import init_state, shard_state, specs_to_shardings
+
+    full, arch = _yi6b_cut()
+    phase(f"4x: sharded execution, ranks {SHARDED_RANKS} backend {SHARDED_BACKEND}: yi-6b "
+          f"({arch.n_layers} of {full.n_layers} layers) trained on a mesh, re-sharded, "
+          "deployed, served; llama4-scout's MoE layer expert-parallel; the KV-sharded decode")
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "smoke_4x"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    _run_reference(out_dir)
+    ref = json.loads((out_dir / "reference.json").read_text())
+    t_ref = time.perf_counter() - t_phase
+
+    dist.init_process_group(SHARDED_BACKEND, init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=SHARDED_RANKS,
+                            device_id=torch.device("cuda", torch.cuda.current_device())
+                            if dev.type == "cuda" else None)
+    try:
+        mesh = Mesh.over_ranks(dev.type, data=SHARDED_RANKS, model=1)
+        rules = ShardingRules.default(mesh, arch)
+        opt = adamw()
+        state = shard_state(init_state(init_lm(torch.Generator(device=dev).manual_seed(0), arch,
+                                               device=dev), opt).tree(), opt, mesh, rules)
+        step = build_train_step(arch, opt, Runtime(mesh=mesh, rules=rules), donate=True,
+                                lr_schedule=lambda s: torch.full((), SHARDED_LR, device=dev))
+        stream = TokenStream(vocab=arch.vocab, seq_len=SHARDED_SEQ, global_batch=SHARDED_BATCH,
+                             seed=0)
+        ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, comm = [], [], CommDebugMode()
+        for i in range(SHARDED_STEPS):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(i).items()}
+            t0 = time.perf_counter()
+            with comm if i == SHARDED_STEPS - 1 else contextlib.nullcontext():
+                state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        launched = sum(ops.launch_counts().values())
+        counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+        print(f"[4x train] mesh {mesh.shape}: {SHARDED_STEPS} adamw steps of {SHARDED_BATCH} x "
+              f"{SHARDED_SEQ}: step s {[round(t, 3) for t in times]} (first with DTensor's "
+              f"sharding propagation), peak memory {peak / 2**30:.2f} GiB ({smi}); collectives of "
+              f"a step {counts}; losses {losses} against unsharded {ref['yi_losses']}; kernel "
+              f"launches while training {launched}", flush=True)
+        if launched or not np.allclose(losses, ref["yi_losses"], rtol=SHARDED_LOSS_RTOL, atol=0):
+            raise AssertionError(f"[4x train] losses {losses} vs {ref['yi_losses']}, launches "
+                                 f"{launched}")
+
+        d = str(out_dir / "ckpt")
+        ckpt.save(d, state["params"], SHARDED_STEPS)
+        trained = full_tree(state["params"])
+        want = _leaf_digests(trained)
+        del state
+        mesh2 = Mesh.over_ranks(dev.type, data=SHARDED_RANKS, model=1)
+        specs2 = param_specs(trained, mesh2, ShardingRules.default(mesh2, arch))
+        r2, at2 = ckpt.restore(d, trained, shardings=specs_to_shardings(specs2, mesh2))
+        same2 = at2 == SHARDED_STEPS and _leaf_digests(full_tree(r2)) == want
+        del r2, trained
+        torch.cuda.empty_cache()
+        like = init_lm(torch.Generator(device=dev).manual_seed(1), arch, device=dev)
+        restored, at1 = ckpt.restore(d, like)
+        del like
+        same1 = at1 == SHARDED_STEPS and _leaf_digests(restored) == want
+        shutil.rmtree(d, ignore_errors=True)
+        print(f"[4x checkpoint] saved from {mesh.shape}; restored onto {mesh2.shape} bit for bit "
+              f"{same2}, onto one unsharded rank bit for bit {same1}", flush=True)
+        if not (same1 and same2):
+            raise AssertionError("[4x checkpoint] a restored leaf differs")
+
+        n, plen, new = SHARDED_SERVE
+        tag = "4x yi-6b trained sharded"
+        ops.set_launch_counts({k: 0 for k in ops.launch_counts()})
+        with held_deploys(tag) as held:
+            params = deploy_params(restored, arch.quant)
+        torch.cuda.synchronize()
+        deploys = a2q_quantize_cuda.launches
+        check_held(tag, held, deploys)
+        if deploys != 7 * arch.n_layers + 1 or held["flips"]:
+            raise AssertionError(f"[{tag}] {deploys} deploy launches, {held['flips']} flips")
+        prompts = list(np.random.default_rng(0).integers(0, arch.vocab, (n, plen)))
+        engine = PagedServeEngine(arch, params, rt=Runtime(int_forward=True, decode_kernel=True),
+                                  batch=n, max_seq=-(-(plen + new) // 16) * 16, block_size=16,
+                                  prefill_chunk=plen, device=dev)
+        outs = engine.generate(prompts, max_new=new)
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        launches = {"int_matmul": c["int_matmul_cuda.launches"],
+                    "int_matmul[tc]": c["int_matmul_cuda.tc_launches"],
+                    "paged_attention": c["paged_attention_cuda.launches"],
+                    "a2q_quantize": deploys, "a2q_quantize[flips]": held["flips"]}
+        ticks = engine.throughput()["decode_dispatches"]
+        per_forward = 7 * arch.n_layers + 1
+        ref_reqs = [types.SimpleNamespace(**r) for r in ref["serve_ref"]]
+        ok, ties, detail = parity_up_to_ties(ref_reqs, outs, ref["serve_eps"])
+        print(f"[{tag}] deployed {deploys} matrices, served {n} requests ({ticks} ticks): "
+              f"launches {launches}; against the tree trained unsharded parity_up_to_ties "
+              f"eps={ref['serve_eps']:.4g} ok={ok} ties={ties} identical "
+              f"{sum(r.generated == list(o) for r, o in zip(ref_reqs, outs))}/{n}", flush=True)
+        if launches["int_matmul"] != per_forward * (ticks + n) or \
+                launches["paged_attention"] != arch.n_layers * ticks or not ok:
+            raise AssertionError(f"[{tag}] launches {launches} or parity {detail}")
+        del engine, params
+        torch.cuda.empty_cache()
+
+        # the KV-sharded decode on the restored (unsharded) tree
+        kv_rules = rules
+        cache = init_cache(arch, KV_DECODE_ROWS, KV_CACHE_SEQ, dtype=torch.bfloat16, device=dev)
+        cs = cache_specs(cache, mesh, kv_rules)
+        tokens = torch.as_tensor(np.random.default_rng(1).integers(
+            0, arch.vocab, (KV_DECODE_ROWS, 1)), device=dev)
+        with torch.no_grad():
+            want_logits, _ = build_serve_step(arch, Runtime())(
+                restored, tokens, tree_map(torch.clone, cache), 0)
+            got, new_cache = build_serve_step(arch, Runtime(mesh=mesh, rules=kv_rules))(
+                shard_tree(restored, param_specs(restored, mesh, kv_rules), mesh), tokens,
+                shard_tree(cache, cs, mesh), 0)
+            got = got.full_tensor().float()
+            kpos = new_cache["0"]["attn"]["kpos"].full_tensor()
+        err = float((got - want_logits.float()).abs().max())
+        kspec = cs["0"]["attn"]["k"]
+        print(f"[4x kv] cache k spec {kspec}: one decode step of {KV_DECODE_ROWS} tokens, logits "
+              f"max |sharded - unsharded| {err:.3g}; kpos at 0 {bool((kpos[:, :, 0] == 0).all())}",
+              flush=True)
+        if err >= KV_TOL or not bool((kpos[:, :, 0] == 0).all()) or kspec[3] not in ("model", None):
+            raise AssertionError(f"[4x kv] err {err}, kpos {kpos[:, :, :2]}, spec {kspec}")
+        del restored, cache, new_cache
+        torch.cuda.empty_cache()
+
+        # llama4-scout's MoE layer expert-parallel against its local path
+        la = _llama4_moe_layer()
+        s = la.stacks[0]
+        mp = moe.init_moe(torch.Generator(device=dev).manual_seed(1), la.d_model, s.moe, la.quant)
+        x = _moe_input(la, dev)
+        y_local = torch.load(out_dir / "moe_local.pt").to(dev).float()
+        errs = {}
+        with torch.no_grad():
+            for ep in ("model", ("model", "data")):
+                y = moe.apply_moe(mp, x, s.moe, la.quant, compute_dtype=torch.bfloat16,
+                                  mesh=mesh, ep_axis=ep).full_tensor().float()
+                errs[str(ep)] = float((y - y_local).abs().max())
+        del mp, x, y
+        torch.cuda.empty_cache()
+        top = float(y_local.abs().max())
+        opt = adafactor()
+        lrules = ShardingRules.default(mesh, la)
+        lstate = shard_state(init_state(init_lm(torch.Generator(device=dev).manual_seed(0), la,
+                                                device=dev), opt).tree(), opt, mesh, lrules)
+        lstream = TokenStream(vocab=la.vocab, seq_len=DECODER_TRAIN_SEQ,
+                              global_batch=DECODER_TRAIN_BATCH, seed=0)
+        lstep = build_train_step(la, opt, Runtime(mesh=mesh, rules=lrules, ep_axis="model"),
+                                 lr_schedule=lambda s: torch.full((), DECODER_TRAIN_LR,
+                                                                  device=dev), donate=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lstate, lm = lstep(lstate, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in lstream.batch(0).items()})
+        ep_loss, ep_s = float(lm["loss"]), time.perf_counter() - t0
+        ep_peak = torch.cuda.max_memory_allocated()
+        del lstate
+        torch.cuda.empty_cache()
+        print(f"[4x moe] llama4-scout's MoE layer ({s.moe.n_experts} experts, top-{s.moe.top_k}, "
+              f"cf {s.moe.capacity_factor}) on {EP_TOKENS[0]} x {EP_TOKENS[1]} tokens: max "
+              f"|EP - local| {errs} (largest |y| {top:.4g}); the 1-layer model's adafactor step "
+              f"with ep_axis='model': loss {ep_loss:.6f} against unsharded "
+              f"{ref['llama4_loss']:.6f}, {ep_s:.1f} s, peak {ep_peak / 2**30:.2f} GiB ({smi})",
+              flush=True)
+        if max(errs.values()) > EP_TOL * top or \
+                not np.isclose(ep_loss, ref["llama4_loss"], rtol=SHARDED_LOSS_RTOL, atol=0):
+            raise AssertionError(f"[4x moe] {errs}, loss {ep_loss} vs {ref['llama4_loss']}")
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[4x] launches {launches}; reference process {t_ref:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    return {"yi-6b trained sharded (4x)": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6118,6 +6503,8 @@ def main() -> int:
     by_path.update(train_frontends(dev, smi))
     torch.cuda.empty_cache()
     by_path.update(train_vision(dev, smi))
+    torch.cuda.empty_cache()
+    by_path.update(train_sharded(dev, smi))
     for e in entries:
         counts = {path: n[e["name"]] for path, n in by_path.items() if e["name"] in n}
         e["launches"] = sum(counts.values())

@@ -24,6 +24,7 @@ column, as in ``repro.core.a2q``.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.bounds import int_range
 from repro_torch.core.quantizers import clip, ste_round_to_zero
@@ -53,12 +54,45 @@ def pairwise_sum(a: torch.Tensor) -> torch.Tensor:
     (r2 + r3)) + ...``), one rounded fp32 add a node; leading axes are
     batch axes.  Every device and the ``a2q_quantize`` kernel compute it bit
     for bit alike, so the deployed codes on the card equal the plain
-    quantizer's (``torch.sum``'s order is its own on each device)."""
+    quantizer's (``torch.sum``'s order is its own on each device).  A DTensor
+    takes ``_sharded_pairwise_sum``."""
+    if isinstance(a, DTensor):
+        return _sharded_pairwise_sum(a)
     while a.shape[-2] > 1:
         if a.shape[-2] % 2:
             a = torch.cat([a, torch.zeros_like(a[..., :1, :])], dim=-2)
         a = a[..., 0::2, :] + a[..., 1::2, :]
     return a.sum(-2)  # one row (or none): the row itself
+
+
+def _sharded_pairwise_sum(a: DTensor) -> DTensor:
+    """``pairwise_sum`` of a DTensor, exact and in one fixed order when its
+    row dim is sharded (an FSDP ``v``, its K split over ``data``): each rank
+    sums its own rows pairwise, the ``n`` partials are all-gathered (in the
+    rows' order) and summed pairwise.  Where ``n`` and every shard's row
+    count are powers of two this is the whole tree's order, bit for bit;
+    elsewhere the two trees pad at other places.  A replicated row dim sums
+    locally.  The result keeps ``a``'s other placements (dims past the rows
+    move down by one)."""
+    rows = a.dim() - 2
+    mesh = a.device_mesh
+    part = pairwise_sum(a.to_local())  # (..., C) of this rank's rows
+    sharded = [i for i, p in enumerate(a.placements) if isinstance(p, Shard) and p.dim == rows]
+
+    def keep(p):
+        if isinstance(p, Shard) and p.dim > rows:
+            return Shard(p.dim - 1)
+        return Replicate() if isinstance(p, Shard) and p.dim == rows else p
+
+    out = [keep(p) for p in a.placements]
+    if sharded:
+        # the partials stacked on the row dim, gathered over its mesh dims
+        # (DTensor's all-gather: differentiable, and in the shards' order)
+        stacked = DTensor.from_local(part.unsqueeze(rows), mesh, a.placements, run_check=False)
+        gathered = stacked.redistribute(mesh, [Replicate() if i in sharded else p
+                                               for i, p in enumerate(a.placements)])
+        part = pairwise_sum(gathered.to_local())
+    return DTensor.from_local(part, mesh, out, run_check=False)
 
 
 def _channel_sum(w: torch.Tensor) -> torch.Tensor:

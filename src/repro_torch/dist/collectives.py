@@ -62,6 +62,7 @@ __all__ = [
     "compressed_psum_tree",
     "compressed_allreduce",
     "compressed_allreduce_tree",
+    "compressed_allreduce_shard",
     "owner_dim",
     "server_shape",
     "strip_axis",
@@ -352,6 +353,77 @@ def compressed_allreduce(g: torch.Tensor, err_local: torch.Tensor, err_server: t
         (new_local[:, 0] if scalar else new_local).to(err_local.dtype),
         new_server.to(err_server.dtype),
     )
+
+
+def compressed_allreduce_shard(g: torch.Tensor, err_local: torch.Tensor,
+                               err_server: torch.Tensor, *, group=None, bits: int = 8,
+                               scale_axis: str = "tensor", owner: int = 0, scale_groups=()):
+    """``compressed_allreduce`` with its stacked dim laid over the processes
+    of ``group``: each calls it with its own row.
+
+    Args:
+        g:          this process's contribution (``shape``).
+        err_local:  its row of the phase-1 residual (``shape``).
+        err_server: its slice of the phase-2 residual: the process of rank
+                    ``r`` owns rows ``[r * c, (r + 1) * c)`` of the owner dim
+                    padded to ``n * c`` (``server_shape``).
+        owner:      the owner dim (``owner_dim`` of the param's spec).
+        scale_groups: further groups the shared scale is agreed over (those
+                    that split the payload without splitting its scale's
+                    columns: a tensor-parallel shard of one leaf).
+
+    Returns ``(total, new_err_local, new_err_server)``: the same codes,
+    int32 sums, requantization and residuals, element for element, as the
+    global view's (the phase-1 codes move in an all-to-all, the phase-2
+    codes in an all-gather, both as bytes)."""
+    _check_format(bits, scale_axis)
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    qmax = _check_overflow(n, bits)
+    wire = _wire_dtype(bits)
+    shape = tuple(g.shape)
+    if shape == ():
+        g, err_local = g[None], err_local[None]
+
+    y = g.to(torch.float32) + err_local
+    if scale_axis == "column" and y.dim() >= 2:
+        absmax = torch.amax(torch.abs(y), dim=tuple(range(y.dim() - 1)), keepdim=True)
+    else:
+        absmax = torch.max(torch.abs(y))
+    absmax = absmax.contiguous()
+    for grp in (group, *scale_groups):
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=grp)
+    scale = _div(torch.clamp_min(absmax, _TINY), qmax)
+    q = _quantize(y, scale, qmax, wire)
+    new_local = y - q.to(torch.float32) * scale
+
+    d_own = q.shape[owner]
+    c = -(-d_own // n)
+    if c * n != d_own:
+        pads = [0, 0] * q.dim()
+        pads[2 * (q.dim() - 1 - owner) + 1] = c * n - d_own
+        q = F.pad(q, pads)
+    if scale.dim() and owner == q.dim() - 1 and scale.shape[-1] > 1:
+        scale = F.pad(scale, (0, c * n - d_own), value=1.0)  # per-column scales ride along
+    mine = scale.narrow(owner, rank * c, c) if scale.dim() and scale.shape[owner] > 1 else scale
+
+    # phase 1: each owner's slice of every row (an all-to-all), summed in int32
+    sent = q.movedim(owner, 0).reshape(n, -1).contiguous()
+    recv = torch.empty_like(sent)
+    dist.all_to_all_single(recv.view(torch.uint8), sent.view(torch.uint8), group=group)
+    rest = q.movedim(owner, 0).shape[1:]
+    part_sum = _owner_sum(recv).reshape((c,) + tuple(rest)).movedim(0, owner)
+    # phase 2: requantize onto the widened scale; all-gather the codes
+    value_sum = part_sum.to(torch.float32) * mine + err_server
+    q2 = _quantize(value_sum, mine * n, qmax, wire)
+    new_server = value_sum - q2.to(torch.float32) * (mine * n)
+    parts = torch.empty((n,) + tuple(q2.movedim(owner, 0).shape), dtype=wire, device=q2.device)
+    dist.all_gather(list(parts.view(torch.uint8)), q2.movedim(owner, 0).contiguous()
+                    .view(torch.uint8), group=group)
+    codes = parts.reshape((n * c,) + tuple(rest)).movedim(0, owner)
+    total = (codes.to(torch.float32) * (scale * n)).narrow(owner, 0, d_own)
+    return (total.to(g.dtype).reshape(shape), new_local.reshape(shape).to(err_local.dtype),
+            new_server.to(err_server.dtype))
 
 
 def compressed_allreduce_tree(tree, err_tree, *, mesh, axis: str, bits: int = 8,

@@ -19,31 +19,50 @@ A spec is a tuple with one entry a dim: a mesh axis name, a tuple of names,
 or ``None`` (replicated).  ``resolve_pspec`` never reuses one mesh axis for
 two dims of the same array: earlier dims win.
 
-This is placement logic only.  ``Mesh`` describes a mesh: its axis names,
-their sizes and the devices behind its positions (on one card, every
-position is that card: the stacked global view of the compressed train
-step).  The reference's activation constraints (``constrain``) have no
-counterpart until the port executes sharded.
+``Mesh`` describes a mesh: its axis names, their sizes and the devices
+behind its positions.  A mesh of one card (``Mesh.on_device``: every
+position is that card) is the stacked global view of the compressed train
+step.  A mesh bound to the ranks of a ``torch.distributed`` world
+(``Mesh.over_ranks``, or ``device_mesh()`` on a description of the world's
+size) executes sharded, one process a position: a spec maps onto DTensor
+placements (``placements``: an axis named by dim ``d`` is ``Shard(d)`` on
+that mesh dim, every other mesh dim ``Replicate()``), ``shard_tree`` places
+a tree, DTensor's sharding propagation plays XLA's partitioner, and
+``constrain`` (the reference's ``with_sharding_constraint``) redistributes
+an activation; all three do nothing without a bound mesh.  Inside
+``sharded_scope`` a plain tensor that meets a DTensor counts as replicated
+(the positions, masks and constants a forward makes).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.nn.module import tree_map, tree_map_with_path
 
 __all__ = [
     "Mesh",
+    "NamedSharding",
     "ShardingRules",
     "resolve_pspec",
     "param_axes",
     "param_specs",
     "cache_specs",
+    "placements",
+    "constrain",
+    "shard_tree",
+    "full_tree",
+    "sharded_scope",
 ]
+
+_DEVICE_MESHES: dict = {}  # (device type, names, sizes) -> DeviceMesh: groups are made once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +74,7 @@ class Mesh:
     axis_names: tuple
     axis_sizes: tuple
     devices: tuple = ()
+    bound: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -76,6 +96,61 @@ class Mesh:
         ``device``."""
         n = math.prod(axes.values())
         return Mesh(tuple(axes), tuple(axes.values()), (torch.device(device),) * n)
+
+    @staticmethod
+    def over_ranks(device_type: str, **axes: int) -> "Mesh":
+        """A mesh of ``axes`` (name=size, in order) over the ranks of the
+        initialized ``torch.distributed`` world, row-major, bound to its
+        ``DeviceMesh``: rank ``r``'s device is ``cuda:{r % device_count}``
+        on cards, the CPU otherwise.  Every rank must call it."""
+        n = math.prod(axes.values())
+        if device_type == "cuda":
+            devices = tuple(torch.device("cuda", r % torch.cuda.device_count()) for r in range(n))
+        else:
+            devices = (torch.device(device_type),) * n
+        mesh = Mesh(tuple(axes), tuple(axes.values()), devices)
+        mesh.device_mesh()
+        return mesh
+
+    @property
+    def spmd(self) -> bool:
+        """Bound to a world's ranks: the mesh executes sharded."""
+        return self.bound is not None
+
+    def device_mesh(self):
+        """The torch ``DeviceMesh`` of this description: the same axis names
+        and sizes, row-major over the ranks of the initialized world, which
+        must have ``size`` of them.  Binds the mesh (``spmd``); made once
+        for each layout, since its groups are collective to make."""
+        if self.bound is None:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise RuntimeError("Mesh.device_mesh: no torch.distributed world is initialized")
+            if dist.get_world_size() != self.size:
+                raise ValueError(f"a mesh of {self.size} positions over a world of "
+                                 f"{dist.get_world_size()} ranks")
+            kind = self.devices[0].type if self.devices else "cpu"
+            key = (kind, self.axis_names, self.axis_sizes)
+            if key not in _DEVICE_MESHES:
+                from torch.distributed.device_mesh import init_device_mesh
+
+                _DEVICE_MESHES[key] = init_device_mesh(kind, self.axis_sizes,
+                                                       mesh_dim_names=self.axis_names)
+            object.__setattr__(self, "bound", _DEVICE_MESHES[key])
+        return self.bound
+
+    def submesh(self, *names: str) -> "Mesh":
+        """The mesh of ``names`` that holds this rank (its coordinates on the
+        other axes fixed), bound to the sub-``DeviceMesh``."""
+        dm = self.device_mesh()[names if len(names) > 1 else names[0]]
+        return Mesh(tuple(names), tuple(self.shape[a] for a in names), bound=dm)
+
+    def group(self, axis: str):
+        """The process group of ``axis`` that holds this rank."""
+        return self.device_mesh().get_group(axis)
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's position on ``axis``."""
+        return self.device_mesh().get_local_rank(axis)
 
 
 def _gcd_all(vals: Sequence[int]) -> Optional[int]:
@@ -309,3 +384,101 @@ def cache_specs(cache_tree, mesh, rules: ShardingRules):
 
     return tree_map_with_path(one, cache_tree)
 
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution: specs as DTensor placements over a bound mesh.
+# ---------------------------------------------------------------------------
+
+
+def placements(spec, mesh: Mesh) -> list:
+    """A spec's DTensor placements on ``mesh``, one a mesh dim: an axis that
+    dim ``d`` of the spec names is ``Shard(d)``, an axis it does not name
+    ``Replicate()``.  A dim over several axes (``("data", "model")``) is
+    split row-major over them, which is DTensor's order only when they are
+    listed in the mesh's own order; an entry in another order is refused by
+    name (no placement of plain ``Shard``s lays it out)."""
+    names = tuple(mesh.axis_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec or ()):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec} names {a!r}, not an axis of the mesh {names}")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} of dim {d} lists mesh axes out of the mesh's "
+                             f"order {names}: DTensor splits a dim in mesh-dim order, so it is "
+                             f"not Shard({d}) on each")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec} uses mesh axis {names[i]!r} twice")
+            out[i] = Shard(d)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``): ``place``
+    distributes a global tensor to it."""
+
+    mesh: Mesh
+    spec: tuple
+
+    @property
+    def placements(self) -> list:
+        return placements(self.spec, self.mesh)
+
+    def place(self, t: torch.Tensor):
+        """``t`` (the global tensor, the same on every rank) as a DTensor of
+        this layout; each rank keeps its shard."""
+        dm = self.mesh.device_mesh()
+        return distribute_tensor(t.to(dm.device_type), dm, self.placements)
+
+
+def constrain(x, mesh: Optional[Mesh], spec):
+    """The reference's ``constrain``: ``x`` redistributed to ``spec`` on a
+    bound mesh (a plain ``x`` first counts as replicated); a no-op without
+    one (one device, or the stacked view of one card)."""
+    if mesh is None or not mesh.spmd:
+        return x
+    dm = mesh.device_mesh()
+    want = placements(spec, mesh)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim, run_check=False)
+    if list(x.placements) == want:
+        return x
+    return x.redistribute(dm, want)
+
+
+def shard_tree(tree, spec_tree, mesh: Mesh):
+    """A tree of global tensors placed by a spec tree on a bound mesh (every
+    rank passes the same values; each keeps its shards)."""
+    return tree_map(lambda t, s: NamedSharding(mesh, tuple(s)).place(t), tree, spec_tree)
+
+
+def full_tree(tree):
+    """Every DTensor leaf gathered to its global tensor (a collective: every
+    rank calls it); plain leaves pass."""
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
+@contextlib.contextmanager
+def sharded_scope(mesh: Optional[Mesh]):
+    """Where a bound mesh executes: a plain tensor that meets a DTensor
+    counts as replicated (positions, masks, constants made in a forward),
+    as in DTensor's ``implicit_replication``, but nested scopes restore the
+    outer one's setting (``implicit_replication`` turns it off on leaving,
+    and a checkpointed block's recompute in the backward needs it)."""
+    if mesh is None or not mesh.spmd:
+        yield
+        return
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.a2q import _effective_gs
@@ -94,12 +95,17 @@ def _vec(v, n: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=dtype, device=device).broadcast_to((n,)).contiguous()
 
 
-def _refuse_autograd(op: str, *tensors) -> None:
+def _refuse_operands(op: str, *tensors) -> None:
     """The kernels have no backward: a CUDA launch returns a tensor with no
     ``grad_fn``, so a layer reached through one would silently drop its
     gradient (and the plain version, which autograd could differentiate,
     would hide that on the CPU).  So every op refuses, on every device, an
-    input that autograd is recording."""
+    input that autograd is recording.  Nor does a kernel know a DTensor: it
+    would read one rank's shard as the whole operand, so every op refuses a
+    DTensor too (gather it with ``full_tensor()`` first)."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{op}: an operand is a DTensor, and the kernel reads one rank's "
+                        "shard as the whole tensor; pass full_tensor() or to_local()")
     if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
                                        for t in tensors):
         raise RuntimeError(f"{op}: the kernel has no backward, and an input requires grad; "
@@ -154,7 +160,7 @@ def int_matmul(
     ``out_bits``/``out_signed`` codes (``clip(round(y / out_scale))``) in the
     same flush; the op returns int8, unsigned 8-bit targets symmetrized
     (``q - 128``).  Oracle: ``ref.ref_int_matmul_requant``."""
-    _refuse_autograd("int_matmul", x, w, scale, bias, offset, out_scale, aq_scale)
+    _refuse_operands("int_matmul", x, w, scale, bias, offset, out_scale, aq_scale)
     if mode not in ("exact", "wrap", "saturate"):
         raise ValueError(f"unknown mode {mode!r}")
     if spill_int16 and acc_bits > 16:
@@ -240,7 +246,7 @@ def a2q_quantize(
     with ``core.a2q``'s own expression, so the kernel and the plain version
     (``a2q_int_weights``' arithmetic) differ at most in the l1 sum's order.
     Oracle: ``ref.ref_a2q_quantize``."""
-    _refuse_autograd("a2q_quantize", v, t, d)
+    _refuse_operands("a2q_quantize", v, t, d)
     if v.ndim != 2 or tuple(t.shape) != (v.shape[1],) or tuple(d.shape) != (v.shape[1],):
         raise ValueError(f"a2q_quantize: v {tuple(v.shape)} with t {tuple(t.shape)}, d "
                          f"{tuple(d.shape)}: (K, C) and (C,) expected")
@@ -276,7 +282,7 @@ def flash_attention(
     H * D)`` projections go in without a copy.  ``q_chunk`` bounds the
     plain version's scores to ``(B, H, q_chunk, Tk)``; the kernel tiles the
     queries itself.  Oracle: ``ref.ref_flash_attention``."""
-    _refuse_autograd("flash_attention", q, k, v)
+    _refuse_operands("flash_attention", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or q.shape[0] != k.shape[0] or \
             q.shape[3] != k.shape[3] or k.shape[1] == 0 or q.shape[1] % k.shape[1]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -313,7 +319,7 @@ def paged_attention(
     dequantized in registers: int8 codes (oracle
     ``ref.ref_paged_attention_q8``) or, when the pools are uint8, packed
     int4 at width ``Dh // 2`` (oracle ``ref.ref_paged_attention_q4``)."""
-    _refuse_autograd("paged_attention", q, kp, vp, kps, vps)
+    _refuse_operands("paged_attention", q, kp, vp, kps, vps)
     if (kps is None) != (vps is None):
         raise ValueError("paged_attention: kps and vps must be given together")
     if kp.dtype == torch.uint8 and kps is None:
@@ -360,7 +366,7 @@ def paged_mla_attention(
     ``ckvs``/``kpes`` (``(NB, bs)`` fp32 per-token scales) declare integer
     pools: int8 codes, or packed int4 at half width when uint8, dequantized
     (code times scale) before the replay and the products."""
-    _refuse_autograd("paged_mla_attention", q_lat, q_pe, ckvp, kpep, ckvs, kpes, aq_scale)
+    _refuse_operands("paged_mla_attention", q_lat, q_pe, ckvp, kpep, ckvs, kpes, aq_scale)
     if (ckvs is None) != (kpes is None):
         raise ValueError("paged_mla_attention: ckvs and kpes must be given together")
     if ckvp.dtype == torch.uint8 and ckvs is None:
@@ -406,7 +412,7 @@ def rwkv6_scan(
     log-decay clamp); ``state_out`` receives S_T and may be
     ``initial_state`` itself (the slot's state updated in place).  Oracle:
     ``ref.ref_rwkv6`` per head."""
-    _refuse_autograd("rwkv6_scan", r, k, v, w, u, initial_state)
+    _refuse_operands("rwkv6_scan", r, k, v, w, u, initial_state)
     if r.ndim != 4 or k.shape != r.shape or w.shape != r.shape or v.ndim != 4 or \
             v.shape[:3] != r.shape[:3] or tuple(u.shape) != (r.shape[1], r.shape[3]):
         raise ValueError(f"rwkv6_scan: r {tuple(r.shape)}, k {tuple(k.shape)}, v "

@@ -1,10 +1,13 @@
-"""Training launcher: A2Q training of a token decoder on one device.
+"""Training launcher: A2Q training of a token decoder, on one device or
+sharded over the ranks ``torchrun`` starts.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 200 --batch 8 --seq 512 [--ckpt-dir DIR --ckpt-every 50] \\
         [--reduced] [--device cpu]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --mesh auto --device cpu --reduced --arch yi-6b --steps 6 --batch 8 --seq 32
 
-Port of ``repro.launch.train`` for one device: params from the port's
+Port of ``repro.launch.train``: params from the port's
 ``init_lm`` with a ``torch.Generator`` seeded from ``--seed``, the
 ``TokenStream`` bigram data, ``build_train_step`` with ``--optimizer`` and a
 cosine schedule with warmup peaking at ``--lr``, the ``Trainer`` with
@@ -16,29 +19,47 @@ the reference's, the launcher trains from ``TokenStream`` alone: llava-next
 trains as a text decoder, and hubert (no token embedding) fails.
 ``--device`` defaults to ``cuda``.  ``--grad-compress-bits`` /
 ``--grad-compress-scale`` ask for the compressed data-parallel gradient
-reduction; one device has no multi-device data axis, so the launcher says
-so, as the reference does, and trains uncompressed.  ``--mesh auto`` over
-more than one visible card is refused: sharded execution is not ported yet.
+reduction; without a multi-rank data axis the launcher says so, as the
+reference does, and trains uncompressed.
+
+``--mesh auto`` in a world of ``WORLD_SIZE > 1`` ranks (``torchrun`` sets
+``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE`` and the rendezvous) trains sharded,
+as the reference does over its devices: ``plan_mesh`` over the world (the
+attention heads as the model axis's divisors), ``ShardingRules.default``,
+the state placed by ``train.state.shard_state``, ``ep_axis="model"`` for
+MoE stacks, ``grad_err`` placed by the param specs, and the reference's
+``mesh: {...}`` line.  Each rank runs on ``cuda:{LOCAL_RANK %
+device_count}`` over NCCL, or on the CPU over gloo; rank 0 prints.  A
+world of one rank trains unsharded, as the reference does on one device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, reduced
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.dist.collectives import GradCompressConfig, resolve_grad_compress
+from repro_torch.dist.sharding import Mesh, ShardingRules, param_specs
 from repro_torch.models.lm import Runtime, init_lm
 from repro_torch.models.steps import build_train_step
 from repro_torch.optim.optimizers import adafactor, adamw, sgdm
 from repro_torch.optim.schedules import cosine_with_warmup
 from repro_torch.train.checkpoint import install_signal_handler
-from repro_torch.train.elastic import StragglerWatchdog
-from repro_torch.train.state import init_state
+from repro_torch.train.elastic import StragglerWatchdog, plan_mesh
+from repro_torch.train.state import (
+    init_grad_err,
+    init_state,
+    make_state_specs,
+    shard_state,
+    specs_to_shardings,
+)
 from repro_torch.train.trainer import Trainer
 
 _OPTS = {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}
@@ -72,13 +93,28 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    if args.mesh == "auto" and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        ap.error(f"--mesh auto over {torch.cuda.device_count()} devices is not ported yet; "
-                 "run on one device (CUDA_VISIBLE_DEVICES) or pass --mesh none")
-
     arch = get_arch(args.arch)
     if args.reduced:
         arch = reduced(arch)
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = rules = None
+    if args.mesh == "auto" and world > 1:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) %
+                               torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        if not dist.is_initialized():
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        plan = plan_mesh(world, model_divisors=[s.attn.heads for s in arch.stacks if s.attn])
+        mesh = Mesh.over_ranks(dev.type, **dict(zip(plan["axes"], plan["shape"])))
+        rules = ShardingRules.default(mesh, arch)
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"mesh: {mesh.shape}")
+    ep_axis = "model" if mesh is not None and any(s.moe for s in arch.stacks) else None
+
     params = init_lm(torch.Generator().manual_seed(args.seed), arch, device=dev)
     optimizer = _OPTS[args.optimizer]()
     state = init_state(params, optimizer).tree()
@@ -87,27 +123,38 @@ def main(argv=None):
     if args.grad_compress_bits:
         grad_compress = GradCompressConfig(bits=args.grad_compress_bits,
                                            scale_axis=args.grad_compress_scale)
-    mesh = None  # one device: no multi-device data axis
     gc = resolve_grad_compress(grad_compress, mesh)
     if grad_compress is not None and gc is None:
-        print("grad-compress requested but no multi-device data axis: running uncompressed")
+        say("grad-compress requested but no multi-device data axis: running uncompressed")
+    shardings = None
+    if gc is not None:
+        state["grad_err"] = init_grad_err(params, mesh.shape[gc.axis],
+                                          pspecs=param_specs(params, mesh, rules), axis=gc.axis)
+        say(f"grad-compress: int{gc.bits} wire over '{gc.axis}' ({gc.scale_axis} scale)")
+    if mesh is not None:
+        shardings = specs_to_shardings(make_state_specs(params, optimizer, mesh, rules, gc), mesh)
+        state = shard_state(state, optimizer, mesh, rules, gc)
+        del params
 
     sched = cosine_with_warmup(args.lr, warmup=max(args.steps // 20, 1), total=args.steps)
-    step_fn = build_train_step(arch, optimizer, Runtime(mesh=mesh, grad_compress=grad_compress),
-                               lr_schedule=sched)
+    rt = Runtime(mesh=mesh, rules=rules, ep_axis=ep_axis, grad_compress=grad_compress)
+    step_fn = build_train_step(arch, optimizer, rt, lr_schedule=sched)
 
     stream = TokenStream(vocab=arch.vocab, seq_len=args.seq, global_batch=args.batch,
                          seed=args.seed)
     trainer = Trainer(step_fn, stream.batch, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every, watchdog=StragglerWatchdog())
     # older checkpoints have no grad_err leaves; residuals restart from zeros
-    state, start = trainer.maybe_restore(state, allow_missing=gc is not None)
+    state, start = trainer.maybe_restore(state, allow_missing=gc is not None,
+                                         shardings=shardings)
     if start:
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
     if args.ckpt_dir:
         install_signal_handler(trainer.emergency_save)
 
     result = trainer.run(state, args.steps, start_step=start)
+    if not lead:
+        return result
     for rec in result.history[:3] + result.history[-3:]:
         print({k: round(v, 4) if isinstance(v, float) else v for k, v in rec.items()})
     if result.straggler_events:

@@ -8,8 +8,11 @@ token embeddings (the anyres tiling frontend is a stub in the reference
 too); and for audio encoders (``family="audio"``, hubert): no token
 embedding, precomputed frame embeddings in (the conv feature frontend is a
 stub in the reference too), a boundary ``head`` of ``n_classes`` over every
-frame.  The reference's sharding constraints have no counterpart on one
-device and are dropped.  ``lm_loss`` is the training loss of every family:
+frame.  On a mesh bound to a world's ranks (``Runtime(mesh=...)``,
+``dist.sharding.Mesh.over_ranks``) the forward runs sharded on DTensors,
+with the reference's four activation constraints (``constrain``: the
+embeddings and every stack's output on ``rt.batch_spec``, the logits'
+vocab on its TP axes).  ``lm_loss`` is the training loss of every family:
 the token decoders (``attn_mlp``, ``moe``, ``rwkv6`` and ``hymba`` stacks,
 deepseek-v3's multi-token-prediction head), llava's patches ahead of its
 text and hubert's framewise classes.
@@ -18,6 +21,7 @@ text and hubert's framewise classes.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -25,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, StackConfig
+from repro_torch.dist.sharding import constrain, sharded_scope
 from repro_torch.nn.embedding import apply_embedding, init_embedding
 from repro_torch.nn.linear import (
     _quant_weights,
@@ -61,17 +66,21 @@ class Runtime:
     standalone act-quant.  ``chain_report`` holds the per-call dispositions of
     the last forward (see ``nn.linear.chain_report_scope``).
 
-    ``mesh`` (``dist.sharding.Mesh``), ``rules`` (``dist.sharding.
-    ShardingRules``) and ``grad_compress`` (``dist.collectives.
-    GradCompressConfig``) are the reference's distribution context:
-    ``build_train_step`` reads them to reduce the data-parallel gradients
-    through the int-quantized ``compressed_allreduce_tree`` when the mesh
-    has a data axis of more than one position."""
+    ``mesh`` (``dist.sharding.Mesh``), ``ep_axis``, ``rules``
+    (``dist.sharding.ShardingRules``) and ``grad_compress``
+    (``dist.collectives.GradCompressConfig``) are the reference's
+    distribution context.  A mesh bound to a world's ranks runs the model
+    sharded (``constrain`` pins the activations by ``rules``; ``ep_axis``, a
+    mesh axis or a tuple of them, runs the MoE experts expert-parallel);
+    ``build_train_step`` reduces the data-parallel gradients through the
+    int-quantized wire when the mesh has a data axis of more than one
+    position."""
 
     def __init__(self, decode_kernel: bool = False, int_forward: bool = False,
                  int_chain: bool = False, mla_absorb: bool = False, mesh=None, rules=None,
-                 grad_compress=None):
+                 grad_compress=None, ep_axis=None):
         self.mesh = mesh
+        self.ep_axis = ep_axis
         self.rules = rules
         self.grad_compress = grad_compress
         self.mla_absorb = mla_absorb
@@ -79,6 +88,13 @@ class Runtime:
         self.int_forward = int_forward or int_chain
         self.int_chain = int_chain
         self.chain_report: dict = {}
+
+    def batch_spec(self, ndim: int) -> tuple:
+        """An activation's spec: the batch dim on the rules' batch axes, the
+        rest replicated (``()`` without rules)."""
+        if self.rules is None:
+            return ()
+        return (self.rules.rules.get("batch") or None,) + (None,) * (ndim - 1)
 
 
 def init_lm(gen: torch.Generator, arch: ArchConfig, device="cuda") -> dict:
@@ -122,9 +138,31 @@ def _mtp_stackcfg(arch: ArchConfig) -> StackConfig:
 def _head_logits(params, arch: ArchConfig, h: torch.Tensor, rt: Runtime) -> torch.Tensor:
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     if arch.tie_embeddings and arch.family != "audio":
-        return torch.matmul(h.to(cd), params["embed"]["table"].to(cd).T)
-    return apply_linear(params["head"], h, arch.quant, boundary=True, compute_dtype=cd,
-                        int_forward=rt.int_forward, int_chain=rt.int_chain, site="head")
+        logits = torch.matmul(h.to(cd), params["embed"]["table"].to(cd).T)
+    else:
+        logits = apply_linear(params["head"], h, arch.quant, boundary=True, compute_dtype=cd,
+                              int_forward=rt.int_forward, int_chain=rt.int_chain, site="head")
+    if rt.mesh is not None and rt.mesh.spmd:
+        batch = rt.rules.rules.get("batch") or ()
+        # the vocab's axes but those carrying the batch (tp_extra may widen
+        # vocab onto 'data', which may also be the batch axis)
+        vocab = tuple(a for a in (rt.rules.rules.get("vocab") or ()) if a not in batch)
+        vspec = vocab[0] if len(vocab) == 1 else (vocab or None)
+        bspec = batch or None
+        if arch.family != "audio" and vocab and \
+                arch.vocab % math.prod(rt.mesh.shape[a] for a in vocab) == 0:
+            logits = constrain(logits, rt.mesh, (bspec, None, vspec))
+        else:
+            logits = constrain(logits, rt.mesh, (bspec, None, None))
+    return logits
+
+
+def _whole_rows(logits: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """Sharded logits with every row's classes on each rank (the batch
+    stays split): the cross entropy gathers each row's target class."""
+    if rt.mesh is None or not rt.mesh.spmd:
+        return logits
+    return constrain(logits, rt.mesh, rt.batch_spec(logits.dim()))
 
 
 def init_cache(arch: ArchConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -163,6 +201,12 @@ def apply_lm(
     params alone: ``a2q_penalty_of(params, arch)`` computes it (``lm_loss``
     adds it to the task loss)."""
     rt = rt or Runtime()
+    with sharded_scope(rt.mesh):
+        return _apply_lm(params, arch, tokens, frontend_embeds, cache, start_pos, rt,
+                         return_hidden)
+
+
+def _apply_lm(params, arch, tokens, frontend_embeds, cache, start_pos, rt, return_hidden):
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     parts = []
     if frontend_embeds is not None:
@@ -172,6 +216,7 @@ def apply_lm(
     if not parts:
         raise ValueError("apply_lm needs tokens or frontend_embeds")
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    x = constrain(x, rt.mesh, rt.batch_spec(3))
     B, S, _ = x.shape
     dev = x.device
     steps = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
@@ -192,7 +237,8 @@ def apply_lm(
             x = apply_stack(params["stacks"][str(i)], x, arch, s, positions, sc,
                             mla_absorb=rt.mla_absorb, view=view,
                             decode_kernel=rt.decode_kernel, int_forward=rt.int_forward,
-                            int_chain=rt.int_chain)
+                            int_chain=rt.int_chain, mesh=rt.mesh, ep_axis=rt.ep_axis)
+            x = constrain(x, rt.mesh, rt.batch_spec(3))
         h = apply_norm(params["final_norm"], x, kind=arch.norm, eps=arch.norm_eps)
         logits = _head_logits(params, arch, h, rt)
     out_cache = None if cache is None else {k: v for k, v in cache.items() if k != "_paged"}
@@ -244,6 +290,11 @@ def lm_loss(params: dict, arch: ArchConfig, batch: dict, rt: Optional[Runtime] =
     (``apply_a2q`` still clamps its ``t`` at the cap, so its accumulator
     guarantee holds)."""
     rt = rt or Runtime()
+    with sharded_scope(rt.mesh):
+        return _lm_loss(params, arch, batch, rt)
+
+
+def _lm_loss(params, arch, batch, rt):
     penalty = a2q_penalty_of(params, arch)
     mtp_on = arch.mtp_depth > 0 and "mtp" in params
     if "head" in params and arch.quant.mode != "none":
@@ -264,7 +315,7 @@ def lm_loss(params: dict, arch: ArchConfig, batch: dict, rt: Optional[Runtime] =
                             frontend_embeds=batch.get("frontend_embeds"), rt=rt,
                             return_hidden=True)
     targets = batch["targets"]
-    loss, ce = _cross_entropy(logits, targets)
+    loss, ce = _cross_entropy(_whole_rows(logits, rt), targets)
     metrics = {"ce": ce, "penalty": penalty}
     if mtp_on:
         cd = COMPUTE_DTYPES[arch.compute_dtype]
@@ -276,7 +327,8 @@ def lm_loss(params: dict, arch: ArchConfig, batch: dict, rt: Optional[Runtime] =
         B, S, _ = hm.shape
         pos = torch.arange(S, dtype=torch.int32, device=hm.device)[None, :].expand(B, S)
         hm = apply_stack(mtp["block"], hm, arch, _mtp_stackcfg(arch), pos)
-        mtp_loss, _ = _cross_entropy(_head_logits(params, arch, hm, rt), targets[:, 1:])
+        mtp_loss, _ = _cross_entropy(_whole_rows(_head_logits(params, arch, hm, rt), rt),
+                                     targets[:, 1:])
         loss = loss + 0.3 * mtp_loss
         penalty = penalty + tree_a2q_penalty(mtp["block"], arch.quant)
         metrics["mtp_ce"] = mtp_loss

@@ -70,6 +70,8 @@ import functools
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import AttnConfig, QuantConfig
@@ -198,7 +200,10 @@ def _write_cache(cache: dict, updates: dict, pos: torch.Tensor, ring: bool) -> d
     writes a later token of the chunk supersedes are dropped before the
     scatter (duplicate indices of ``index_put_`` land in no defined order)
     and the last ``S`` tokens are written.  The tensors are never rebound:
-    a captured CUDA graph reads them at fixed addresses."""
+    a captured CUDA graph reads them at fixed addresses.  A cache of
+    DTensors (``dist.sharding.cache_specs``) takes ``_write_cache_sharded``."""
+    if isinstance(cache["kpos"], DTensor):
+        return _write_cache_sharded(cache, updates, pos, ring)
     B, S = cache["kpos"].shape
     T = next(iter(updates.values())).shape[1]
     dev = cache["kpos"].device
@@ -217,6 +222,25 @@ def _write_cache(cache: dict, updates: dict, pos: torch.Tensor, ring: bool) -> d
     for name, val in updates.items():
         cache[name].index_put_((rows, idx), val.to(cache[name].dtype))
     cache["kpos"].index_put_((rows, idx), abs_pos)
+    return cache
+
+
+def _write_cache_sharded(cache: dict, updates: dict, pos, ring: bool) -> dict:
+    """``_write_cache`` into a cache of DTensors (the batch split over
+    ``data``, the KV heads over ``model``): each rank writes its own rows and
+    heads in place, the update placed as its cache leaf and the positions
+    cut to the rank's rows (an index scatter into a sharded dim has no
+    DTensor strategy that keeps the placement)."""
+    kp = cache["kpos"]
+    B = kp.shape[0]
+    _, (row0, _) = compute_local_shape_and_global_offset(kp.shape, kp.device_mesh, kp.placements)
+    rows = kp.to_local().shape[0]
+    pos = pos.full_tensor() if isinstance(pos, DTensor) else pos
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=kp.device).reshape(-1).expand(B)
+    local = {k: v.to_local() for k, v in cache.items()}
+    ups = {k: v.redistribute(cache[k].device_mesh, cache[k].placements).to_local()
+           for k, v in updates.items()}
+    _write_cache(local, ups, pos[row0:row0 + rows], ring)
     return cache
 
 

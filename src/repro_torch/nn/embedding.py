@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.nn.module import normal_init
 
@@ -17,7 +18,25 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int) -> dict:
 
 
 def apply_embedding(params: dict, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return params["table"][tokens.long()].to(dtype)  # gather, then cast: the same values
+    table = params["table"]
+    if isinstance(table, DTensor):
+        return _sharded_embedding(table, tokens, dtype)
+    return table[tokens.long()].to(dtype)  # gather, then cast: the same values
+
+
+def _sharded_embedding(table: DTensor, tokens: torch.Tensor, dtype) -> DTensor:
+    """The gather of a DTensor table, on local shards: the table made whole
+    on every rank, each rank's tokens gathered from it, the rows laid out as
+    the tokens are.  Its gradient is partial over the axes that split the
+    tokens.  (DTensor's own routes fail: a vocab-split gather's masked
+    partial on torch 2.13, the index's accumulating backward on torch 2.11.)"""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    grads = [Partial() if p.is_shard() else Replicate() for p in tokens.placements]
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grads)
+    rows = whole[tokens.to_local().long()].to(dtype)
+    return DTensor.from_local(rows, mesh, tokens.placements, run_check=False)
 
 
 def apply_rope(

@@ -1,8 +1,8 @@
 """Mixture-of-experts FFN: top-k routing, capacity-bounded dispatch, and
 shared experts.
 
-Port of ``repro.nn.moe`` for one device (the reference's ``ep_axis=None``
-path; its expert-parallel ``shard_map`` branches are not ported).  No
+Port of ``repro.nn.moe``, with the reference's expert-parallel branches
+(``ep_axis``, on a mesh bound to a world's ranks; see ``apply_moe``).  No
 ``(T, E, C)`` one-hot dispatch tensor is built:
 
 1. the router's fp32 softmax picks each token's top-k experts, whose
@@ -45,13 +45,17 @@ kernel.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MoEConfig, QuantConfig
 from repro_torch.core.a2q import apply_a2q, init_a2q
+from repro_torch.dist.sharding import constrain, sharded_scope
 from repro_torch.core.bounds import int_range
 from repro_torch.core.quantizers import (
     apply_act_quant,
@@ -67,7 +71,7 @@ from repro_torch.nn.linear import (
     init_linear,
     linear_penalty,
 )
-from repro_torch.nn.module import kaiming, tree_leaves_with_path
+from repro_torch.nn.module import kaiming, tree_leaves_with_path, tree_map
 
 __all__ = ["init_moe", "apply_moe", "moe_penalty"]
 
@@ -196,12 +200,19 @@ def _local_expert_ffn(x_buf: torch.Tensor, params: dict, group_sizes: torch.Tens
 
 
 def _dispatch_compute_combine(x2d: torch.Tensor, probs: torch.Tensor, params: dict,
-                              cfg: MoEConfig, q: QuantConfig, compute_dtype) -> torch.Tensor:
+                              cfg: MoEConfig, q: QuantConfig, compute_dtype,
+                              shard_idx: int = 0, n_shards: int = 1) -> torch.Tensor:
+    """The routed experts' output for ``x2d (T, d)`` from ``probs (T, E)``,
+    as the reference's: with ``n_shards`` expert shards, ``params`` holds
+    shard ``shard_idx``'s ``E / n_shards`` experts and only the assignments
+    to them run (the rest sort last and are dropped here); ``capacity`` is
+    of the ``T`` tokens given."""
     T, d = x2d.shape
     E = cfg.n_experts
+    E_loc = E // n_shards
     k = cfg.top_k
     capacity = max(int(T * k * cfg.capacity_factor / E), 1)
-    L = E * capacity
+    L = E_loc * capacity
     dev = x2d.device
 
     top_p, top_e = torch.topk(probs, k, dim=-1)  # (T, k), descending
@@ -210,22 +221,26 @@ def _dispatch_compute_combine(x2d: torch.Tensor, probs: torch.Tensor, params: di
     flat_p = top_p.reshape(-1)
     flat_tok = torch.arange(T * k, device=dev) // k
 
-    order = torch.argsort(flat_e, stable=True)  # by expert, token order within
-    se, st, sp = flat_e[order], flat_tok[order], flat_p[order]
+    local_e = flat_e - shard_idx * E_loc
+    is_local = (local_e >= 0) & (local_e < E_loc)
+    sort_key = torch.where(is_local, local_e, torch.full_like(local_e, E_loc))  # others last
+    order = torch.argsort(sort_key, stable=True)  # by expert, token order within
+    se, st, sp = sort_key[order], flat_tok[order], flat_p[order]
 
-    # each expert's segment of the sorted ids (no bincount: its CUDA form
-    # reads the largest id back to the host)
-    seg_start = torch.searchsorted(se, torch.arange(E + 1, device=dev))
+    # each local expert's segment of the sorted ids (no bincount: its CUDA
+    # form reads the largest id back to the host)
+    seg_start = torch.searchsorted(se, torch.arange(E_loc + 1, device=dev))
     counts = seg_start[1:] - seg_start[:-1]
     capped = torch.clamp_max(counts, capacity)
     offsets = torch.cumsum(capped, 0) - capped
     pos_in_group = torch.arange(se.shape[0], device=dev) - seg_start[se]
-    keep = pos_in_group < capacity
-    dest = torch.where(keep, offsets[se] + pos_in_group, torch.full_like(se, L))
+    keep = (se < E_loc) & (pos_in_group < capacity)
+    dest = torch.where(keep, offsets[torch.clamp_max(se, E_loc - 1)] + pos_in_group,
+                       torch.full_like(se, L))
 
     x_buf = torch.zeros((L + 1, d), dtype=x2d.dtype, device=dev)
     x_buf[dest] = x2d[st]  # dropped rows all land in row L, which is cut off
-    y_buf = _local_expert_ffn(x_buf[:L], params, capped, q, compute_dtype, min(E, T * k))
+    y_buf = _local_expert_ffn(x_buf[:L], params, capped, q, compute_dtype, min(E_loc, T * k))
     y_buf = torch.cat([y_buf, torch.zeros((1, d), dtype=y_buf.dtype, device=dev)])
     contrib = y_buf[dest] * sp[:, None].to(y_buf.dtype)  # dropped rows read zeros
     contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
@@ -233,6 +248,68 @@ def _dispatch_compute_combine(x2d: torch.Tensor, probs: torch.Tensor, params: di
     # back from expert order to (token, slot) order, then sum the slots
     by_token = torch.zeros_like(contrib).index_copy_(0, order, contrib)
     return by_token.reshape(T, k, d).sum(1).to(x2d.dtype)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``psum`` of the local partial outputs over process groups, in turn.
+    Its backward passes the gradient through: the sum is replicated, so
+    each rank's partial output gets the sum's own gradient."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        x = x.contiguous().clone()
+        for g in groups:
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _entry(axes):
+    return None if not axes else (axes[0] if len(axes) == 1 else tuple(axes))
+
+
+def _expert_parallel(x2d, probs, params, cfg, q, compute_dtype, mesh, ep_axes, token_axes):
+    """The reference's ``shard_map`` EP branch as local code on each rank's
+    shards: tokens split over ``token_axes`` (``()``: replicated), experts
+    over ``ep_axes`` with the shard index row-major over the *listed* axes;
+    each rank builds the views of its own ``E / n`` experts from its local
+    leaves and the partial outputs meet in one all-reduce over the EP axes.
+    Gradients flow back through DTensor: the tokens' as partial sums over
+    the EP axes, each expert leaf's as partial sums over the token axes."""
+    dm = mesh.device_mesh()
+    names = tuple(mesh.axis_names)
+    n_shards = math.prod(mesh.shape[a] for a in ep_axes)
+    if cfg.n_experts % n_shards:
+        raise ValueError(f"{cfg.n_experts} experts over {n_shards} EP shards")
+    E_loc = cfg.n_experts // n_shards
+    idx = 0
+    for a in ep_axes:  # row-major over the listed axes
+        idx = idx * mesh.shape[a] + mesh.coordinate(a)
+    # within the block of the first listed axis, the rank's slice
+    first = ep_axes[0]
+    sub = idx - mesh.coordinate(first) * (n_shards // mesh.shape[first])
+    tok_spec = (_entry(token_axes), None)
+    x_d, p_d = constrain(x2d, mesh, tok_spec), constrain(probs, mesh, tok_spec)
+    grad_in = [Partial() if a in ep_axes else p for a, p in zip(names, x_d.placements)]
+    x_l = x_d.to_local(grad_placements=grad_in)
+    p_l = p_d.to_local(grad_placements=grad_in)
+
+    def local(leaf):
+        if not isinstance(leaf, DTensor):  # a global tensor on every rank
+            return leaf[idx * E_loc:(idx + 1) * E_loc]
+        want = [Shard(0) if a == first else Replicate() for a in names]
+        grads = [Shard(0) if a == first else
+                 (Partial() if a in ep_axes or a in token_axes else Replicate()) for a in names]
+        block = leaf.redistribute(dm, want).to_local(grad_placements=grads)
+        return block[sub * E_loc:(sub + 1) * E_loc]
+
+    experts = {k: tree_map(local, params[k]) for k in ("w_in", "w_gate", "w_out")}
+    out_l = _dispatch_compute_combine(x_l, p_l, experts, cfg, q, compute_dtype, idx, n_shards)
+    out_l = _SumOverRanks.apply(out_l, [mesh.group(a) for a in ep_axes])
+    return DTensor.from_local(out_l, dm, list(x_d.placements), run_check=False)
 
 
 def apply_moe(
@@ -244,7 +321,27 @@ def apply_moe(
     compute_dtype=torch.bfloat16,
     int_forward: bool = False,
     int_chain: bool = False,
+    mesh=None,
+    ep_axis=None,
 ) -> torch.Tensor:
+    """The MoE FFN of ``x``.  On a mesh bound to a world's ranks
+    (``dist.sharding.Mesh.over_ranks``), ``ep_axis`` runs the experts
+    expert-parallel, as the reference's ``shard_map`` branches:
+
+    * a mesh axis (``"model"``): experts split over it, tokens over the
+      other axes when the token count divides them (replicated otherwise),
+      so each shard's capacity is of its own tokens and it may drop tokens
+      that one device keeps;
+    * a tuple of axes (``("model", "data")``, the serving layout): experts
+      split row-major over the listed axes, tokens replicated.
+
+    Without ``ep_axis`` a sharded call runs the local path on the gathered
+    tensors, replicated on every rank."""
+    with sharded_scope(mesh):
+        return _apply_moe(params, x, cfg, q, compute_dtype, int_forward, int_chain, mesh, ep_axis)
+
+
+def _apply_moe(params, x, cfg, q, compute_dtype, int_forward, int_chain, mesh, ep_axis):
     B, T, d = x.shape
     if int_forward and "q8" in params.get("w_in", {}):
         # routed experts run on the dequantized view: no fused integer path,
@@ -258,7 +355,25 @@ def apply_moe(
     x2d = x.reshape(B * T, d)
     logits = x2d.to(torch.float32) @ params["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    out = _dispatch_compute_combine(x2d, probs, params, cfg, q, compute_dtype).reshape(B, T, d)
+    spmd = mesh is not None and mesh.spmd
+    if spmd and ep_axis is not None:
+        ep_axes = (ep_axis,) if isinstance(ep_axis, str) else tuple(ep_axis)
+        token_axes = ()
+        if isinstance(ep_axis, str):  # tokens over the other axes when divisible
+            other = tuple(a for a in mesh.axis_names if a != ep_axis)
+            if other and (B * T) % math.prod(mesh.shape[a] for a in other) == 0:
+                token_axes = other
+        out = _expert_parallel(x2d, probs, params, cfg, q, compute_dtype, mesh, ep_axes,
+                               token_axes).reshape(B, T, d)
+    elif spmd:
+        whole = [t.full_tensor() if isinstance(t, DTensor) else t for t in (x2d, probs)]
+        experts = {k: tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t,
+                               params[k]) for k in ("w_in", "w_gate", "w_out")}
+        out = constrain(_dispatch_compute_combine(*whole, experts, cfg, q, compute_dtype),
+                        mesh, (None, None)).reshape(B, T, d)
+    else:
+        out = _dispatch_compute_combine(x2d, probs, params, cfg, q,
+                                        compute_dtype).reshape(B, T, d)
     if "shared_in" in params:
         # shared experts are plain 2-D linears; the silu gate makes each a
         # chain break, so under int_chain each quantizes in its prologue

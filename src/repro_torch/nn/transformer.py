@@ -124,7 +124,7 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                  positions: torch.Tensor, cache: Optional[dict], *,
                  mla_absorb: bool = False, view: Optional[dict] = None,
                  decode_kernel: bool = False, int_forward: bool = False,
-                 int_chain: bool = False):
+                 int_chain: bool = False, mesh=None, ep_axis=None):
     q = arch.quant
     cd = COMPUTE_DTYPES[arch.compute_dtype]
     norm = functools.partial(apply_norm, kind=arch.norm, eps=arch.norm_eps)
@@ -151,7 +151,7 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
     def ffn(h):
         if s.kind == "moe":
             return apply_moe(p["moe"], h, s.moe, q, compute_dtype=cd, int_forward=int_forward,
-                             int_chain=int_chain)
+                             int_chain=int_chain, mesh=mesh, ep_axis=ep_axis)
         return _apply_mlp(p["mlp"], h, q, cd, int_forward, int_chain)
 
     if s.parallel_block:
@@ -237,11 +237,12 @@ def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
                 positions: torch.Tensor, cache: Optional[dict] = None, *,
                 mla_absorb: bool = False, view: Optional[dict] = None,
                 decode_kernel: bool = False, int_forward: bool = False,
-                int_chain: bool = False):
+                int_chain: bool = False, mesh=None, ep_axis=None):
     """Apply ``s.count`` blocks in order and return ``x``; a paged cache's
     pools and recurrent leaves (``(count, ...)``) are updated in place.  A
     cacheless forward that autograd records runs each block under
-    ``checkpoint`` unless ``arch.remat == "none"``."""
+    ``checkpoint`` unless ``arch.remat == "none"``.  ``mesh`` and
+    ``ep_axis`` reach a MoE block's experts (``nn.moe.apply_moe``)."""
     _check_kind(s)
     training = cache is None and torch.is_grad_enabled() and \
         any(leaf.requires_grad for _, leaf in tree_leaves_with_path(params))
@@ -254,7 +255,7 @@ def apply_stack(params: dict, x: torch.Tensor, arch: ArchConfig, s: StackConfig,
             _apply_block, arch=arch, s=s, positions=positions,
             cache=_layer(cache, i) if cache is not None else None,
             mla_absorb=mla_absorb, view=view, decode_kernel=decode_kernel,
-            int_forward=int_forward, int_chain=int_chain,
+            int_forward=int_forward, int_chain=int_chain, mesh=mesh, ep_axis=ep_axis,
         )
         if not training:
             x = block(_layer(params, i), x)

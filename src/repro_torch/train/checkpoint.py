@@ -19,9 +19,11 @@ into the other with no reshaping.
 * **emergency save**: ``install_signal_handler`` flushes a checkpoint on
   SIGTERM (preemption) before exit.
 
-The reference's re-sharding onto another mesh at load belongs to
-distribution (not ported): a restore places every leaf on the device of
-the ``like`` leaf it replaces.
+A checkpoint holds global arrays: ``save`` gathers a DTensor leaf
+(``full_tensor()``) and rank 0 alone writes, behind a barrier.  A restore
+places every leaf on the device of the ``like`` leaf it replaces, or with
+``shardings`` re-lays each global leaf onto the live mesh (the reference's
+elastic restart: the mesh that saved it may have had another shape).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.nn.module import keystr, tree_leaves_with_path, tree_map_with_path
 
@@ -43,8 +47,26 @@ __all__ = ["save", "restore", "latest_step", "install_signal_handler"]
 _SENTINEL = "_COMPLETE"
 
 
+def _world() -> bool:
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
 def save(directory: str, tree: Any, step: int, keep: int = 3) -> str:
-    """Atomically write ``tree`` (nested dicts of tensors) for ``step``."""
+    """Atomically write ``tree`` (nested dicts of tensors) for ``step``.  In
+    a ``torch.distributed`` world every rank calls it: DTensor leaves are
+    gathered to their global arrays, rank 0 writes, and every rank returns
+    once the checkpoint is complete."""
+    tree = tree_map_with_path(lambda _, t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+    if _world():
+        final = os.path.join(directory, f"step_{step:08d}")
+        if dist.get_rank() == 0:
+            _write(directory, tree, step, keep)
+        dist.barrier()
+        return final
+    return _write(directory, tree, step, keep)
+
+
+def _write(directory: str, tree: Any, step: int, keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -98,15 +120,19 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, like: Any, step: Optional[int] = None,
+def restore(directory: str, like: Any, step: Optional[int] = None, shardings: Any = None,
             allow_missing: bool = False) -> tuple[Any, int]:
     """Load a checkpoint into the structure of ``like`` (nested dicts of
     tensors): each leaf on its ``like`` leaf's device, in the dtype the
     checkpoint stored.
 
-    ``allow_missing`` keeps the ``like`` value for leaves the checkpoint does
-    not record instead of raising.  A leaf whose shape differs from its
-    ``like`` leaf's raises ``ValueError``."""
+    ``shardings`` (a tree of ``dist.sharding.NamedSharding`` matching
+    ``like``, e.g. ``train.state.specs_to_shardings``) re-lays each global
+    leaf onto the live mesh, whatever mesh saved it: every rank reads the
+    checkpoint and keeps its shards.  ``allow_missing`` keeps the ``like``
+    value for leaves the checkpoint does not record instead of raising.  A
+    leaf whose shape differs from its ``like`` leaf's raises
+    ``ValueError``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -117,6 +143,7 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {m["path"]: m for m in manifest["leaves"]}
+    placed = {} if shardings is None else dict(tree_leaves_with_path(shardings))
     with np.load(os.path.join(d, "arrays.npz")) as arrays:
 
         def load(path, leaf):
@@ -129,6 +156,8 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
             if tuple(val.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: ckpt {val.shape} vs expected "
                                  f"{tuple(leaf.shape)}")
+            if path in placed:
+                return placed[path].place(torch.from_numpy(val))
             return torch.from_numpy(val).to(leaf.device)
 
         return tree_map_with_path(load, like), step

@@ -1,7 +1,7 @@
 """Train state: params + optimizer state + step, the compressed gradient
-reduction's residuals and the state's specs (port of ``repro.train.state``;
-the reference's ``specs_to_shardings`` makes JAX shardings and waits with
-sharded execution)."""
+reduction's residuals, the state's specs and their shardings (port of
+``repro.train.state``; ``shard_state`` places a state on a mesh bound to a
+world's ranks)."""
 
 from __future__ import annotations
 
@@ -11,11 +11,12 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.dist.collectives import GradCompressConfig, owner_dim, server_shape, strip_axis
-from repro_torch.dist.sharding import ShardingRules, param_specs
+from repro_torch.dist.sharding import NamedSharding, ShardingRules, param_specs
 from repro_torch.nn.module import tree_leaves_with_path, tree_map, tree_map_with_path
 from repro_torch.optim.optimizers import Optimizer
 
-__all__ = ["TrainState", "init_state", "init_grad_err", "make_state_specs"]
+__all__ = ["TrainState", "init_state", "init_grad_err", "make_state_specs",
+           "specs_to_shardings", "shard_state"]
 
 
 @dataclasses.dataclass
@@ -122,3 +123,23 @@ def make_state_specs(params, optimizer: Optimizer, mesh, rules: ShardingRules,
             raise ValueError("grad_compress.axis must be resolved (resolve_grad_compress)")
         spec["grad_err"] = _grad_err_specs(pspecs, grad_compress.axis)
     return spec
+
+
+def specs_to_shardings(spec_tree, mesh):
+    """A spec tree as a tree of ``dist.sharding.NamedSharding`` on ``mesh``
+    (the reference's; each one's ``placements`` are DTensor's)."""
+    return tree_map(lambda s: NamedSharding(mesh, tuple(s)), spec_tree)
+
+
+def shard_state(state: dict, optimizer: Optimizer, mesh, rules: ShardingRules,
+                grad_compress: Optional[GradCompressConfig] = None) -> dict:
+    """A ``TrainState.tree()`` (global tensors, the same on every rank) placed
+    on a mesh bound to a world's ranks by ``make_state_specs``: the params
+    by ``param_specs`` (TP on ``model``, FSDP on ``data``), adamw's moments
+    and every optimizer leaf keyed like a param by its param's spec, the
+    rest (counts, the step, adafactor's factored moments) replicated, and
+    ``grad_err`` when the state has one.  Each rank keeps its shards."""
+    gc = grad_compress if "grad_err" in state else None
+    specs = make_state_specs(state["params"], optimizer, mesh, rules, gc)
+    shardings = specs_to_shardings(specs, mesh)
+    return {k: tree_map(lambda sh, t: sh.place(t), shardings[k], v) for k, v in state.items()}

@@ -72,16 +72,18 @@ class Trainer:
         self.watchdog = watchdog or StragglerWatchdog()
         self._last_state = None
 
-    def maybe_restore(self, state, allow_missing: bool = False):
+    def maybe_restore(self, state, allow_missing: bool = False, shardings=None):
         """Resume from the latest valid checkpoint if one exists (the data
         stream is stateless, so the step index fully restores the run).
         ``allow_missing`` tolerates state leaves absent from the
-        checkpoint (they keep ``state``'s values)."""
+        checkpoint (they keep ``state``'s values); ``shardings`` places
+        the restored leaves on a live mesh (``checkpoint.restore``)."""
         if self.ckpt_dir is None:
             return state, 0
         if ckpt.latest_step(self.ckpt_dir) is None:
             return state, 0
-        tree, step = ckpt.restore(self.ckpt_dir, state, allow_missing=allow_missing)
+        tree, step = ckpt.restore(self.ckpt_dir, state, shardings=shardings,
+                                  allow_missing=allow_missing)
         return tree, int(step)
 
     def emergency_save(self):

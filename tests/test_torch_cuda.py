@@ -1136,3 +1136,73 @@ def test_compressed_allreduce_tree_on_the_card_equals_the_cpu(dev, scale, monkey
         compressed_allreduce_tree({"w": g}, {"local": {"w": g}, "server": {"w": g[0]}},
                                   mesh=Mesh(("data",), (big,)), axis="data", bits=16,
                                   scale_axis=scale)
+
+
+def test_sharded_world_of_one_over_nccl(dev):
+    """The world phase 4x runs on one card: one rank over NCCL on a ``(data=1,
+    model=1)`` mesh (gloo hangs in DTensor's all-gather of CUDA tensors of
+    ranks that share the card, NCCL refuses two ranks on one device).  Two
+    ``adamw`` steps of reduced yi-6b on DTensors against the unsharded steps
+    on the card: losses to 1e-4 (``tests/test_torch_sharded.py``'s
+    ``ADAM_TOL``), params within 1e-3 of lr x steps; MoE EP over ``model``
+    and ``(model, data)`` equal to the local path; the kernel ops refuse a
+    DTensor operand."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import MoEConfig, QuantConfig
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.dist.sharding import Mesh, ShardingRules, full_tree
+    from repro_torch.models.lm import Runtime, init_lm
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.nn import moe
+    from repro_torch.nn.module import tree_leaves_with_path, tree_map
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.train.state import init_state, shard_state
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = Mesh.over_ranks("cuda", data=1, model=1)
+        arch = reduced(get_arch("yi-6b"))
+        rules = ShardingRules.default(mesh, arch)
+        params = init_lm(torch.Generator(device=dev).manual_seed(0), arch, device=dev)
+        opt, lr = adamw(), 2e-3
+        sched = lambda s: torch.full((), lr, device=dev)  # noqa: E731
+        one = init_state(tree_map(torch.clone, params), opt).tree()
+        sharded = shard_state(init_state(tree_map(torch.clone, params), opt).tree(), opt, mesh,
+                              rules)
+        step1 = build_train_step(arch, opt, Runtime(), lr_schedule=sched)
+        step2 = build_train_step(arch, opt, Runtime(mesh=mesh, rules=rules), lr_schedule=sched,
+                                 donate=True)
+        stream = TokenStream(vocab=arch.vocab, seq_len=32, global_batch=8)
+        for i in range(2):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(i).items()}
+            one, m1 = step1(one, b)
+            sharded, m2 = step2(sharded, b)
+            assert not isinstance(m2["loss"], DTensor)
+            np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-4)
+        got = dict(tree_leaves_with_path(full_tree(sharded["params"])))
+        for path, want in tree_leaves_with_path(one["params"]):
+            assert float((got[path] - want).abs().max()) <= 1e-3 * lr * 2, path
+        cfg, q = MoEConfig(n_experts=8, top_k=2, d_ff=16, capacity_factor=8.0), \
+            QuantConfig(mode="none")
+        p = moe.init_moe(torch.Generator(device=dev).manual_seed(0), 8, cfg, q)
+        x = torch.randn(4, 8, 8, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+        local = moe.apply_moe(p, x, cfg, q, compute_dtype=torch.float32)
+        for ep in ("model", ("model", "data")):
+            y = moe.apply_moe(p, x, cfg, q, compute_dtype=torch.float32, mesh=mesh, ep_axis=ep)
+            assert torch.equal(y.full_tensor(), local), ep
+        w = next(v for path, v in tree_leaves_with_path(sharded["params"]) if path[-1] == "v")
+        with pytest.raises(TypeError, match="DTensor"):
+            ops.a2q_quantize(w, torch.zeros(w.shape[-1], device=dev),
+                             torch.zeros(w.shape[-1], device=dev), weight_bits=8, acc_bits=16,
+                             input_bits=8, input_signed=True)
+    finally:
+        dist.destroy_process_group()
