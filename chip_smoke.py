@@ -276,7 +276,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``launch/serve.py --paged --parity-check --deploy-int8`` (the paged
    engine's ring against the contiguous ``ServeEngine``'s, past the window:
    token for token);
-4y. hymba-1.5b at full width, ``HYMBA_LAYERS`` (16) of its 32 layers
+4y. hymba-1.5b at full width, ``HYMBA_LAYERS`` (4) of its 32 layers
    (d_model 1600, 25 heads over 5 KV heads of 64, window 1024, 25 mamba
    heads of 64, state 16, SSD chunk 64, d_ff 5504, vocab 32001; random A2Q
    weights from seed 0 deployed through ``a2q_quantize``: 177 matrices,
@@ -426,6 +426,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    yi-6b's cache placed by ``cache_specs`` through one decode step against
    the unsharded step (``KV_TOL``, ``kpos`` written at 0); the phase's
    seconds printed;
+4z. the dry-run's cost of 4x's step (``cost_model``, in a spawned process:
+   ``launch.dryrun.trace_step`` on fake ``cuda`` tensors over a fake world
+   of 4x's ranks): its ``argument_size_in_bytes`` equal to the bytes of
+   4x's real sharded state and batch, and its per-device FLOPs equal to
+   ``FlopCounterMode``'s count of 4x's unsharded reference step; the
+   predicted peak over 4x's ``max_memory_allocated`` and the roofline bound
+   over 4x's steady step time printed as ratios;
 6. print the ``kernels`` line (every kernel and its int-chain variants:
    ``int_matmul[prologue]``, ``int_matmul[requant]``,
    ``int_matmul[gelu requant]``, ``paged_attention[int8|int4]``,
@@ -465,10 +472,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# Peak rates of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
-FP32_FLOPS_PER_S = 67e12  # outside the tensor cores (the paged kernel's fp32 FMAs)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit):
+# HBM, the int8 and bf16 tensor cores, fp32 outside the tensor cores (the
+# paged kernel's fp32 FMAs).  Fails outside a checkout of the repo.
+from repro_torch.roofline.hw import (  # noqa: E402
+    BF16_FLOPS_PER_S,
+    FP32_FLOPS_PER_S,
+    HBM_BYTES_PER_S,
+    INT8_OPS_PER_S,
+)
 
 SMOLLM_SITES = {  # (K, N) of the seven linears of one smollm-135m layer -> count
     (576, 576): 2,   # wq, wo
@@ -1541,7 +1554,6 @@ HUBERT_SITES = {  # (K, N) of the six deployed linears of one hubert-xlarge laye
 }
 HUBERT_HEAD = (1280, 504)  # the boundary classification head
 HUBERT_CLIPS, HUBERT_FRAMES = 8, 1000  # 20 s of 16 kHz audio at HuBERT's 20 ms frame stride
-BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores: the card's peak for bf16 inputs
 # flash_attention vs plain: the fp32 softmax summed in another order (2e-5, as
 # the reference's own test), plus one bf16 rounding of the output in bf16
 
@@ -4331,7 +4343,7 @@ def deploy_held(tag, build) -> tuple[dict, dict]:
 # sequential form)
 HYMBA_REQUESTS, HYMBA_NEW, HYMBA_CHUNK = 4, 64, 256
 HYMBA_PROMPTS = (1100, 1300)
-HYMBA_LAYERS = 8  # of 32: a depth cut for the script's time (PERF.md section 4)
+HYMBA_LAYERS = 4  # of 32: a depth cut for the script's time (PERF.md section 4)
 HYMBA_CUT_LAYERS, HYMBA_CUT_PROMPT, HYMBA_CUT_NEW = 2, 1100, 16  # the contiguous check's cut
 
 
@@ -5277,7 +5289,7 @@ def reduced_learns(name, opt_name, dev) -> None:
 COMPRESS_GROUPS, COMPRESS_STEPS, COMPRESS_BATCH, COMPRESS_SEQ = 4, 12, 8, 512
 COMPRESS_LR, COMPRESS_TOL, COMPRESS_LEARN = 3e-3, 0.05, 0.5  # nat
 COMPRESS_REF = dict(groups=8, steps=20, batch=8, seq=32, lr=2e-3)
-COMPRESS_LAYERS = 12  # of smollm-135m's 30: a depth cut for the script's time (PERF.md section 4)
+COMPRESS_LAYERS = 6  # of smollm-135m's 30: a depth cut for the script's time (PERF.md section 4)
 COMPRESS_SERVE_REQUESTS, COMPRESS_SERVE_NEW = 4, 16
 # the wire held bit for bit, card against the CPU port: stacked gradients of
 # smollm-135m's leaf shapes on a (data=4, model=1) mesh, each spec giving
@@ -6081,6 +6093,7 @@ SHARDED_SERVE = (4, 64, 16)  # requests, prompt tokens, new tokens
 EP_TOKENS = (2, 64)  # rows x tokens through llama4-scout's MoE layer
 EP_TOL = 1e-2  # of the local path's largest |y|, in bf16
 KV_DECODE_ROWS, KV_CACHE_SEQ, KV_TOL = 8, 64, 1e-2  # the reference's gate on the logits
+SHARDED_MEASURED: dict = {}  # 4x's arguments, peak, step times and step FLOPs, for 4z
 
 
 def _yi6b_cut():
@@ -6137,6 +6150,8 @@ def sharded_reference_main(out_dir: str, device: str = "cuda") -> None:
     from repro_torch.serve.engine import PagedServeEngine, deploy_params
     from repro_torch.train.state import init_state
 
+    from torch.utils.flop_counter import FlopCounterMode
+
     dev = resolve_device(device)
     out = {}
     _, arch = _yi6b_cut()
@@ -6148,7 +6163,12 @@ def sharded_reference_main(out_dir: str, device: str = "cuda") -> None:
     stream = TokenStream(vocab=arch.vocab, seq_len=SHARDED_SEQ, global_batch=SHARDED_BATCH, seed=0)
     losses = []
     for i in range(SHARDED_STEPS):
-        state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(i).items()})
+        # 4z holds the dry-run's per-device FLOPs to this count of one step
+        with FlopCounterMode(display=False) if i == 0 else contextlib.nullcontext() as fc:
+            state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in stream.batch(i).items()})
+        if i == 0:
+            out["yi_step_flops"] = fc.get_total_flops()
         losses.append(float(m["loss"]))
     out["yi_losses"] = losses
     params = state["params"]
@@ -6248,6 +6268,7 @@ def train_sharded(dev, smi: str) -> dict:
     from repro_torch.nn import moe
     from repro_torch.nn.module import tree_map
     from repro_torch.optim.optimizers import adafactor, adamw
+    from repro_torch.roofline.cost import tree_bytes
     from repro_torch.serve.engine import PagedServeEngine, deploy_params, parity_up_to_ties
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.state import init_state, shard_state, specs_to_shardings
@@ -6285,12 +6306,16 @@ def train_sharded(dev, smi: str) -> dict:
         losses, times, comm = [], [], CommDebugMode()
         for i in range(SHARDED_STEPS):
             b = {k: torch.from_numpy(v).to(dev) for k, v in stream.batch(i).items()}
+            if i == 0:  # 4z's gate: the dry-run's arguments are these bytes
+                SHARDED_MEASURED["argument_bytes"] = tree_bytes((state, b))
             t0 = time.perf_counter()
             with comm if i == SHARDED_STEPS - 1 else contextlib.nullcontext():
                 state, m = step(state, b)
             losses.append(float(m["loss"]))
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
+        SHARDED_MEASURED.update(peak_bytes=peak, step_s=times[1:],
+                                step_flops=ref["yi_step_flops"])
         launched = sum(ops.launch_counts().values())
         counts = {str(k): v for k, v in comm.get_comm_counts().items()}
         print(f"[4x train] mesh {mesh.shape}: {SHARDED_STEPS} adamw steps of {SHARDED_BATCH} x "
@@ -6431,6 +6456,93 @@ def train_sharded(dev, smi: str) -> dict:
     return {"yi-6b trained sharded (4x)": launches}
 
 
+def cost_model_main(out_path: str) -> None:
+    """4z's dry-run, in a process of its own (a fake world cannot share one
+    with 4x's NCCL world): 4x's step, yi-6b at full width cut to
+    ``SHARDED_LAYERS`` layers, adamw on ``SHARDED_BATCH`` x ``SHARDED_SEQ``
+    with ``donate=True``, traced on fake ``cuda`` tensors over a fake world
+    of ``SHARDED_RANKS`` rank(s) by the dry-run's ``trace_step``.  Writes its
+    record to ``out_path``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.lm import Runtime
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.roofline.analysis import roofline_terms
+
+    from repro_torch.kernels import ops
+
+    _, arch = _yi6b_cut()
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    with fake_mesh(dryrun.trace_device(), data=SHARDED_RANKS, model=1) as mesh:
+        rules = ShardingRules.default(mesh, arch)
+        info = dryrun.trace_step(
+            arch, ShapeSpec("4x", "train", SHARDED_SEQ, SHARDED_BATCH), mesh, rules,
+            Runtime(mesh=mesh, rules=rules), optimizer=adamw(), donate=True,
+            lr_schedule=lambda s: torch.full((), SHARDED_LR))
+        n = mesh.size
+    # the parent's gate: the trace launched no kernel in this process
+    info["launched"] = {k: v - before.get(k, 0) for k, v in ops.launch_counts().items()
+                        if v != before.get(k, 0)}
+    info["roofline"] = roofline_terms(
+        flops_per_device=info["cost"]["flops"], bytes_per_device=info["cost"]["bytes accessed"],
+        collective_bytes_per_device=info["collectives"]["total_bytes"], n_chips=n)
+    info["seconds"] = time.perf_counter() - t0
+    info["device"] = dryrun.trace_device()
+    with open(out_path, "w") as f:
+        json.dump(info, f)
+
+
+def cost_model(dev, smi: str) -> dict:
+    """Phase 4z: the dry-run's cost of 4x's step against the card.  The
+    gates: the trace's ``argument_size_in_bytes`` equals the bytes of 4x's
+    real sharded state and first batch, and its per-device FLOPs equal
+    ``FlopCounterMode``'s count of one real unsharded step (in a world of one
+    every shard is whole).  Printed: the predicted peak (arguments + temp)
+    over 4x's ``max_memory_allocated``, and ``roofline.bound_s`` over 4x's
+    steady step time.  And the dry-run launched no kernel (its process's
+    counts, read before and after the trace)."""
+    import multiprocessing
+
+    phase("4z: the dry-run's cost of 4x's step (yi-6b, 2 layers, adamw 8 x 512) against the card")
+    t_phase = time.perf_counter()
+    out = Path(__file__).resolve().parent / "build" / "smoke_4z.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(target=cost_model_main, args=(str(out),))
+    proc.start()
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"[4z] the dry-run process exited {proc.exitcode}")
+    info = json.loads(out.read_text())
+    m = SHARDED_MEASURED
+    mem = info["memory_analysis"]
+    flops = info["cost"]["flops"]
+    predicted_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    steady = float(np.median(m["step_s"]))
+    bound = info["roofline"]["bound_s"]
+    print(f"[4z] trace on fake {info['device']} tensors {info['compile_s']} s (process "
+          f"{time.perf_counter() - t_phase:.1f} s): arguments {mem['argument_size_in_bytes']} B "
+          f"(4x real {m['argument_bytes']} B), per-device FLOPs {flops:.6g} (real unsharded "
+          f"step, FlopCounterMode {m['step_flops']:.6g}), bytes accessed "
+          f"{info['cost']['bytes accessed']:.6g}, collectives {info['collectives']['counts']}, "
+          f"kernel launches {sum(info['launched'].values())}; "
+          f"predicted peak {predicted_peak / 2**30:.3f} GiB / 4x max_memory_allocated "
+          f"{m['peak_bytes'] / 2**30:.3f} GiB = {predicted_peak / m['peak_bytes']:.3f}; "
+          f"roofline bound {bound * 1e3:.3f} ms ({info['roofline']['dominant']}) / 4x steady "
+          f"step {steady * 1e3:.3f} ms = {bound / steady:.3f} ({smi})", flush=True)
+    if mem["argument_size_in_bytes"] != m["argument_bytes"] or flops != m["step_flops"]:
+        raise AssertionError(f"[4z] arguments {mem['argument_size_in_bytes']} vs "
+                             f"{m['argument_bytes']}, FLOPs {flops} vs {m['step_flops']}")
+    if info["launched"]:
+        raise AssertionError(f"[4z] the dry-run launched kernels: {info['launched']}")
+    out.unlink(missing_ok=True)
+    return {"peak_ratio": predicted_peak / m["peak_bytes"], "bound_over_step": bound / steady}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6505,6 +6617,7 @@ def main() -> int:
     by_path.update(train_vision(dev, smi))
     torch.cuda.empty_cache()
     by_path.update(train_sharded(dev, smi))
+    cost_model(dev, smi)
     for e in entries:
         counts = {path: n[e["name"]] for path, n in by_path.items() if e["name"] in n}
         e["launches"] = sum(counts.values())

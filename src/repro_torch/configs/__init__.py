@@ -9,5 +9,6 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeSpec,
     StackConfig,
     applicable_shapes,
+    input_specs,
 )
 from repro_torch.configs.registry import ARCH_NAMES, get_arch, reduced  # noqa: F401

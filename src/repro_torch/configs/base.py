@@ -5,7 +5,8 @@ frozen dataclasses.  One ``<arch>.py`` per assigned architecture under
 ``repro_torch/configs/`` builds an :class:`ArchConfig`; ``SHAPES`` lists the
 four assigned input-shape cells.  The fields and defaults are those of
 ``repro.configs.base``, so a config means the same model in both packages
-(the dry-run's allocation-free input specs are not ported).
+(``input_specs`` gives the dry-run's allocation-free inputs as ``meta``
+tensors).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Literal, Optional, Sequence
+
+import torch
 
 __all__ = [
     "QuantConfig",
@@ -25,6 +28,7 @@ __all__ = [
     "ShapeSpec",
     "SHAPES",
     "applicable_shapes",
+    "input_specs",
 ]
 
 
@@ -181,3 +185,41 @@ def applicable_shapes(arch: ArchConfig) -> list[str]:
         if arch.sub_quadratic:
             out.append("long_500k")
     return out
+
+
+def input_specs(arch: ArchConfig, shape: ShapeSpec, *, per_pod_batch: Optional[int] = None):
+    """``meta`` tensor stand-ins for every model input: no allocation.
+
+    train: {tokens, targets [, frontend_embeds]}: ``tokens (B, S)`` int32.
+    prefill: {tokens [, frontend_embeds]}.
+    decode: {tokens (B, 1)}: the cache comes from the model builder
+    (``models.lm.init_cache``).  The shapes and dtypes are the reference's."""
+    B = per_pod_batch if per_pod_batch is not None else shape.global_batch
+    S = shape.seq_len
+    specs = {}
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if arch.family == "audio":
+        # stub frame frontend: the model consumes precomputed frame embeddings
+        specs["frontend_embeds"] = spec((B, S, arch.d_model), bf16)
+        if shape.kind == "train":
+            specs["targets"] = spec((B, S), i32)
+        return specs
+    s_text = S
+    if arch.family == "vlm" and arch.frontend is not None:
+        s_img = (min(arch.frontend.seq_len, max(S // 8, 1)) if shape.kind != "decode"
+                 else arch.frontend.seq_len)
+        if shape.kind != "decode":
+            s_text = S - s_img
+            specs["frontend_embeds"] = spec((B, s_img, arch.d_model), bf16)
+    if shape.kind == "train":
+        specs["tokens"] = spec((B, s_text), i32)
+        specs["targets"] = spec((B, S), i32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = spec((B, s_text), i32)
+    else:  # decode: one new token against a seq_len-deep cache
+        specs["tokens"] = spec((B, 1), i32)
+    return specs

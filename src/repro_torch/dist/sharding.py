@@ -60,9 +60,18 @@ __all__ = [
     "shard_tree",
     "full_tree",
     "sharded_scope",
+    "forget_dead_worlds",
+    "local_shape_and_offset",
+    "split_last",
+    "merge_last",
+    "even_shards",
+    "local_as",
 ]
 
-_DEVICE_MESHES: dict = {}  # (device type, names, sizes) -> DeviceMesh: groups are made once
+# (world's default group, device type, names, sizes) -> DeviceMesh: groups are
+# made once a world (a fake world's meshes must never reach a later real one);
+# a dead world's entries go when the next mesh is made (forget_dead_worlds)
+_DEVICE_MESHES: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +138,12 @@ class Mesh:
                 raise ValueError(f"a mesh of {self.size} positions over a world of "
                                  f"{dist.get_world_size()} ranks")
             kind = self.devices[0].type if self.devices else "cpu"
-            key = (kind, self.axis_names, self.axis_sizes)
+            key = (dist.distributed_c10d._get_default_group(), kind, self.axis_names,
+                   self.axis_sizes)
             if key not in _DEVICE_MESHES:
                 from torch.distributed.device_mesh import init_device_mesh
 
+                forget_dead_worlds()
                 _DEVICE_MESHES[key] = init_device_mesh(kind, self.axis_sizes,
                                                        mesh_dim_names=self.axis_names)
             object.__setattr__(self, "bound", _DEVICE_MESHES[key])
@@ -151,6 +162,16 @@ class Mesh:
     def coordinate(self, axis: str) -> int:
         """This rank's position on ``axis``."""
         return self.device_mesh().get_local_rank(axis)
+
+
+def forget_dead_worlds() -> None:
+    """Drop the cached ``DeviceMesh``es of every world but the initialized
+    one: a destroyed world's groups neither reach a later world nor stay
+    alive.  ``Mesh.device_mesh`` calls it before it makes a mesh, and
+    ``launch.mesh`` when it destroys a fake world."""
+    world = dist.distributed_c10d._get_default_group() if dist.is_initialized() else None
+    for key in [k for k in _DEVICE_MESHES if k[0] is not world]:
+        del _DEVICE_MESHES[key]
 
 
 def _gcd_all(vals: Sequence[int]) -> Optional[int]:
@@ -301,9 +322,9 @@ def _leaf_axes(path: tuple, ndim: int, audio: bool) -> tuple:
         axes = _LINEAR_AXES[site[-2:]]
     elif len(site) >= 2 and site[-2] == "moe" and site[-1] in _EXPERT_AXES:
         axes = _EXPERT_AXES[site[-1]]
-        if leaf[0] in ("t", "d", "wq"):
+        if leaf[0] in ("t", "d", "wq", "s8"):
             return (axes[0], axes[-1])
-        return axes if leaf[0] in ("v", "w") else ()
+        return axes if leaf[0] in ("v", "w", "q8") else ()
     elif path[-2:] == ("aq", "log2_scale"):  # the MoE's entry quantizer
         return ()
     else:
@@ -436,6 +457,134 @@ class NamedSharding:
         this layout; each rank keeps its shard."""
         dm = self.mesh.device_mesh()
         return distribute_tensor(t.to(dm.device_type), dm, self.placements)
+
+
+def local_shape_and_offset(global_shape, device_mesh, placements_) -> tuple:
+    """This rank's shard of a tensor of ``global_shape`` laid out by
+    ``placements_`` on ``device_mesh``: ``(local shape, global offset)``,
+    in Python ints (DTensor's own helper indexes a tensor of offsets, which
+    a fake trace cannot read).  Each ``Shard(d)`` splits dim ``d``'s current
+    extent as ``torch.chunk`` does, mesh dim by mesh dim."""
+    shape, offset = list(global_shape), [0] * len(global_shape)
+    coord = device_mesh.get_coordinate()
+    for i, p in enumerate(placements_):
+        if not isinstance(p, Shard):
+            continue
+        n, c = device_mesh.size(i), coord[i]
+        chunk = -(-shape[p.dim] // n)
+        size = max(min(shape[p.dim] - c * chunk, chunk), 0)
+        offset[p.dim] += min(c * chunk, shape[p.dim])
+        shape[p.dim] = size
+    return tuple(shape), tuple(offset)
+
+
+def local_as(t, device_mesh, placements_, grads=None) -> torch.Tensor:
+    """This rank's local tensor of ``t`` laid out by ``placements_`` on
+    ``device_mesh`` (a plain ``t`` counts as replicated): the way a layer
+    steps out of DTensor to run its own code on each rank's shard.  The
+    gradient comes back in ``grads`` (default ``placements_``), e.g.
+    ``Partial`` where a tensor shared by the rows meets split rows."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, device_mesh, [Replicate()] * device_mesh.ndim, run_check=False)
+    return _GradInLayout.apply(t.redistribute(device_mesh, placements_).to_local(
+        grad_placements=grads))
+
+
+class _GradInLayout(torch.autograd.Function):
+    """Identity whose gradient comes back in the forward tensor's memory
+    layout.  ``to_local``'s backward wraps the local gradient under the
+    forward DTensor's global strides; a gradient laid out otherwise (a
+    transposed view's, from the layer's local code) would claim strides it
+    does not have, and a later view of it on DTensor fails."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.stride = t.stride()
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.stride() != ctx.stride and 0 not in ctx.stride:
+            g = g.new_empty_strided(g.shape, ctx.stride).copy_(g)
+        return g
+
+
+def even_shards(t: DTensor, dims) -> list:
+    """``t``'s placements with a ``Shard`` kept only where it splits one of
+    ``dims`` evenly (so a result rebuilt with ``DTensor.from_local`` from
+    the local shard has the global shape: an uneven split, as a batch of 1
+    over 16 ranks, is gathered instead); every other mesh dim
+    ``Replicate``."""
+    out, split = [], {}
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim in dims:
+            n = split.get(p.dim, 1) * t.device_mesh.size(i)
+            if t.shape[p.dim] % n == 0:
+                split[p.dim] = n
+                out.append(p)
+                continue
+        out.append(Replicate())
+    return out
+
+
+def split_last(x, *dims: int):
+    """``x.reshape(*x.shape[:-1], *dims)`` (the last dim cut into heads);
+    on a DTensor whose last dim is split over mesh dims that do not divide
+    ``dims[0]`` (fewer heads than shards), those mesh dims are gathered
+    first: DTensor cannot cut a shard across a head.  The gradient comes
+    back in the cut forward's placement (``_PinGrad``)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-1], *dims)
+    last, split, pl = x.dim() - 1, 1, list(x.placements)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == last:
+            split *= x.device_mesh.size(i)
+            if dims[0] % split:
+                pl[i] = Replicate()
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return _PinGrad.apply(x.reshape(*x.shape[:-1], *dims), x.dim() - 1)
+
+
+class _PinGrad(torch.autograd.Function):
+    """Identity whose gradient comes back in the forward's placement.  On a
+    mesh dim where the forward was a partial sum (which no gradient can
+    take) the gradient keeps its own placement, unless that splits one of
+    the reshaped dims (``first`` on), which is gathered."""
+
+    @staticmethod
+    def forward(ctx, x, first: int):
+        ctx.placements, ctx.first = list(x.placements), first
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            want = [p if not p.is_partial() else
+                    Replicate() if q.is_shard() and q.dim >= ctx.first else q
+                    for p, q in zip(ctx.placements, g.placements)]
+            if want != list(g.placements):
+                g = g.redistribute(g.device_mesh, want)
+        return g, None
+
+
+def merge_last(x, n: int):
+    """``x.reshape(*x.shape[:-2], n)`` (heads merged into the last dim); on
+    a DTensor a split of the merged dims that is not an even split of the
+    heads' dim alone is gathered first, and the gradient is handed back in
+    the merged forward's placement, so the backward's unflatten never meets
+    a split that cuts a head."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-2], n)
+    heads, pl, split = x.dim() - 2, list(x.placements), 1
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim >= heads:
+            split *= x.device_mesh.size(i)
+            if p.dim != heads or x.shape[heads] % split:
+                pl[i] = Replicate()
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return _PinGrad.apply(x.reshape(*x.shape[:-2], n), x.dim() - 2)
 
 
 def constrain(x, mesh: Optional[Mesh], spec):

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from repro_torch.core.a2q import a2q_codes
+from repro_torch.kernels._guard import plain_version
 
 __all__ = ["a2q_quantize_plain", "a2q_quantize_cuda", "a2q_l1_split_plain", "a2q_split",
            "code_flips_explained", "deployed_code_flips"]
@@ -107,6 +108,7 @@ def a2q_split(K: int, C: int, sms: int) -> tuple[int, int, int, bool]:
     return best[1], best[2], best[3], True
 
 
+@plain_version
 def a2q_quantize_plain(v, gs, s, *, n: int, p: int, dequantize: bool = True):
     """The quantizer in PyTorch, on any device, with ``a2q_int_weights``'
     arithmetic (``core.a2q.a2q_codes``): returns ``(deq fp32 or None, q
@@ -122,6 +124,7 @@ def _tree(a: torch.Tensor) -> torch.Tensor:
     return a[0]
 
 
+@plain_version
 def a2q_l1_split_plain(v: torch.Tensor, splits: int, strip: int = 32) -> torch.Tensor:
     """The kernel's order of the l1 sum ``sum_k |v[k, c]|`` (before the
     ``1e-12`` floor), in PyTorch, for at most ``splits`` blocks a strip of

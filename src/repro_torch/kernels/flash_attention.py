@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._guard import plain_version
 from repro_torch.kernels.ref import flash_keep_mask
 
 __all__ = ["HEAD_DIMS", "flash_attention_plain", "flash_attention_cuda"]
@@ -33,6 +34,7 @@ __all__ = ["HEAD_DIMS", "flash_attention_plain", "flash_attention_cuda"]
 HEAD_DIMS = (16, 32, 64, 80, 128)  # the kernel's instantiated head sizes
 
 
+@plain_version
 def flash_attention_plain(q, k, v, *, causal: bool, window: Optional[int], scale: float,
                           q_chunk: Optional[int] = None):
     """``ref_flash_attention``'s dense fp32 softmax on the KV heads indexed,

@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._guard import plain_version
 from repro_torch.kernels.ref import (_SQRT_2_OVER_PI, exact_product, gelu_tanh, saturate_bits,
                                     wrap_bits)
 
@@ -104,6 +105,7 @@ def requant_ties(y: torch.Tensor, out_scale: torch.Tensor, act_fn=None,
     return lo != hi
 
 
+@plain_version
 def int_matmul_plain(x, w, scale=None, bias=None, offset=None, *, acc_bits: int = 32,
                      mode: str = "exact", block_k: int, spill_int16: bool = False,
                      aq_scale=None, q_lo: int = 0, q_hi: int = 0, q_shift: int = 0,
@@ -142,6 +144,7 @@ def flush_bits(mode: str, acc_bits: int, spill_int16: bool) -> int:
     return min(bits, 16) if spill_int16 else bits
 
 
+@plain_version
 def int_matmul_split_plain(x, w, scale=None, bias=None, offset=None, *, splits: int,
                            acc_bits: int = 32, mode: str = "exact", block_k: int,
                            spill_int16: bool = False, aq_scale=None, q_lo: int = 0,

@@ -5,13 +5,21 @@ the CUDA kernel for CUDA tensors or the plain PyTorch version for CPU
 tensors.  There is no fallback: a CUDA call launches its kernel or raises.
 Layers call these, never a kernel module directly; each op has an oracle in
 ``ref.py`` that the tests hold it against.
+
+On fake tensors (``FakeTensorMode``: the dry-run's allocation-free trace of
+a step) an op launches nothing: it returns empty outputs of the kernel's
+shapes and dtypes and records the kernel's operations and bytes with the
+active cost trace (``roofline.cost.record_kernel``), the counts
+``chip_smoke.py``'s ``bound_ms`` uses for that kernel.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.utils.weak import WeakIdKeyDictionary
 
@@ -93,6 +101,32 @@ def symmetrization_offset(w: torch.Tensor) -> torch.Tensor:
 def _vec(v, n: int, dtype, device) -> torch.Tensor:
     """A scalar or ``(n,)`` epilogue operand as a contiguous ``(n,)`` tensor."""
     return torch.as_tensor(v, dtype=dtype, device=device).broadcast_to((n,)).contiguous()
+
+
+def _fake(t) -> bool:
+    return isinstance(t, FakeTensor)
+
+
+def _fake_cost(name: str, ops: float, tensors: tuple, outs: tuple, pool_bytes: int = 0) -> None:
+    """A kernel's cost on fake tensors: its operations, and each input read
+    and each output written once (a paged kernel's pools: ``pool_bytes``,
+    the rows it reads)."""
+    from repro_torch.roofline.cost import record_kernel
+
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors + outs
+                  if isinstance(t, torch.Tensor))
+    record_kernel(name, float(ops), float(n_bytes + pool_bytes))
+
+
+def _causal_pairs(tq: int, tk: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs a flash call keeps: queries end-aligned to the
+    keys, the causal and sliding-window masks."""
+    if not causal and window is None:
+        return tq * tk
+    last = np.arange(tq) + (tk - tq)  # each query's own key position
+    hi = np.minimum(last + 1, tk) if causal else np.full(tq, tk)
+    lo = np.maximum(last + 1 - window, 0) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 def _refuse_operands(op: str, *tensors) -> None:
@@ -221,6 +255,13 @@ def int_matmul(
                              "requant codes do not fit int8")
         kw.update(out_scale=_vec(out_scale, N, torch.float32, dev), r_lo=lo, r_hi=hi,
                   r_shift=shift, act_fn=act_fn, cast_dtype=cast_dtype)
+    if _fake(x):
+        M = x.shape[0]
+        dtype = torch.int8 if out_scale is not None else \
+            torch.float32 if scale is not None else torch.int32
+        y = x.new_empty((M, N), dtype=dtype)  # on x: a fake tensor, not an allocation
+        _fake_cost("int_matmul", 2 * M * K * N, (x, w, scale, bias, offset), (y,))
+        return y
     if dev.type == "cpu":
         return int_matmul_plain(x, w, scale, bias, offset, **kw)
     return int_matmul_cuda(x.contiguous(), w.contiguous(), scale, bias, offset, **kw)
@@ -256,6 +297,11 @@ def a2q_quantize(
     gs, s = _effective_gs({"t": t.to(torch.float32), "d": d.to(torch.float32)}, acc_bits,
                           input_bits, input_signed)
     v = v.to(torch.float32)
+    if _fake(v):
+        K, C = v.shape
+        q = v.new_empty((K, C), dtype=torch.int8)
+        _fake_cost("a2q_quantize", 4 * K * C, (v, gs, s), (q, s))
+        return q, s
     if v.device.type == "cpu":
         _, q, _ = a2q_quantize_plain(v, gs, s, n=n, p=p, dequantize=False)
     else:
@@ -290,6 +336,12 @@ def flash_attention(
     if window is not None and window < 1:
         raise ValueError("flash_attention: window must be >= 1")
     scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if _fake(q):
+        out = torch.empty_like(q)
+        b, h, tq, d = q.shape
+        _fake_cost("flash_attention", 4 * b * h * d * _causal_pairs(tq, k.shape[2], causal, window),
+                   (q, k, v), (out,))
+        return out
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale,
                                      q_chunk=q_chunk)
@@ -328,6 +380,15 @@ def paged_attention(
         raise ValueError("paged_attention: window must be >= 1")
     if q.ndim != 3 or kp.ndim != 4 or q.shape[1] % kp.shape[2]:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not fit pools {tuple(kp.shape)}")
+    if _fake(q):
+        # the table's capacity stands for the valid keys (a fake length has no value)
+        out = torch.empty_like(q)
+        B, H, Dh = q.shape
+        toks = bt.shape[0] * bt.shape[1] * kp.shape[1]
+        row = kp.shape[2] * kp.shape[3] * kp.element_size() + \
+            (kp.shape[2] * kps.element_size() if kps is not None else 0)
+        _fake_cost("paged_attention", 4 * toks * H * Dh, (q, bt, lengths), (out,), 2 * toks * row)
+        return out
     if q.device.type == "cpu":
         return paged_attention_plain(q, kp, vp, bt, lengths, kps, vps, scale=scale,
                                      window=window)
@@ -378,6 +439,16 @@ def paged_mla_attention(
         raise ValueError(f"paged_mla_attention: q_lat {tuple(q_lat.shape)}, q_pe "
                          f"{tuple(q_pe.shape)} do not fit pools {tuple(ckvp.shape)}, "
                          f"{tuple(kpep.shape)}")
+    if _fake(q_lat):
+        B, H, R = q_lat.shape
+        P = q_pe.shape[-1]
+        out = q_lat.new_empty((B, H, R), dtype=torch.float32)
+        toks = bt.shape[0] * bt.shape[1] * ckvp.shape[1]  # the table's capacity
+        row = ckvp.shape[2] * ckvp.element_size() + kpep.shape[2] * kpep.element_size() + \
+            (ckvs.element_size() + kpes.element_size() if ckvs is not None else 0)
+        _fake_cost("paged_mla_attention", 2 * H * toks * (R + P + R), (q_lat, q_pe, bt, lengths),
+                   (out,), toks * row)
+        return out
     if q_lat.device.type == "cpu":
         return paged_mla_attention_plain(q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs, kpes,
                                          scale=scale, aq_scale=aq_scale, act_bits=act_bits)
@@ -418,6 +489,14 @@ def rwkv6_scan(
         raise ValueError(f"rwkv6_scan: r {tuple(r.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, w {tuple(w.shape)}, u {tuple(u.shape)} do not fit")
     out_dtype = r.dtype if out_dtype is None else out_dtype
+    if _fake(r):
+        B, H, T, D = r.shape
+        y = r.new_empty((B, H, T, v.shape[3]), dtype=out_dtype)
+        S = state_out if state_out is not None else \
+            r.new_empty((B, H, D, v.shape[3]), dtype=torch.float32)
+        _fake_cost("rwkv6_scan", 7 * B * H * T * D * v.shape[3], (r, k, v, w, u, initial_state),
+                   (y, S))
+        return y, S
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, initial_state, out_dtype=out_dtype, min_w=min_w,
                                 state_out=state_out)

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._guard import plain_version
 from repro_torch.kernels.ref import (
     _unpack_nibbles,
     ref_paged_attention,
@@ -42,6 +43,7 @@ MAX_SPLITS = 8  # a row's runs are one thread-block cluster (its portable size)
 _NEG = -1e30
 
 
+@plain_version
 def paged_attention_plain(q, kp, vp, bt, lengths, kps=None, vps=None,
                           scale: Optional[float] = None, window: Optional[int] = None):
     """The plain version is the oracle itself: the gathered contiguous view
@@ -76,6 +78,7 @@ def split_kv(B: int, KV: int, G: int, MB: int, bs: int, sms: int) -> int:
     return _split_entries(MB, min(want, max(1, MB * bs // MIN_SPLIT_KEYS)))[1]
 
 
+@plain_version
 def paged_attention_split_plain(q, kp, vp, bt, lengths, kps=None, vps=None, *, splits: int,
                                 scale: Optional[float] = None,
                                 window: Optional[int] = None):

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._guard import plain_version
 from repro_torch.kernels.ref import _unpack_nibbles, ref_paged_mla_attention
 
 __all__ = ["paged_mla_attention_plain", "paged_mla_attention_tc_plain", "paged_mla_attention_cuda",
@@ -36,7 +37,7 @@ __all__ = ["paged_mla_attention_plain", "paged_mla_attention_tc_plain", "paged_m
 
 # The plain version is the oracle itself: the gathered latent view and a
 # dense fp32 softmax over it.
-paged_mla_attention_plain = ref_paged_mla_attention
+paged_mla_attention_plain = plain_version(ref_paged_mla_attention)
 
 _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 MAX_R, MAX_P, MAX_BS = 512, 64, 32  # the kernels' register and lane budget
@@ -92,6 +93,7 @@ def _bf16_terms(x: torch.Tensor, n: int) -> list:
     return terms
 
 
+@plain_version
 def paged_mla_attention_tc_plain(q_lat, q_pe, ckvp, kpep, bt, lengths, ckvs=None, kpes=None, *,
                                  scale: float, aq_scale=None, act_bits: Optional[int] = None,
                                  splits: int = 1):

@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._guard import plain_version
+
 __all__ = ["MAX_HEAD_DIM", "CHUNK_L", "CHUNK_MIN_T", "chunk_split", "rwkv6_scan_plain",
            "rwkv6_scan_subchunk_plain", "rwkv6_scan_cuda"]
 
@@ -62,6 +64,7 @@ def _runs(T: int, n: int) -> tuple[int, int]:
     return -(-max(T, 1) // seg), seg
 
 
+@plain_version
 def rwkv6_scan_plain(r, k, v, w, u, s0=None, *, out_dtype, min_w: Optional[float] = None,
                      state_out: Optional[torch.Tensor] = None):
     """The recurrence step by step in fp32, on any device: ``r, k, w (B, H,
@@ -122,6 +125,7 @@ def _two_sum_cumsum(x):
     return torch.stack(his, -2), torch.stack(los, -2)
 
 
+@plain_version
 def rwkv6_scan_subchunk_plain(r, k, v, w, u, s0=None, *, out_dtype,
                               min_w: Optional[float] = None,
                               state_out: Optional[torch.Tensor] = None,

@@ -22,7 +22,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.collectives import (
@@ -257,7 +257,7 @@ def _build_sharded_compressed_train_step(arch, optimizer, rt, lr_schedule, grad_
         if "pspecs" not in specs:
             specs["pspecs"] = param_specs(params, mesh, rt.rules) if rt.rules is not None \
                 else tree_map(lambda p: (), params)
-        mine = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        mine = {k: _group_rows(v, at, rank, per) for k, v in batch.items()}
         mine = {k: constrain(v, inner_mesh, inner_rt.batch_spec(v.dim())) for k, v in mine.items()}
         live = tree_map(gathered, params)
         with sharded_scope(inner_mesh):
@@ -298,6 +298,16 @@ def _build_sharded_compressed_train_step(arch, optimizer, rt, lr_schedule, grad_
         return new, {k: _whole(v) for k, v in metrics.items()}
 
     return train_step
+
+
+def _group_rows(v, at: int, rank: int, per: int) -> torch.Tensor:
+    """This rank's group's ``per`` rows of a batch leaf: a slice of a global
+    tensor, or of a DTensor batch the rows split over the compression axis
+    (mesh dim ``at``) alone."""
+    if isinstance(v, DTensor):
+        return v.redistribute(v.device_mesh, [Shard(0) if i == at else Replicate()
+                                              for i in range(v.device_mesh.ndim)]).to_local()
+    return v[rank * per:(rank + 1) * per]
 
 
 def _group_mean(v: torch.Tensor, group, n: int) -> torch.Tensor:

@@ -67,15 +67,17 @@ returned cache holds the same tensors.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor
-from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import AttnConfig, QuantConfig
 from repro_torch.core.quantizers import apply_act_quant
+from repro_torch.dist.sharding import (even_shards, local_as, local_shape_and_offset,
+                                       merge_last, split_last)
 from repro_torch.kernels.ref import _unpack_nibbles
 from repro_torch.nn.embedding import apply_rope
 from repro_torch.nn.linear import _quant_weights, apply_linear, init_linear
@@ -99,6 +101,10 @@ def _sdpa(
     chunk: Optional[int],
     q_chunk: int,
 ) -> torch.Tensor:
+    if isinstance(q, DTensor):  # a sharded forward: each rank's rows and heads
+        return _attend_sharded(q, k, v, lambda q_l, k_l, v_l, local_pos: _sdpa(
+            q_l, k_l, v_l, local_pos(qpos), local_pos(kpos), causal=causal, window=window,
+            chunk=chunk, q_chunk=q_chunk))
     B, T, H, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -233,7 +239,7 @@ def _write_cache_sharded(cache: dict, updates: dict, pos, ring: bool) -> dict:
     DTensor strategy that keeps the placement)."""
     kp = cache["kpos"]
     B = kp.shape[0]
-    _, (row0, _) = compute_local_shape_and_global_offset(kp.shape, kp.device_mesh, kp.placements)
+    _, (row0, _) = local_shape_and_offset(kp.shape, kp.device_mesh, kp.placements)
     rows = kp.to_local().shape[0]
     pos = pos.full_tensor() if isinstance(pos, DTensor) else pos
     pos = torch.as_tensor(pos, dtype=torch.int32, device=kp.device).reshape(-1).expand(B)
@@ -242,6 +248,65 @@ def _write_cache_sharded(cache: dict, updates: dict, pos, ring: bool) -> dict:
            for k, v in updates.items()}
     _write_cache(local, ups, pos[row0:row0 + rows], ring)
     return cache
+
+
+def _flash(qh, kh, vh, a: AttnConfig, q_chunk: int):
+    """``ops.flash_attention`` over ``(B, T, H, Dh)`` projections; on
+    DTensors (a sharded forward) over each rank's local shards."""
+    from repro_torch.kernels import ops
+
+    def flash(q, k, v, _):
+        return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=a.causal, window=a.window,
+                                   q_chunk=q_chunk).transpose(1, 2)
+
+    if isinstance(qh, DTensor):
+        return _attend_sharded(qh, kh, vh, flash)
+    return flash(qh, kh, vh, None)
+
+
+def _attend_sharded(qh: DTensor, kh, vh, attend) -> DTensor:
+    """Attention of ``(B, T, H, Dh)`` DTensors on each rank's local shards.
+
+    Attention is local to a row and a head: the query keeps its even split
+    of the batch (dim 0) and of the heads (dim 2), anything else gathered; K and V
+    keep the batch's split, and the heads' where theirs divide as the
+    query's do, else each rank cuts the KV heads its query heads read (GQA:
+    query head ``h`` reads KV head ``h // (H // KV)``).  A head split that
+    does not fall on whole groups is gathered instead.  ``attend(q, k, v,
+    local_pos)`` runs on the local tensors (``local_pos`` cuts a ``(B, ...)``
+    position tensor to the rank's rows); the output takes the query's
+    placement.  Differentiable: the gradients come back through DTensor."""
+    mesh = qh.device_mesh
+    H, KV = qh.shape[2], kh.shape[2]
+    group = H // KV
+    qp = even_shards(qh, (0, 2))
+    while True:
+        kp = []
+        for i, p in enumerate(qp):
+            split = math.prod(mesh.size(j) for j, o in enumerate(qp[:i + 1]) if o == Shard(2))
+            kp.append(p if p == Shard(0) or (p == Shard(2) and KV % split == 0) else Replicate())
+        qshape, (row0, _, h0, _) = local_shape_and_offset(qh.shape, mesh, qp)
+        _, (_, _, k0, _) = local_shape_and_offset(kh.shape, mesh, kp)
+        hl, first = qshape[2], h0 // group
+        last = (h0 + hl - 1) // group
+        whole_groups = hl <= group and first == last or h0 % group == 0 and hl % group == 0
+        if whole_groups or Shard(2) not in qp:
+            break
+        qp[qp.index(Shard(2))] = Replicate()  # gather the heads that split a group
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in qp]
+
+    def local_pos(pos):
+        if isinstance(pos, DTensor):
+            return pos.redistribute(mesh, rows).to_local()
+        return pos[row0:row0 + qshape[0]]
+
+    # where the query's heads split and K/V's do not, each rank's K/V
+    # gradient holds its own heads' part: partial sums over that mesh dim
+    kgrad = [Partial() if p == Replicate() and o == Shard(2) else p for p, o in zip(kp, qp)]
+    q_l = local_as(qh, mesh, qp)
+    k_l, v_l = (local_as(t, mesh, kp, kgrad)[:, :, first - k0:last + 1 - k0] for t in (kh, vh))
+    return DTensor.from_local(attend(q_l, k_l, v_l, local_pos), mesh, qp, run_check=False)
 
 
 def _paged_write(pool: torch.Tensor, val: torch.Tensor, bt: torch.Tensor,
@@ -364,9 +429,9 @@ def apply_attention(
     H, KV, Dh = a.heads, a.kv_heads, a.head_dim
     lin = functools.partial(apply_linear, cfg=q, compute_dtype=compute_dtype,
                             int_forward=int_forward, int_chain=int_chain)
-    qh = lin(params["wq"], x=x, site="attn.wq").reshape(B, T, H, Dh)
-    kh = lin(params["wk"], x=x, site="attn.wk").reshape(B, T, KV, Dh)
-    vh = lin(params["wv"], x=x, site="attn.wv").reshape(B, T, KV, Dh)
+    qh = split_last(lin(params["wq"], x=x, site="attn.wq"), H, Dh)
+    kh = split_last(lin(params["wk"], x=x, site="attn.wk"), KV, Dh)
+    vh = split_last(lin(params["wv"], x=x, site="attn.wv"), KV, Dh)
     if a.rope_theta is not None:
         qh = apply_rope(qh, positions, a.rope_theta)
         kh = apply_rope(kh, positions, a.rope_theta)
@@ -379,11 +444,7 @@ def apply_attention(
                     chunk=a.chunk, q_chunk=q_chunk)
         new_cache = None
     elif cache is None:
-        from repro_torch.kernels import ops
-
-        out = ops.flash_attention(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
-                                  causal=a.causal, window=a.window,
-                                  q_chunk=q_chunk).transpose(1, 2)
+        out = _flash(qh, kh, vh, a, q_chunk)
         new_cache = None
     elif "kp" in cache:
         if view is None:
@@ -434,7 +495,7 @@ def apply_attention(
             k_all, v_all, kpos = new_cache["k"], new_cache["v"], new_cache["kpos"]
         out = _sdpa(qh, k_all, v_all, positions, kpos,
                     causal=a.causal, window=a.window, chunk=a.chunk, q_chunk=q_chunk)
-    out = out.reshape(B, T, H * Dh)
+    out = merge_last(out, H * Dh)
     return lin(params["wo"], x=out, site="attn.wo"), new_cache
 
 
@@ -464,7 +525,7 @@ def _apply_mla(
                             int_forward=int_forward, int_chain=int_chain)
 
     cq = apply_norm(params["q_norm"], lin(params["wq_a"], x=x, site="mla.wq_a"))
-    qh = lin(params["wq_b"], x=cq, site="mla.wq_b").reshape(B, T, H, nope + rope)
+    qh = split_last(lin(params["wq_b"], x=cq, site="mla.wq_b"), H, nope + rope)
     q_nope, q_pe = qh[..., :nope], apply_rope(qh[..., nope:], positions, theta)
 
     kv_a = lin(params["wkv_a"], x=x, site="mla.wkv_a")
@@ -538,19 +599,19 @@ def _apply_mla(
             s = torch.where(mask, s, torch.full_like(s, _NEG))
             o_lat = torch.einsum("bths,bsl->bthl", torch.softmax(s, dim=-1), ckv_f)
         out = torch.einsum("bthl,lhv->bthv", o_lat, w_v.to(torch.float32))
-        out = out.to(compute_dtype).reshape(B, T, H * vd)
+        out = merge_last(out.to(compute_dtype), H * vd)
         return lin(params["wo"], x=out, site="mla.wo"), cache
 
     # materialized path: expand per-head K/V from the latent
     S = ckv_all.shape[1]
-    kv = lin(wkv_b, x=ckv_all, site="mla.wkv_b").reshape(B, S, H, nope + vd)
+    kv = split_last(lin(wkv_b, x=ckv_all, site="mla.wkv_b"), H, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, kpe_all[:, :, None, :].expand(B, S, H, rope).to(k_nope.dtype)],
                   dim=-1)
     qfull = torch.cat([q_nope, q_pe], dim=-1)
     out = _sdpa(qfull, k, v, positions, kpos, causal=a.causal, window=None, chunk=None,
                 q_chunk=q_chunk)
-    out = out.reshape(B, T, H * vd)
+    out = merge_last(out, H * vd)
     return lin(params["wo"], x=out, site="mla.wo"), cache
 
 

@@ -3,6 +3,7 @@ convention: pairs ``(x[2i], x[2i+1])``, fp32 trig, output in ``x``'s dtype)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -36,7 +37,12 @@ def _sharded_embedding(table: DTensor, tokens: torch.Tensor, dtype) -> DTensor:
     grads = [Partial() if p.is_shard() else Replicate() for p in tokens.placements]
     whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grads)
     rows = whole[tokens.to_local().long()].to(dtype)
-    return DTensor.from_local(rows, mesh, tokens.placements, run_check=False)
+    # the global shape given: a batch split unevenly (1 row over 16 ranks)
+    # is not 16 times the local one
+    shape = (*tokens.shape, rows.shape[-1])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(rows, mesh, tokens.placements, run_check=False, shape=shape,
+                              stride=stride)
 
 
 def apply_rope(

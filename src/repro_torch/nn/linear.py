@@ -50,8 +50,10 @@ import warnings
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import QuantConfig
+from repro_torch.dist.sharding import even_shards, local_as
 from repro_torch.core.a2q import a2q_penalty, apply_a2q, init_a2q
 from repro_torch.core.quantizers import (
     act_quant_int,
@@ -286,9 +288,16 @@ def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
       codes symmetrized into the int8 operand.
 
     With ``out_aq`` (the consumer's quantizer) the epilogue requantizes into
-    it and the call returns an :class:`IntAct` (``chained``)."""
+    it and the call returns an :class:`IntAct` (``chained``).  On DTensors
+    (a sharded forward) it runs on each rank's rows and output columns
+    (``_apply_linear_int8_sharded``)."""
     from repro_torch.kernels import ops
 
+    if any(isinstance(t, DTensor) for t in (x, params["q8"])):
+        return _apply_linear_int8_sharded(params, x, cfg, boundary=boundary,
+                                          input_signed=input_signed,
+                                          compute_dtype=compute_dtype, int_chain=int_chain,
+                                          out_aq=out_aq, site=site)
     M, N = _bits(cfg, boundary)
     a2q = cfg.mode == "a2q"
     kw = dict(acc_bits=cfg.acc_bits if a2q else 32, mode="exact",
@@ -341,6 +350,33 @@ def _apply_linear_int8(params: dict, x, cfg: QuantConfig, *, boundary: bool,
         return IntAct(codes=y.reshape(*lead, y.shape[-1]), scale=out_scale,
                       bits=out_aq["bits"], signed=out_aq["signed"])
     return y.reshape(*lead, y.shape[-1]).to(compute_dtype)
+
+
+def _apply_linear_int8_sharded(params: dict, x, cfg: QuantConfig, *, out_aq, **kw):
+    """The W8A8 forward on DTensors: an integer product cannot be summed
+    from K-split partials through the epilogue, so each rank gathers the
+    activation's K and the weight's K and runs the kernel on its own rows
+    (the activation's batch split) and output columns (the weight's N split
+    on the mesh dims the rows leave free); ``s8`` and the bias follow the
+    columns.  The output is those rows and columns.  Not chained: an
+    :class:`IntAct` does not cross ranks."""
+    if isinstance(x, IntAct) or out_aq is not None:
+        raise NotImplementedError("the chained integer path does not run on DTensors")
+    q8 = params["q8"]
+    mesh = (x if isinstance(x, DTensor) else q8).device_mesh
+    whole = [Replicate()] * mesh.ndim
+    xp = even_shards(x, range(x.dim() - 1)) if isinstance(x, DTensor) else whole
+    wpl = q8.placements if isinstance(q8, DTensor) else whole
+    wp = [Shard(1) if w == Shard(1) and r == Replicate() else Replicate()
+          for w, r in zip(wpl, xp)]
+    cols = [Shard(0) if p == Shard(1) else Replicate() for p in wp]
+    lp = {"q8": local_as(q8, mesh, wp), "s8": local_as(params["s8"], mesh, cols),
+          "aq": {"log2_scale": local_as(params["aq"]["log2_scale"], mesh, whole)}}
+    if "b" in params:
+        lp["b"] = local_as(params["b"], mesh, cols)
+    y = _apply_linear_int8(lp, local_as(x, mesh, xp), cfg, out_aq=None, **kw)
+    out = [Shard(y.dim() - 1) if c == Shard(0) else r for c, r in zip(cols, xp)]
+    return DTensor.from_local(y, mesh, out, run_check=False)
 
 
 def apply_linear(

@@ -113,8 +113,7 @@ def _expert_weight_view(p: dict, q: QuantConfig, ids: torch.Tensor, dtype) -> to
         # through device memory
         q8 = p["q8"].index_select(0, ids)
         s8 = p["s8"].index_select(0, ids)
-        return torch.mul(q8, s8[:, None, :],
-                         out=torch.empty(q8.shape, dtype=dtype, device=q8.device))
+        return torch.mul(q8, s8[:, None, :], out=q8.new_empty(q8.shape, dtype=dtype))
     if q.mode == "none":
         return p["w"].index_select(0, ids).to(dtype)
     if q.mode == "qat":  # clip(ste_round(w / s), n, p) * s, s per (expert, channel)
@@ -238,10 +237,10 @@ def _dispatch_compute_combine(x2d: torch.Tensor, probs: torch.Tensor, params: di
     dest = torch.where(keep, offsets[torch.clamp_max(se, E_loc - 1)] + pos_in_group,
                        torch.full_like(se, L))
 
-    x_buf = torch.zeros((L + 1, d), dtype=x2d.dtype, device=dev)
+    x_buf = x2d.new_zeros((L + 1, d))
     x_buf[dest] = x2d[st]  # dropped rows all land in row L, which is cut off
     y_buf = _local_expert_ffn(x_buf[:L], params, capped, q, compute_dtype, min(E_loc, T * k))
-    y_buf = torch.cat([y_buf, torch.zeros((1, d), dtype=y_buf.dtype, device=dev)])
+    y_buf = torch.cat([y_buf, y_buf.new_zeros((1, d))])
     contrib = y_buf[dest] * sp[:, None].to(y_buf.dtype)  # dropped rows read zeros
     contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
     # the segment sum over each token's k slots, in a fixed order (no atomics):

@@ -11,7 +11,8 @@ rank-1 update", O(1) state in sequence length::
 parallel form: per-chunk cumulative log-decays, two matmuls and a masked
 score matmul a chunk, the log-decay clamped at ``_MIN_LOGW`` so
 ``exp(+|logA|)`` stays inside fp32) and ``rwkv6_decode_step`` are the
-reference's three forms in plain PyTorch; the time-mix runs them on the CPU.
+reference's three forms in plain PyTorch; the time-mix runs them on the CPU
+(on fake tensors they raise outside autograd: ``kernels._guard``).
 On CUDA tensors every form goes through ``ops.rwkv6_scan``, the
 hand-written scan kernel, with the decay floored at ``exp(_MIN_LOGW)`` where
 the reference takes the chunked form and y kept in fp32 for the decode step,
@@ -45,7 +46,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from repro_torch.configs.base import QuantConfig, SSMConfig
+from repro_torch.dist.sharding import even_shards, local_as, merge_last, split_last
+from repro_torch.kernels._guard import plain_version
 from repro_torch.nn.linear import IntAct, apply_linear, chain_out_aq, init_linear
 from repro_torch.nn.module import normal_init
 
@@ -74,6 +80,7 @@ f32 = torch.float32  # the recurrence's and the groupnorm's dtype
 # ---------------------------------------------------------------------------
 
 
+@plain_version(under_autograd=True)
 def rwkv6_decode_step(r, k, v, w, u, S):
     """One token: r/k/w ``(B, H, Dk)``, v ``(B, H, Dv)``, u ``(H, Dk)``, S
     ``(B, H, Dk, Dv)``.  Returns (y ``(B, H, Dv)`` fp32, the new S)."""
@@ -83,6 +90,7 @@ def rwkv6_decode_step(r, k, v, w, u, S):
     return y, w[..., :, None] * S + kv
 
 
+@plain_version(under_autograd=True)
 def rwkv6_sequential(r, k, v, w, u, S0):
     """Oracle: step-by-step scan.  Shapes ``(B, H, T, Dk/Dv)``, u ``(H, Dk)``,
     S0 ``(B, H, Dk, Dv)``.  Returns (y ``(B, H, T, Dv)`` in ``r``'s dtype,
@@ -95,6 +103,7 @@ def rwkv6_sequential(r, k, v, w, u, S0):
     return torch.stack(ys, 2).to(r.dtype), S
 
 
+@plain_version(under_autograd=True)
 def rwkv6_chunked(r, k, v, w, u, S0, chunk: int = 32):
     """Chunked parallel form, the same signature and semantics as the oracle
     up to the log-decay clamp at ``_MIN_LOGW``."""
@@ -164,9 +173,11 @@ def init_rwkv6_timemix(gen: torch.Generator, d_model: int, ssm: SSMConfig, q: Qu
 def _recurrence(r, k, v, w, u, ssm: SSMConfig, state: Optional[dict]):
     """The reference's dispatch on T: no state -> chunked (``T % chunk``
     must hold), ``T == 1`` -> the decode step (fp32 y), ``T % chunk == 0``
-    -> chunked, else sequential.  On CUDA every branch is the scan kernel
-    (the chunked branches with the decay floored at ``exp(_MIN_LOGW)``), the
-    state written over ``state["S"]`` in place; on the CPU, and on any
+    -> chunked, else sequential.  On CUDA (and on fake tensors: the
+    dry-run's trace) every branch is the scan kernel (the chunked branches
+    with the decay floored at ``exp(_MIN_LOGW)``; on DTensors over each
+    rank's shards, ``_recurrence_sharded``), the state written over
+    ``state["S"]`` in place; on the CPU, and on any
     device when autograd records an input (training), the branch's own
     form, copied into ``state["S"]``.  Returns y ``(B, H, T, Dv)``."""
     T = r.shape[2]
@@ -177,8 +188,12 @@ def _recurrence(r, k, v, w, u, ssm: SSMConfig, state: Optional[dict]):
         form = "chunked"
     else:
         form = "decode" if T == 1 else "chunked" if T % ssm.chunk == 0 else "sequential"
+    if isinstance(r, DTensor):
+        return _recurrence_sharded(r, k, v, w, u, ssm, state)
     recorded = torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u))
-    if r.device.type == "cuda" and not recorded:
+    # the kernel's route on the card, and on fake tensors (a dry-run trace of
+    # the card's path, whatever device the fake tensors name)
+    if (r.device.type == "cuda" or isinstance(r, FakeTensor)) and not recorded:
         from repro_torch.kernels import ops
 
         y, _ = ops.rwkv6_scan(
@@ -199,6 +214,30 @@ def _recurrence(r, k, v, w, u, ssm: SSMConfig, state: Optional[dict]):
     if state is not None:
         state["S"].copy_(S)
     return y
+
+
+def _recurrence_sharded(r: DTensor, k, v, w, u, ssm: SSMConfig,
+                        state: Optional[dict]) -> DTensor:
+    """``_recurrence`` on each rank's local shards (a sharded forward): the
+    recurrence is local to a row and a head, so the batch (dim 0) and the
+    heads (dim 1) keep their even split and anything else is gathered; ``u`` and
+    the carried ``S`` follow the heads' split (``S`` written in place when
+    its placement is already that one, else through its redistribution).
+    Differentiable: the gradients come back through DTensor."""
+    mesh = r.device_mesh
+    pl = even_shards(r, (0, 1))
+    r_l, k_l, v_l, w_l = (local_as(t, mesh, pl) for t in (r, k, v, w))
+    # u is shared by the batch: where the rows split, each rank's gradient
+    # of u is its rows' part, a partial sum over that mesh dim
+    u_pl = [Shard(0) if p == Shard(1) else Replicate() for p in pl]
+    u_l = local_as(u, mesh, u_pl, [Partial() if p == Shard(0) else q for p, q in zip(pl, u_pl)])
+    S = None if state is None else state["S"]
+    S_l = None if S is None else local_as(S, mesh, pl)  # S's own local tensor when so placed
+    y = _recurrence(r_l, k_l, v_l, w_l, u_l, ssm, None if S is None else {"S": S_l})
+    if isinstance(S, DTensor) and list(S.placements) != pl:
+        S.copy_(DTensor.from_local(S_l, mesh, pl, run_check=False).redistribute(
+            mesh, S.placements))
+    return DTensor.from_local(y, mesh, pl, run_check=False)
 
 
 def apply_rwkv6_timemix(params: dict, x: torch.Tensor, ssm: SSMConfig, q: QuantConfig,
@@ -226,7 +265,7 @@ def apply_rwkv6_timemix(params: dict, x: torch.Tensor, ssm: SSMConfig, q: QuantC
     xr, xk, xv, xg, xw = (x + mix[i] * (xs - x) for i in range(5))
 
     def to_heads(t):
-        return t.reshape(B, T, H, Dk).transpose(1, 2)
+        return split_last(t, H, Dk).transpose(1, 2)
 
     r = to_heads(lin("wr", xr))
     k = to_heads(lin("wk", xk))
@@ -240,7 +279,7 @@ def apply_rwkv6_timemix(params: dict, x: torch.Tensor, ssm: SSMConfig, q: QuantC
     yf = y.transpose(1, 2).to(f32)  # (B, T, H, Dk)
     var = yf.var(-1, keepdim=True, unbiased=False)
     yf = (yf - yf.mean(-1, keepdim=True)) * (var + 1e-5) ** -0.5
-    y = (yf.reshape(B, T, D) * params["ln_scale"].to(f32)).to(compute_dtype)
+    y = (merge_last(yf, D) * params["ln_scale"].to(f32)).to(compute_dtype)
     y = y * F.silu(g.to(f32)).to(compute_dtype)
     out = apply_linear(params["wo"], y, q, compute_dtype=compute_dtype, int_forward=int_forward,
                        int_chain=int_chain, site="tm.wo")
@@ -395,9 +434,7 @@ def apply_mamba_heads(params: dict, x: torch.Tensor, ssm: SSMConfig, q: QuantCon
     projections are chain breaks (the SSD core and the silu gate need float
     values), so under ``int_chain`` each folds its act-quant into the
     kernel's prologue."""
-    B, T, D = x.shape
-    Dh, N = ssm.head_dim, ssm.state_dim
-    H = D // Dh
+    D = x.shape[-1]
 
     def lin(name, xi):
         return apply_linear(params[name], xi, q, compute_dtype=compute_dtype,
@@ -405,15 +442,52 @@ def apply_mamba_heads(params: dict, x: torch.Tensor, ssm: SSMConfig, q: QuantCon
 
     xz = lin("in_proj", x)
     xin, z = xz[..., :D], xz[..., D:]
-    bc = lin("bc_proj", x).to(f32).reshape(B, T, H, 2 * N)
-    Bm, Cm = bc[..., :N].transpose(1, 2), bc[..., N:].transpose(1, 2)
+    bc = lin("bc_proj", x).to(f32)  # (B, T, H * 2N)
     dt = F.softplus(lin("dt_proj", x).to(f32) + params["dt_bias"].to(f32))  # (B, T, H)
-    A = -torch.exp(params["A_log"].to(f32))  # (H,), negative
-    a = torch.exp(dt * A).transpose(1, 2)  # (B, H, T) decays in (0, 1)
-    xh = xin.to(f32).reshape(B, T, H, Dh).transpose(1, 2)
-    xh = xh * dt.transpose(1, 2)[..., None]  # the step size folded into the input
-    y = _ssd(xh, a, Bm, Cm, ssm, state)
-    y = y + params["D"].to(f32)[None, :, None, :] * xh
-    y = y.transpose(1, 2).reshape(B, T, D).to(compute_dtype)
+    heads = _heads_sharded if isinstance(dt, DTensor) else _heads
+    y = heads(xin.to(f32), bc, dt, params["A_log"], params["D"], ssm, state).to(compute_dtype)
     y = y * F.silu(z.to(f32)).to(compute_dtype)
     return lin("out_proj", y), state
+
+
+def _heads(xin, bc, dt, A_log, D, ssm: SSMConfig, state: Optional[dict]):
+    """The mixer's per-head part: xin ``(B, T, H * Dh)``, bc ``(B, T, H *
+    2N)``, dt ``(B, T, H)`` fp32, A_log ``(H,)``, D ``(H, Dh)``; the SSD and
+    the skip.  Returns y ``(B, T, H * Dh)`` fp32."""
+    B, T, H = dt.shape
+    Dh, N = ssm.head_dim, ssm.state_dim
+    bc = bc.reshape(B, T, H, 2 * N)
+    Bm, Cm = bc[..., :N].transpose(1, 2), bc[..., N:].transpose(1, 2)
+    A = -torch.exp(A_log.to(f32))  # (H,), negative
+    a = torch.exp(dt * A).transpose(1, 2)  # (B, H, T) decays in (0, 1)
+    xh = xin.reshape(B, T, H, Dh).transpose(1, 2)
+    xh = xh * dt.transpose(1, 2)[..., None]  # the step size folded into the input
+    y = _ssd(xh, a, Bm, Cm, ssm, state)
+    y = y + D.to(f32)[None, :, None, :] * xh
+    return y.transpose(1, 2).reshape(B, T, H * Dh)
+
+
+def _heads_sharded(xin, bc, dt: DTensor, A_log, D, ssm: SSMConfig,
+                   state: Optional[dict]) -> DTensor:
+    """``_heads`` on each rank's local shards (a sharded forward), as
+    ``_recurrence_sharded``: the SSD is local to a row and a head, so the
+    rows (dim 0) and the heads (dt's dim 2, whole heads of xin and bc) keep
+    their even split and anything else is gathered; A_log and D follow the
+    heads (their gradient a partial sum where the rows split), the carried
+    ``S (B, H, Dh, N)`` the rows and the heads.  (DTensor's own ops on the
+    transposed head views hand back gradients whose local strides differ
+    from the global ones they claim, which a later view refuses.)"""
+    mesh = dt.device_mesh
+    pl = even_shards(dt, (0, 2))
+    x_l, bc_l, dt_l = (local_as(t, mesh, pl) for t in (xin, bc, dt))
+    h_pl = [Shard(0) if p == Shard(2) else Replicate() for p in pl]
+    grads = [Partial() if p == Shard(0) else q for p, q in zip(pl, h_pl)]
+    A_l, D_l = (local_as(t, mesh, h_pl, grads) for t in (A_log, D))
+    S = None if state is None else state["S"]
+    s_pl = [Shard(1) if p == Shard(2) else p for p in pl]
+    S_l = None if S is None else local_as(S, mesh, s_pl)
+    y = _heads(x_l, bc_l, dt_l, A_l, D_l, ssm, None if S is None else {"S": S_l})
+    if isinstance(S, DTensor) and list(S.placements) != s_pl:
+        S.copy_(DTensor.from_local(S_l, mesh, s_pl, run_check=False).redistribute(
+            mesh, S.placements))
+    return DTensor.from_local(y, mesh, pl, run_check=False)

@@ -27,6 +27,10 @@ make_mesh``'s ``Explicit`` axes fail under JAX 0.9, see ROADMAP queue 3).
   (each shard's capacity is of its own tokens); reduced llama4-scout's
   train step with ``ep_axis="model"`` (cf 8.0: no drops) against the
   port's unsharded step.
+* **The recurrent and MLA decoders**: one ``sgdm`` step each of reduced
+  rwkv6-7b, hymba-1.5b and deepseek-v3 at ``(2, 2)`` against the unsharded
+  step (losses, every gradient and param leaf); a deployed MoE's prefill
+  with its int8 expert codes sharded, dequantized and W8A8.
 * **The compressed step on the TP mesh**: reduced smollm-135m, int8
   ``column``, 12 ``adamw`` steps within the reference's 0.05 nat of the
   uncompressed sharded step and of PR 29's stacked-groups step; fed the
@@ -94,6 +98,9 @@ MOE8 = dict(n_experts=8, top_k=2, d_ff=16, capacity_factor=8.0)  # the reference
 MOE_L4 = dict(n_experts=16, top_k=1, d_ff=32, capacity_factor=1.25)  # llama4-scout's routing
 LAUNCHER = ["--arch", "yi-6b", "--reduced", "--device", "cpu", "--mesh", "auto", "--steps", "2",
             "--batch", "8", "--seq", "32"]
+DECODERS = ("rwkv6-7b", "hymba-1.5b", "deepseek-v3-671b")  # sharded against unsharded steps
+GRAD_TOL = 1e-3  # of each gradient leaf's largest |g| (floor: GRAD_FLOOR of the tree's largest)
+GRAD_FLOOR = 1e-6
 KV4 = 4  # kv heads of the serve case (the reference's: 4 on a 4-way model axis)
 WIRE_LEAVES = {  # name -> (shape, param spec on (data=2, model=2)): owner and TP dims
     "fsdp_tp": ((8, 6), ("data", "model")),  # owner: the FSDP rows; columns over model
@@ -158,6 +165,7 @@ from repro_torch.models.steps import build_serve_step, build_train_step
 from repro_torch.nn import moe
 from repro_torch.nn.module import tree_leaves_with_path, tree_map
 from repro_torch.optim.optimizers import adamw, sgdm
+from repro_torch.roofline.cost import CostTrace
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.state import init_grad_err, init_state, shard_state, specs_to_shardings
 
@@ -214,11 +222,13 @@ for i, b in enumerate(batches(arch, cfg["train_steps"], seed=2)):
     comm = CommDebugMode()
     if i:
         DTensor._op_dispatcher.redistribute_local_args = counted
-    with comm if i else contextlib.nullcontext():
+    trace = CostTrace()
+    with comm if i else contextlib.nullcontext(), trace if i else contextlib.nullcontext():
         st, m = step(st, b)
     DTensor._op_dispatcher.redistribute_local_args = orig_redist
     out[f"train/loss/{i}"] = m["loss"].numpy()
 info["train_comm"] = {str(k): v for k, v in comm.get_comm_counts().items()}
+info["train_coll"] = trace.collectives()
 info["train_redistributed"] = dict(redist)
 put("train/params", full_tree(st["params"]))
 info["t_train"] = time.time() - t0
@@ -316,6 +326,62 @@ put("ep_train/sharded", full_tree(ls["params"]))
 put("ep_train/unsharded", lu["params"])
 info["t_moe"] = time.time() - t0
 
+# --- the recurrent and MLA decoders' sharded train step, against the
+# unsharded step: losses, gradients (recorded from the step's own _grads)
+# and params; MoE layers at cf 8.0 (no drops) with EP over model
+from repro_torch.models import steps as S
+
+
+def cf8(a):
+    return dataclasses.replace(a, stacks=tuple(
+        dataclasses.replace(s, moe=dataclasses.replace(s.moe, capacity_factor=8.0)) if s.moe
+        else s for s in a.stacks))
+
+
+og = S._grads
+for name in cfg["decoders"]:
+    da = cf8(reduced(get_arch(name)))
+    dp = init_lm(torch.Generator().manual_seed(0), da, device="cpu")
+    drules = ShardingRules.default(mesh, da)
+    ep = "model" if any(s.moe for s in da.stacks) else None
+    opt = sgdm()
+    du = init_state(tree_map(torch.clone, dp), opt).tree()
+    ds = shard_state(init_state(tree_map(torch.clone, dp), opt).tree(), opt, mesh, drules)
+    db = batches(da, 1, seed=3)[0]
+    grads = []
+    S._grads = lambda *a: (lambda r: grads.append(r[0]) or r)(og(*a))
+    du, mu = build_train_step(da, opt, Runtime(), lr_schedule=lr)(du, db)
+    ds, ms = build_train_step(da, opt, Runtime(mesh=mesh, rules=drules, ep_axis=ep),
+                              lr_schedule=lr)(ds, db)
+    S._grads = og
+    out[f"dec/{name}/loss"] = np.stack([mu["loss"].numpy(), ms["loss"].numpy()])
+    put(f"dec/{name}/unsharded", du["params"])
+    put(f"dec/{name}/sharded", full_tree(ds["params"]))
+    put(f"dec/{name}/grad_unsharded", grads[0])
+    put(f"dec/{name}/grad_sharded", full_tree(grads[1]))
+info["t_decoders"] = time.time() - t0
+
+# --- a deployed MoE's prefill on (2, 2): the experts' int8 codes and scales
+# (q8 / s8) placed by the param specs, EP over model, against the unsharded
+# prefill of the same deployed tree, dequantized and on the W8A8 path
+from repro_torch.models.steps import build_prefill_step
+from repro_torch.serve.engine import deploy_params
+ma = cf8(reduced(get_arch("llama4-scout-17b-a16e")))
+mrules = ShardingRules.default(mesh, ma)
+mtok = torch.from_numpy(np.random.default_rng(6).integers(0, ma.vocab, (4, 16)))
+with torch.no_grad():
+    mtree = deploy_params(init_lm(torch.Generator().manual_seed(0), ma, device="cpu"), ma.quant)
+    mplaced = shard_tree(mtree, param_specs(mtree, mesh, mrules), mesh)
+    info["moe_codes_placed"] = sorted({
+        "/".join(map(str, path[-2:])): str(list(v.placements)) for path, v in
+        tree_leaves_with_path(mplaced) if "moe" in path and path[-1] in ("q8", "s8")}.items())
+    for tag, kw in (("dequant", {}), ("int_forward", {"int_forward": True})):
+        out[f"moe_prefill/{tag}/unsharded"] = build_prefill_step(ma, Runtime(**kw))(
+            mtree, {"tokens": mtok}).numpy()
+        out[f"moe_prefill/{tag}/sharded"] = build_prefill_step(
+            ma, Runtime(mesh=mesh, rules=mrules, ep_axis="model", **kw))(
+            mplaced, {"tokens": mtok}).full_tensor().numpy()
+
 # --- the compressed step on the TP mesh, its codes fed from the stacked step
 sa = reduced(get_arch("smollm-135m"))
 sp = tree_of("smollm")
@@ -349,8 +415,6 @@ for part in ("local", "server"):
 # the wire on the step's own gradients: PR 29's stacked step's group
 # gradients fed to the sharded step (each rank its group's, cut to its
 # tensor-parallel block), every code of both steps compared
-from repro_torch.models import steps as S
-
 og, oq = S._grads, C._quantize
 st1 = init_state(tree_map(torch.clone, sp), opt).tree()
 st1["grad_err"] = init_grad_err(sp, 2, pspecs=pspecs1, axis="data")
@@ -484,6 +548,21 @@ out["kv/logits"] = lg.full_tensor().numpy()
 out["kv/unsharded"] = ref.numpy()
 out["kv/kpos"] = nc["0"]["attn"]["kpos"].full_tensor().numpy()
 info["t_kv"] = time.time() - t0
+
+# --- the sharded prefill on local shards: flash attention (GQA heads cut
+# per rank) and, deployed, the W8A8 path (rows x output columns)
+pa = reduced(get_arch("yi-6b"))
+prules = ShardingRules.default(mesh, pa)
+pp = tree_of("yi")
+ptok = torch.from_numpy(np.random.default_rng(5).integers(0, pa.vocab, (4, 16)))
+with torch.no_grad():
+    for tag, tree, kw in (("prefill", pp, {}),
+                          ("prefill_int", deploy_params(pp, pa.quant), {"int_forward": True})):
+        out[f"{tag}/unsharded"] = build_prefill_step(pa, Runtime(**kw))(
+            tree, {"tokens": ptok}).numpy()
+        out[f"{tag}/sharded"] = build_prefill_step(pa, Runtime(mesh=mesh, rules=prules, **kw))(
+            shard_tree(tree, param_specs(tree, mesh, prules), mesh),
+            {"tokens": ptok}).full_tensor().numpy()
 
 # --- the launcher in this world: --mesh auto over its four ranks
 os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
@@ -622,6 +701,7 @@ def run(tmp_path_factory):
     np.savez(d / "in.npz", **inputs)
     cfg = {"meshes": MESHES, "launcher": LAUNCHER, "lr": LR, "train_steps": TRAIN_STEPS, "adam_steps": ADAM_STEPS,
            "compress_steps": COMPRESS_STEPS, "moe8": MOE8, "moel4": MOE_L4, "kv4": KV4,
+           "decoders": DECODERS,
            "wire_leaves": {k: list(sp) for k, (_, sp) in WIRE_LEAVES.items()}}
     (d / "cfg.json").write_text(json.dumps(cfg))
     (d / "world.py").write_text(WORLD)
@@ -778,6 +858,48 @@ def test_moe_ep_train_step_matches_unsharded(run):
         assert np.abs(got - w).max() <= PARAM_TOL * max(np.abs(w).max(), 1e-12), k
 
 
+@pytest.mark.parametrize("name", DECODERS)
+def test_sharded_train_step_of_recurrent_and_mla_decoders(run, name):
+    """One ``sgdm`` step of reduced rwkv6-7b (the recurrence on each rank's
+    rows and heads, ``u``'s gradient a partial sum where the rows split),
+    hymba-1.5b (the mamba heads likewise, GQA's KV heads cut per rank) and
+    deepseek-v3 (MLA's heads cut from a partial sum, EP over ``model``) on
+    ``(2, 2)`` against the unsharded step from the same params: the loss at
+    the yi-6b case's gate, every gradient leaf within ``GRAD_TOL`` of its
+    largest |g| (a gradient off by a factor of a mesh dim is off by 1 or
+    more), every param within ``PARAM_TOL`` of its leaf's largest |p|."""
+    _, out, _, _, _, _ = run
+    u, s = out[f"dec/{name}/loss"]
+    np.testing.assert_allclose(s, u, rtol=1e-4)
+    keys = [k for k in out if k.startswith(f"dec/{name}/grad_unsharded/")]
+    assert len(keys) > 20
+    top = max(np.abs(out[k]).max() for k in keys)
+    for k in keys:
+        w, got = out[k], out[k.replace("grad_unsharded", "grad_sharded", 1)]
+        assert np.abs(got - w).max() <= GRAD_TOL * max(np.abs(w).max(), GRAD_FLOOR * top), k
+    keys = [k for k in out if k.startswith(f"dec/{name}/unsharded/")]
+    assert len(keys) > 20
+    for k in keys:
+        w, got = out[k], out[k.replace("unsharded", "sharded", 1)]
+        assert np.abs(got - w).max() <= PARAM_TOL * max(np.abs(w).max(), 1e-12), k
+
+
+@pytest.mark.parametrize("tag", ["dequant", "int_forward"])
+def test_sharded_deployed_moe_prefill(run, tag):
+    """Reduced llama4-scout deployed (int8 expert codes ``q8`` and scales
+    ``s8`` placed by the param specs: experts over ``model``), prefilled on
+    ``(2, 2)`` with EP over ``model`` against the unsharded prefill of the
+    same tree, dequantized and on the W8A8 path: within 1e-5 of the logits'
+    largest |value|, as the yi-6b prefill."""
+    _, out, info, _, _, _ = run
+    placed = dict(info["moe_codes_placed"])
+    assert {"w_in/q8", "w_in/s8", "w_out/q8", "w_out/s8"} <= set(placed)
+    assert all("Shard" in v for k, v in placed.items() if k.startswith("w_")), placed
+    want, got = out[f"moe_prefill/{tag}/unsharded"], out[f"moe_prefill/{tag}/sharded"]
+    assert got.shape == want.shape == (4, 1, 256)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_compressed_step_on_tp_mesh(run):
     """Reduced smollm-135m, int8 ``column`` over ``data`` on ``(2, 2)``, 12
     ``adamw`` steps: within 0.05 nat of the uncompressed sharded step at
@@ -841,6 +963,19 @@ def test_kv_sharded_serve_step(run):
     assert np.abs(out["kv/logits"] - want).max() < 1e-2
     np.testing.assert_allclose(out["kv/logits"], out["kv/unsharded"], atol=1e-5)
     assert (out["kv/kpos"][:, :, 0] == 0).all() and (out["kv/kpos"][:, :, 1:] == -1).all()
+
+
+@pytest.mark.parametrize("tag", ["prefill", "prefill_int"])
+def test_sharded_prefill_on_local_shards(run, tag):
+    """Reduced yi-6b's prefill on ``(2, 2)`` (4 query heads over 1 KV head:
+    each rank's two query heads read its cut of the one KV head) against the
+    unsharded step: the float path's flash attention, and the deployed
+    tree's W8A8 path (``int_forward``, each rank's rows and output
+    columns), within 1e-5 of the logits' largest |value|."""
+    _, out, _, _, _, _ = run
+    want, got = out[f"{tag}/unsharded"], out[f"{tag}/sharded"]
+    assert got.shape == want.shape == (4, 1, 256)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("case", ["22_to_41", "unsharded_to_22"])
@@ -926,3 +1061,35 @@ def test_kernel_ops_refuse_a_dtensor_operand():
                 call()
     finally:
         dist.destroy_process_group()
+
+
+def test_dry_run_collectives_equal_the_real_world(run):
+    """The dry-run's trace of one ``sgdm`` step of reduced yi-6b on a fake
+    ``(2, 2)`` world (fake tensors, nothing allocated) makes the collectives
+    of the four gloo ranks' real second step: the same counts as
+    ``CommDebugMode``'s, and the same counts and result bytes by kind as the
+    real step's own trace."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.lm import Runtime
+    from repro_torch.optim.optimizers import sgdm
+
+    _, _, info, _, _, _ = run
+    arch = reduced(get_arch("yi-6b"))
+    with fake_mesh(dryrun.trace_device(), data=2, model=2) as mesh:
+        rules = ShardingRules.default(mesh, arch)
+        got = dryrun.trace_step(arch, ShapeSpec("t", "train", 32, 8), mesh, rules,
+                                Runtime(mesh=mesh, rules=rules), optimizer=sgdm(),
+                                lr_schedule=lambda s: torch.tensor(LR))["collectives"]
+    assert not dist.is_initialized()
+    funcol = {"all-gather": "all_gather_into_tensor", "reduce-scatter": "reduce_scatter_tensor",
+              "all-reduce": "all_reduce"}
+    comm = {k.split(".")[-1]: v for k, v in info["train_comm"].items()}
+    assert got["counts"] == info["train_coll"]["counts"]
+    assert got["bytes_by_kind"] == info["train_coll"]["bytes_by_kind"]
+    for kind, n in got["counts"].items():
+        assert n == comm.get(funcol.get(kind, kind), 0), (kind, n, info["train_comm"])
+    assert got["counts"]["all-gather"] > 0 and got["counts"]["reduce-scatter"] > 0
